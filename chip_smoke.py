@@ -10,10 +10,18 @@ on a small geometry whose dense output row fills its hash table, then runs
 the main path — ``multigrid.problem`` on the card, the host
 symbolic phase and planner, ``chunked_spgemm`` — on the paper's problems, and
 checks every result against the port's plain ``spgemm`` on the card and
-against ``scipy.sparse`` in float64. Every line of output is one JSON
-object; the last one is ``{"ok": true, "device": ...}``. Any failed check
-raises, so the exit code is not 0. Without a CUDA card, or without the
-package beside this file, it exits with code 2 and prints no result.
+against ``scipy.sparse`` in float64. Then the second path: fused-mask
+triangle counting on a graph500 scale-18 RMAT graph (``count_triangles``,
+the masked hash kernel, one chunk and a chunk2 plan), the two-hop Galerkin
+product ``R x (A x P)`` on brick3d n=48 (``pipeline_spgemm`` through the
+hash and ESC kernels, intermediate resident and spilled), the ``bsr``
+backend on brick3d n=48 and ``ops.bsr_spmm`` of brick3d n=48 by a
+110,592 x 128 dense block, each held to scipy in float64, with the masked,
+BSR x BSR and BSR x dense kernels first held to their plain versions.
+Every line of output is one JSON object; the last one is
+``{"ok": true, "device": ...}``. Any failed check raises, so the exit code
+is not 0. Without a CUDA card, or without the package beside this file, it
+exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -47,7 +55,17 @@ REPLACES = {
     "ranged_spgemm": "src/repro/kernels/ranged_spgemm.py:131",
     "sparse_accum_spgemm": "src/repro/kernels/sparse_accum_spgemm.py:173",
     "hash_accum_spgemm": "src/repro/kernels/hash_accum_spgemm.py:310",
+    "hash_masked_accum_spgemm": "src/repro/kernels/hash_accum_spgemm.py:289",
+    "bsr_spgemm": "src/repro/kernels/bsr_spgemm.py:174",
+    "bsr_spmm": "src/repro/kernels/bsr_spmm.py:67",
 }
+RMAT_SCALE, RMAT_EDGE_FACTOR, RMAT_SEED = 18, 16, 7   # graph500-style, ISSUE size
+BSR_BLOCK = 8
+SPMM_COLS, SPMM_SEED = 128, 12
+# pipeline fast limits, as fractions of size(A) + size(P) + size(R): at the
+# whole size the intermediate stays resident between chunked hops; at half it
+# spills (the planner's choice at every brick3d size tried)
+PIPE_RESIDENT, PIPE_SPILL = 1.0, 0.5
 
 
 def emit(obj) -> None:
@@ -136,22 +154,32 @@ class Smoke:
     def __init__(self, torch):
         self.torch = torch
         from repro_torch.core import chunking, kkmem, memory_model, planner, symbolic
-        from repro_torch.core import chunk_stream
+        from repro_torch.core import chunk_stream, pipeline_spgemm, triangle
         from repro_torch.kernels import (
-            _build, hash_accum_spgemm, ranged_spgemm, sparse_accum_spgemm,
+            _build, bsr_spgemm, bsr_spmm, hash_accum_spgemm, ops, ranged_spgemm,
+            sparse_accum_spgemm,
         )
-        from repro_torch.sparse import csr, multigrid
+        from repro_torch.sparse import bsr, csr, graphs, multigrid
 
         self.m = dict(chunking=chunking, kkmem=kkmem, memory_model=memory_model,
                       planner=planner, symbolic=symbolic, chunk_stream=chunk_stream,
-                      build=_build, csr=csr, multigrid=multigrid)
+                      build=_build, csr=csr, multigrid=multigrid, graphs=graphs,
+                      bsr=bsr, triangle=triangle, pipeline=pipeline_spgemm, ops=ops)
         self.kernels = {"ranged_spgemm": ranged_spgemm,
                         "sparse_accum_spgemm": sparse_accum_spgemm,
-                        "hash_accum_spgemm": hash_accum_spgemm}
+                        "hash_accum_spgemm": hash_accum_spgemm,
+                        "hash_masked_accum_spgemm": hash_accum_spgemm,
+                        "bsr_spgemm": bsr_spgemm, "bsr_spmm": bsr_spmm}
+        # each kernel's launch counter (the masked kernel's wrapper lives in
+        # the hash module)
+        self.counters = {k: mod.LAUNCHES for k, mod in self.kernels.items()}
+        self.counters["hash_masked_accum_spgemm"] = hash_accum_spgemm.MASKED_LAUNCHES
         self.backend_kernel = {"pallas": "ranged_spgemm",
                                "sparse": "sparse_accum_spgemm",
-                               "hash": "hash_accum_spgemm"}
+                               "hash": "hash_accum_spgemm",
+                               "bsr": "bsr_spgemm"}
         self.problems = {}
+        self.restrictions = {}
         self.phase = {}       # kernel -> numbers of its recorded kernel phase
         self.max_err = {}     # kernel -> largest error against its plain version
         self.launches = {}    # kernel -> launches in its main-path run
@@ -177,13 +205,18 @@ class Smoke:
     def launch_ms(self, fn) -> float:
         return launch_ms(self.torch, self.m["build"].LaunchTimer, fn)
 
+    def reset_counters(self) -> None:
+        for counter in self.counters.values():
+            counter.reset()
+
+    def read_counters(self) -> dict:
+        return {k: c.count for k, c in self.counters.items()}
+
     def build(self) -> None:
         t0 = time.perf_counter()
         log = self.m["build"].build()
         seconds = time.perf_counter() - t0
-        resources = {name: [ln.strip() for ln in entry["ptxas"].splitlines()
-                            if "Used" in ln or "spill" in ln]
-                     for name, entry in log.items()}
+        resources = {name: entry["kernels"] for name, entry in log.items()}
         emit({"build": {"seconds": seconds,
                         "per_source_s": {k: v["seconds"] for k, v in log.items()},
                         "ptxas": resources}})
@@ -192,8 +225,9 @@ class Smoke:
         key = (name, n)
         if key not in self.problems:
             t0 = time.perf_counter()
-            A, _, P = self.m["multigrid"].problem(name, n, device="cuda")
+            A, R, P = self.m["multigrid"].problem(name, n, device="cuda")
             self.problems[key] = (A, P, time.perf_counter() - t0)
+            self.restrictions[key] = R
         return self.problems[key][:2]
 
     def quickstart_inputs(self, A, P):
@@ -361,7 +395,7 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def finish_phase(self, kernel, label, orders, main_order, moved, flops, library,
-                     shapes, record) -> None:
+                     shapes, record, launches_per_call=None) -> None:
         t_bytes = moved / PEAK["bytes_per_s"] * 1e3
         t_ops = flops / PEAK["f32_flops"] * 1e3
         bound = {"bound_ms": max(t_bytes, t_ops),
@@ -377,6 +411,7 @@ class Smoke:
                                   "library_device_ms": library_device_ms}
         emit({"kernel_phase": kernel, "label": label, "main_order": main_order,
               "orders": orders, "shapes": shapes, "bytes": moved, "flops": flops, **bound,
+              "launches_per_call": launches_per_call,
               "library_ms": library_ms, "library_device_ms": library_device_ms,
               "library_empty_traces": library_empty_traces,
               "library_error": library_error, "peaks_of": PEAK["part"]})
@@ -463,14 +498,13 @@ class Smoke:
                   f"the reference's planner chooses {expect_backend}")
         plan_s = time.perf_counter() - t0
 
-        for mod in self.kernels.values():
-            mod.LAUNCHES.reset()
+        self.reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         C, stats = chunking.chunked_spgemm(A, P, plan, backend=backend)
         torch.cuda.synchronize()
         exec_s = time.perf_counter() - t0
-        launches = {k: mod.LAUNCHES.count for k, mod in self.kernels.items()}
+        launches = self.read_counters()
         kernel = self.backend_kernel.get(chosen)   # scan runs no kernel of its own
         if kernel is not None:
             check(launches[kernel] > 0, f"{label}: {kernel} was not launched")
@@ -555,9 +589,9 @@ class Smoke:
               "device_kernel_ms": device_ms if device_ms > 0 else None,
               "device_busy_share": device_ms / wall_ms if device_ms > 0 else None})
 
-    def scipy_check(self, A, P, C) -> float:
-        """max |C - A @ P| / max |A @ P| against scipy in float64, zeros
-        eliminated on both sides."""
+    def scipy_check(self, A, P, C, R=None) -> float:
+        """max |C - A @ P| / max |A @ P| (or of ``R @ (A @ P)``) against scipy
+        in float64, zeros eliminated on both sides."""
         import scipy.sparse as sp
 
         def host(m):
@@ -568,11 +602,379 @@ class Smoke:
             out.eliminate_zeros()
             return out
         ref = host(A) @ host(P)
+        if R is not None:
+            ref = host(R) @ ref
         ref.eliminate_zeros()
         got = host(C)
         scale = abs(ref).max() if ref.nnz else 1.0
         diff = abs(got - ref)
         return float(diff.max() / scale) if diff.nnz else 0.0
+
+    # -- second path: masked products, pipelines, blocked kernels ----------
+
+    def triangle_graph(self):
+        """The degree-sorted lower triangle L of the RMAT graph, on the card,
+        with its generation seconds and the scipy float64 count of (L L) o L."""
+        if not hasattr(self, "_graph"):
+            import scipy.sparse as sp
+
+            graphs = self.m["graphs"]
+            t0 = time.perf_counter()
+            L = graphs.lower_triangular_degree_sorted(
+                graphs.rmat(RMAT_SCALE, RMAT_EDGE_FACTOR, seed=RMAT_SEED, device="cuda"))
+            self.torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            nnz = L.nnz()
+            Ls = sp.csr_matrix((L.data[:nnz].cpu().numpy().astype(np.float64),
+                                L.indices[:nnz].cpu().numpy(), L.indptr.cpu().numpy()),
+                               shape=L.shape)
+            t0 = time.perf_counter()
+            want = float((Ls @ Ls).multiply(Ls).sum())
+            self._graph = (L, seconds, want, time.perf_counter() - t0)
+        return self._graph
+
+    def products(self, A, B) -> int:
+        """Scalar products of A x B: the B row length at every A entry."""
+        lens = (B.indptr[1:] - B.indptr[:-1]).long()
+        return int(lens[A.indices[: A.nnz()].long()].sum())
+
+    def masked_kernel_phase(self, label, A, B, M, plan, main_order, *, c0_from=None,
+                            record=False) -> None:
+        """The masked kernel in both orders against its plain version on the
+        staged operands of ``plan``, both timed."""
+        torch, mod = self.torch, self.kernels["hash_masked_accum_spgemm"]
+        caps = self.m["symbolic"].masked_output_caps(M, plan.p_ac)
+        args, table, _ = self.m["chunk_stream"].stage_hash_masked(
+            A, B, M, plan, caps.c_pad, caps, c_prev=c0_from)
+        run = lambda order: mod.hash_masked_accum_spgemm_stream(  # noqa: E731
+            *args, order=order, table_size=table)
+        plain = lambda order: mod.hash_masked_plain(  # noqa: E731
+            *args, order=order, table_size=table)
+        orders = {}
+        for order in ORDERS:
+            orders[order] = self.hold_csr(f"hash_masked_accum_spgemm/{label}/{order}",
+                                          run(order), plain(order))
+            orders[order]["ms"] = self.launch_ms(lambda: run(order))
+            orders[order]["wrapper_ms"] = cuda_ms(torch, lambda: run(order))
+            orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order), reps=3)
+        counter = self.counters["hash_masked_accum_spgemm"]
+        before = counter.count
+        out = run(main_order)
+        per_call = counter.count - before
+        Ast, Bst, C0, Mst = args[:4]
+        m_nnz = int(Mst.indptr[..., -1].sum())
+        moved = (live_bytes(Ast) + live_bytes(Bst) + live_bytes(C0)
+                 + nbytes(Mst.indptr) + 4 * m_nnz + nbytes(*out) + 8 * len(args[4]))
+        flops = 2 * self.products(A, B) + int(C0.indptr[..., -1].sum())
+        _, _, meta, global_slots = mod.masked_bins(Mst)
+        self.finish_phase("hash_masked_accum_spgemm", label, orders, main_order, moved,
+                          flops, (None,) * 4,
+                          {"strips": plan.n_ac, "chunks": plan.n_b,
+                           "strip_rows": Ast.n_rows, "mask_nnz": m_nnz,
+                           "densest_mask_row": int(M.max_row_nnz),
+                           "reference_table_slots": table,
+                           "bins": [list(b) for b in meta],
+                           "global_table_slots": global_slots,
+                           "nnz_c0": int(C0.indptr[..., -1].sum())}, record, per_call)
+
+    def masked_edge_phase(self) -> None:
+        """A 64 x 48 x 48,000 geometry whose mask rows fall in every bin, one
+        of them 40,000 entries (a 65,536-slot table in global memory), with a
+        nonzero C_prev, under a 3 x 3 plan and a one-chunk knl plan."""
+        csr, planner = self.m["csr"], self.m["planner"]
+        rng = np.random.default_rng(EDGE_SEED + 1)
+        rows, k, n = 64, 48, 48_000
+
+        def sparse_normal(shape, density):
+            vals = rng.standard_normal(shape).astype(np.float32)
+            return np.where(rng.random(shape) < density, vals, np.float32(0))
+        a, b, c0 = sparse_normal((rows, k), 0.2), sparse_normal((k, n), 0.01), \
+            sparse_normal((rows, n), 0.001)
+        b[0, :45_000] = rng.standard_normal(45_000)
+        a[5, 0], a[9, 0] = 1.5, -0.5
+        m = rng.random((rows, n)) < 0.0005
+        m[5, rng.choice(n, 40_000, replace=False)] = True
+        m[6, :3_000], m[7, :600], m[8, :100], m[9, :20_000] = True, True, True, True
+        A, B, M, C0 = (csr.csr_from_dense(x, device="cuda")
+                       for x in (a, b, m.astype(np.float32), c0))
+        for plan in (planner.ChunkPlan("chunk1", (0, 20, 40, rows), (0, 16, 32, k), 0., 0.),
+                     planner.ChunkPlan("knl", (0, rows), (0, k), 0., 0.)):
+            self.masked_kernel_phase(f"edge_global_table_{plan.algorithm}", A, B, M, plan,
+                                     "chunk1", c0_from=C0)
+
+    def triangle_run(self, label: str, *, chunk2: bool = False) -> None:
+        """``count_triangles`` on the RMAT graph's L: the default one-chunk
+        knl plan, or a chunk2 plan from ``plan_chunks`` with L's row bytes as
+        the C estimate; the count must equal scipy's exactly."""
+        torch, planner, tri = self.torch, self.m["planner"], self.m["triangle"]
+        L, gen_s, want, scipy_s = self.triangle_graph()
+        t0 = time.perf_counter()
+        limit = None
+        if chunk2:
+            # a third of size(A) + size(B) + size(mask) = size(L) plans
+            # chunk1; the B-resident chunk2 branch with >= 4 strips needs a
+            # limit between 4/3 and 3/2 of size(L)
+            size = float(planner.row_bytes_csr(L).sum())
+            limit = 1.4 * size
+            plan = planner.plan_chunks(L, L, planner.row_bytes_csr(L),
+                                       self.m["memory_model"].P100, fast_limit_bytes=limit)
+            check(plan.algorithm == "chunk2" and plan.n_ac >= 4,
+                  f"{label}: planned {plan.algorithm} {plan.n_ac}x{plan.n_b}")
+        else:
+            plan = planner.plan_knl(L, L, float("inf"))
+        caps = self.m["symbolic"].masked_output_caps(L, plan.p_ac)
+        plan_s = time.perf_counter() - t0
+        self.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = tri.count_triangles(L, plan=plan, caps=caps)
+        torch.cuda.synchronize()
+        exec_s = time.perf_counter() - t0
+        launches = self.read_counters()
+        check(launches["hash_masked_accum_spgemm"] > 0,
+              f"{label}: the masked kernel was not launched")
+        check(got.dtype == torch.float64 and float(got) == want,
+              f"{label}: {float(got)} triangles, scipy counts {want}")
+        if not chunk2:
+            self.launches["hash_masked_accum_spgemm"] = launches["hash_masked_accum_spgemm"]
+        emit({"run": label, "graph": f"rmat({RMAT_SCALE}, {RMAT_EDGE_FACTOR}, "
+              f"seed={RMAT_SEED}) -> lower_triangular_degree_sorted",
+              "L": list(L.shape), "nnz_L": L.nnz(), "densest_row": L.max_row_nnz,
+              "products": self.products(L, L),
+              "plan": {"algorithm": plan.algorithm, "n_ac": plan.n_ac, "n_b": plan.n_b,
+                       "fast_limit_bytes": limit},
+              "launches": launches, "triangles": float(got),
+              "wall_s": {"problem": gen_s, "plan": plan_s, "count_triangles": exec_s,
+                         "scipy_count": scipy_s},
+              "check": {"scipy_float64_triangles": want, "equal": float(got) == want}})
+
+    def galerkin_run(self, label: str, backend: str, frac: float, resident: bool) -> None:
+        """``pipeline_spgemm`` of brick3d n=48 through ``backend`` at a fast
+        limit of ``frac`` x size(A, P, R): structure equal to the port's
+        plain two-hop ``spgemm``, values to scipy's R (A P) in float64."""
+        torch, planner, symbolic = self.torch, self.m["planner"], self.m["symbolic"]
+        pipe, kkmem = self.m["pipeline"], self.m["kkmem"]
+        A, P = self.problem("brick3d", 48)
+        R = self.restrictions[("brick3d", 48)]
+        t0 = time.perf_counter()
+        if not hasattr(self, "_pipe_plans"):
+            self._pipe_plans = {"t_pattern": symbolic.spgemm_pattern_host(A, P)}
+        tp = self._pipe_plans["t_pattern"]
+        limit = frac * float(A.nbytes() + P.nbytes() + R.nbytes())
+        if frac not in self._pipe_plans:   # one plan per limit, shared by backends
+            plan = planner.plan_pipeline(A, P, R, self.m["memory_model"].P100,
+                                         fast_limit_bytes=limit, t_pattern=tp)
+            caps = symbolic.pipeline_output_caps(A, P, R, plan.plan1.p_ac,
+                                                 plan.plan2.p_ac, t_pattern=tp)
+            self._pipe_plans[frac] = (plan, caps)
+        plan, caps = self._pipe_plans[frac]
+        check(plan.t_resident == resident, f"{label}: t_resident={plan.t_resident}")
+        check("whole_fast" not in (plan.plan1.algorithm, plan.plan2.algorithm),
+              f"{label}: a whole_fast hop bypasses the kernels")
+        plan_s = time.perf_counter() - t0
+        self.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C, stats = pipe.pipeline_spgemm(A, P, R, plan, backend=backend, caps=caps)
+        torch.cuda.synchronize()
+        exec_s = time.perf_counter() - t0
+        launches = self.read_counters()
+        kernel = self.backend_kernel[backend]
+        check(launches[kernel] > 0, f"{label}: {kernel} was not launched")
+        if not hasattr(self, "_rap_plain"):
+            self._rap_plain = kkmem.spgemm_full(R, kkmem.spgemm_full(A, P))
+        plain = self._rap_plain
+        nnz = C.nnz()
+        structure = (torch.equal(C.indptr, plain.indptr)
+                     and torch.equal(C.indices[:nnz], plain.indices[:nnz]))
+        check(structure, f"{label}: structure differs from the plain two-hop spgemm")
+        err = float((C.data[:nnz] - plain.data[:nnz]).abs().max()) if nnz else 0.0
+        scale = float(plain.data[:nnz].abs().max()) if nnz else 0.0
+        check(err <= KERNEL_ATOL + KERNEL_RTOL * scale,
+              f"{label}: values differ from the plain two-hop spgemm by {err}")
+        scipy_err = self.scipy_check(A, P, C, R=R)
+        check(scipy_err <= SCIPY_RTOL, f"{label}: relative error {scipy_err} vs scipy")
+        emit({"run": label, "problem": "brick3d", "n": 48, "backend": backend,
+              "plan": {"hop1": [plan.plan1.algorithm, plan.plan1.n_ac, plan.plan1.n_b],
+                       "hop2": [plan.plan2.algorithm, plan.plan2.n_ac, plan.plan2.n_b],
+                       "t_resident": plan.t_resident, "t_bytes": plan.t_bytes,
+                       "fast_limit_bytes": limit},
+              "launches": launches, "nnz_T": caps.t_nnz, "nnz_C": nnz,
+              "stats": {"spilled": stats.spilled, "spill_bytes": stats.spill_bytes,
+                        "copy_bytes": stats.copy_bytes,
+                        "kernel_calls": [stats.hop1.kernel_calls, stats.hop2.kernel_calls]},
+              "wall_s": {"problem": self.problems[("brick3d", 48)][2], "plan": plan_s,
+                         "pipeline_spgemm": exec_s},
+              "check": {"plain_structure_equal": structure, "plain_max_abs_err": err,
+                        "scipy_rel_err": scipy_err}})
+
+    def bsr_pairs(self, A, P, plan):
+        """The (strip, chunk) pairs the ``bsr`` executor stages, as kernel
+        operands and metas, with the envelope that capped them."""
+        caps = self.m["symbolic"].strip_output_caps(A, P, plan.p_ac)
+        env = self.m["chunking"].instance_envelope(A, P, plan, caps=caps,
+                                                   block_size=BSR_BLOCK)
+        pairs = [(ops, meta) for _, ops, meta
+                 in self.m["chunk_stream"].stage_bsr_pairs(A, P, plan, env)]
+        return pairs, env
+
+    def hold_tiles(self, what: str, got, want) -> float:
+        self.torch.cuda.synchronize()
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        check(bool(self.torch.allclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)),
+              f"{what}: values differ from the plain version by {err}")
+        return err
+
+    def bsr_kernel_phase(self, A, P, plan, *, label: str, record: bool = False) -> None:
+        """The BSR x BSR kernel on every staged pair of the ``bsr`` run,
+        against its plain version, in f32 and, on the first pair, on the same
+        blocks in bf16."""
+        torch, mod = self.torch, self.kernels["bsr_spgemm"]
+        pairs, env = self.bsr_pairs(A, P, plan)
+        _, _, _, nc, u = env.bsr_caps
+        run = lambda: [mod.bsr_spgemm_blocks(*ops, nc, u, BSR_BLOCK)  # noqa: E731
+                       for ops, _ in pairs]
+        plain = lambda: [mod.bsr_spgemm_plain(*ops, nc, u, BSR_BLOCK)  # noqa: E731
+                         for ops, _ in pairs]
+        err = max(self.hold_tiles(f"bsr_spgemm/{label}/pair{i}", g, w)
+                  for i, (g, w) in enumerate(zip(run(), plain())))
+        a, b, sa, sb = pairs[0][0]
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        err16 = self.hold_tiles(f"bsr_spgemm/{label}/bf16",
+                                mod.bsr_spgemm_blocks(a16, b16, sa, sb, nc, u, BSR_BLOCK),
+                                mod.bsr_spgemm_plain(a16, b16, sa, sb, nc, u, BSR_BLOCK))
+        numbers = {"max_abs_err": max(err, err16), "bf16_max_abs_err": err16,
+                   "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
+        if record:
+            numbers["plain_ms"] = cuda_ms(torch, plain, reps=3)
+        # each pair reads the live blocks its slot tables name and one
+        # (a slot, b slot) pair of int32 per contributor pair, once, and
+        # writes its real output tiles once
+        bs2 = BSR_BLOCK * BSR_BLOCK * 4
+        moved = flops = 0
+        for (a, b, _, _), meta in pairs:
+            live_a = np.unique(meta.a_slots[meta.a_slots < a.shape[0] - 1]).size
+            live_b = np.unique(meta.b_slots[meta.b_slots < b.shape[0] - 1]).size
+            contributors = meta.flops // (2 * BSR_BLOCK ** 3)
+            moved += (live_a + live_b) * bs2 + 8 * contributors + meta.n_c_blocks * bs2
+            flops += meta.flops
+        library = self.library_spgemm(A, P) if record else (None,) * 4
+        self.finish_phase("bsr_spgemm", label, {"chunk2": numbers}, "chunk2", moved,
+                          flops, library,
+                          {"block": BSR_BLOCK, "pairs": len(pairs),
+                           "bsr_caps": list(env.bsr_caps),
+                           "c_blocks": [meta.n_c_blocks for _, meta in pairs]},
+                          record, len(pairs))
+
+    def spmm_inputs(self):
+        if not hasattr(self, "_spmm"):
+            A, _ = self.problem("brick3d", 48)
+            t0 = time.perf_counter()
+            Ab = self.m["bsr"].bsr_from_csr(A, BSR_BLOCK)
+            gen = self.torch.Generator(device="cuda").manual_seed(SPMM_SEED)
+            X = self.torch.randn(A.n_cols, SPMM_COLS, generator=gen, device="cuda")
+            self._spmm = (A, Ab, X, time.perf_counter() - t0)
+        return self._spmm
+
+    def spmm_kernel_phase(self, *, label: str, record: bool = False) -> None:
+        """The BSR x dense kernel at the ``bsr_spmm`` run's shapes against its
+        plain version."""
+        torch, mod, ops = self.torch, self.kernels["bsr_spmm"], self.m["ops"]
+        A, Ab, X, _ = self.spmm_inputs()
+        meta = mod.bsr_spmm_symbolic(Ab)
+        blocks = ops._with_zero_block(Ab.blocks)
+        sl = torch.from_numpy(meta.a_slots).cuda()
+        co = torch.from_numpy(meta.a_cols).cuda()
+        run = lambda: mod.bsr_spmm_blocks(blocks, X, sl, co, Ab.mb, meta.u_max,  # noqa: E731
+                                          BSR_BLOCK, SPMM_COLS)
+        plain = lambda: mod.bsr_spmm_plain(blocks, X, sl, co, Ab.mb, meta.u_max,  # noqa: E731
+                                           BSR_BLOCK)
+        numbers = {"max_abs_err": self.hold_tiles(f"bsr_spmm/{label}", run(), plain()),
+                   "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
+        if record:
+            numbers["plain_ms"] = cuda_ms(torch, plain, reps=3)
+        n_blocks = Ab.n_blocks()
+        moved = (n_blocks * BSR_BLOCK * BSR_BLOCK * 4 + nbytes(sl, co) + nbytes(X)
+                 + Ab.mb * BSR_BLOCK * SPMM_COLS * 4)
+        flops = meta.flops * SPMM_COLS
+        library = (None,) * 4
+        if record:
+            values = Ab.blocks[:n_blocks]
+            t = torch.sparse_bsr_tensor(Ab.block_indptr, Ab.block_indices[:n_blocks],
+                                        values, size=Ab.shape)
+            fn = lambda: t @ X  # noqa: E731
+            try:
+                library = (cuda_ms(torch, fn), *device_ms(torch, fn), None)
+            except RuntimeError as err:   # torch refuses: record why, time nothing
+                library = (None, None, None, str(err).splitlines()[0])
+        self.finish_phase("bsr_spmm", label, {"dense_x": numbers}, "dense_x", moved,
+                          flops, library,
+                          {"block": BSR_BLOCK, "mb": Ab.mb, "u_max": meta.u_max,
+                           "n_blocks": n_blocks, "x": list(X.shape), "bn": SPMM_COLS},
+                          record, 1)
+
+    def bsr_run(self, label: str) -> None:
+        """``chunked_spgemm(backend="bsr")`` of brick3d n=48 under the
+        quickstart plan: values to scipy's A P in float64, zeros removed."""
+        torch, planner = self.torch, self.m["planner"]
+        A, P = self.problem("brick3d", 48)
+        t0 = time.perf_counter()
+        crb, budget = self.quickstart_inputs(A, P)
+        plan = planner.plan_chunks(A, P, crb, self.m["memory_model"].P100,
+                                   fast_limit_bytes=budget)
+        plan_s = time.perf_counter() - t0
+        self.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C, stats = self.m["chunking"].chunked_spgemm(A, P, plan, backend="bsr")
+        torch.cuda.synchronize()
+        exec_s = time.perf_counter() - t0
+        launches = self.read_counters()
+        check(launches["bsr_spgemm"] > 0, f"{label}: bsr_spgemm was not launched")
+        self.launches["bsr_spgemm"] = launches["bsr_spgemm"]
+        scipy_err = self.scipy_check(A, P, C)
+        check(scipy_err <= SCIPY_RTOL, f"{label}: relative error {scipy_err} vs scipy")
+        emit({"run": label, "problem": "brick3d", "n": 48, "backend": "bsr",
+              "block": BSR_BLOCK, "plan": {"algorithm": plan.algorithm, "n_ac": plan.n_ac,
+                                           "n_b": plan.n_b},
+              "launches": launches, "nnz_C": C.nnz(),
+              "stats": {"kernel_calls": stats.kernel_calls,
+                        "copy_in_bytes": stats.copy_in_bytes},
+              "wall_s": {"problem": self.problems[("brick3d", 48)][2], "plan": plan_s,
+                         "chunked_spgemm": exec_s},
+              "check": {"scipy_rel_err": scipy_err}})
+
+    def spmm_run(self, label: str) -> None:
+        """``ops.bsr_spmm`` of brick3d n=48 as BSR by a seeded dense X:
+        values to scipy's A X in float64."""
+        import scipy.sparse as sp
+
+        torch, ops = self.torch, self.m["ops"]
+        A, Ab, X, stage_s = self.spmm_inputs()
+        self.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Y = ops.bsr_spmm(Ab, X, bn=SPMM_COLS)
+        torch.cuda.synchronize()
+        exec_s = time.perf_counter() - t0
+        launches = self.read_counters()
+        check(launches["bsr_spmm"] > 0, f"{label}: bsr_spmm was not launched")
+        self.launches["bsr_spmm"] = launches["bsr_spmm"]
+        nnz = A.nnz()
+        As = sp.csr_matrix((A.data[:nnz].cpu().numpy().astype(np.float64),
+                            A.indices[:nnz].cpu().numpy(), A.indptr.cpu().numpy()),
+                           shape=A.shape)
+        ref = As @ X.cpu().numpy().astype(np.float64)
+        got = Y.cpu().numpy().astype(np.float64)
+        check(got.shape == ref.shape and np.isfinite(got).all(), f"{label}: bad output")
+        rel = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+        check(rel <= SCIPY_RTOL, f"{label}: relative error {rel} vs scipy")
+        emit({"run": label, "problem": "brick3d", "n": 48, "block": BSR_BLOCK,
+              "A": list(A.shape), "X": list(X.shape), "n_blocks": Ab.n_blocks(),
+              "launches": launches,
+              "wall_s": {"problem": self.problems[("brick3d", 48)][2],
+                         "plan": stage_s, "bsr_spmm": exec_s},
+              "check": {"scipy_rel_err": rel}})
 
     def kernels_line(self) -> None:
         rows = []
@@ -646,6 +1048,37 @@ def main() -> int:
     smoke.main_run("elasticity24_auto", "elasticity", 24, "auto")
     smoke.main_run("brick3d32_pallas", "brick3d", 32, "pallas")
     smoke.breakdown("brick3d48_auto", "brick3d", 48, "auto")
+
+    # the second path: its kernels against their plain versions (main-run
+    # shapes first: these numbers go into the kernels line), then its runs
+    L = smoke.triangle_graph()[0]
+    smoke.masked_kernel_phase("tc_rmat18_knl", L, L, L, planner.plan_knl(L, L, float("inf")),
+                              "chunk1", record=True)
+    graphs, csr = smoke.m["graphs"], smoke.m["csr"]
+    L12 = graphs.lower_triangular_degree_sorted(
+        graphs.rmat(12, RMAT_EDGE_FACTOR, seed=RMAT_SEED, device="cuda"))
+    n12 = L12.n_rows
+    thirds = (0, n12 // 3, 2 * n12 // 3, n12)
+    smoke.masked_kernel_phase("tc_rmat12_knl", L12, L12, L12,
+                              planner.plan_knl(L12, L12, float("inf")), "chunk1")
+    gen = torch.Generator(device="cuda").manual_seed(EDGE_SEED)
+    c0 = torch.rand(n12, n12, generator=gen, device="cuda")
+    c0 = torch.where(c0 < 0.01, c0, 0.0).tril(-1)   # partly inside L's mask
+    smoke.masked_kernel_phase("tc_rmat12_3x3_c0", L12, L12, L12,
+                              planner.ChunkPlan("chunk2", thirds, thirds, 0.0, 0.0),
+                              "chunk2", c0_from=csr.csr_from_dense(c0, device="cuda"))
+    smoke.masked_edge_phase()
+    smoke.bsr_kernel_phase(A48, P48, plan48, label="brick3d48_bsr", record=True)
+    smoke.spmm_kernel_phase(label="bsr_spmm_brick3d48", record=True)
+
+    smoke.triangle_run("tc_rmat18_fused")
+    smoke.triangle_run("tc_rmat18_chunk2", chunk2=True)
+    for backend in ("hash", "sparse"):
+        smoke.galerkin_run(f"galerkin_brick3d48_{backend}_resident", backend,
+                           PIPE_RESIDENT, True)
+        smoke.galerkin_run(f"galerkin_brick3d48_{backend}_spill", backend, PIPE_SPILL, False)
+    smoke.bsr_run("brick3d48_bsr")
+    smoke.spmm_run("bsr_spmm_brick3d48")
     smoke.kernels_line()
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -16,10 +16,15 @@ Contracts a spec must honor:
 * ``byte_model(plan, envelope) -> BackendFastModel`` is the planner-side
   peak-resident model ``backend="auto"`` argmins over; accumulator
   backends (``is_accumulator``) must provide one.
+* ``needs_block_caps`` backends (``bsr``) read the envelope's block caps
+  and must register a default ``block_size``.
+* ``run_masked(A, B, mask, plan, c_pad, caps=...) -> (C, ChunkStats)``
+  computes ``(A x B) ∘ mask`` with the mask applied inside the kernel; the
+  fused triangle count (``repro_torch.core.triangle``) resolves through it.
 
 The JAX package's specs carry more fields (batched entry points, trace
-keys, audit and traffic models, masked runs, block caps); they arrive with
-the slices that port those features.
+keys, audit and traffic models); they arrive with the slices that port
+those features.
 """
 
 from __future__ import annotations
@@ -38,7 +43,14 @@ class BackendSpec:
     executors: Mapping[str, Callable]           # algorithm -> executor
     byte_model: Callable | None = None          # (plan, envelope) -> BackendFastModel
     needs_output_caps: bool = False             # executor takes caps=StripOutputCaps
+    needs_block_caps: bool = False              # envelope must carry bsr_caps
     is_accumulator: bool = False                # participates in backend="auto"
+    block_size: int | None = None               # default block edge (block backends)
+    run_masked: Callable | None = None          # fused-mask executor, or None
+
+    @property
+    def supports_mask(self) -> bool:
+        return self.run_masked is not None
 
 
 _REGISTRY: dict[str, BackendSpec] = {}
@@ -57,6 +69,11 @@ def register(spec: BackendSpec) -> BackendSpec:
     if spec.is_accumulator and spec.byte_model is None:
         raise ValueError(
             f"accumulator backend {spec.name!r} needs a planner byte model")
+    if spec.needs_block_caps and spec.block_size is None:
+        raise ValueError(
+            f"backend {spec.name!r} needs_block_caps but registers no "
+            "block_size: the dispatch could not build its default "
+            "block-capped envelope")
     _REGISTRY[spec.name] = spec
     return spec
 
@@ -87,3 +104,8 @@ def specs() -> tuple:
 def accumulator_specs() -> tuple:
     """Specs participating in the planner's ``auto`` resolve, priority order."""
     return tuple(s for s in specs() if s.is_accumulator)
+
+
+def masked_backends() -> tuple:
+    """Names of backends that can fuse an output mask into their kernel."""
+    return tuple(s.name for s in specs() if s.supports_mask)

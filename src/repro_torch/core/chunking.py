@@ -55,6 +55,10 @@ class ChunkStats:
     def copy_out_bytes(self) -> float:
         return _running_sum(self.per_copy_out)
 
+    @property
+    def copy_bytes(self) -> float:
+        return self.copy_in_bytes + self.copy_out_bytes
+
 
 def _running_sum(events) -> float:
     # left to right like the reference's `+=` (the builtin sum() compensates)
@@ -115,16 +119,26 @@ def a_strips(A: CSR, p_ac: tuple) -> list:
 
 
 def instance_envelope(A: CSR, B: CSR, plan: ChunkPlan,
-                      c_pad: int | None = None, caps=None) -> GeometryEnvelope:
+                      c_pad: int | None = None, caps=None,
+                      block_size: int | None = None) -> GeometryEnvelope:
     """The padded geometry one (A, B) instance needs under ``plan``.
 
     The symbolic phase (repro_torch.core.symbolic) runs once here unless the
     caller passes its ``StripOutputCaps`` as ``caps``; its output caps fold
-    into the envelope. ``c_pad`` only overrides the *capacity* field."""
+    into the envelope. ``c_pad`` only overrides the *capacity* field.
+
+    ``block_size`` opts into the block-level symbolic phase
+    (``symbolic.bsr_plan_caps``): the envelope then carries ``bsr_caps``,
+    which makes the ``bsr`` backend dispatchable and priceable."""
     if caps is None:
         caps = strip_output_caps(A, B, plan.p_ac)
     if c_pad is None:
         c_pad = caps.c_pad
+    bsr_caps = ()
+    if block_size is not None:
+        from repro_torch.core.symbolic import bsr_plan_caps
+
+        bsr_caps = bsr_plan_caps(A, B, plan, block_size).as_tuple()
     chunk_cap, chunk_rows = _partition_caps(B, plan.p_b)
     strip_cap, strip_rows = _partition_caps(A, plan.p_ac)
     return GeometryEnvelope(
@@ -135,6 +149,7 @@ def instance_envelope(A: CSR, B: CSR, plan: ChunkPlan,
         strip_rows=strip_rows, strip_nnz_cap=strip_cap,
         c_pad=int(c_pad), dtype=dtype_name(A.dtype),
         c_nnz_cap=caps.c_nnz_cap, c_max_row_nnz=caps.c_max_row_nnz,
+        bsr_caps=bsr_caps,
     )
 
 
@@ -242,18 +257,22 @@ def default_c_pad(A: CSR, B: CSR, plan: ChunkPlan) -> int:
 
 
 def chunked_spgemm(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int | None = None,
-                   backend: str = "scan"):
+                   backend: str = "scan", block_size: int | None = None):
     """Execute a ChunkPlan. ``c_pad`` defaults to the exact symbolic capacity of the
     largest row strip (whole C for 1-strip plans).
 
     ``backend`` names a registered :class:`repro_torch.core.backend_registry.
     BackendSpec` (``"loop"``, ``"scan"``, ``"pallas"``, ``"sparse"``,
-    ``"hash"``) or ``"auto"``, which lets the planner pick the accumulator
-    backend whose peak-resident byte model is smallest under this instance's
-    envelope (``planner.select_accumulator_backend``). ``needs_output_caps``
-    backends receive the symbolic phase's ``StripOutputCaps`` (one expansion
-    amortized across the default ``c_pad``, the auto resolve, and the
-    executor's overflow check).
+    ``"hash"``, ``"bsr"``) or ``"auto"``, which lets the planner pick the
+    accumulator backend whose peak-resident byte model is smallest under
+    this instance's envelope (``planner.select_accumulator_backend``).
+    ``needs_output_caps`` backends receive the symbolic phase's
+    ``StripOutputCaps`` (one expansion amortized across the default
+    ``c_pad``, the auto resolve, and the executor's overflow check).
+
+    ``block_size`` opts the block symbolic phase into the envelope: under
+    ``backend="auto"`` the planner can then price (and select) ``bsr``;
+    under an explicit block backend it overrides the default block edge.
     """
     from repro_torch.core import backend_registry
 
@@ -274,10 +293,13 @@ def chunked_spgemm(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int | None = None,
     if backend == "auto":
         from repro_torch.core.planner import select_accumulator_backend
 
-        env = instance_envelope(A, B, plan, c_pad=c_pad, caps=caps)
+        env = instance_envelope(A, B, plan, c_pad=c_pad, caps=caps,
+                                block_size=block_size)
         spec = backend_registry.get(select_accumulator_backend(plan, env))
     fn = spec.executors.get(plan.algorithm)
     if fn is None:
         raise ValueError(f"unknown algorithm {plan.algorithm!r}")
     kwargs = {"caps": caps} if spec.needs_output_caps else {}
+    if block_size is not None and spec.needs_block_caps:
+        kwargs["block_size"] = block_size
     return fn(A, B, plan, c_pad, **kwargs)

@@ -225,6 +225,15 @@ def _csr_staged_bytes(rows: int, nnz_cap: int, itemsize: int) -> float:
     return float((rows + 1) * 4 + max(nnz_cap, 1) * (4 + itemsize))
 
 
+def csr_field_nbytes(rows: int, nnz_cap: int, itemsize: int) -> tuple:
+    """Per-field ``(indptr, indices, data)`` byte sizes of one staged padded
+    CSR triple, whose sum is exactly the staged ``CSR.nbytes()``. Unlike
+    :func:`_csr_staged_bytes` (the planner's model, floored at one slot) a
+    zero-capacity piece moves zero bytes for its index and data fields."""
+    return (float((rows + 1) * 4), float(nnz_cap * 4),
+            float(nnz_cap * itemsize))
+
+
 def planned_stats_dense_slab(plan: ChunkPlan, envelope) -> BackendFastModel:
     """The dense-accumulator (``backend="pallas"``) resident footprint: the
     streamed/stationary pieces are dense f32 slabs and the C accumulator is a
@@ -328,6 +337,47 @@ def planned_stats_hash(plan: ChunkPlan, envelope) -> BackendFastModel:
     return _csr_accum_model(plan, envelope, "hash", workspace)
 
 
+def planned_stats_bsr(plan: ChunkPlan, envelope) -> BackendFastModel:
+    """The BSR (``backend="bsr"``) resident footprint: every staged piece is
+    a padded BSR triple — block pointers + block-column indices + dense
+    ``bs x bs`` f32 tiles, plus the appended zero-sentinel block — sized by
+    the envelope's block caps (``repro_torch.core.symbolic.bsr_plan_caps``),
+    and the C accumulator holds ``nc_cap`` output tiles. The workspace term
+    is the slot tables (``2 x nc x u`` int32) plus one ``bs x bs`` f32
+    accumulator tile.
+
+    An envelope without block caps (the default — block analysis is opt-in)
+    prices at infinity, which removes ``bsr`` from that ``auto`` resolve
+    without special-casing the dispatch."""
+    if not envelope.bsr_caps:
+        inf = float("inf")
+        return BackendFastModel(backend="bsr", fast_bytes_needed=inf,
+                                streamed_bytes=inf, stationary_bytes=inf,
+                                c_accum_bytes=inf, workspace_bytes=inf)
+    bs, nbl_a, nbl_b, nc, u = envelope.bsr_caps
+    block_bytes = bs * bs * 4                        # staged tiles are f32
+    k = envelope.a_shape[1]
+    srb = -(-envelope.strip_rows // bs)              # strip block rows
+    kb = -(-k // bs)                                 # contraction block rows
+    # BSR triple + appended zero-sentinel block (the slot tables' padding target)
+    slab = float((kb + 1) * 4 + nbl_b * (4 + block_bytes) + block_bytes)
+    a_stage = float((srb + 1) * 4 + nbl_a * (4 + block_bytes) + block_bytes)
+    c_block = float(nc * block_bytes)
+    if plan.algorithm == "chunk2":
+        streamed, stationary = a_stage, slab
+        c_accum = plan.n_ac * c_block
+    else:                                            # knl / chunk1
+        streamed, stationary = slab, a_stage
+        c_accum = c_block
+    workspace = float(2 * nc * u * 4 + block_bytes)
+    return BackendFastModel(
+        backend="bsr",
+        fast_bytes_needed=2 * streamed + stationary + c_accum + workspace,
+        streamed_bytes=streamed, stationary_bytes=stationary,
+        c_accum_bytes=c_accum, workspace_bytes=workspace,
+    )
+
+
 def accumulator_backends() -> tuple:
     """Deterministic evaluation (and tie-break) order of the auto dispatch:
     the registry's accumulator specs in registration order."""
@@ -349,10 +399,9 @@ def select_accumulator_backend(plan: ChunkPlan, envelope) -> str:
     """The ``backend="auto"`` rule: run the accumulator whose modeled peak
     resident fast-memory footprint is smallest under this plan + envelope —
     dense slab (``pallas``) vs ESC CSR scratch (``sparse``) vs hash probe
-    (``hash``). Ties break toward the earlier registry entry (dense slab
-    first). The reference also registers ``bsr``, priced at infinity under
-    envelopes without block caps — the only envelopes the main path builds —
-    so leaving it out changes no choice."""
+    (``hash``) vs blocked tiles (``bsr``, only under block-capped envelopes —
+    uncapped ones price it at infinity). Ties break toward the earlier
+    registry entry (dense slab first), as in the reference."""
     models = backend_fast_models(plan, envelope)
     return min(models, key=lambda b: models[b].fast_bytes_needed)
 
@@ -401,3 +450,101 @@ def plan_knl(A: CSR, B: CSR, fast_limit_bytes: float,
     p_b = binary_search_partition(b_rows, p_size)
     return ChunkPlan("knl", (0, A.n_rows), p_b, copy_bytes=size_b,
                      fast_bytes_needed=staged_chunk_bytes(B, p_b))
+
+
+# ---------------------------------------------------------------------------
+# two-hop pipeline planning: resident intermediate vs spill-to-slow
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelinePlan:
+    """Plan for the fused triple product ``C = R x (A x P)``: one
+    :class:`ChunkPlan` per hop plus the resident-intermediate decision.
+
+    ``t_resident=True`` means the intermediate ``T = A x P`` stays staged in
+    fast memory between the hops — its CSR triple (``t_bytes``) is budgeted
+    on top of each hop's own staged peak, and the modeled copy cost drops
+    the slow-memory round trip. Otherwise T round-trips through slow memory
+    exactly as two independent products would."""
+
+    plan1: ChunkPlan          # hop 1: T = A x P
+    plan2: ChunkPlan          # hop 2: C = R x T
+    t_resident: bool          # T's CSR triple stays in fast between hops
+    t_bytes: float            # staged footprint of the full intermediate
+    copy_bytes: float         # modeled fast<->slow traffic for both hops
+    fast_bytes_needed: float  # peak staged footprint across both hops
+
+
+def plan_pipeline(A: CSR, P: CSR, R: CSR, system: MemorySystem,
+                  fast_limit_bytes: float | None = None,
+                  big_portion: float = 0.75,
+                  t_pattern: CSR | None = None) -> PipelinePlan:
+    """Plan both hops of ``C = R x (A x P)`` and budget fast memory for the
+    resident intermediate.
+
+    Hop 1 is planned with T's exact per-row bytes as the C estimate, hop 2
+    against C's exact structure. T stays resident iff both hops' staged
+    peaks still fit the fast limit with the whole intermediate held beside
+    them and the saved round trip beats the tighter partitions' extra
+    streaming; otherwise the plan records the spill."""
+    from repro_torch.core.symbolic import spgemm_pattern_host
+
+    if t_pattern is None:
+        t_pattern = spgemm_pattern_host(A, P)
+    fast = float(fast_limit_bytes or system.fast.capacity_bytes)
+    crb1 = row_bytes_csr(t_pattern)
+    c_pattern = spgemm_pattern_host(R, t_pattern)
+    crb2 = row_bytes_csr(c_pattern)
+    t_nnz = int(_np(t_pattern.indptr)[-1])
+    t_bytes = _csr_staged_bytes(t_pattern.n_rows, t_nnz, 8)
+
+    def plan_hops(limit: float) -> tuple:
+        p1 = plan_chunks(A, P, crb1, system, fast_limit_bytes=limit,
+                         big_portion=big_portion)
+        p2 = plan_chunks(R, t_pattern, crb2, system, fast_limit_bytes=limit,
+                         big_portion=big_portion)
+        return p1, p2
+
+    # T's slow-memory round trip: hop 1 writes it once; hop 2's streamed-B
+    # reads repeat per A/C strip pass in the chunk1 order, once otherwise.
+    size_t = float(crb1.sum())
+
+    def pipeline_copy(p1: ChunkPlan, p2: ChunkPlan, resident: bool) -> float:
+        copy = p1.copy_bytes + p2.copy_bytes
+        if resident:
+            t_reads = p2.n_ac if p2.algorithm == "chunk1" else 1
+            copy -= size_t * (1 + t_reads)
+        return max(copy, 0.0)
+
+    # reserve T's staged triple off the top and search both hops' partitions
+    # against the remainder, backing the search limit off geometrically when
+    # staged padding pushes a realized peak past the reservation
+    resident_plans = None
+    reserve = fast - t_bytes
+    if reserve > 0:
+        limit = reserve
+        for _ in range(6):
+            p1, p2 = plan_hops(limit)
+            if (p1.fast_bytes_needed + t_bytes <= fast
+                    and p2.fast_bytes_needed + t_bytes <= fast):
+                resident_plans = (p1, p2)
+                break
+            limit *= 0.85
+    spill_plans = plan_hops(fast)
+    spill_copy = pipeline_copy(*spill_plans, resident=False)
+    if resident_plans is not None:
+        resident_copy = pipeline_copy(*resident_plans, resident=True)
+        if resident_copy <= spill_copy:
+            plan1, plan2 = resident_plans
+            return PipelinePlan(
+                plan1=plan1, plan2=plan2, t_resident=True, t_bytes=t_bytes,
+                copy_bytes=resident_copy,
+                fast_bytes_needed=max(plan1.fast_bytes_needed,
+                                      plan2.fast_bytes_needed) + t_bytes)
+    plan1, plan2 = spill_plans
+    return PipelinePlan(
+        plan1=plan1, plan2=plan2, t_resident=False, t_bytes=t_bytes,
+        copy_bytes=spill_copy,
+        fast_bytes_needed=max(plan1.fast_bytes_needed,
+                              plan2.fast_bytes_needed))

@@ -8,5 +8,8 @@ CPU and launches the kernel for tensors on the card.
 Kernels:
   ranged_spgemm        dense-slab ranged multiply-add (backend ``pallas``)
   sparse_accum_spgemm  CSR-output ranged multiply-add, ESC merge (``sparse``)
-  hash_accum_spgemm    CSR-output ranged multiply-add, hash merge (``hash``)
+  hash_accum_spgemm    CSR-output ranged multiply-add, hash merge (``hash``),
+                       and its mask-fused variant (``run_masked``, triangles)
+  bsr_spgemm           BSR x BSR blocked product (``bsr``, ``ops.bsr_spgemm``)
+  bsr_spmm             BSR x dense product (``ops.bsr_spmm``)
 """

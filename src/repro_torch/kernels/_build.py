@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,13 +25,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("ranged_spgemm", "sparse_accum_spgemm", "hash_accum_spgemm")
+SOURCES = ("ranged_spgemm", "sparse_accum_spgemm", "hash_accum_spgemm",
+           "hash_masked_accum_spgemm", "bsr_spgemm", "bsr_spmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
 _BOUND: dict = {}
-BUILD_LOG: dict = {}   # name -> {"seconds": float, "ptxas": str}
+# name -> {"seconds": float, "ptxas": str, "kernels": {entry: resources}}
+BUILD_LOG: dict = {}
 _TIMER = None          # the active LaunchTimer, if any
 
 
@@ -72,6 +75,29 @@ class LaunchTimer:
         return sum(start.elapsed_time(end) for start, end in self.events)
 
 
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+
+
+def ptxas_resources(text: str) -> dict:
+    """Per-kernel resources from ``nvcc -Xptxas -v`` output: for each entry
+    function (its mangled name), the registers a thread uses, the bytes of
+    spill stores and loads, and the bytes of static shared memory."""
+    out, entry = {}, None
+    for line in text.splitlines():
+        if (m := _ENTRY.search(line)) is not None:
+            entry = m.group(1)
+            out[entry] = {"registers": None, "spill_stores": None,
+                          "spill_loads": None, "smem_bytes": 0}
+        elif entry is not None and (m := _SPILLS.search(line)) is not None:
+            out[entry]["spill_stores"], out[entry]["spill_loads"] = map(int, m.groups())
+        elif entry is not None and (m := _USED.search(line)) is not None:
+            out[entry]["registers"] = int(m.group(1))
+            out[entry]["smem_bytes"] = int(m.group(2) or 0)
+    return out
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found is None and Path("/usr/local/cuda/bin/nvcc").exists():
@@ -83,7 +109,8 @@ def nvcc_path() -> str:
 
 def build(names=SOURCES) -> dict:
     """Compile ``names`` in parallel (one nvcc each) and load them. Returns
-    the build log (seconds and ptxas resource lines per source)."""
+    the build log: per source its seconds, the ptxas output, and each
+    kernel's registers, spills and static shared memory."""
     names = [n for n in names if n not in _LIBS]
     if not names:
         return BUILD_LOG
@@ -107,7 +134,8 @@ def build(names=SOURCES) -> dict:
             continue
         os.replace(tmp, out)
         _LIBS[name] = ctypes.CDLL(str(out))
-        BUILD_LOG[name] = {"seconds": seconds, "ptxas": stderr.strip()}
+        BUILD_LOG[name] = {"seconds": seconds, "ptxas": stderr.strip(),
+                           "kernels": ptxas_resources(stderr)}
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return BUILD_LOG

@@ -258,8 +258,9 @@ class GeometryEnvelope:
     symbolic phase (``repro_torch.core.symbolic``); ``c_pad`` is the per-strip
     capacity of the CSR accumulators. A value of 0 means "not computed"; the
     algebra absorbs 0 under union and preserves it under quantization.
-    ``bsr_caps`` is carried as plain data: no block backend is ported yet, and
-    an uncapped envelope prices block backends out of ``auto``.
+    ``bsr_caps`` holds the block caps of ``symbolic.bsr_plan_caps`` when the
+    envelope was built with a ``block_size``; an uncapped envelope prices the
+    ``bsr`` backend out of ``auto``.
     """
 
     a_shape: tuple      # (m, k) of every A instance

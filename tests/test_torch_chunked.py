@@ -2,11 +2,13 @@
 
 Multigrid operands (``A x P``) of two of the paper's problems at small size
 run through every backend of the port — ``loop``, ``scan``, ``pallas``,
-``sparse``, ``hash`` and ``auto`` — under a ``knl``, a ``chunk1`` and a
-``chunk2`` plan, and are held to ``repro.core.chunking.chunked_spgemm`` with
-``backend="loop"`` on the same operands and plan: dense values within atol
-1e-4 for every backend, the CSR structure exactly for the CSR-output ones,
-and ChunkStats equal to the reference's accounting for that backend.
+``sparse``, ``hash``, ``bsr`` and ``auto`` — under a ``knl``, a ``chunk1``
+and a ``chunk2`` plan, and are held to ``repro.core.chunking.chunked_spgemm``
+with ``backend="loop"`` on the same operands and plan: dense values within
+atol 1e-4 for every backend, the CSR structure exactly for the CSR-output
+ones, and ChunkStats equal to the reference's accounting for that backend.
+``bsr`` keeps only nonzero sums, as the reference's does, so its structure
+and stats are held to the reference's ``bsr`` run instead.
 """
 
 import dataclasses
@@ -29,7 +31,7 @@ from repro_torch.sparse.csr import csr_to_dense as port_to_dense
 
 ATOL = 1e-4
 PROBLEMS = {"brick3d": 6, "elasticity": 4}
-BACKENDS = ["loop", "scan", "pallas", "sparse", "hash", "auto"]
+BACKENDS = ["loop", "scan", "pallas", "sparse", "hash", "bsr", "auto"]
 ALGORITHMS = ["knl", "chunk1", "chunk2"]
 
 
@@ -106,6 +108,16 @@ def test_chunked_matches_reference_loop(problem, algorithm, backend):
         resolved = port_planner.select_accumulator_backend(plan, env)
         assert resolved == ref_planner.select_accumulator_backend(
             ref_plan, ref_chunking.instance_envelope(A, P, ref_plan))
+    if resolved == "bsr":       # nonzero sums only: the reference's bsr run
+        C_want, stats_want = ref_chunking.chunked_spgemm(A, P, ref_plan, backend="bsr")
+        nnz = int(np.asarray(C_want.indptr)[-1])
+        np.testing.assert_array_equal(C.indptr.numpy(), np.asarray(C_want.indptr))
+        np.testing.assert_array_equal(C.indices.numpy()[:nnz],
+                                      np.asarray(C_want.indices)[:nnz])
+        np.testing.assert_allclose(C.data.numpy()[:nnz], np.asarray(C_want.data)[:nnz],
+                                   atol=ATOL, rtol=0)
+        assert _stats_tuple(stats) == _stats_tuple(stats_want)
+        return
     if resolved != "pallas":   # the dense backend keeps only nonzero sums
         # entries past nnz are capacity padding (the knl loop keeps c_pad)
         nnz = int(np.asarray(C_ref.indptr)[-1])

@@ -80,3 +80,26 @@ def test_launch_timer_is_active_only_inside_its_block():
     except KeyError:
         pass
     assert _build._TIMER is None
+
+
+def test_ptxas_resources_per_kernel():
+    """The build log's per-kernel registers, spills and shared memory, parsed
+    from ``-Xptxas -v`` output as nvcc 12 prints it."""
+    from repro_torch.kernels import _build
+
+    text = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z3fooPf",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 98 registers, used 1 barriers, 8704 bytes smem",
+        "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 0 barriers",
+    ])
+    assert _build.ptxas_resources(text) == {
+        "_Z3fooPf": {"registers": 98, "spill_stores": 0, "spill_loads": 0,
+                     "smem_bytes": 8704},
+        "_Z3barv": {"registers": 40, "spill_stores": 4, "spill_loads": 12,
+                    "smem_bytes": 0},
+    }

@@ -125,7 +125,8 @@ def test_partition_primitives_equal():
 def test_envelopes_byte_models_and_auto_equal(name):
     A, B, pA, pB = _operands(name)
     crb = _c_row_bytes(A, B)
-    assert port_planner.accumulator_backends() == ("pallas", "sparse", "hash")
+    assert (port_planner.accumulator_backends() == ref_planner.accumulator_backends()
+            == ("pallas", "sparse", "hash", "bsr"))
     for _, _, ref_plan in _plans(A, B, crb):
         if ref_plan.algorithm == "whole_fast":
             continue
@@ -134,7 +135,7 @@ def test_envelopes_byte_models_and_auto_equal(name):
         env = port_chunking.instance_envelope(pA, pB, plan)
         assert dataclasses.astuple(env) == dataclasses.astuple(ref_env)
         for fn in ("planned_stats_dense_slab", "planned_stats_sparse",
-                   "planned_stats_hash"):
+                   "planned_stats_hash", "planned_stats_bsr"):
             assert (dataclasses.astuple(getattr(port_planner, fn)(plan, env))
                     == dataclasses.astuple(getattr(ref_planner, fn)(ref_plan, ref_env)))
         assert (port_planner.select_accumulator_backend(plan, env)
@@ -170,9 +171,15 @@ def test_check_output_caps_raises_like_reference():
 
 def test_registry_roster_and_contracts():
     assert [s.name for s in backend_registry.specs()] == [
-        "loop", "scan", "pallas", "sparse", "hash"]
+        "loop", "scan", "pallas", "sparse", "hash", "bsr"]
     assert [s.name for s in backend_registry.accumulator_specs()] == [
-        "pallas", "sparse", "hash"]
+        "pallas", "sparse", "hash", "bsr"]
+    assert backend_registry.masked_backends() == ("hash",)
+    assert backend_registry.get("bsr").block_size == 8
+    with pytest.raises(ValueError, match="registers no block_size"):
+        backend_registry.register(backend_registry.BackendSpec(
+            name="y", executors=dict.fromkeys(backend_registry.ALGORITHMS, len),
+            needs_block_caps=True))
     with pytest.raises(ValueError, match="unknown backend"):
         backend_registry.get("nope")
     spec = backend_registry.BackendSpec(name="auto", executors={})
