@@ -17,7 +17,14 @@ product ``R x (A x P)`` on brick3d n=48 (``pipeline_spgemm`` through the
 hash and ESC kernels, intermediate resident and spilled), the ``bsr``
 backend on brick3d n=48 and ``ops.bsr_spmm`` of brick3d n=48 by a
 110,592 x 128 dense block, each held to scipy in float64, with the masked,
-BSR x BSR and BSR x dense kernels first held to their plain versions.
+BSR x BSR and BSR x dense kernels first held to their plain versions. Then
+the third path, serving: the flash-prefill and decode-attention kernels
+held to their plain versions in f32 and bf16 at the serve run's shapes and
+on small ragged cases, then ``serve_batch`` of Llama-3.2-1B at full width
+(random weights from a seed, 8 prompts of 128-2048 tokens, 32 new tokens),
+its kernel launches counted, and its prefill and per-step logits held,
+teacher-forced on its own tokens, to the same model with the two kernels
+swapped for their plain versions.
 Every line of output is one JSON object; the last one is
 ``{"ok": true, "device": ...}``. Any failed check raises, so the exit code
 is not 0. Without a CUDA card, or without the package beside this file, it
@@ -38,10 +45,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # Data-sheet peaks of the H100 SXM (NVIDIA H100 data sheet: HBM3 bandwidth,
-# FP32 outside the tensor cores, at 700 W), the card nvidia-smi names
-# "NVIDIA H100 80GB HBM3". Another card has no peaks here and stops the run.
+# FP32 outside the tensor cores, dense bf16 on the tensor cores, at 700 W),
+# the card nvidia-smi names "NVIDIA H100 80GB HBM3". Another card has no
+# peaks here and stops the run.
 PEAK = {"part": "H100 SXM", "smi_name": "H100 80GB HBM3",
-        "bytes_per_s": 3.35e12, "f32_flops": 67e12}
+        "bytes_per_s": 3.35e12, "f32_flops": 67e12, "bf16_flops": 989e12}
 
 # tolerances: float32 sums taken in another order (and, for the hash kernel,
 # in atomic order) than the plain version's
@@ -58,7 +66,26 @@ REPLACES = {
     "hash_masked_accum_spgemm": "src/repro/kernels/hash_accum_spgemm.py:289",
     "bsr_spgemm": "src/repro/kernels/bsr_spgemm.py:174",
     "bsr_spmm": "src/repro/kernels/bsr_spmm.py:67",
+    "flash_prefill": "src/repro/kernels/flash_prefill.py:77",
+    "decode_attention": "src/repro/kernels/chunked_attention.py:62",
 }
+SOURCE_FILE = {"decode_attention": "chunked_attention"}   # kernel -> csrc/<file>.cu
+
+# the attention kernels against their plain versions: in f32 the sums are
+# taken in another order; in bf16 both versions sum the same bf16 inputs in
+# f32 and round once, so an order difference can move an output by one bf16
+# ulp at a rounding boundary (two allowed, plus the f32 tolerance near zero)
+ATTN_F32_ATOL = 2e-5
+ATTN_BF16_ULPS = 2
+# the serve run: Llama-3.2-1B at full width, random weights and prompts
+LM_ARCH, LM_WEIGHT_SEED, LM_PROMPT_SEED = "llama3.2-1b", 1234, 13
+LM_BATCH, LM_PROMPT_LENS, LM_CACHE, LM_NEW = 8, (128, 2048), 4096, 32
+# teacher-forced logits, kernel path against the plain path, relative to the
+# std of the plain logits: the model computes in bf16, so an f32 summation
+# order difference in attention becomes one-ulp rounding flips of the bf16
+# hidden state that cascade through 16 layers and shift every logit a
+# little; a wrong mask or a wrong length moves them by the order of the std
+LOGIT_MAX_TOL, LOGIT_MEAN_TOL = 0.25, 0.03
 RMAT_SCALE, RMAT_EDGE_FACTOR, RMAT_SEED = 18, 16, 7   # graph500-style, ISSUE size
 BSR_BLOCK = 8
 SPMM_COLS, SPMM_SEED = 128, 12
@@ -156,20 +183,25 @@ class Smoke:
         from repro_torch.core import chunking, kkmem, memory_model, planner, symbolic
         from repro_torch.core import chunk_stream, pipeline_spgemm, triangle
         from repro_torch.kernels import (
-            _build, bsr_spgemm, bsr_spmm, hash_accum_spgemm, ops, ranged_spgemm,
-            sparse_accum_spgemm,
+            _build, bsr_spgemm, bsr_spmm, chunked_attention, flash_prefill, hash_accum_spgemm,
+            ops, ranged_spgemm, sparse_accum_spgemm,
         )
+        from repro_torch.launch import serve
+        from repro_torch.models import transformer
         from repro_torch.sparse import bsr, csr, graphs, multigrid
 
         self.m = dict(chunking=chunking, kkmem=kkmem, memory_model=memory_model,
                       planner=planner, symbolic=symbolic, chunk_stream=chunk_stream,
                       build=_build, csr=csr, multigrid=multigrid, graphs=graphs,
-                      bsr=bsr, triangle=triangle, pipeline=pipeline_spgemm, ops=ops)
+                      bsr=bsr, triangle=triangle, pipeline=pipeline_spgemm, ops=ops,
+                      serve=serve, transformer=transformer)
         self.kernels = {"ranged_spgemm": ranged_spgemm,
                         "sparse_accum_spgemm": sparse_accum_spgemm,
                         "hash_accum_spgemm": hash_accum_spgemm,
                         "hash_masked_accum_spgemm": hash_accum_spgemm,
-                        "bsr_spgemm": bsr_spgemm, "bsr_spmm": bsr_spmm}
+                        "bsr_spgemm": bsr_spgemm, "bsr_spmm": bsr_spmm,
+                        "flash_prefill": flash_prefill,
+                        "decode_attention": chunked_attention}
         # each kernel's launch counter (the masked kernel's wrapper lives in
         # the hash module)
         self.counters = {k: mod.LAUNCHES for k, mod in self.kernels.items()}
@@ -395,9 +427,11 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def finish_phase(self, kernel, label, orders, main_order, moved, flops, library,
-                     shapes, record, launches_per_call=None) -> None:
+                     shapes, record, launches_per_call=None, flop_rate="f32_flops") -> None:
+        """Emit one kernel phase; ``flop_rate`` names the peak its operations
+        are bounded by (the f32 rate, or the bf16 tensor-core rate)."""
         t_bytes = moved / PEAK["bytes_per_s"] * 1e3
-        t_ops = flops / PEAK["f32_flops"] * 1e3
+        t_ops = flops / PEAK[flop_rate] * 1e3
         bound = {"bound_ms": max(t_bytes, t_ops),
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         library_ms, library_device_ms, library_empty_traces, library_error = library
@@ -414,7 +448,8 @@ class Smoke:
               "launches_per_call": launches_per_call,
               "library_ms": library_ms, "library_device_ms": library_device_ms,
               "library_empty_traces": library_empty_traces,
-              "library_error": library_error, "peaks_of": PEAK["part"]})
+              "library_error": library_error, "peaks_of": PEAK["part"],
+              "flop_rate": flop_rate, "ops_ms_at_f32": flops / PEAK["f32_flops"] * 1e3})
 
     def edge_phase(self) -> None:
         """Every kernel in both orders against its plain version on the
@@ -976,13 +1011,230 @@ class Smoke:
                          "plan": stage_s, "bsr_spmm": exec_s},
               "check": {"scipy_rel_err": rel}})
 
+    # -- third path: serving the dense LM ----------------------------------
+
+    def lm_prompts(self, vocab_size: int) -> list:
+        """The serve run's requests: lengths and token ids from one seed."""
+        rng = np.random.default_rng(LM_PROMPT_SEED)
+        lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1, LM_BATCH)
+        return [rng.integers(1, vocab_size, int(n)).tolist() for n in lens]
+
+    def hold_attention(self, what: str, got, want) -> float:
+        """f32: within ATTN_F32_ATOL; bf16: within ATTN_BF16_ULPS ulps of the
+        plain value (plus ATTN_F32_ATOL)."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        got32, want32 = got.float(), want.float()
+        diff = (got32 - want32).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        check(bool(torch.isfinite(got32).all()), f"{what}: non-finite output")
+        if got.dtype == torch.bfloat16:
+            # a bf16 value in [2^e, 2^(e+1)) has an ulp of 2^(e-7)
+            ulp = torch.exp2(torch.floor(torch.log2(want32.abs().clamp_min(1e-30))) - 7)
+            ok = bool((diff <= ATTN_BF16_ULPS * ulp + ATTN_F32_ATOL).all())
+        else:
+            ok = err <= ATTN_F32_ATOL
+        check(ok, f"{what}: differs from the plain version by {err}")
+        return err
+
+    def attn_inputs(self, seed: int, *shapes):
+        gen = self.torch.Generator(device="cuda").manual_seed(seed)
+        return [self.torch.randn(*shape, generator=gen, device="cuda") for shape in shapes]
+
+    def prefill_kernel_phase(self, label: str, b: int, s: int, h: int, hkv: int, d: int,
+                             window: int = 0, record: bool = False) -> None:
+        """The prefill kernel against its plain version in f32 and bf16 on
+        seeded normal q, k, v; ``record`` times the bf16 run, its plain version
+        and SDPA (causal, GQA) for the kernels line."""
+        torch, mod = self.torch, self.kernels["flash_prefill"]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        base = self.attn_inputs(s + h + window, (b, s, h, d), (b, s, hkv, d), (b, s, hkv, d))
+        orders, library = {}, (None,) * 4
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = (x.to(dtype) for x in base)
+            run = lambda: mod.flash_prefill(q, k, v, window=window)  # noqa: E731
+            plain = lambda: mod.flash_prefill_plain(q, k, v, window=window)  # noqa: E731
+            numbers = {"max_abs_err": self.hold_attention(f"flash_prefill/{label}/{name}",
+                                                          run(), plain()),
+                       "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
+            if record and name == "bf16":
+                numbers["plain_ms"] = cuda_ms(torch, plain, reps=3)
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                fn = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+                library = (cuda_ms(torch, fn), *device_ms(torch, fn), None)
+            orders[name] = numbers
+        # visible (query, key) pairs of one head: min(position + 1, window)
+        rows = np.arange(1, s + 1)
+        pairs = int(np.minimum(rows, window).sum() if window else rows.sum())
+        moved = 2 * (2 * b * s * h * d + 2 * b * s * hkv * d)   # bf16 q, o, k, v
+        flops = 4 * d * pairs * b * h
+        self.finish_phase("flash_prefill", label, orders, "bf16", moved, flops, library,
+                          {"b": b, "s": s, "h": h, "hkv": hkv, "d": d, "window": window,
+                           "visible_pairs_per_head": pairs}, record, 1, "bf16_flops")
+
+    def decode_kernel_phase(self, label: str, b: int, hkv: int, g: int, d: int, s: int,
+                            lengths: list, record: bool = False) -> None:
+        """The decode kernel against its plain version in f32 and bf16 over
+        a seeded normal cache; ``record`` times the bf16 run, its plain
+        version and SDPA (GQA, a length mask) for the kernels line."""
+        torch, mod = self.torch, self.kernels["decode_attention"]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        base = self.attn_inputs(s + g, (b, hkv, g, d), (b, s, hkv, d), (b, s, hkv, d))
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        orders, library = {}, (None,) * 4
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = (x.to(dtype) for x in base)
+            run = lambda: mod.decode_attention(q, k, v, lens)  # noqa: E731
+            plain = lambda: mod.decode_attention_plain(q, k, v, lens)  # noqa: E731
+            numbers = {"max_abs_err": self.hold_attention(f"decode_attention/{label}/{name}",
+                                                          run(), plain()),
+                       "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
+            if record and name == "bf16":
+                numbers["plain_ms"] = cuda_ms(torch, plain)
+                mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None]
+                qt, kt, vt = q.reshape(b, hkv * g, 1, d), k.transpose(1, 2), v.transpose(1, 2)
+                fn = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+                library = (cuda_ms(torch, fn), *device_ms(torch, fn), None)
+            orders[name] = numbers
+        live = int(np.minimum(np.asarray(lengths), s).clip(0).sum())
+        moved = 2 * (2 * b * hkv * g * d + 2 * live * hkv * d) + 4 * b   # bf16, lengths
+        flops = 4 * d * g * hkv * live
+        self.finish_phase("decode_attention", label, orders, "bf16", moved, flops, library,
+                          {"b": b, "hkv": hkv, "g": g, "d": d, "s": s,
+                           "lengths": list(lengths)}, record, 1, "bf16_flops")
+
+    def teacher_forced(self, model, cfg, batch, outs) -> tuple:
+        """Prefill, then one decode step per generated token, each fed the
+        serve run's own token: (the logits of every step, the cache)."""
+        tf = self.m["transformer"]
+        torch = self.torch
+        with torch.inference_mode():
+            logits, cache = tf.prefill(model, batch, cfg, LM_CACHE)
+            steps = [logits]
+            for t in range(LM_NEW - 1):
+                logits, cache = tf.decode_step(model, cache, outs[:, t:t + 1], cfg)
+                steps.append(logits)
+        torch.cuda.synchronize()
+        return steps, cache
+
+    def serve_run(self, label: str, cfg, model, prompts) -> None:
+        """``serve_batch`` at full width (after a two-token warm-up), its
+        launches counted; then the same tokens teacher-forced through the
+        kernel path and through the plain path (``ops`` patched to the plain
+        versions), logits compared step by step; the first token of every
+        request must be the plain path's; a free-running plain serve gives
+        the share of equal greedy tokens (printed, not gated)."""
+        from unittest import mock
+
+        torch = self.torch
+        serve, ops = self.m["serve"], self.m["ops"]
+        fp, ca = self.kernels["flash_prefill"], self.kernels["decode_attention"]
+        kwargs = {"cache_len": LM_CACHE, "params": model}
+        serve.serve_batch(cfg, prompts, max_new_tokens=2, **kwargs)   # warm-up
+        self.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        outs, stats = serve.serve_batch(cfg, prompts, max_new_tokens=LM_NEW, **kwargs)
+        launches = self.read_counters()
+        peak = torch.cuda.max_memory_allocated()
+        check(launches["flash_prefill"] == cfg.n_layers,
+              f"{label}: flash_prefill launched {launches['flash_prefill']} times")
+        check(launches["decode_attention"] == cfg.n_layers * (LM_NEW - 1),
+              f"{label}: decode_attention launched {launches['decode_attention']} times")
+        self.launches["flash_prefill"] = launches["flash_prefill"]
+        self.launches["decode_attention"] = launches["decode_attention"]
+        check(len(outs) == LM_BATCH and all(len(o) == LM_NEW for o in outs)
+              and all(0 <= t < cfg.vocab_size for o in outs for t in o),
+              f"{label}: outputs are not {LM_BATCH} x {LM_NEW} token ids")
+
+        lens = [len(p) for p in prompts]
+        toks = np.zeros((LM_BATCH, max(lens)), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p
+        batch = {"tokens": torch.from_numpy(toks).cuda(),
+                 "lengths": torch.tensor(lens, dtype=torch.int32, device="cuda")}
+        out_t = torch.tensor(outs, dtype=torch.int32, device="cuda")
+        kern, cache = self.teacher_forced(model, cfg, batch, out_t)
+        # one more decode step, traced: the device's busy share of a step
+        wall = []
+
+        def step():
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                self.m["transformer"].decode_step(model, cache, out_t[:, -1:], cfg)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        prof = profiled(torch, step)
+        busy = device_busy_ms(prof)
+        from torch.autograd import DeviceType
+        by_name, n_device = {}, 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n_device += 1
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        del cache
+
+        def plain_prefill(q, k, v, bq=256, bk=512, window=0):
+            return fp.flash_prefill_plain(q, k, v, window=window, bq=bq, bk=bk)
+        with mock.patch.object(ops, "flash_prefill", plain_prefill), \
+                mock.patch.object(ops, "decode_attention", ca.decode_attention_plain):
+            plain, cache = self.teacher_forced(model, cfg, batch, out_t)
+            del cache
+            plain_outs, plain_stats = serve.serve_batch(cfg, prompts, max_new_tokens=LM_NEW,
+                                                        **kwargs)
+        ratios_max, ratios_mean, tf_equal = [], [], []
+        for t, (a, w) in enumerate(zip(kern, plain)):
+            check(tuple(a.shape) == (LM_BATCH, cfg.vocab_size)
+                  and bool(torch.isfinite(a).all()), f"{label}: step {t} logits malformed")
+            std = float(w.std())
+            diff = (a - w).abs()
+            ratios_max.append(float(diff.max()) / std)
+            ratios_mean.append(float(diff.mean()) / std)
+            tf_equal.append(float((w.argmax(-1) == out_t[:, t]).float().mean()))
+        kernel_repeats = bool(torch.equal(torch.stack([x.argmax(-1) for x in kern], 1),
+                                          out_t.long()))
+        first_plain = plain[0].argmax(-1).tolist()
+        first = [o[0] for o in outs]
+        check(max(ratios_max) <= LOGIT_MAX_TOL and max(ratios_mean) <= LOGIT_MEAN_TOL,
+              f"{label}: teacher-forced logits differ from the plain path by up to "
+              f"{max(ratios_max)} (max) / {max(ratios_mean)} (mean) of their std")
+        check(first == first_plain, f"{label}: first tokens {first} != plain {first_plain}")
+        same = float(np.mean(np.asarray(outs) == np.asarray(plain_outs)))
+        decode_steps = LM_NEW - 1
+        emit({"run": label, "arch": cfg.name, "n_layers": cfg.n_layers,
+              "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+              "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "compute_dtype": cfg.compute_dtype,
+              "params": sum(p.numel() for p in model.parameters()),
+              "prompt_lens": lens, "padded_len": max(lens), "cache_len": LM_CACHE,
+              "new_tokens": LM_NEW, "launches": launches,
+              "prefill_ms": stats.prefill_s * 1e3,
+              "decode_ms_per_step": stats.decode_s / decode_steps * 1e3,
+              "decode_tokens_per_s": LM_BATCH * decode_steps / stats.decode_s,
+              "serve_tokens_per_s": stats.tokens_per_s,
+              "plain_prefill_ms": plain_stats.prefill_s * 1e3,
+              "plain_decode_ms_per_step": plain_stats.decode_s / decode_steps * 1e3,
+              "peak_memory_bytes": peak,
+              "decode_step_trace": {"wall_ms": wall[0], "device_busy_ms": busy,
+                                    "device_busy_share": busy / wall[0] if busy > 0 else None,
+                                    "device_activities": n_device,
+                                    "top_device_ms": dict(top)},
+              "check": {"logit_max_over_std": max(ratios_max),
+                        "logit_mean_over_std": max(ratios_mean),
+                        "logit_max_over_std_by_step": ratios_max,
+                        "tolerances": [LOGIT_MAX_TOL, LOGIT_MEAN_TOL],
+                        "first_tokens_equal": first == first_plain,
+                        "teacher_forced_greedy_equal_share": float(np.mean(tf_equal)),
+                        "free_running_greedy_equal_share": same,
+                        "kernel_path_repeats_serve_tokens": kernel_repeats}})
+
     def kernels_line(self) -> None:
         rows = []
         for kernel, numbers in self.phase.items():
             check(self.launches.get(kernel, 0) > 0,
                   f"{kernel}: launched no time on its main-path run")
             rows.append({"name": kernel, "route": "cuda",
-                         "source": f"src/repro_torch/kernels/csrc/{kernel}.cu",
+                         "source": "src/repro_torch/kernels/csrc/"
+                                   f"{SOURCE_FILE.get(kernel, kernel)}.cu",
                          "replaces": REPLACES[kernel],
                          "launches": self.launches[kernel],
                          "max_abs_err": self.max_err[kernel], **numbers})
@@ -1079,6 +1331,28 @@ def main() -> int:
         smoke.galerkin_run(f"galerkin_brick3d48_{backend}_spill", backend, PIPE_SPILL, False)
     smoke.bsr_run("brick3d48_bsr")
     smoke.spmm_run("bsr_spmm_brick3d48")
+
+    # the third path, serving: the attention kernels at the serve run's
+    # shapes (these numbers go into the kernels line; decode at a mid-run
+    # step), on small ragged cases, then the serve run
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_ARCH)
+    prompts = smoke.lm_prompts(cfg.vocab_size)
+    s_pad = max(len(p) for p in prompts)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    smoke.prefill_kernel_phase("serve_prefill", LM_BATCH, s_pad, h, hkv, d, record=True)
+    smoke.decode_kernel_phase("serve_decode_mid", LM_BATCH, hkv, h // hkv, d, LM_CACHE,
+                              [s_pad + LM_NEW // 2] * LM_BATCH, record=True)
+    for g in (1, 4):
+        for window in (0, 24):
+            smoke.prefill_kernel_phase(f"ragged_g{g}_w{window}", 2, 100, 2 * g, 2, d, window)
+        smoke.decode_kernel_phase(f"ragged_g{g}", 4, 2, g, d, 300, [300, 1, 129, 0])
+    model = smoke.m["transformer"].init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(LM_WEIGHT_SEED), "cuda")
+    smoke.serve_run("serve_llama3_2_1b", cfg, model, prompts)
+    del model
+    torch.cuda.empty_cache()
     smoke.kernels_line()
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,4 +12,8 @@ Kernels:
                        and its mask-fused variant (``run_masked``, triangles)
   bsr_spgemm           BSR x BSR blocked product (``bsr``, ``ops.bsr_spgemm``)
   bsr_spmm             BSR x dense product (``ops.bsr_spmm``)
+  flash_prefill        causal GQA flash attention of a prompt batch
+                       (``ops.flash_prefill``, the model's prefill)
+  chunked_attention    length-masked decode attention over the KV cache
+                       (``ops.decode_attention``, the model's decode step)
 """

@@ -26,7 +26,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("ranged_spgemm", "sparse_accum_spgemm", "hash_accum_spgemm",
-           "hash_masked_accum_spgemm", "bsr_spgemm", "bsr_spmm")
+           "hash_masked_accum_spgemm", "bsr_spgemm", "bsr_spmm", "flash_prefill",
+           "chunked_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

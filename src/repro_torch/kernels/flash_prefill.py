@@ -1,0 +1,115 @@
+"""Causal GQA flash attention for prefill.
+
+The port of the JAX package's ``kernels/flash_prefill.py``. On the card,
+:func:`flash_prefill` launches the CUDA kernel ``csrc/flash_prefill.cu``; on
+the CPU it runs :func:`flash_prefill_plain`, the same chunked online softmax
+in plain PyTorch. Both take q ``[B, S, H, D]`` and k, v ``[B, S, Hkv, D]`` and
+return ``[B, S, H, D]`` in q's dtype: 1/sqrt(D) scale, causal (plus an
+optional sliding ``window``), the finite ``NEG_INF`` mask, f32 statistics and
+sums, and ``acc / max(l, 1e-30)``. GQA is folded: query head ``h`` reads KV
+head ``h // (H / Hkv)``.
+
+The reference's Pallas wrapper required ``S % bq == 0``; the kernel masks
+its own ragged edge, and ``bq``/``bk`` are only the plain version's block
+sizes (it pads ragged tails, as the JAX package's pure ``flash_attention``
+does).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._build import LaunchCounter, launch, require
+
+LAUNCHES = LaunchCounter()
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128)       # the kernel's instantiations: the ported configs' widths
+MAX_GROUP = 64              # query heads per KV head the kernel folds into a tile
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        window: int = 0, bq: int = 256, bk: int = 512,
+                        causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Plain version: a loop over ``bq``-row query chunks, each streaming the
+    ``bk``-key chunks it can see under an f32 online softmax. ``q_offset`` is
+    the global position of q[0] relative to k[0] (prefill: 0); ``causal`` off
+    attends to every key (within the window)."""
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    g = h // hkv
+    scale = 1.0 / (d ** 0.5)
+    bq = min(bq, sq) or sq
+    bk = min(bk, sk) or sk
+    nq, nk = -(-sq // bq), -(-sk // bk)
+    dev = q.device
+    # pad ragged tails to chunk multiples: padded keys are masked below,
+    # padded query rows are sliced off the output
+    qg = torch.nn.functional.pad(q.float(), (0, 0, 0, 0, 0, nq * bq - sq))
+    qg = qg.reshape(b, nq * bq, hkv, g, d)
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, nk * bk - sk))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, nk * bk - sk))
+    outs = []
+    for qi in range(nq):
+        q_blk = qg[:, qi * bq:(qi + 1) * bq]
+        q0 = q_offset + qi * bq
+        qpos = q0 + torch.arange(bq, device=dev)
+        m = torch.full((b, hkv, g, bq), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, hkv, g, bq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, g, bq, d), dtype=torch.float32, device=dev)
+        # causal: no key chunk beyond this chunk's last row; window: none
+        # entirely before its first row's window
+        hi = min((q0 + bq + bk - 1) // bk, nk) if causal else nk
+        lo = max((q0 - window + 1) // bk, 0) if window else 0
+        for ki in range(lo, max(hi, lo + 1)):
+            k_blk = kf[:, ki * bk:(ki + 1) * bk]
+            v_blk = vf[:, ki * bk:(ki + 1) * bk]
+            kpos = ki * bk + torch.arange(bk, device=dev)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk) * scale
+            mask = (kpos[None, :] < sk).expand(bq, bk)
+            if causal:
+                mask = mask & (qpos[:, None] >= kpos[None, :])
+            if window:
+                mask = mask & (qpos[:, None] - kpos[None, :] < window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, v_blk)
+            m = m_new
+        o = acc / torch.clamp_min(l[..., None], 1e-30)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, bq, h, d))
+    return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  bq: int = 256, bk: int = 512, window: int = 0) -> torch.Tensor:
+    """Causal (plus ``window``) GQA attention of a prompt batch. CPU tensors
+    take the plain version (with ``bq``/``bk``); CUDA tensors launch the
+    kernel, which takes f32 or bf16, D in ``HEAD_DIMS``, H / Hkv at most
+    ``MAX_GROUP`` and contiguous operands."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
+                         "expected [B, S, H, D] and [B, S, Hkv, D]")
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d or hkv == 0 or h % hkv:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, window=window, bq=bq, bk=bk)
+    if q.dtype not in _DTYPES or d not in HEAD_DIMS or h // hkv > MAX_GROUP:
+        raise ValueError(f"the kernel takes f32/bf16, D in {HEAD_DIMS} and at most "
+                         f"{MAX_GROUP} query heads per KV head; got {q.dtype}, D={d}, "
+                         f"{h // hkv}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        require(t, name, q.dtype, q.device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    out = torch.empty_like(q)
+    launch("flash_prefill", "flash_prefill_launch", [q, k, v, out],
+           [b, s, h, hkv, d, window, _DTYPES[q.dtype]])
+    LAUNCHES.bump()
+    return out

@@ -1,9 +1,11 @@
-"""Public wrappers around the BSR kernels: host-side symbolic planning
-(NumPy), the zero-sentinel block appended, then the kernel (on the card) or
-its plain version (on the CPU).
+"""Public wrappers around the kernels: for the BSR kernels, host-side
+symbolic planning (NumPy) and the zero-sentinel block appended; then the
+kernel (on the card) or its plain version (on the CPU).
 
-The port of the JAX package's ``kernels/ops.py`` for ``bsr_spgemm`` and
-``bsr_spmm``; its LM-stack wrappers are not ported yet.
+The port of the JAX package's ``kernels/ops.py``: ``bsr_spgemm``,
+``bsr_spmm``, and the attention wrappers ``flash_prefill`` and
+``decode_attention`` that the model's serving path calls. ``grouped_matmul``
+(MoE expert compute) is not ported yet.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import torch
 
 from repro_torch.kernels import bsr_spgemm as _spgemm
 from repro_torch.kernels import bsr_spmm as _spmm
+from repro_torch.kernels import chunked_attention as _attn
+from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.sparse.bsr import BSR
 
 
@@ -55,3 +59,17 @@ def bsr_spmm(A: BSR, x: torch.Tensor, meta: _spmm.BsrSpmmMeta | None = None,
     return _spmm.bsr_spmm_blocks(_with_zero_block(A.blocks), x.contiguous(),
                                  meta.a_slots, meta.a_cols, mb=A.mb,
                                  u_max=meta.u_max, bs=A.block_size, bn=bn_eff)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """q ``[B, Hkv, G, D]`` over the cache k, v ``[B, S, Hkv, D]``, positions
+    ``< lengths[b]`` visible; ``[B, Hkv, G, D]`` in q's dtype."""
+    return _attn.decode_attention(q, k, v, lengths)
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int = 256,
+                  bk: int = 512, window: int = 0) -> torch.Tensor:
+    """Causal (plus ``window``) GQA attention, q ``[B, S, H, D]``, k, v
+    ``[B, S, Hkv, D]``; ``bq``/``bk`` are the plain version's block sizes."""
+    return _fp.flash_prefill(q, k, v, bq=bq, bk=bk, window=window)

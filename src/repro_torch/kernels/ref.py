@@ -1,7 +1,8 @@
-"""Dense oracles of the BSR kernels (the ground truth of their tests).
+"""Plain oracles of the kernels (the ground truth of their tests).
 
-The port of the JAX package's ``kernels/ref.py`` for ``bsr_spgemm_ref`` and
-``bsr_spmm_ref``; the LM-stack oracles are not ported yet.
+The port of the JAX package's ``kernels/ref.py``: ``bsr_spgemm_ref``,
+``bsr_spmm_ref`` and ``decode_attention_ref``. ``grouped_matmul_ref`` waits
+for the MoE slice.
 """
 
 from __future__ import annotations
@@ -18,3 +19,14 @@ def bsr_spgemm_ref(A: BSR, B: BSR) -> torch.Tensor:
 
 def bsr_spmm_ref(A: BSR, x: torch.Tensor) -> torch.Tensor:
     return bsr_to_dense(A).float() @ x.float()
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """Naive masked softmax attention. q: [B,Hkv,G,D]; k,v: [B,S,Hkv,D]."""
+    d = q.shape[-1]
+    scores = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) * (1.0 / (d ** 0.5))
+    pos = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+    mask = pos < lengths.to(q.device)[:, None, None, None]
+    p = torch.softmax(torch.where(mask, scores, -torch.inf), dim=-1)
+    return torch.einsum("bhgs,bshd->bhgd", p, v.float()).to(q.dtype)

@@ -1,0 +1,7 @@
+"""repro_torch.models — the decoder LM stack of the JAX package, in PyTorch.
+
+Ported so far: the dense family without a frontend, for serving
+(``config``, ``layers``, ``attention``, ``transformer``, and ``convert``,
+which carries the JAX package's weights across). The MoE, SSM and hybrid
+families, the frontends and the training path are queued in ROADMAP.md.
+"""

@@ -1,0 +1,145 @@
+"""Decoder assembly of the dense family, for serving.
+
+The port of the dense, frontend-free parts of the JAX package's
+``models/transformer.py``:
+  init_params(cfg, generator, device)        -> Transformer
+  init_cache(cfg, batch_size, cache_len)     -> cache dict
+  prefill(params, batch, cfg, cache_len)     -> (last_logits, cache)
+  decode_step(params, cache, tokens, cfg)    -> (logits, cache)
+
+``params`` is a :class:`Transformer`, an ``nn.Module`` with a ModuleList of
+decoder layers in place of the reference's scanned, stacked layer tree.
+Serving never updates weights, so the model holds them in
+``cfg.compute_dtype``, cast once at load (the reference casts its f32
+master weights at every use, which gives the same values); the RMSNorm
+scales stay f32. The KV cache is updated in place: ``decode_step`` writes
+the new token's K and V into the cache it is given and returns that same
+dict with ``pos`` advanced.
+
+The MoE, SSM and hybrid families and the modality frontends raise
+``NotImplementedError``; they are queued in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as att
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import MLP, Embed, RMSNorm, cdtype
+from repro_torch.sparse.csr import resolve_device
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for a configuration whose family or frontend is not ported."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported to repro_torch "
+            "(only 'dense'); see ROADMAP.md Queue 1 item 9")
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: frontend {cfg.frontend!r} is not ported to repro_torch; "
+            "see ROADMAP.md Queue 1 item 9")
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.norm1 = RMSNorm(cfg, device)
+        self.attn = att.Attention(cfg, device)
+        self.norm2 = RMSNorm(cfg, device)
+        self.mlp = MLP(cfg, device)
+
+    def prefill(self, x, cfg, positions, cache_k, cache_v):
+        x = x + att.attn_prefill(self.attn, self.norm1(x), cfg, positions, cache_k, cache_v)
+        return x + self.mlp(self.norm2(x))
+
+    def decode(self, x, cfg, cache_k, cache_v, pos):
+        x = x + att.attn_decode(self.attn, self.norm1(x), cfg, cache_k, cache_v, pos)
+        return x + self.mlp(self.norm2(x))
+
+
+class Transformer(nn.Module):
+    """The dense decoder: embedding and head, ``n_layers`` decoder layers,
+    the final norm. Weights are allocated uninitialised; fill them with
+    :meth:`init_weights` or ``convert.params_from_jax``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        check_ported(cfg)
+        self.cfg = cfg
+        self.embed = Embed(cfg, device)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, device) for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(cfg, device)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The reference's initialisation: normals at its scales (drawn in
+        f32, then cast), norm scales of one."""
+        for module in self.modules():
+            if module is not self and hasattr(module, "init_weights"):
+                module.init_weights(generator)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                device=None) -> Transformer:
+    """A model with the reference's shapes and scales, drawn from
+    ``generator`` (a fresh one seeded 0 when None), on the card unless
+    ``device`` says otherwise. The generator must live on that device."""
+    device = resolve_device(device)
+    model = Transformer(cfg, device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    model.init_weights(generator)
+    return model
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int, device=None) -> dict:
+    """Empty decode cache: ``pos`` int32 [B] and per-layer K and V
+    ``[L, B, eff, Hkv, hd]`` in the compute dtype (``eff`` is the window
+    when the config slides one)."""
+    check_ported(cfg)
+    device = resolve_device(device)
+    eff = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
+    shape = (cfg.n_layers, batch_size, eff, cfg.n_kv_heads, cfg.head_dim)
+    return {"pos": torch.zeros(batch_size, dtype=torch.int32, device=device),
+            "k": torch.zeros(shape, dtype=cdtype(cfg), device=device),
+            "v": torch.zeros(shape, dtype=cdtype(cfg), device=device)}
+
+
+def prefill(params: Transformer, batch: dict, cfg: ModelConfig, cache_len: int):
+    """Run the prompt, return (next-token logits [B, vocab] f32, cache).
+
+    With uneven right-padded prompts, ``batch["lengths"]`` (int [B], true
+    prompt lengths) selects each sequence's logits at its own last real token
+    instead of the padded final position; without it, the last position is
+    used for every sequence (uniform-length prompts)."""
+    tokens = batch["tokens"]
+    h = params.embed.embed(tokens)
+    b, s, _ = h.shape
+    pos = torch.arange(s, dtype=torch.int32, device=h.device).expand(b, s)
+    cache = init_cache(cfg, b, cache_len, device=h.device)
+    cache["pos"].fill_(s)
+    for i, layer in enumerate(params.layers):
+        h = layer.prefill(h, cfg, pos, cache["k"][i], cache["v"][i])
+    lengths = batch.get("lengths")
+    if lengths is None:
+        h_last = h[:, -1:]
+    else:
+        last = torch.clamp(torch.as_tensor(lengths, device=h.device).long() - 1, 0, s - 1)
+        h_last = h[torch.arange(b, device=h.device), last][:, None]
+    # the norm is per position, so gathering first gives the reference's values
+    logits = params.embed.unembed(params.final_norm(h_last))
+    return logits[:, 0], cache
+
+
+def decode_step(params: Transformer, cache: dict, tokens: torch.Tensor, cfg: ModelConfig):
+    """One token for every sequence. tokens: int [B, 1]. Returns
+    (logits [B, vocab] f32, the cache, updated in place)."""
+    h = params.embed.embed(tokens)
+    pos = cache["pos"]
+    for i, layer in enumerate(params.layers):
+        h = layer.decode(h, cfg, cache["k"][i], cache["v"][i], pos)
+    logits = params.embed.unembed(params.final_norm(h))
+    cache["pos"] = pos + 1
+    return logits[:, 0], cache

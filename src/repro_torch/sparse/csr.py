@@ -27,14 +27,13 @@ _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card; without one that raises."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "device=None selects the CUDA card, but torch.cuda.is_available() "
-                "is False; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` means the CUDA card; a CUDA device without a card raises."""
+    resolved = torch.device("cuda" if device is None else device)
+    if resolved.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} selects the CUDA card, but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run on the CPU")
+    return resolved
 
 
 def _np(x) -> np.ndarray:

@@ -24,6 +24,8 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.core.chunk_stream" in mods
     assert "repro_torch.kernels.hash_accum_spgemm" in mods
+    assert "repro_torch.kernels.flash_prefill" in mods
+    assert "repro_torch.launch.serve" in mods
     code = "\n".join([
         "import sys",
         "sys.modules['jax'] = None",
