@@ -24,7 +24,15 @@ on small ragged cases, then ``serve_batch`` of Llama-3.2-1B at full width
 (random weights from a seed, 8 prompts of 128-2048 tokens, 32 new tokens),
 its kernel launches counted, and its prefill and per-step logits held,
 teacher-forced on its own tokens, to the same model with the two kernels
-swapped for their plain versions.
+swapped for their plain versions. Then the fourth path, MoE serving: the
+grouped-GEMM kernel held to its plain version in f32 and bf16 at the shapes
+of OLMoE-1B-7B's first expert product (prefill and decode, from the serve
+batch's own routing), on ragged edge cases and through the padded
+``ops.grouped_matmul``; one full-width MoE layer through the kernel path
+and the plain path; ``serve_batch`` of OLMoE-1B-7B at full width, its
+launches counted and its bf16 logits and routes compared with the plain
+path (printed); and the same model in f32, teacher-forced through both
+paths, its logits held to the plain path's.
 Every line of output is one JSON object; the last one is
 ``{"ok": true, "device": ...}``. Any failed check raises, so the exit code
 is not 0. Without a CUDA card, or without the package beside this file, it
@@ -33,6 +41,8 @@ exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -68,6 +78,7 @@ REPLACES = {
     "bsr_spmm": "src/repro/kernels/bsr_spmm.py:67",
     "flash_prefill": "src/repro/kernels/flash_prefill.py:77",
     "decode_attention": "src/repro/kernels/chunked_attention.py:62",
+    "grouped_matmul": "src/repro/kernels/grouped_matmul.py:41",
 }
 SOURCE_FILE = {"decode_attention": "chunked_attention"}   # kernel -> csrc/<file>.cu
 
@@ -86,6 +97,18 @@ LM_BATCH, LM_PROMPT_LENS, LM_CACHE, LM_NEW = 8, (128, 2048), 4096, 32
 # hidden state that cascade through 16 layers and shift every logit a
 # little; a wrong mask or a wrong length moves them by the order of the std
 LOGIT_MAX_TOL, LOGIT_MEAN_TOL = 0.25, 0.03
+# the MoE serve run: OLMoE-1B-7B at full width, the Llama run's prompts
+# (same seed and lengths), weights from LM_WEIGHT_SEED
+MOE_ARCH = "olmoe-1b-7b"
+# the grouped GEMM against its plain version: f32 sums in another order
+# (the reference's atol with an rtol for the order); bf16 outputs of the
+# same f32 sums rounded once, so within two ulps (plus the f32 atol near 0)
+GMM_F32_ATOL, GMM_F32_RTOL, GMM_BF16_ULPS = 1e-4, 1e-5, 2
+GMM_EDGE_SEED = 14
+# the f32 end-to-end gate: teacher-forced logits of the kernel path against
+# the plain path, relative to the plain logits' std (summation order only:
+# in f32 no rounding flip of a near-tied route is plausible)
+F32_LOGIT_MAX_TOL, F32_LOGIT_MEAN_TOL = 0.01, 0.001
 RMAT_SCALE, RMAT_EDGE_FACTOR, RMAT_SEED = 18, 16, 7   # graph500-style, ISSUE size
 BSR_BLOCK = 8
 SPMM_COLS, SPMM_SEED = 128, 12
@@ -183,25 +206,26 @@ class Smoke:
         from repro_torch.core import chunking, kkmem, memory_model, planner, symbolic
         from repro_torch.core import chunk_stream, pipeline_spgemm, triangle
         from repro_torch.kernels import (
-            _build, bsr_spgemm, bsr_spmm, chunked_attention, flash_prefill, hash_accum_spgemm,
-            ops, ranged_spgemm, sparse_accum_spgemm,
+            _build, bsr_spgemm, bsr_spmm, chunked_attention, flash_prefill, grouped_matmul,
+            hash_accum_spgemm, ops, ranged_spgemm, sparse_accum_spgemm,
         )
         from repro_torch.launch import serve
-        from repro_torch.models import transformer
+        from repro_torch.models import moe, transformer
         from repro_torch.sparse import bsr, csr, graphs, multigrid
 
         self.m = dict(chunking=chunking, kkmem=kkmem, memory_model=memory_model,
                       planner=planner, symbolic=symbolic, chunk_stream=chunk_stream,
                       build=_build, csr=csr, multigrid=multigrid, graphs=graphs,
                       bsr=bsr, triangle=triangle, pipeline=pipeline_spgemm, ops=ops,
-                      serve=serve, transformer=transformer)
+                      serve=serve, transformer=transformer, moe=moe)
         self.kernels = {"ranged_spgemm": ranged_spgemm,
                         "sparse_accum_spgemm": sparse_accum_spgemm,
                         "hash_accum_spgemm": hash_accum_spgemm,
                         "hash_masked_accum_spgemm": hash_accum_spgemm,
                         "bsr_spgemm": bsr_spgemm, "bsr_spmm": bsr_spmm,
                         "flash_prefill": flash_prefill,
-                        "decode_attention": chunked_attention}
+                        "decode_attention": chunked_attention,
+                        "grouped_matmul": grouped_matmul}
         # each kernel's launch counter (the masked kernel's wrapper lives in
         # the hash module)
         self.counters = {k: mod.LAUNCHES for k, mod in self.kernels.items()}
@@ -1019,9 +1043,10 @@ class Smoke:
         lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1, LM_BATCH)
         return [rng.integers(1, vocab_size, int(n)).tolist() for n in lens]
 
-    def hold_attention(self, what: str, got, want) -> float:
-        """f32: within ATTN_F32_ATOL; bf16: within ATTN_BF16_ULPS ulps of the
-        plain value (plus ATTN_F32_ATOL)."""
+    def hold_close(self, what: str, got, want, atol: float, ulps: int,
+                   rtol: float = 0.0) -> float:
+        """f32: within atol + rtol |want|; bf16: within ``ulps`` ulps of the
+        plain value (plus atol)."""
         torch = self.torch
         torch.cuda.synchronize()
         got32, want32 = got.float(), want.float()
@@ -1031,9 +1056,9 @@ class Smoke:
         if got.dtype == torch.bfloat16:
             # a bf16 value in [2^e, 2^(e+1)) has an ulp of 2^(e-7)
             ulp = torch.exp2(torch.floor(torch.log2(want32.abs().clamp_min(1e-30))) - 7)
-            ok = bool((diff <= ATTN_BF16_ULPS * ulp + ATTN_F32_ATOL).all())
+            ok = bool((diff <= ulps * ulp + atol).all())
         else:
-            ok = err <= ATTN_F32_ATOL
+            ok = bool((diff <= atol + rtol * want32.abs()).all())
         check(ok, f"{what}: differs from the plain version by {err}")
         return err
 
@@ -1054,8 +1079,9 @@ class Smoke:
             q, k, v = (x.to(dtype) for x in base)
             run = lambda: mod.flash_prefill(q, k, v, window=window)  # noqa: E731
             plain = lambda: mod.flash_prefill_plain(q, k, v, window=window)  # noqa: E731
-            numbers = {"max_abs_err": self.hold_attention(f"flash_prefill/{label}/{name}",
-                                                          run(), plain()),
+            numbers = {"max_abs_err": self.hold_close(f"flash_prefill/{label}/{name}",
+                                                      run(), plain(), ATTN_F32_ATOL,
+                                                      ATTN_BF16_ULPS),
                        "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
             if record and name == "bf16":
                 numbers["plain_ms"] = cuda_ms(torch, plain, reps=3)
@@ -1086,8 +1112,9 @@ class Smoke:
             q, k, v = (x.to(dtype) for x in base)
             run = lambda: mod.decode_attention(q, k, v, lens)  # noqa: E731
             plain = lambda: mod.decode_attention_plain(q, k, v, lens)  # noqa: E731
-            numbers = {"max_abs_err": self.hold_attention(f"decode_attention/{label}/{name}",
-                                                          run(), plain()),
+            numbers = {"max_abs_err": self.hold_close(f"decode_attention/{label}/{name}",
+                                                      run(), plain(), ATTN_F32_ATOL,
+                                                      ATTN_BF16_ULPS),
                        "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
             if record and name == "bf16":
                 numbers["plain_ms"] = cuda_ms(torch, plain)
@@ -1103,6 +1130,16 @@ class Smoke:
                           {"b": b, "hkv": hkv, "g": g, "d": d, "s": s,
                            "lengths": list(lengths)}, record, 1, "bf16_flops")
 
+    def lm_batch(self, prompts) -> dict:
+        """The prompts right-padded into one prefill batch, with their lengths."""
+        torch = self.torch
+        lens = [len(p) for p in prompts]
+        toks = np.zeros((len(prompts), max(lens)), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p
+        return {"tokens": torch.from_numpy(toks).cuda(),
+                "lengths": torch.tensor(lens, dtype=torch.int32, device="cuda")}
+
     def teacher_forced(self, model, cfg, batch, outs) -> tuple:
         """Prefill, then one decode step per generated token, each fed the
         serve run's own token: (the logits of every step, the cache)."""
@@ -1117,18 +1154,94 @@ class Smoke:
         torch.cuda.synchronize()
         return steps, cache
 
-    def serve_run(self, label: str, cfg, model, prompts) -> None:
+    @contextlib.contextmanager
+    def plain_path(self):
+        """The ``ops`` entries the model calls, swapped for the kernels' plain
+        versions (the plain path of the serving checks)."""
+        from unittest import mock
+
+        ops = self.m["ops"]
+        fp, gm = self.kernels["flash_prefill"], self.kernels["grouped_matmul"]
+
+        def plain_prefill(q, k, v, bq=256, bk=512, window=0):
+            return fp.flash_prefill_plain(q, k, v, window=window, bq=bq, bk=bk)
+
+        def plain_gmm(x, w, seg_rows, out_dtype=None):
+            return gm.grouped_matmul_plain(x, w, seg_rows, out_dtype=out_dtype)
+        with mock.patch.object(ops, "flash_prefill", plain_prefill), \
+                mock.patch.object(ops, "decode_attention",
+                                  self.kernels["decode_attention"].decode_attention_plain), \
+                mock.patch.object(ops, "grouped_matmul_ragged", plain_gmm):
+            yield
+
+    @contextlib.contextmanager
+    def routes(self, model):
+        """Every MoE layer's top-k experts (sorted) at every call, recomputed
+        from the layer's input by a forward hook: a list of int [B, S, k]."""
+        torch, record = self.torch, []
+
+        def hook(module, inputs, output):
+            x = inputs[0]
+            idx = torch.topk(x.float() @ module.router.float(), module.cfg.top_k, dim=-1).indices
+            record.append(torch.sort(idx, dim=-1).values)
+        handles = [layer.moe.register_forward_hook(hook)
+                   for layer in model.layers if layer.is_moe]
+        try:
+            yield record
+        finally:
+            for handle in handles:
+                handle.remove()
+
+    def dropped(self, cfg, idx) -> int:
+        """Assignments over the per-row capacity in one routing ``idx`` [B, S, k]."""
+        torch = self.torch
+        b, s, _ = idx.shape
+        counts = torch.nn.functional.one_hot(idx.reshape(b, -1), cfg.n_experts).sum(1)
+        cap = self.m["moe"].capacity(cfg, s)
+        return int((counts - cap).clamp(min=0).sum())
+
+    @staticmethod
+    def route_agreement(a: list, b: list) -> float | None:
+        """Share of (layer call, token) routes with the same expert set."""
+        if not a:
+            return None
+        check(len(a) == len(b), f"{len(a)} routed calls against {len(b)}")
+        same = sum(int((x == y).all(-1).sum()) for x, y in zip(a, b))
+        return same / sum(x[..., 0].numel() for x in a)
+
+    def compare_logits(self, label, cfg, kern, plain, out_t) -> dict:
+        """Teacher-forced logits, step by step, against the plain path's,
+        relative to the plain logits' std."""
+        torch = self.torch
+        ratios_max, ratios_mean, tf_equal = [], [], []
+        for t, (a, w) in enumerate(zip(kern, plain)):
+            check(tuple(a.shape) == (LM_BATCH, cfg.vocab_size)
+                  and bool(torch.isfinite(a).all()), f"{label}: step {t} logits malformed")
+            std = float(w.std())
+            diff = (a - w).abs()
+            ratios_max.append(float(diff.max()) / std)
+            ratios_mean.append(float(diff.mean()) / std)
+            tf_equal.append(float((w.argmax(-1) == out_t[:, t]).float().mean()))
+        first, first_plain = kern[0].argmax(-1).tolist(), plain[0].argmax(-1).tolist()
+        return {"logit_max_over_std": max(ratios_max),
+                "logit_mean_over_std": max(ratios_mean),
+                "logit_max_over_std_by_step": ratios_max,
+                "first_tokens": first, "first_tokens_plain": first_plain,
+                "first_tokens_equal": first == first_plain,
+                "teacher_forced_greedy_equal_share": float(np.mean(tf_equal))}
+
+    def serve_run(self, label: str, cfg, model, prompts, *, gate: bool) -> list:
         """``serve_batch`` at full width (after a two-token warm-up), its
         launches counted; then the same tokens teacher-forced through the
         kernel path and through the plain path (``ops`` patched to the plain
-        versions), logits compared step by step; the first token of every
-        request must be the plain path's; a free-running plain serve gives
-        the share of equal greedy tokens (printed, not gated)."""
-        from unittest import mock
-
+        versions), logits compared step by step (``gate``: held to
+        LOGIT_MAX_TOL / LOGIT_MEAN_TOL, and the first token of every request
+        to the plain path's; else printed only, with the share of MoE routes
+        that agree); a free-running plain serve gives the share of equal
+        greedy tokens (printed). Returns the served tokens."""
         torch = self.torch
-        serve, ops = self.m["serve"], self.m["ops"]
-        fp, ca = self.kernels["flash_prefill"], self.kernels["decode_attention"]
+        serve = self.m["serve"]
+        moe = cfg.family == "moe"
         kwargs = {"cache_len": LM_CACHE, "params": model}
         serve.serve_batch(cfg, prompts, max_new_tokens=2, **kwargs)   # warm-up
         self.reset_counters()
@@ -1136,24 +1249,27 @@ class Smoke:
         outs, stats = serve.serve_batch(cfg, prompts, max_new_tokens=LM_NEW, **kwargs)
         launches = self.read_counters()
         peak = torch.cuda.max_memory_allocated()
-        check(launches["flash_prefill"] == cfg.n_layers,
-              f"{label}: flash_prefill launched {launches['flash_prefill']} times")
-        check(launches["decode_attention"] == cfg.n_layers * (LM_NEW - 1),
-              f"{label}: decode_attention launched {launches['decode_attention']} times")
-        self.launches["flash_prefill"] = launches["flash_prefill"]
-        self.launches["decode_attention"] = launches["decode_attention"]
+        want = {"flash_prefill": cfg.n_layers, "decode_attention": cfg.n_layers * (LM_NEW - 1),
+                "grouped_matmul": 3 * cfg.n_layers * LM_NEW if moe else 0}
+        for kernel, n in want.items():
+            check(launches[kernel] == n, f"{label}: {kernel} launched {launches[kernel]} "
+                  f"times, expected {n}")
+        # the kernels line reports each kernel's launches in the run at the
+        # shapes of its recorded phase: attention in the first (dense) run
+        for kernel in ("flash_prefill", "decode_attention"):
+            self.launches.setdefault(kernel, launches[kernel])
+        if moe:
+            self.launches["grouped_matmul"] = launches["grouped_matmul"]
         check(len(outs) == LM_BATCH and all(len(o) == LM_NEW for o in outs)
               and all(0 <= t < cfg.vocab_size for o in outs for t in o),
               f"{label}: outputs are not {LM_BATCH} x {LM_NEW} token ids")
 
-        lens = [len(p) for p in prompts]
-        toks = np.zeros((LM_BATCH, max(lens)), np.int32)
-        for i, p in enumerate(prompts):
-            toks[i, :len(p)] = p
-        batch = {"tokens": torch.from_numpy(toks).cuda(),
-                 "lengths": torch.tensor(lens, dtype=torch.int32, device="cuda")}
+        batch = self.lm_batch(prompts)
         out_t = torch.tensor(outs, dtype=torch.int32, device="cuda")
-        kern, cache = self.teacher_forced(model, cfg, batch, out_t)
+        with self.routes(model) as kern_routes:
+            kern, cache = self.teacher_forced(model, cfg, batch, out_t)
+        kernel_repeats = bool(torch.equal(torch.stack([x.argmax(-1) for x in kern], 1),
+                                          out_t.long()))
         # one more decode step, traced: the device's busy share of a step
         wall = []
 
@@ -1174,36 +1290,47 @@ class Smoke:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         del cache
 
-        def plain_prefill(q, k, v, bq=256, bk=512, window=0):
-            return fp.flash_prefill_plain(q, k, v, window=window, bq=bq, bk=bk)
-        with mock.patch.object(ops, "flash_prefill", plain_prefill), \
-                mock.patch.object(ops, "decode_attention", ca.decode_attention_plain):
-            plain, cache = self.teacher_forced(model, cfg, batch, out_t)
+        with self.plain_path():
+            with self.routes(model) as plain_routes:
+                plain, cache = self.teacher_forced(model, cfg, batch, out_t)
             del cache
             plain_outs, plain_stats = serve.serve_batch(cfg, prompts, max_new_tokens=LM_NEW,
                                                         **kwargs)
-        ratios_max, ratios_mean, tf_equal = [], [], []
-        for t, (a, w) in enumerate(zip(kern, plain)):
-            check(tuple(a.shape) == (LM_BATCH, cfg.vocab_size)
-                  and bool(torch.isfinite(a).all()), f"{label}: step {t} logits malformed")
-            std = float(w.std())
-            diff = (a - w).abs()
-            ratios_max.append(float(diff.max()) / std)
-            ratios_mean.append(float(diff.mean()) / std)
-            tf_equal.append(float((w.argmax(-1) == out_t[:, t]).float().mean()))
-        kernel_repeats = bool(torch.equal(torch.stack([x.argmax(-1) for x in kern], 1),
-                                          out_t.long()))
-        first_plain = plain[0].argmax(-1).tolist()
+        result = self.compare_logits(label, cfg, kern, plain, out_t)
         first = [o[0] for o in outs]
-        check(max(ratios_max) <= LOGIT_MAX_TOL and max(ratios_mean) <= LOGIT_MEAN_TOL,
-              f"{label}: teacher-forced logits differ from the plain path by up to "
-              f"{max(ratios_max)} (max) / {max(ratios_mean)} (mean) of their std")
-        check(first == first_plain, f"{label}: first tokens {first} != plain {first_plain}")
-        same = float(np.mean(np.asarray(outs) == np.asarray(plain_outs)))
+        result.update({"tolerances": [LOGIT_MAX_TOL, LOGIT_MEAN_TOL] if gate else None,
+                       "first_tokens_served": first,
+                       "free_running_greedy_equal_share":
+                           float(np.mean(np.asarray(outs) == np.asarray(plain_outs))),
+                       "kernel_path_repeats_serve_tokens": kernel_repeats})
+        if gate:
+            check(result["logit_max_over_std"] <= LOGIT_MAX_TOL
+                  and result["logit_mean_over_std"] <= LOGIT_MEAN_TOL,
+                  f"{label}: teacher-forced logits differ from the plain path by up to "
+                  f"{result['logit_max_over_std']} (max) / {result['logit_mean_over_std']} "
+                  "(mean) of their std")
+            check(first == result["first_tokens_plain"],
+                  f"{label}: first tokens {first} != plain {result['first_tokens_plain']}")
+        moe_numbers = {}
+        if moe:
+            n_prefill = cfg.n_layers   # the first calls: one per layer at prefill
+            moe_numbers = {
+                "route_agreement": self.route_agreement(kern_routes, plain_routes),
+                "route_agreement_prefill": self.route_agreement(kern_routes[:n_prefill],
+                                                                plain_routes[:n_prefill]),
+                "prefill_capacity": self.m["moe"].capacity(cfg, kern_routes[0].shape[1]),
+                "prefill_dropped_by_layer": [self.dropped(cfg, r)
+                                             for r in kern_routes[:n_prefill]],
+                "decode_dropped": sum(self.dropped(cfg, r) for r in kern_routes[n_prefill:]),
+                "prefill_assignments_per_layer": kern_routes[0].numel()}
+            check(moe_numbers["decode_dropped"] == 0, f"{label}: decode dropped assignments")
         decode_steps = LM_NEW - 1
-        emit({"run": label, "arch": cfg.name, "n_layers": cfg.n_layers,
-              "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
-              "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "compute_dtype": cfg.compute_dtype,
+        lens = [len(p) for p in prompts]
+        emit({"run": label, "arch": cfg.name, "family": cfg.family,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "heads": [cfg.n_heads, cfg.n_kv_heads], "d_ff": cfg.d_ff,
+              "experts": [cfg.n_experts, cfg.top_k], "vocab": cfg.vocab_size,
+              "compute_dtype": cfg.compute_dtype,
               "params": sum(p.numel() for p in model.parameters()),
               "prompt_lens": lens, "padded_len": max(lens), "cache_len": LM_CACHE,
               "new_tokens": LM_NEW, "launches": launches,
@@ -1218,14 +1345,210 @@ class Smoke:
                                     "device_busy_share": busy / wall[0] if busy > 0 else None,
                                     "device_activities": n_device,
                                     "top_device_ms": dict(top)},
-              "check": {"logit_max_over_std": max(ratios_max),
-                        "logit_mean_over_std": max(ratios_mean),
-                        "logit_max_over_std_by_step": ratios_max,
-                        "tolerances": [LOGIT_MAX_TOL, LOGIT_MEAN_TOL],
-                        "first_tokens_equal": first == first_plain,
-                        "teacher_forced_greedy_equal_share": float(np.mean(tf_equal)),
-                        "free_running_greedy_equal_share": same,
-                        "kernel_path_repeats_serve_tokens": kernel_repeats}})
+              "moe": moe_numbers or None, "gated": gate, "check": result})
+        return outs
+
+    # -- fourth path: MoE serving ----------------------------------------------
+
+    def capture_moe_inputs(self, model, cfg, batch) -> dict:
+        """Layer 0's MoE input and the rows and groups of its first expert
+        product (w1), at the serve batch's prefill and at the decode step
+        after it (fed the prefill's greedy tokens)."""
+        from unittest import mock
+
+        torch, ops, tf = self.torch, self.m["ops"], self.m["transformer"]
+        layer = model.layers[0].moe
+        real, products, inputs = ops.grouped_matmul_ragged, [], []
+
+        def recorder(x, w, seg_rows, out_dtype=None):
+            if w is layer.w1:
+                products.append((x, seg_rows))
+            return real(x, w, seg_rows, out_dtype)
+        handle = layer.register_forward_hook(lambda m, i, o: inputs.append(i[0]))
+        try:
+            with mock.patch.object(ops, "grouped_matmul_ragged", recorder), \
+                    torch.inference_mode():
+                logits, cache = tf.prefill(model, batch, cfg, LM_CACHE)
+                nxt = logits.argmax(-1).to(torch.int32)[:, None]
+                tf.decode_step(model, cache, nxt, cfg)
+                del cache
+        finally:
+            handle.remove()
+        torch.cuda.synchronize()
+        check(len(products) == 2 and len(inputs) == 2,
+              f"captured {len(products)} products and {len(inputs)} inputs, expected 2 each")
+        return {"prefill": (inputs[0], *products[0]), "decode": (inputs[1], *products[1])}
+
+    def hold_gmm(self, what: str, got, want) -> float:
+        return self.hold_close(what, got, want, GMM_F32_ATOL, GMM_BF16_ULPS, GMM_F32_RTOL)
+
+    def library_gmm(self, x, w, seg_rows, n_rows: int) -> tuple:
+        """The yardstick of the grouped GEMM on the same bf16 operands:
+        ``torch._grouped_mm`` where this torch has it and takes them, else
+        ``torch.bmm`` over the reference's [E, cap, K] capacity buffer.
+        (name, wall ms, device ms, empty traces, error text)."""
+        torch = self.torch
+        error = None
+        if hasattr(torch, "_grouped_mm"):
+            offs = seg_rows[1:].to(torch.int32)
+            xs = x[:n_rows]
+            fn = lambda: torch._grouped_mm(xs, w, offs=offs)  # noqa: E731
+            try:
+                return ("torch._grouped_mm", cuda_ms(torch, fn), *device_ms(torch, fn), None)
+            except RuntimeError as err:   # torch refuses: fall back to bmm
+                error = str(err).splitlines()[0]
+        sizes = (seg_rows[1:] - seg_rows[:-1]).tolist()
+        cap = max(max(sizes), 1)
+        buf = x.new_zeros((w.shape[0], cap, x.shape[1]))
+        for g, (r0, n) in enumerate(zip(seg_rows[:-1].tolist(), sizes)):
+            buf[g, :n] = x[r0:r0 + n]
+        fn = lambda: torch.bmm(buf, w)  # noqa: E731
+        return ("torch.bmm over the capacity buffer", cuda_ms(torch, fn),
+                *device_ms(torch, fn), error)
+
+    def gmm_kernel_phase(self, label: str, x, seg_rows, w, *, record: bool = False) -> None:
+        """The grouped GEMM against its plain version in bf16 and f32 (the
+        operands widened) on rows ``x`` grouped by ``seg_rows`` against ``w``;
+        ``record`` times the bf16 run, its plain version and the yardstick
+        for the kernels line."""
+        torch, gm = self.torch, self.kernels["grouped_matmul"]
+        n_rows = int(seg_rows[-1])
+        orders, library, name = {}, (None,) * 4, None
+        for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            xd, wd = x.to(dtype), w.to(dtype)
+            run = lambda: gm.grouped_matmul_ragged(xd, wd, seg_rows)  # noqa: E731
+            plain = lambda: gm.grouped_matmul_plain(xd, wd, seg_rows)  # noqa: E731
+            numbers = {"max_abs_err": self.hold_gmm(f"grouped_matmul/{label}/{dname}",
+                                                    run()[:n_rows], plain()[:n_rows]),
+                       "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
+            if record and dname == "bf16":
+                numbers["plain_ms"] = cuda_ms(torch, plain, reps=3)
+                name, *library = self.library_gmm(xd, wd, seg_rows, n_rows)
+            orders[dname] = numbers
+            del xd, wd
+        sizes = (seg_rows[1:] - seg_rows[:-1])
+        e, k, n = w.shape
+        used = int((sizes > 0).sum())
+        moved = 2 * (n_rows * k + used * k * n + n_rows * n) + 8 * (e + 1)   # bf16, seg_rows
+        flops = 2 * n_rows * k * n
+        self.finish_phase("grouped_matmul", label, orders, "bf16", moved, flops, library,
+                          {"rows": n_rows, "x_rows": x.shape[0], "k": k, "n": n, "groups": e,
+                           "groups_used": used, "largest_group": int(sizes.max()),
+                           "library_call": name}, record, 1, "bf16_flops")
+        if record:
+            self.phase["grouped_matmul"]["library_call"] = name
+
+    def gmm_edge_phase(self) -> None:
+        """The kernel on ragged cases, f32 and bf16: empty groups, groups of
+        one row, a single group, all groups empty, N and K off the kernel's
+        128 x 16 tile, rows past the last group; and the padded
+        ``ops.grouped_matmul`` against its CPU (plain) run, pad rows zero."""
+        torch, gm, ops = self.torch, self.kernels["grouped_matmul"], self.m["ops"]
+        gen = torch.Generator(device="cuda").manual_seed(GMM_EDGE_SEED)
+        cases = [([37, 0, 91, 12, 0, 300], 2048, 1000), ([1] * 8, 40, 72),
+                 ([129], 17, 130), ([0, 0, 0], 64, 64), ([0, 5, 0, 250], 33, 1)]
+        result = []
+        for sizes, k, n in cases:
+            t = sum(sizes)
+            seg = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]), dtype=torch.int64,
+                               device="cuda")
+            x = torch.randn(t + 9, k, generator=gen, device="cuda")
+            w = torch.randn(len(sizes), k, n, generator=gen, device="cuda") * k ** -0.5
+            errs = {}
+            for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                xd, wd = x.to(dtype), w.to(dtype)
+                errs[dname] = self.hold_gmm(f"grouped_matmul/edge{sizes}/{dname}",
+                                            gm.grouped_matmul_ragged(xd, wd, seg)[:t],
+                                            gm.grouped_matmul_plain(xd, wd, seg)[:t])
+                y, offs = ops.grouped_matmul(xd[:t], wd, sizes, bt=32, bn=1, bk=1)
+                y_cpu, offs_cpu = ops.grouped_matmul(xd[:t].cpu(), wd.cpu(), sizes, bt=32,
+                                                     bn=1, bk=1)
+                check(np.array_equal(offs, offs_cpu), f"padded {sizes}: offsets differ")
+                errs[f"padded_{dname}"] = self.hold_gmm(f"ops.grouped_matmul{sizes}/{dname}",
+                                                        y, y_cpu.cuda())
+                pad = sum(float(y[offs[g] + m: offs[g + 1]].abs().sum())
+                          for g, m in enumerate(sizes))
+                check(pad == 0, f"padded {sizes}/{dname}: pad rows are not zero")
+            result.append({"sizes": sizes, "k": k, "n": n, "max_abs_err": errs})
+            self.max_err["grouped_matmul"] = max(self.max_err.get("grouped_matmul", 0.0),
+                                                 *errs.values())
+        emit({"edge_phase": "grouped_matmul_ragged", "cases": result})
+
+    def moe_layer_phase(self, label: str, layer, x) -> None:
+        """One full-width MoE layer on the input ``x`` it saw in the serve
+        batch, through the kernel path and the plain path (``ops`` patched),
+        in the model's bf16 and in an f32 copy of the layer. The routing is
+        the same on both paths, so the outputs differ only by the products'
+        summation order: held within two ulps (bf16) or the f32 atol and
+        rtol at the scale of the layer's largest output, because a one-ulp
+        difference of one product moves an output near zero by many of its
+        own ulps."""
+        torch, moe = self.torch, self.m["moe"]
+        cfg32 = dataclasses.replace(layer.cfg, compute_dtype="float32")
+        layer32 = moe.MoE(cfg32, "cuda")
+        with torch.no_grad():
+            for name in ("router", "w1", "w3", "w2"):
+                getattr(layer32, name).copy_(getattr(layer, name))
+        numbers = {}
+        for dname, mod, xin in (("bf16", layer, x), ("f32", layer32, x.float())):
+            with torch.inference_mode():
+                y, aux = moe.moe_apply(mod, xin, mod.cfg)
+                with self.plain_path():
+                    y_plain, aux_plain = moe.moe_apply(mod, xin, mod.cfg)
+            torch.cuda.synchronize()
+            err = float((y.float() - y_plain.float()).abs().max())
+            scale = float(y_plain.float().abs().max())
+            if dname == "bf16":
+                tol = GMM_BF16_ULPS * 2.0 ** (np.floor(np.log2(scale)) - 7)
+            else:
+                tol = GMM_F32_ATOL + GMM_F32_RTOL * scale
+            check(bool(torch.isfinite(y.float()).all()) and err <= tol,
+                  f"moe_layer/{label}/{dname}: differs from the plain path by {err} "
+                  f"(allowed {tol})")
+            check(float(aux) == float(aux_plain), f"moe_layer/{label}/{dname}: aux differs")
+            numbers[dname] = {"max_abs_err": err, "tolerance": tol, "max_abs_out": scale,
+                              "ms": cuda_ms(torch, lambda: mod(xin), reps=3)}
+        idx = torch.topk(x.float() @ layer.router.float(), layer.cfg.top_k, dim=-1).indices
+        emit({"moe_layer_phase": label, "shape": list(x.shape),
+              "capacity": moe.capacity(layer.cfg, x.shape[1]),
+              "assignments": idx.numel(), "dropped": self.dropped(layer.cfg, idx),
+              "dtypes": numbers})
+        del layer32
+
+    def f32_check(self, label: str, cfg, prompts, outs) -> None:
+        """The model in f32 (the same seed: the bf16 model's weights before
+        their rounding) teacher-forced on the served tokens through the
+        kernel path and the plain path: every step's logits within
+        F32_LOGIT_MAX_TOL (worst element) and F32_LOGIT_MEAN_TOL (mean) of
+        the plain logits' std, every first token equal."""
+        torch = self.torch
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        model = self.m["transformer"].init_params(
+            cfg32, torch.Generator(device="cuda").manual_seed(LM_WEIGHT_SEED), "cuda")
+        batch = self.lm_batch(prompts)
+        out_t = torch.tensor(outs, dtype=torch.int32, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        with self.routes(model) as kern_routes:
+            kern, cache = self.teacher_forced(model, cfg32, batch, out_t)
+        del cache
+        peak = torch.cuda.max_memory_allocated()
+        with self.plain_path(), self.routes(model) as plain_routes:
+            plain, cache = self.teacher_forced(model, cfg32, batch, out_t)
+        del cache, model
+        result = self.compare_logits(label, cfg32, kern, plain, out_t)
+        result["route_agreement"] = self.route_agreement(kern_routes, plain_routes)
+        result["prefill_dropped_by_layer"] = [self.dropped(cfg32, r)
+                                              for r in kern_routes[:cfg.n_layers]]
+        result["tolerances"] = [F32_LOGIT_MAX_TOL, F32_LOGIT_MEAN_TOL]
+        emit({"run": label, "arch": cfg32.name, "compute_dtype": cfg32.compute_dtype,
+              "peak_memory_bytes": peak, "check": result})
+        check(result["logit_max_over_std"] <= F32_LOGIT_MAX_TOL
+              and result["logit_mean_over_std"] <= F32_LOGIT_MEAN_TOL,
+              f"{label}: f32 teacher-forced logits differ from the plain path by up to "
+              f"{result['logit_max_over_std']} (max) / {result['logit_mean_over_std']} "
+              "(mean) of their std")
+        check(result["first_tokens_equal"], f"{label}: first tokens {result['first_tokens']} "
+              f"!= plain {result['first_tokens_plain']}")
 
     def kernels_line(self) -> None:
         rows = []
@@ -1350,8 +1673,32 @@ def main() -> int:
         smoke.decode_kernel_phase(f"ragged_g{g}", 4, 2, g, d, 300, [300, 1, 129, 0])
     model = smoke.m["transformer"].init_params(
         cfg, torch.Generator(device="cuda").manual_seed(LM_WEIGHT_SEED), "cuda")
-    smoke.serve_run("serve_llama3_2_1b", cfg, model, prompts)
+    smoke.serve_run("serve_llama3_2_1b", cfg, model, prompts, gate=True)
     del model
+    torch.cuda.empty_cache()
+
+    # the fourth path, MoE serving: the grouped GEMM at the shapes of layer
+    # 0's first expert product in the serve batch (prefill: these numbers go
+    # into the kernels line; decode), on ragged cases, one full-width MoE
+    # layer, the serve run, then the f32 model teacher-forced on its tokens
+    cfg = get_config(MOE_ARCH)
+    prompts = smoke.lm_prompts(cfg.vocab_size)
+    model = smoke.m["transformer"].init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(LM_WEIGHT_SEED), "cuda")
+    captured = smoke.capture_moe_inputs(model, cfg, smoke.lm_batch(prompts))
+    w1 = model.layers[0].moe.w1
+    smoke.gmm_kernel_phase("serve_prefill_layer0_w1", *captured["prefill"][1:], w1,
+                           record=True)
+    smoke.gmm_kernel_phase("serve_decode_layer0_w1", *captured["decode"][1:], w1)
+    smoke.gmm_edge_phase()
+    smoke.moe_layer_phase("layer0_prefill", model.layers[0].moe, captured["prefill"][0])
+    smoke.moe_layer_phase("layer0_decode", model.layers[0].moe, captured["decode"][0])
+    del captured, w1
+    torch.cuda.empty_cache()
+    outs = smoke.serve_run("serve_olmoe_1b_7b", cfg, model, prompts, gate=False)
+    del model
+    torch.cuda.empty_cache()
+    smoke.f32_check("olmoe_1b_7b_f32_teacher_forced", cfg, prompts, outs)
     torch.cuda.empty_cache()
     smoke.kernels_line()
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,8 @@
 
 The port of the JAX package's ``configs/__init__.py``. Each config module
 defines CONFIG (the published configuration) and SMOKE (a reduced
-same-family configuration for CPU tests). Only the dense family without a
-frontend is ported so far (``PORTED``); ``get_config`` on another
+same-family configuration for CPU tests). Only the dense and MoE families
+without a frontend are ported so far (``PORTED``); ``get_config`` on another
 architecture raises and names ROADMAP.md, where the rest is queued.
 """
 
@@ -38,7 +38,7 @@ ALIASES = {
     "zamba2-1.2b": "zamba2_1p2b",
 }
 
-PORTED = ("deepseek_67b", "llama3_2_1b", "minitron_4b", "starcoder2_7b")
+PORTED = ("deepseek_67b", "llama3_2_1b", "minitron_4b", "olmoe_1b_7b", "starcoder2_7b")
 
 
 def canonical(name: str) -> str:

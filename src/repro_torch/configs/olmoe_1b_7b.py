@@ -1,0 +1,16 @@
+"""OLMoE-1B-7B [moe] — 16L d_model=2048 16H (GQA kv=16) d_ff=1024/expert
+vocab=50304, 64 experts top-8. [arXiv:2409.02060; hf]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="olmoe-1b-7b", family="moe",
+    n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16, d_ff=1024,
+    vocab_size=50304, n_experts=64, top_k=8, rope_theta=10000.0,
+)
+
+SMOKE = ModelConfig(
+    name="olmoe-smoke", family="moe",
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=32,
+    vocab_size=256, n_experts=8, top_k=2, capacity_factor=4.0,
+    q_chunk=16, attn_chunk=16, compute_dtype="float32",
+)

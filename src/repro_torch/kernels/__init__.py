@@ -16,4 +16,6 @@ Kernels:
                        (``ops.flash_prefill``, the model's prefill)
   chunked_attention    length-masked decode attention over the KV cache
                        (``ops.decode_attention``, the model's decode step)
+  grouped_matmul       ragged grouped GEMM, the MoE experts
+                       (``ops.grouped_matmul``, ``ops.grouped_matmul_ragged``)
 """

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("ranged_spgemm", "sparse_accum_spgemm", "hash_accum_spgemm",
            "hash_masked_accum_spgemm", "bsr_spgemm", "bsr_spmm", "flash_prefill",
-           "chunked_attention")
+           "chunked_attention", "grouped_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -167,14 +167,16 @@ def bind(name: str, fn: str, n_ptr: int, n_int: int):
 
 
 def launch(name: str, fn: str, pointers, ints) -> None:
-    """Call ``fn`` on the current stream; raise on a non-zero CUDA error."""
+    """Call ``fn`` on the current stream; raise on a non-zero CUDA error. A
+    pointer given as None is passed as NULL."""
     f, err = bind(name, fn, len(pointers), len(ints))
     stream = torch.cuda.current_stream().cuda_stream
     timer = _TIMER
     if timer is not None:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-    code = f(*[t.data_ptr() for t in pointers], *[int(v) for v in ints], stream)
+    code = f(*[None if t is None else t.data_ptr() for t in pointers],
+             *[int(v) for v in ints], stream)
     if timer is not None:
         end.record()
         timer.events.append((start, end))

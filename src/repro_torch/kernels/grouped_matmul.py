@@ -1,0 +1,128 @@
+"""Ragged grouped GEMM: the MoE expert compute, ``y[t] = x[t] @ w[g(t)]``.
+
+The port of the JAX package's ``kernels/grouped_matmul.py``. The rows of x
+come in segments, each of one group: segment s is rows ``[seg_rows[s],
+seg_rows[s + 1])`` of x and y, multiplied by ``w[seg_group[s]]``. Two
+entries launch the same CUDA kernel (``csrc/grouped_matmul.cu``) on the card
+and run :func:`grouped_matmul_plain` on the CPU:
+
+* :func:`grouped_matmul_padded`, the reference's API: rows sorted by group
+  and each group padded to a multiple of ``bt``, one group id per ``bt``-row
+  tile (``tile_group``, from :func:`plan_groups` on the host). Every tile is
+  a segment, so its zero pad rows give zero rows of y.
+* :func:`grouped_matmul_ragged`, the model's entry: groups ``0..E-1`` in
+  order, group g's rows ``[seg_rows[g], seg_rows[g + 1])`` with no padding,
+  ``seg_rows`` a device tensor. It never reads ``seg_rows`` back to the host:
+  the kernel's grid is sized by the bound ``ceil(T / TILE_ROWS) + E`` and
+  blocks past the real tiles exit. Rows of y from ``seg_rows[E]`` on are not
+  computed: the kernel leaves them unwritten and the plain version writes
+  zeros.
+
+Products and sums are f32 (bf16 operands widened, so each product is
+exact), and y is rounded once to ``out_dtype`` (default x's dtype).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels._build import LaunchCounter, launch, require
+
+LAUNCHES = LaunchCounter()
+TILE_ROWS = 128      # rows of y a block of the kernel owns (BM in the source)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def plan_groups(group_sizes, bt: int):
+    """Host-side plan: padded offsets + per-tile group ids for ragged groups.
+
+    Returns (padded_offsets[E+1], tile_group[T_pad//bt], t_pad)."""
+    sizes = np.asarray(group_sizes, np.int64)
+    padded = -(-sizes // bt) * bt
+    offsets = np.concatenate([[0], np.cumsum(padded)])
+    t_pad = int(offsets[-1])
+    tile_group = np.repeat(np.arange(sizes.size, dtype=np.int32), padded // bt)
+    return offsets.astype(np.int64), tile_group, max(t_pad, bt)
+
+
+def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor, seg_rows, seg_group=None,
+                         out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain version: one f32 ``torch.matmul`` per segment, cast to
+    ``out_dtype``; rows outside every segment are zeros. ``seg_rows`` and
+    ``seg_group`` may live on the card (they are read back)."""
+    bounds = torch.as_tensor(seg_rows).tolist()
+    groups = (range(len(bounds) - 1) if seg_group is None
+              else torch.as_tensor(seg_group).tolist())
+    y = torch.zeros((x.shape[0], w.shape[2]), dtype=out_dtype or x.dtype, device=x.device)
+    for r0, r1, g in zip(bounds[:-1], bounds[1:], groups):
+        if r1 > r0:
+            y[r0:r1] = torch.matmul(x[r0:r1].float(), w[g].float()).to(y.dtype)
+    return y
+
+
+def _check_operands(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}: expected [T, K] "
+                         "and [E, K, N]")
+
+
+def _launch(x, w, seg_rows, seg_group, n_seg: int, n_tiles: int, out_dtype) -> torch.Tensor:
+    """The kernel on the card: operand checks, the output, one launch."""
+    if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
+        raise ValueError(f"the kernel takes f32/bf16 operands and output; got {x.dtype} "
+                         f"-> {out_dtype}")
+    for name, t in (("x", x), ("w", w)):
+        require(t, name, x.dtype, x.device)
+    require(seg_rows, "seg_rows", torch.int64, x.device)
+    if seg_group is not None:
+        require(seg_group, "seg_group", torch.int32, x.device)
+    e, k, n = w.shape
+    y = torch.empty((x.shape[0], n), dtype=out_dtype, device=x.device)
+    launch("grouped_matmul", "grouped_matmul_launch", [x, w, y, seg_rows, seg_group],
+           [n_seg, n_tiles, k, n, e, _DTYPES[x.dtype], _DTYPES[out_dtype]])
+    LAUNCHES.bump()
+    return y
+
+
+def grouped_matmul_ragged(x: torch.Tensor, w: torch.Tensor, seg_rows: torch.Tensor,
+                          out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x ``[T, K]`` with group g's rows at ``[seg_rows[g], seg_rows[g + 1])``
+    (``seg_rows`` int64 ``[E + 1]``, ascending, ``seg_rows[E] <= T``), w
+    ``[E, K, N]``; returns y ``[T, N]``. Nothing is read back to the host."""
+    _check_operands(x, w)
+    if tuple(seg_rows.shape) != (w.shape[0] + 1,):
+        raise ValueError(f"seg_rows {tuple(seg_rows.shape)} != ({w.shape[0] + 1},)")
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return grouped_matmul_plain(x, w, seg_rows, out_dtype=out_dtype)
+    e = w.shape[0]
+    n_tiles = -(-x.shape[0] // TILE_ROWS) + e
+    return _launch(x, w, seg_rows, None, e, n_tiles, out_dtype)
+
+
+def grouped_matmul_padded(x: torch.Tensor, w: torch.Tensor, tile_group,
+                          bt: int = 128, bn: int = 128, bk: int = 128,
+                          out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x: [T_pad, K] tokens sorted+padded by group; w: [E, K, N];
+    tile_group: int32[T_pad // bt] group id per token tile. Returns [T_pad, N].
+
+    The reference's divisibility rules hold; ``bn`` and ``bk`` are its Pallas
+    block sizes and choose nothing here (the kernel tiles N and K itself)."""
+    _check_operands(x, w)
+    t_pad, kdim = x.shape
+    e, _, ndim = w.shape
+    if t_pad % bt or kdim % bk or ndim % bn:
+        raise ValueError(f"shapes ({t_pad},{kdim},{ndim}) not divisible by tiles "
+                         f"({bt},{bk},{bn})")
+    tile_group = torch.as_tensor(tile_group)
+    groups = tile_group.tolist()
+    if tuple(tile_group.shape) != (t_pad // bt,) or not all(0 <= g < e for g in groups):
+        raise ValueError(f"tile_group must hold {t_pad // bt} group ids in [0, {e})")
+    seg_rows = torch.arange(0, t_pad + 1, bt, dtype=torch.int64, device=x.device)
+    seg_group = tile_group.to(device=x.device, dtype=torch.int32)
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return grouped_matmul_plain(x, w, seg_rows, seg_group, out_dtype)
+    n_tiles = len(groups) * -(-bt // TILE_ROWS)
+    return _launch(x, w, seg_rows, seg_group, len(groups), n_tiles, out_dtype)

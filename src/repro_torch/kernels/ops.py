@@ -3,19 +3,22 @@ symbolic planning (NumPy) and the zero-sentinel block appended; then the
 kernel (on the card) or its plain version (on the CPU).
 
 The port of the JAX package's ``kernels/ops.py``: ``bsr_spgemm``,
-``bsr_spmm``, and the attention wrappers ``flash_prefill`` and
-``decode_attention`` that the model's serving path calls. ``grouped_matmul``
-(MoE expert compute) is not ported yet.
+``bsr_spmm``, ``grouped_matmul`` (host-planned, padded: the reference's
+API), and the wrappers the model's serving path calls: the attention
+wrappers ``flash_prefill`` and ``decode_attention``, and
+``grouped_matmul_ragged``, the MoE layer's sync-free grouped GEMM.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import bsr_spgemm as _spgemm
 from repro_torch.kernels import bsr_spmm as _spmm
 from repro_torch.kernels import chunked_attention as _attn
 from repro_torch.kernels import flash_prefill as _fp
+from repro_torch.kernels import grouped_matmul as _gmm
 from repro_torch.sparse.bsr import BSR
 
 
@@ -59,6 +62,34 @@ def bsr_spmm(A: BSR, x: torch.Tensor, meta: _spmm.BsrSpmmMeta | None = None,
     return _spmm.bsr_spmm_blocks(_with_zero_block(A.blocks), x.contiguous(),
                                  meta.a_slots, meta.a_cols, mb=A.mb,
                                  u_max=meta.u_max, bs=A.block_size, bn=bn_eff)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes,
+                   bt: int = 128, bn: int = 128, bk: int = 128):
+    """Ragged grouped GEMM over *unsorted-by-tile* data already grouped by expert:
+    x rows [sum(group_sizes), K] laid out group-contiguously.
+
+    Returns (y [T_pad, N], padded_offsets) where rows [padded_offsets[g],
+    padded_offsets[g] + group_sizes[g]) of y hold group g's outputs; the pad
+    rows of y are zeros. The plan is made on the host (NumPy)."""
+    sizes = np.asarray(torch.as_tensor(group_sizes).cpu(), np.int64)
+    offsets, tile_group, t_pad = _gmm.plan_groups(sizes, bt)
+    if not tile_group.size:   # every group empty (the reference's kernel fails here)
+        return x.new_zeros((t_pad, w.shape[2])), offsets
+    dst_rows = np.concatenate([np.arange(n) + offsets[g] for g, n in enumerate(sizes)])
+    xp = x.new_zeros((t_pad, x.shape[1]))
+    xp[torch.from_numpy(dst_rows).to(x.device)] = x[: int(sizes.sum())]
+    y = _gmm.grouped_matmul_padded(xp, w.contiguous(), torch.from_numpy(tile_group),
+                                   bt=bt, bn=bn, bk=bk)
+    return y, offsets
+
+
+def grouped_matmul_ragged(x: torch.Tensor, w: torch.Tensor, seg_rows: torch.Tensor,
+                          out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Group g's rows ``[seg_rows[g], seg_rows[g + 1])`` of x times ``w[g]``,
+    planned on the device (no host sync); rows from ``seg_rows[-1]`` on are
+    not computed. ``[T, N]`` in ``out_dtype`` (default x's)."""
+    return _gmm.grouped_matmul_ragged(x, w, seg_rows, out_dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,8 +1,7 @@
 """Plain oracles of the kernels (the ground truth of their tests).
 
 The port of the JAX package's ``kernels/ref.py``: ``bsr_spgemm_ref``,
-``bsr_spmm_ref`` and ``decode_attention_ref``. ``grouped_matmul_ref`` waits
-for the MoE slice.
+``bsr_spmm_ref``, ``grouped_matmul_ref`` and ``decode_attention_ref``.
 """
 
 from __future__ import annotations
@@ -19,6 +18,14 @@ def bsr_spgemm_ref(A: BSR, B: BSR) -> torch.Tensor:
 
 def bsr_spmm_ref(A: BSR, x: torch.Tensor) -> torch.Tensor:
     return bsr_to_dense(A).float() @ x.float()
+
+
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                       token_group: torch.Tensor) -> torch.Tensor:
+    """y[t] = x[t] @ w[token_group[t]] — per-token gather of the expert weight
+    (a [T, K, N] copy: small inputs only)."""
+    wt = w[token_group.long()]  # [T, K, N]
+    return torch.einsum("tk,tkn->tn", x.float(), wt.float())
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

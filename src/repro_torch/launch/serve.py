@@ -7,10 +7,12 @@ prefill, then decodes greedily until every sequence emits EOS or hits
 batch drains (static shapes). One card holds the model whole, so there is
 no mesh and no sharding. On the card, prefill and decode attention run the
 hand-written CUDA kernels (``kernels/csrc/flash_prefill.cu``,
-``kernels/csrc/chunked_attention.cu``).
+``kernels/csrc/chunked_attention.cu``), and the experts of an MoE model
+run the grouped-GEMM kernel (``kernels/csrc/grouped_matmul.cu``).
 
     python -m repro_torch.launch.serve --arch llama3.2-1b
-    python -m repro_torch.launch.serve --arch llama3.2-1b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b --smoke --device cpu
 """
 
 from __future__ import annotations

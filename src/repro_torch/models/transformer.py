@@ -1,6 +1,6 @@
-"""Decoder assembly of the dense family, for serving.
+"""Decoder assembly of the dense and MoE families, for serving.
 
-The port of the dense, frontend-free parts of the JAX package's
+The port of the dense and MoE, frontend-free parts of the JAX package's
 ``models/transformer.py``:
   init_params(cfg, generator, device)        -> Transformer
   init_cache(cfg, batch_size, cache_len)     -> cache dict
@@ -16,7 +16,9 @@ scales stay f32. The KV cache is updated in place: ``decode_step`` writes
 the new token's K and V into the cache it is given and returns that same
 dict with ``pos`` advanced.
 
-The MoE, SSM and hybrid families and the modality frontends raise
+A layer of the MoE family holds an ``MoE`` (``models/moe.py``) in place of
+the MLP; serving discards its load-balancing auxiliary, as the reference's
+does. The SSM and hybrid families and the modality frontends raise
 ``NotImplementedError``; they are queued in ROADMAP.md.
 """
 
@@ -28,15 +30,16 @@ from torch import nn
 from repro_torch.models import attention as att
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Embed, RMSNorm, cdtype
+from repro_torch.models.moe import MoE
 from repro_torch.sparse.csr import resolve_device
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for a configuration whose family or frontend is not ported."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to repro_torch "
-            "(only 'dense'); see ROADMAP.md Queue 1 item 9")
+            "(only 'dense' and 'moe'); see ROADMAP.md Queue 1 item 9")
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: frontend {cfg.frontend!r} is not ported to repro_torch; "
@@ -49,19 +52,26 @@ class DecoderLayer(nn.Module):
         self.norm1 = RMSNorm(cfg, device)
         self.attn = att.Attention(cfg, device)
         self.norm2 = RMSNorm(cfg, device)
-        self.mlp = MLP(cfg, device)
+        self.is_moe = cfg.family == "moe"
+        if self.is_moe:
+            self.moe = MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
+
+    def ffn(self, x):
+        return self.moe(x) if self.is_moe else self.mlp(x)
 
     def prefill(self, x, cfg, positions, cache_k, cache_v):
         x = x + att.attn_prefill(self.attn, self.norm1(x), cfg, positions, cache_k, cache_v)
-        return x + self.mlp(self.norm2(x))
+        return x + self.ffn(self.norm2(x))
 
     def decode(self, x, cfg, cache_k, cache_v, pos):
         x = x + att.attn_decode(self.attn, self.norm1(x), cfg, cache_k, cache_v, pos)
-        return x + self.mlp(self.norm2(x))
+        return x + self.ffn(self.norm2(x))
 
 
 class Transformer(nn.Module):
-    """The dense decoder: embedding and head, ``n_layers`` decoder layers,
+    """The decoder: embedding and head, ``n_layers`` decoder layers,
     the final norm. Weights are allocated uninitialised; fill them with
     :meth:`init_weights` or ``convert.params_from_jax``."""
 

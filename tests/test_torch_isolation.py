@@ -26,6 +26,8 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.kernels.hash_accum_spgemm" in mods
     assert "repro_torch.kernels.flash_prefill" in mods
     assert "repro_torch.launch.serve" in mods
+    assert "repro_torch.kernels.grouped_matmul" in mods
+    assert "repro_torch.models.moe" in mods
     code = "\n".join([
         "import sys",
         "sys.modules['jax'] = None",

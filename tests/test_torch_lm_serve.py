@@ -78,7 +78,7 @@ def test_configs_equal_reference_field_for_field(arch):
 
 def test_get_config_refuses_unported_and_unknown_archs():
     with pytest.raises(ValueError, match="ROADMAP"):
-        configs.get_config("olmoe-1b-7b")
+        configs.get_config("rwkv6-3b")
     with pytest.raises(ValueError, match="unknown arch"):
         configs.get_config("gpt-17")
     # llama3.2-1b at full width: about 1.50 B parameters with an untied head
@@ -216,11 +216,10 @@ def test_window_decode_refuses_the_card():
 
 
 @pytest.mark.parametrize("kw", [
-    {"family": "moe", "n_experts": 4, "top_k": 2},
     {"family": "ssm", "ssm_family": "rwkv6"},
     {"family": "hybrid", "ssm_family": "mamba2", "ssm_state": 8, "attn_every": 2},
     {"frontend": "vision_stub"},
-], ids=["moe", "ssm", "hybrid", "frontend"])
+], ids=["ssm", "hybrid", "frontend"])
 def test_unported_families_raise(kw):
     cfg = ModelConfig(**{**dataclasses.asdict(CFG), **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
