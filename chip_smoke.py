@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the CUDA kernels of
-``src/repro_torch/kernels/csrc`` (into ``build/repro_torch/``), holds each
-kernel, in both streaming orders, against its plain PyTorch version at the
+``src/repro_torch/kernels/csrc`` (into ``build/repro_torch/``), finds the
+tensor-core instructions in the libraries of the two routed kernels
+(``cuobjdump -sass``: HMMA in the prefill's, HGMMA and HMMA in the grouped
+GEMM's), holds each kernel, in both streaming orders, against its plain PyTorch version at the
 shapes the main path stages, at a four-chunk plan with a nonzero C_prev, and
 on a small geometry whose dense output row fills its hash table, then runs
 the main path — ``multigrid.problem`` on the card, the host
@@ -19,20 +21,25 @@ backend on brick3d n=48 and ``ops.bsr_spmm`` of brick3d n=48 by a
 110,592 x 128 dense block, each held to scipy in float64, with the masked,
 BSR x BSR and BSR x dense kernels first held to their plain versions. Then
 the third path, serving: the flash-prefill and decode-attention kernels
-held to their plain versions in f32 and bf16 at the serve run's shapes and
-on small ragged cases, then ``serve_batch`` of Llama-3.2-1B at full width
+held to their plain versions in f32 and bf16 (the prefill kernel's FMA and
+tensor-core routes) at the serve run's shapes and on small ragged cases (GQA
+groups of 1 and 4 at D = 64, and of 1, 3, 4, 8 and 9 at D = 128), then
+``serve_batch`` of Llama-3.2-1B at full width
 (random weights from a seed, 8 prompts of 128-2048 tokens, 32 new tokens),
 its kernel launches counted, and its prefill and per-step logits held,
 teacher-forced on its own tokens, to the same model with the two kernels
-swapped for their plain versions. Then the fourth path, MoE serving: the
-grouped-GEMM kernel held to its plain version in f32 and bf16 at the shapes
-of OLMoE-1B-7B's first expert product (prefill and decode, from the serve
-batch's own routing), on ragged edge cases and through the padded
-``ops.grouped_matmul``; one full-width MoE layer through the kernel path
-and the plain path; ``serve_batch`` of OLMoE-1B-7B at full width, its
-launches counted and its bf16 logits and routes compared with the plain
-path (printed); and the same model in f32, teacher-forced through both
-paths, its logits held to the plain path's.
+swapped for their plain versions, and one decode step and one prefill
+traced. Then the fourth path, MoE serving: the grouped-GEMM kernel held to
+its plain version in bf16 by each of its three routes (tile, small, fma)
+and in f32 at the shapes of OLMoE-1B-7B's first expert product (prefill and
+decode, from the serve batch's own routing), on ragged edge cases (where a
+forced tensor-core route the operands do not fit must raise) and through
+the padded ``ops.grouped_matmul``; one full-width MoE layer through the
+kernel path and the plain path; ``serve_batch`` of OLMoE-1B-7B at full
+width, its launches counted by route, one prefill and one decode step
+traced, and its bf16 logits and routes compared with the plain path
+(printed); and the same model in f32, teacher-forced through both paths,
+its launches all on the fma routes and its logits held to the plain path's.
 Every line of output is one JSON object; the last one is
 ``{"ok": true, "device": ...}``. Any failed check raises, so the exit code
 is not 0. Without a CUDA card, or without the package beside this file, it
@@ -81,6 +88,16 @@ REPLACES = {
     "grouped_matmul": "src/repro/kernels/grouped_matmul.py:41",
 }
 SOURCE_FILE = {"decode_attention": "chunked_attention"}   # kernel -> csrc/<file>.cu
+# kernels with several routes (their wrappers count each route's launches),
+# the tensor-core instructions their built libraries must hold, and the
+# names their CUDA kernels have in a profiler trace
+ROUTED = ("flash_prefill", "grouped_matmul")
+SASS_OPS = {"flash_prefill": ("HMMA",), "grouped_matmul": ("HGMMA", "HMMA")}
+TRACE_NAMES = {"flash_prefill": ("flash_prefill_kernel", "flash_prefill_tc_kernel"),
+               "decode_attention": ("decode_attention_kernel",),
+               "grouped_matmul": ("gmm_tile_kernel", "gmm_small_kernel",
+                                  "grouped_matmul_kernel")}
+TRACE_TRIES = 3   # traces of one call taken until one holds every expected launch
 
 # the attention kernels against their plain versions: in f32 the sums are
 # taken in another order; in bf16 both versions sum the same bf16 inputs in
@@ -88,6 +105,11 @@ SOURCE_FILE = {"decode_attention": "chunked_attention"}   # kernel -> csrc/<file
 # ulp at a rounding boundary (two allowed, plus the f32 tolerance near zero)
 ATTN_F32_ATOL = 2e-5
 ATTN_BF16_ULPS = 2
+# the GQA groups (query heads per KV head) and head widths of the ragged
+# attention cases: Llama's D = 64, and D = 128 at the groups of the ported
+# configs (1 OLMoE, 3 minitron-4b, 4, 8 deepseek-67b, 9 starcoder2-7b; 9
+# does not divide the prefill kernels' 64-row query tile)
+ATTN_RAGGED_GQA = ((1, 64), (4, 64), (1, 128), (3, 128), (4, 128), (8, 128), (9, 128))
 # the serve run: Llama-3.2-1B at full width, random weights and prompts
 LM_ARCH, LM_WEIGHT_SEED, LM_PROMPT_SEED = "llama3.2-1b", 1234, 13
 LM_BATCH, LM_PROMPT_LENS, LM_CACHE, LM_NEW = 8, (128, 2048), 4096, 32
@@ -105,6 +127,8 @@ MOE_ARCH = "olmoe-1b-7b"
 # same f32 sums rounded once, so within two ulps (plus the f32 atol near 0)
 GMM_F32_ATOL, GMM_F32_RTOL, GMM_BF16_ULPS = 1e-4, 1e-5, 2
 GMM_EDGE_SEED = 14
+GMM_PREFILL_LABEL = "serve_prefill_layer0_w1"   # the grouped GEMM's two served shapes
+GMM_DECODE_LABEL = "serve_decode_layer0_w1"
 # the f32 end-to-end gate: teacher-forced logits of the kernel path against
 # the plain path, relative to the plain logits' std (summation order only:
 # in f32 no rounding flip of a near-tied route is plausible)
@@ -160,6 +184,82 @@ def device_busy_ms(prof) -> float:
 
     return sum(e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def device_by_name(prof) -> dict:
+    """A trace's device activities by name: (summed ms, count) of each."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return by_name
+
+
+def traced_call(torch, fn, want: dict | None = None, top: int = 8) -> dict:
+    """One call of ``fn`` under the profiler: its wall ms (the profiler's
+    cost included), the device's busy ms and share of it, the number of
+    device activities, the ``top`` names by device ms with their counts, and
+    the device ms and launches of each port kernel (``TRACE_NAMES``). The
+    profiler loses activities of some calls, so up to ``TRACE_TRIES`` calls
+    are traced until one holds the launches ``want`` gives (kernel ->
+    count); ``complete`` says whether one did."""
+    for tries in range(1, TRACE_TRIES + 1):
+        wall = []
+
+        def call():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        by_name = device_by_name(profiled(torch, call))
+        kernels = {}
+        for kernel, names in TRACE_NAMES.items():
+            hits = [v for name, v in by_name.items() if any(n in name for n in names)]
+            kernels[kernel] = {"device_ms": sum(ms for ms, _ in hits),
+                               "launches": sum(c for _, c in hits)}
+        complete = all(kernels[k]["launches"] == n for k, n in (want or {}).items())
+        if complete:
+            break
+    busy = sum(ms for ms, _ in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall[0], "device_busy_ms": busy,
+            "device_busy_share": busy / wall[0] if busy > 0 else None,
+            "device_activities": sum(n for _, n in by_name.values()),
+            "port_kernels": kernels, "expected_launches": want, "complete": complete,
+            "traces": tries,
+            "top_device_ms": {name: ms for name, (ms, _) in ranked},
+            "top_device_launches": {name: n for name, (_, n) in ranked}}
+
+
+def bound_of(moved: int, flops: int, flop_rate: str) -> dict:
+    """The least time of a function on this card: its bytes over the memory
+    rate or its operations over the peak rate ``flop_rate``, the larger."""
+    t_bytes = moved / PEAK["bytes_per_s"] * 1e3
+    t_ops = flops / PEAK[flop_rate] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def library_fields(library, bound_ms: float) -> dict:
+    """A phase's library yardstick (wall ms, device ms, empty traces, error
+    text) for the kernels line. A time under the phase's bound comes from a
+    partial measurement (no complete run of the same work can take less),
+    so it is recorded as lost, with the reason, as a device time is when
+    every trace came back empty."""
+    wall, device, empty, error = library
+    lost = {}
+    if wall is not None and device is None and empty:
+        lost["device"] = f"{empty} of {empty} profiler traces held no device activity"
+    for key, value in (("wall", wall), ("device", device)):
+        if value is not None and value < bound_ms:
+            lost[key] = (f"{value} ms is under the {bound_ms} ms bound: the measurement "
+                         "saw only part of the work")
+    return {"library_ms": None if "wall" in lost else wall,
+            "library_device_ms": None if "device" in lost else device,
+            "library_lost": lost or None, "library_error": error}
 
 
 def device_ms(torch, fn, reps: int = 5) -> tuple:
@@ -230,6 +330,10 @@ class Smoke:
         # the hash module)
         self.counters = {k: mod.LAUNCHES for k, mod in self.kernels.items()}
         self.counters["hash_masked_accum_spgemm"] = hash_accum_spgemm.MASKED_LAUNCHES
+        # the routes of the two kernels that have several, as "kernel/route"
+        for kernel in ROUTED:
+            for route, counter in self.kernels[kernel].ROUTE_LAUNCHES.items():
+                self.counters[f"{kernel}/{route}"] = counter
         self.backend_kernel = {"pallas": "ranged_spgemm",
                                "sparse": "sparse_accum_spgemm",
                                "hash": "hash_accum_spgemm",
@@ -239,6 +343,11 @@ class Smoke:
         self.phase = {}       # kernel -> numbers of its recorded kernel phase
         self.max_err = {}     # kernel -> largest error against its plain version
         self.launches = {}    # kernel -> launches in its main-path run
+        # "kernel/route" -> (the run that launches the route on the main
+        # path, its launches there); (kernel, route, shape) -> the numbers of
+        # that route's kernels-line row at that shape
+        self.route_runs = {}
+        self.route_rows = {}
 
     # -- setup -------------------------------------------------------------
 
@@ -276,6 +385,24 @@ class Smoke:
         emit({"build": {"seconds": seconds,
                         "per_source_s": {k: v["seconds"] for k, v in log.items()},
                         "ptxas": resources}})
+
+    def sass_phase(self) -> None:
+        """The tensor-core instructions in the built libraries of the routed
+        kernels, counted in ``cuobjdump -sass`` (from nvcc's own directory):
+        HGMMA is wgmma (the grouped GEMM's tile route), HMMA mma.sync (the
+        prefill's tc route, the grouped GEMM's small route)."""
+        b = self.m["build"]
+        tool = Path(b.nvcc_path()).parent / "cuobjdump"
+        check(tool.exists(), f"{tool} is missing: the SASS check cannot run")
+        counts = {}
+        for name, ops in SASS_OPS.items():
+            sass = subprocess.run([str(tool), "-sass", str(b.BUILD_DIR / f"lib{name}.so")],
+                                  capture_output=True, text=True, timeout=300,
+                                  check=True).stdout
+            counts[name] = {op: sass.count(op) for op in ops}
+            for op in ops:
+                check(counts[name][op] > 0, f"lib{name}.so holds no {op} instruction")
+        emit({"sass_phase": counts, "tool": str(tool)})
 
     def problem(self, name: str, n: int):
         key = (name, n)
@@ -453,27 +580,40 @@ class Smoke:
     def finish_phase(self, kernel, label, orders, main_order, moved, flops, library,
                      shapes, record, launches_per_call=None, flop_rate="f32_flops") -> None:
         """Emit one kernel phase; ``flop_rate`` names the peak its operations
-        are bounded by (the f32 rate, or the bf16 tensor-core rate)."""
-        t_bytes = moved / PEAK["bytes_per_s"] * 1e3
-        t_ops = flops / PEAK[flop_rate] * 1e3
-        bound = {"bound_ms": max(t_bytes, t_ops),
-                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        library_ms, library_device_ms, library_empty_traces, library_error = library
+        are bounded by (the f32 rate, or the bf16 tensor-core rate). A library
+        time under the bound is recorded as lost (``library_fields``)."""
+        bound = bound_of(moved, flops, flop_rate)
+        lib = library_fields(library, bound["bound_ms"])
         err = max(o["max_abs_err"] for o in orders.values())
-        self.max_err[kernel] = max(self.max_err.get(kernel, 0.0), err)
+        self.note_err(kernel, err)
         if record:
             main = orders[main_order]
             self.phase[kernel] = {"ms": main["ms"], "wrapper_ms": main["wrapper_ms"],
                                   "plain_ms": main["plain_ms"], **bound,
-                                  "library_ms": library_ms,
-                                  "library_device_ms": library_device_ms}
+                                  "library_ms": lib["library_ms"],
+                                  "library_device_ms": lib["library_device_ms"],
+                                  "library_lost": lib["library_lost"]}
         emit({"kernel_phase": kernel, "label": label, "main_order": main_order,
               "orders": orders, "shapes": shapes, "bytes": moved, "flops": flops, **bound,
-              "launches_per_call": launches_per_call,
-              "library_ms": library_ms, "library_device_ms": library_device_ms,
-              "library_empty_traces": library_empty_traces,
-              "library_error": library_error, "peaks_of": PEAK["part"],
+              "launches_per_call": launches_per_call, **lib,
+              "library_empty_traces": library[2], "peaks_of": PEAK["part"],
               "flop_rate": flop_rate, "ops_ms_at_f32": flops / PEAK["f32_flops"] * 1e3})
+
+    def note_err(self, key: str, err: float) -> None:
+        """The largest error of a kernel (or "kernel/route") against its
+        plain version so far."""
+        self.max_err[key] = max(self.max_err.get(key, 0.0), err)
+
+    def route_row(self, kernel: str, route: str, shape: str, numbers: dict, moved: int,
+                  flops: int, flop_rate: str, library, **extra) -> None:
+        """File one route's kernels-line numbers at one served shape: its
+        ``ms``, ``wrapper_ms`` and ``plain_ms``, the bound of the function in
+        the row's dtype, and the library yardstick in that dtype."""
+        bound = bound_of(moved, flops, flop_rate)
+        self.route_rows[kernel, route, shape] = {
+            "ms": numbers["ms"], "wrapper_ms": numbers["wrapper_ms"],
+            "plain_ms": numbers["plain_ms"], **bound,
+            **library_fields(library, bound["bound_ms"]), **extra}
 
     def edge_phase(self) -> None:
         """Every kernel in both orders against its plain version on the
@@ -1068,33 +1208,41 @@ class Smoke:
 
     def prefill_kernel_phase(self, label: str, b: int, s: int, h: int, hkv: int, d: int,
                              window: int = 0, record: bool = False) -> None:
-        """The prefill kernel against its plain version in f32 and bf16 on
-        seeded normal q, k, v; ``record`` times the bf16 run, its plain version
-        and SDPA (causal, GQA) for the kernels line."""
+        """The prefill kernel against its plain version in f32 (the fma
+        route) and bf16 (the tc route) on seeded normal q, k, v; ``record``
+        times both runs, their plain versions and SDPA (causal, GQA) in their
+        dtype: the bf16 numbers are the kernel's recorded phase, and each
+        route gets a kernels-line row at this shape."""
         torch, mod = self.torch, self.kernels["flash_prefill"]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         base = self.attn_inputs(s + h + window, (b, s, h, d), (b, s, hkv, d), (b, s, hkv, d))
-        orders, library = {}, (None,) * 4
+        # visible (query, key) pairs of one head: min(position + 1, window)
+        rows = np.arange(1, s + 1)
+        pairs = int(np.minimum(rows, window).sum() if window else rows.sum())
+        elems = 2 * b * s * h * d + 2 * b * s * hkv * d   # q, o, k, v
+        flops = 4 * d * pairs * b * h
+        orders, libraries = {}, {}
         for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             q, k, v = (x.to(dtype) for x in base)
             run = lambda: mod.flash_prefill(q, k, v, window=window)  # noqa: E731
             plain = lambda: mod.flash_prefill_plain(q, k, v, window=window)  # noqa: E731
-            numbers = {"max_abs_err": self.hold_close(f"flash_prefill/{label}/{name}",
-                                                      run(), plain(), ATTN_F32_ATOL,
-                                                      ATTN_BF16_ULPS),
+            route = mod.choose_route(dtype)
+            err = self.hold_close(f"flash_prefill/{label}/{name}", run(), plain(),
+                                  ATTN_F32_ATOL, ATTN_BF16_ULPS)
+            self.note_err(f"flash_prefill/{route}", err)
+            numbers = {"route": route, "max_abs_err": err,
                        "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
-            if record and name == "bf16":
+            if record:
                 numbers["plain_ms"] = cuda_ms(torch, plain, reps=3)
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
                 fn = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
-                library = (cuda_ms(torch, fn), *device_ms(torch, fn), None)
+                libraries[name] = (cuda_ms(torch, fn), *device_ms(torch, fn), None)
+                size, rate = (2, "bf16_flops") if name == "bf16" else (4, "f32_flops")
+                self.route_row("flash_prefill", route, label, numbers, size * elems, flops,
+                               rate, libraries[name], dtype=name)
             orders[name] = numbers
-        # visible (query, key) pairs of one head: min(position + 1, window)
-        rows = np.arange(1, s + 1)
-        pairs = int(np.minimum(rows, window).sum() if window else rows.sum())
-        moved = 2 * (2 * b * s * h * d + 2 * b * s * hkv * d)   # bf16 q, o, k, v
-        flops = 4 * d * pairs * b * h
-        self.finish_phase("flash_prefill", label, orders, "bf16", moved, flops, library,
+        self.finish_phase("flash_prefill", label, orders, "bf16", 2 * elems, flops,
+                          libraries.get("bf16", (None,) * 4),
                           {"b": b, "s": s, "h": h, "hkv": hkv, "d": d, "window": window,
                            "visible_pairs_per_head": pairs}, record, 1, "bf16_flops")
 
@@ -1230,6 +1378,34 @@ class Smoke:
                 "first_tokens_equal": first == first_plain,
                 "teacher_forced_greedy_equal_share": float(np.mean(tf_equal))}
 
+    def route_want(self, cfg, passes: int = LM_NEW) -> dict:
+        """The launches of every route of the routed kernels in one prefill
+        and ``passes - 1`` decode steps of ``cfg``: in bf16 the prefill on the
+        tensor cores, the grouped GEMM on the tile route at prefill (B x S x
+        k rows) and the small route at decode (B x k rows); in f32 all on the
+        fma routes."""
+        layers = cfg.n_layers
+        n_gmm = 3 * layers if cfg.family == "moe" else 0
+        if cfg.compute_dtype == "bfloat16":
+            counts = {"flash_prefill/tc": layers, "grouped_matmul/tile": n_gmm,
+                      "grouped_matmul/small": n_gmm * (passes - 1)}
+        else:
+            counts = {"flash_prefill/fma": layers, "grouped_matmul/fma": n_gmm * passes}
+        return {f"{kernel}/{route}": counts.get(f"{kernel}/{route}", 0)
+                for kernel in ROUTED for route in self.kernels[kernel].ROUTE_LAUNCHES}
+
+    def check_routes(self, label: str, cfg, launches: dict) -> dict:
+        """Every route's launches in a main-path run against ``route_want``;
+        the first run that launches a route is the one its kernels-line rows
+        report."""
+        want = self.route_want(cfg)
+        for key, n in want.items():
+            check(launches[key] == n, f"{label}: {key} launched {launches[key]} times, "
+                  f"expected {n}")
+            if n:
+                self.route_runs.setdefault(key, (label, n))
+        return {key: launches[key] for key in want}
+
     def serve_run(self, label: str, cfg, model, prompts, *, gate: bool) -> list:
         """``serve_batch`` at full width (after a two-token warm-up), its
         launches counted; then the same tokens teacher-forced through the
@@ -1254,6 +1430,7 @@ class Smoke:
         for kernel, n in want.items():
             check(launches[kernel] == n, f"{label}: {kernel} launched {launches[kernel]} "
                   f"times, expected {n}")
+        self.check_routes(label, cfg, launches)
         # the kernels line reports each kernel's launches in the run at the
         # shapes of its recorded phase: attention in the first (dense) run
         for kernel in ("flash_prefill", "decode_attention"):
@@ -1270,25 +1447,23 @@ class Smoke:
             kern, cache = self.teacher_forced(model, cfg, batch, out_t)
         kernel_repeats = bool(torch.equal(torch.stack([x.argmax(-1) for x in kern], 1),
                                           out_t.long()))
-        # one more decode step, traced: the device's busy share of a step
-        wall = []
+        # one more decode step and one prefill, traced: the device's busy
+        # share of each and the port kernels' device time in it
+        tf = self.m["transformer"]
+        n_gmm = 3 * cfg.n_layers if moe else 0
 
         def step():
-            t0 = time.perf_counter()
             with torch.inference_mode():
-                self.m["transformer"].decode_step(model, cache, out_t[:, -1:], cfg)
-            torch.cuda.synchronize()
-            wall.append((time.perf_counter() - t0) * 1e3)
-        prof = profiled(torch, step)
-        busy = device_busy_ms(prof)
-        from torch.autograd import DeviceType
-        by_name, n_device = {}, 0
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                n_device += 1
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+                tf.decode_step(model, cache, out_t[:, -1:], cfg)
+        step_trace = traced_call(torch, step, {"decode_attention": cfg.n_layers,
+                                               "grouped_matmul": n_gmm})
         del cache
+
+        def prefill():
+            with torch.inference_mode():
+                tf.prefill(model, batch, cfg, LM_CACHE)
+        prefill_trace = traced_call(torch, prefill, {"flash_prefill": cfg.n_layers,
+                                                     "grouped_matmul": n_gmm})
 
         with self.plain_path():
             with self.routes(model) as plain_routes:
@@ -1341,10 +1516,7 @@ class Smoke:
               "plain_prefill_ms": plain_stats.prefill_s * 1e3,
               "plain_decode_ms_per_step": plain_stats.decode_s / decode_steps * 1e3,
               "peak_memory_bytes": peak,
-              "decode_step_trace": {"wall_ms": wall[0], "device_busy_ms": busy,
-                                    "device_busy_share": busy / wall[0] if busy > 0 else None,
-                                    "device_activities": n_device,
-                                    "top_device_ms": dict(top)},
+              "decode_step_trace": step_trace, "prefill_trace": prefill_trace,
               "moe": moe_numbers or None, "gated": gate, "check": result})
         return outs
 
@@ -1383,10 +1555,12 @@ class Smoke:
         return self.hold_close(what, got, want, GMM_F32_ATOL, GMM_BF16_ULPS, GMM_F32_RTOL)
 
     def library_gmm(self, x, w, seg_rows, n_rows: int) -> tuple:
-        """The yardstick of the grouped GEMM on the same bf16 operands:
-        ``torch._grouped_mm`` where this torch has it and takes them, else
-        ``torch.bmm`` over the reference's [E, cap, K] capacity buffer.
-        (name, wall ms, device ms, empty traces, error text)."""
+        """The yardstick of the grouped GEMM on the same operands:
+        ``torch._grouped_mm`` where this torch has it and takes them, else,
+        in bf16, ``torch.bmm`` over the reference's [E, cap, K] capacity
+        buffer (in f32 that buffer would take tens of GB at the prefill
+        shape: nothing is timed). (name, wall ms, device ms, empty traces,
+        error text)."""
         torch = self.torch
         error = None
         if hasattr(torch, "_grouped_mm"):
@@ -1397,6 +1571,9 @@ class Smoke:
                 return ("torch._grouped_mm", cuda_ms(torch, fn), *device_ms(torch, fn), None)
             except RuntimeError as err:   # torch refuses: fall back to bmm
                 error = str(err).splitlines()[0]
+        if x.dtype != torch.bfloat16:
+            return ("torch._grouped_mm", None, None, None,
+                    error or "this torch has no torch._grouped_mm")
         sizes = (seg_rows[1:] - seg_rows[:-1]).tolist()
         cap = max(max(sizes), 1)
         buf = x.new_zeros((w.shape[0], cap, x.shape[1]))
@@ -1406,43 +1583,71 @@ class Smoke:
         return ("torch.bmm over the capacity buffer", cuda_ms(torch, fn),
                 *device_ms(torch, fn), error)
 
-    def gmm_kernel_phase(self, label: str, x, seg_rows, w, *, record: bool = False) -> None:
-        """The grouped GEMM against its plain version in bf16 and f32 (the
-        operands widened) on rows ``x`` grouped by ``seg_rows`` against ``w``;
-        ``record`` times the bf16 run, its plain version and the yardstick
-        for the kernels line."""
+    def gmm_kernel_phase(self, label: str, x, seg_rows, w) -> None:
+        """The grouped GEMM against its plain version on rows ``x`` grouped by
+        ``seg_rows`` against ``w``: in bf16 by every route (tile, small, fma)
+        and in f32 (the operands widened; the fma route). The plain version
+        and the library yardstick are timed in each dtype, and the tile and
+        small routes (bf16) and the fma route (f32) each get a kernels-line
+        row at this shape. At the prefill shape the wrapper's own choice in
+        bf16 is the kernel's recorded phase."""
         torch, gm = self.torch, self.kernels["grouped_matmul"]
         n_rows = int(seg_rows[-1])
-        orders, library, name = {}, (None,) * 4, None
-        for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-            xd, wd = x.to(dtype), w.to(dtype)
-            run = lambda: gm.grouped_matmul_ragged(xd, wd, seg_rows)  # noqa: E731
-            plain = lambda: gm.grouped_matmul_plain(xd, wd, seg_rows)  # noqa: E731
-            numbers = {"max_abs_err": self.hold_gmm(f"grouped_matmul/{label}/{dname}",
-                                                    run()[:n_rows], plain()[:n_rows]),
-                       "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
-            if record and dname == "bf16":
-                numbers["plain_ms"] = cuda_ms(torch, plain, reps=3)
-                name, *library = self.library_gmm(xd, wd, seg_rows, n_rows)
-            orders[dname] = numbers
-            del xd, wd
-        sizes = (seg_rows[1:] - seg_rows[:-1])
         e, k, n = w.shape
+        sizes = seg_rows[1:] - seg_rows[:-1]
         used = int((sizes > 0).sum())
-        moved = 2 * (n_rows * k + used * k * n + n_rows * n) + 8 * (e + 1)   # bf16, seg_rows
+        # bytes: x's kept rows, the weights of every expert with a row, y's
+        # kept rows (in the dtype), and seg_rows
+        elems = n_rows * k + used * k * n + n_rows * n
         flops = 2 * n_rows * k * n
-        self.finish_phase("grouped_matmul", label, orders, "bf16", moved, flops, library,
+        chosen = gm.choose_route(torch.bfloat16, torch.bfloat16, k, n, x.shape[0])
+        orders, plain_ms, libraries = {}, {}, {}
+        runs = [(f"bf16_{r}", torch.bfloat16, r) for r in gm.ROUTES] + [
+            ("f32", torch.float32, "fma")]
+        for dname, dtype, route in runs:
+            xd, wd = x.to(dtype), w.to(dtype)
+            run = lambda: gm.grouped_matmul_ragged(xd, wd, seg_rows, route=route)  # noqa: E731
+            plain = lambda: gm.grouped_matmul_plain(xd, wd, seg_rows)  # noqa: E731
+            err = self.hold_gmm(f"grouped_matmul/{label}/{dname}", run()[:n_rows],
+                                plain()[:n_rows])
+            self.note_err(f"grouped_matmul/{route}", err)
+            numbers = {"route": route, "max_abs_err": err, "ms": self.launch_ms(run),
+                       "wrapper_ms": cuda_ms(torch, run)}
+            tag = str(dtype).removeprefix("torch.")
+            if tag not in plain_ms:
+                plain_ms[tag] = cuda_ms(torch, plain, reps=3)
+                libraries[tag] = self.library_gmm(xd, wd, seg_rows, n_rows)
+            numbers["plain_ms"] = plain_ms[tag]
+            orders[dname] = numbers
+            if dname != "bf16_fma":
+                size, rate = (2, "bf16_flops") if tag == "bfloat16" else (4, "f32_flops")
+                name, *library = libraries[tag]
+                self.route_row("grouped_matmul", route, label, numbers,
+                               size * elems + 8 * (e + 1), flops, rate, library,
+                               dtype=tag, library_call=name,
+                               chosen_at_shape=route == gm.choose_route(
+                                   dtype, dtype, k, n, x.shape[0]))
+            del xd, wd
+        record = label == GMM_PREFILL_LABEL
+        name, *library = libraries["bfloat16"]
+        self.finish_phase("grouped_matmul", label, orders, f"bf16_{chosen}",
+                          2 * elems + 8 * (e + 1), flops, library,
                           {"rows": n_rows, "x_rows": x.shape[0], "k": k, "n": n, "groups": e,
                            "groups_used": used, "largest_group": int(sizes.max()),
-                           "library_call": name}, record, 1, "bf16_flops")
+                           "route": chosen, "library_call": name,
+                           "library_f32": libraries["float32"]}, record, 1, "bf16_flops")
         if record:
             self.phase["grouped_matmul"]["library_call"] = name
 
     def gmm_edge_phase(self) -> None:
-        """The kernel on ragged cases, f32 and bf16: empty groups, groups of
-        one row, a single group, all groups empty, N and K off the kernel's
-        128 x 16 tile, rows past the last group; and the padded
-        ``ops.grouped_matmul`` against its CPU (plain) run, pad rows zero."""
+        """The kernel on ragged cases: empty groups, groups of one row, a
+        single group, all groups empty, N and K off the tensor-core routes'
+        16-byte chunks, rows past the last group. f32 (the fma route), bf16
+        by every route the operands fit (tile and small need K and N
+        multiples of 8; forcing either on other operands must raise), and
+        bf16 to an f32 output (the fma route; forcing a tensor-core route
+        must raise); and the padded ``ops.grouped_matmul`` against its CPU
+        (plain) run, pad rows zero."""
         torch, gm, ops = self.torch, self.kernels["grouped_matmul"], self.m["ops"]
         gen = torch.Generator(device="cuda").manual_seed(GMM_EDGE_SEED)
         cases = [([37, 0, 91, 12, 0, 300], 2048, 1000), ([1] * 8, 40, 72),
@@ -1454,12 +1659,37 @@ class Smoke:
                                device="cuda")
             x = torch.randn(t + 9, k, generator=gen, device="cuda")
             w = torch.randn(len(sizes), k, n, generator=gen, device="cuda") * k ** -0.5
-            errs = {}
+            fits = k % 8 == 0 and n % 8 == 0
+            errs, refused = {}, []
             for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
                 xd, wd = x.to(dtype), w.to(dtype)
-                errs[dname] = self.hold_gmm(f"grouped_matmul/edge{sizes}/{dname}",
-                                            gm.grouped_matmul_ragged(xd, wd, seg)[:t],
-                                            gm.grouped_matmul_plain(xd, wd, seg)[:t])
+                want = gm.grouped_matmul_plain(xd, wd, seg)[:t]
+                routes = tuple(gm.ROUTES) if dtype == torch.bfloat16 and fits else ("fma",)
+                for route in routes:
+                    errs[f"{dname}_{route}"] = self.hold_gmm(
+                        f"grouped_matmul/edge{sizes}/{dname}_{route}",
+                        gm.grouped_matmul_ragged(xd, wd, seg, route=route)[:t], want)
+                    self.note_err(f"grouped_matmul/{route}", errs[f"{dname}_{route}"])
+                outs = [(dtype, f"{dname}_out")]
+                if dtype == torch.bfloat16:
+                    outs.append((torch.float32, "bf16_f32out"))
+                for out_dtype, key in outs:
+                    for route in ("tile", "small"):
+                        if out_dtype == dtype and route in routes:
+                            continue
+                        try:
+                            gm.grouped_matmul_ragged(xd, wd, seg, out_dtype, route)
+                        except ValueError:
+                            refused.append(f"{key}_{route}")
+                            continue
+                        check(False, f"grouped_matmul/edge{sizes}/{key}: the {route} route "
+                              "took operands it does not fit")
+                if dtype == torch.bfloat16:
+                    want32 = gm.grouped_matmul_plain(xd, wd, seg, out_dtype=torch.float32)[:t]
+                    got32 = gm.grouped_matmul_ragged(xd, wd, seg, torch.float32)
+                    errs["bf16_f32out_fma"] = self.hold_gmm(
+                        f"grouped_matmul/edge{sizes}/bf16_f32out", got32[:t], want32)
+                    self.note_err("grouped_matmul/fma", errs["bf16_f32out_fma"])
                 y, offs = ops.grouped_matmul(xd[:t], wd, sizes, bt=32, bn=1, bk=1)
                 y_cpu, offs_cpu = ops.grouped_matmul(xd[:t].cpu(), wd.cpu(), sizes, bt=32,
                                                      bn=1, bk=1)
@@ -1469,9 +1699,9 @@ class Smoke:
                 pad = sum(float(y[offs[g] + m: offs[g + 1]].abs().sum())
                           for g, m in enumerate(sizes))
                 check(pad == 0, f"padded {sizes}/{dname}: pad rows are not zero")
-            result.append({"sizes": sizes, "k": k, "n": n, "max_abs_err": errs})
-            self.max_err["grouped_matmul"] = max(self.max_err.get("grouped_matmul", 0.0),
-                                                 *errs.values())
+            result.append({"sizes": sizes, "k": k, "n": n, "max_abs_err": errs,
+                           "refused_routes": refused})
+            self.note_err("grouped_matmul", max(errs.values()))
         emit({"edge_phase": "grouped_matmul_ragged", "cases": result})
 
     def moe_layer_phase(self, label: str, layer, x) -> None:
@@ -1528,10 +1758,12 @@ class Smoke:
         batch = self.lm_batch(prompts)
         out_t = torch.tensor(outs, dtype=torch.int32, device="cuda")
         torch.cuda.reset_peak_memory_stats()
+        self.reset_counters()
         with self.routes(model) as kern_routes:
             kern, cache = self.teacher_forced(model, cfg32, batch, out_t)
         del cache
         peak = torch.cuda.max_memory_allocated()
+        route_launches = self.check_routes(label, cfg32, self.read_counters())
         with self.plain_path(), self.routes(model) as plain_routes:
             plain, cache = self.teacher_forced(model, cfg32, batch, out_t)
         del cache, model
@@ -1541,7 +1773,8 @@ class Smoke:
                                               for r in kern_routes[:cfg.n_layers]]
         result["tolerances"] = [F32_LOGIT_MAX_TOL, F32_LOGIT_MEAN_TOL]
         emit({"run": label, "arch": cfg32.name, "compute_dtype": cfg32.compute_dtype,
-              "peak_memory_bytes": peak, "check": result})
+              "peak_memory_bytes": peak, "route_launches": route_launches,
+              "check": result})
         check(result["logit_max_over_std"] <= F32_LOGIT_MAX_TOL
               and result["logit_mean_over_std"] <= F32_LOGIT_MEAN_TOL,
               f"{label}: f32 teacher-forced logits differ from the plain path by up to "
@@ -1551,21 +1784,41 @@ class Smoke:
               f"!= plain {result['first_tokens_plain']}")
 
     def kernels_line(self) -> None:
+        """One row per kernel; a routed kernel has one row per route and
+        served shape instead (``kernel_route``, ``shape``), whose
+        ``launches`` are the route's launches in ``launches_run``, the
+        main-path run that launches it (the bf16 serve run, or the f32 check
+        for the fma routes); ``chosen_at_shape`` says whether the wrapper
+        picks the route at that shape."""
         rows = []
         for kernel, numbers in self.phase.items():
             check(self.launches.get(kernel, 0) > 0,
                   f"{kernel}: launched no time on its main-path run")
-            rows.append({"name": kernel, "route": "cuda",
-                         "source": "src/repro_torch/kernels/csrc/"
-                                   f"{SOURCE_FILE.get(kernel, kernel)}.cu",
-                         "replaces": REPLACES[kernel],
-                         "launches": self.launches[kernel],
-                         "max_abs_err": self.max_err[kernel], **numbers})
-        check(len(rows) == len(self.kernels), "a kernel phase is missing")
+            base = {"name": kernel, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              f"{SOURCE_FILE.get(kernel, kernel)}.cu",
+                    "replaces": REPLACES[kernel]}
+            if kernel not in ROUTED:
+                rows.append({**base, "launches": self.launches[kernel],
+                             "max_abs_err": self.max_err[kernel], **numbers})
+                continue
+            for route in self.kernels[kernel].ROUTE_LAUNCHES:
+                key = f"{kernel}/{route}"
+                check(key in self.route_runs, f"{key}: launched no time on the main path")
+                run, launches = self.route_runs[key]
+                shapes = [sh for (k, r, sh) in self.route_rows if (k, r) == (kernel, route)]
+                check(bool(shapes), f"{key}: no timed phase")
+                for shape in shapes:
+                    rows.append({**base, "kernel_route": route, "shape": shape,
+                                 "launches": launches, "launches_run": run,
+                                 "max_abs_err": self.max_err[key],
+                                 **self.route_rows[kernel, route, shape]})
+        check({r["name"] for r in rows} == set(self.kernels), "a kernel phase is missing")
         emit({"kernels": rows})
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1582,6 +1835,7 @@ def main() -> int:
     smoke = Smoke(torch)
     smoke.card()
     smoke.build()
+    smoke.sass_phase()
 
     # kernel phases at the shapes the main path stages (quickstart budget,
     # chunk2 6x1: these numbers go into the kernels line), then at the chunk1
@@ -1667,10 +1921,11 @@ def main() -> int:
     smoke.prefill_kernel_phase("serve_prefill", LM_BATCH, s_pad, h, hkv, d, record=True)
     smoke.decode_kernel_phase("serve_decode_mid", LM_BATCH, hkv, h // hkv, d, LM_CACHE,
                               [s_pad + LM_NEW // 2] * LM_BATCH, record=True)
-    for g in (1, 4):
+    for g, dg in ATTN_RAGGED_GQA:
+        tag = f"g{g}" if dg == d else f"g{g}_d{dg}"
         for window in (0, 24):
-            smoke.prefill_kernel_phase(f"ragged_g{g}_w{window}", 2, 100, 2 * g, 2, d, window)
-        smoke.decode_kernel_phase(f"ragged_g{g}", 4, 2, g, d, 300, [300, 1, 129, 0])
+            smoke.prefill_kernel_phase(f"ragged_{tag}_w{window}", 2, 100, 2 * g, 2, dg, window)
+        smoke.decode_kernel_phase(f"ragged_{tag}", 4, 2, g, dg, 300, [300, 1, 129, 0])
     model = smoke.m["transformer"].init_params(
         cfg, torch.Generator(device="cuda").manual_seed(LM_WEIGHT_SEED), "cuda")
     smoke.serve_run("serve_llama3_2_1b", cfg, model, prompts, gate=True)
@@ -1687,9 +1942,8 @@ def main() -> int:
         cfg, torch.Generator(device="cuda").manual_seed(LM_WEIGHT_SEED), "cuda")
     captured = smoke.capture_moe_inputs(model, cfg, smoke.lm_batch(prompts))
     w1 = model.layers[0].moe.w1
-    smoke.gmm_kernel_phase("serve_prefill_layer0_w1", *captured["prefill"][1:], w1,
-                           record=True)
-    smoke.gmm_kernel_phase("serve_decode_layer0_w1", *captured["decode"][1:], w1)
+    smoke.gmm_kernel_phase(GMM_PREFILL_LABEL, *captured["prefill"][1:], w1)
+    smoke.gmm_kernel_phase(GMM_DECODE_LABEL, *captured["decode"][1:], w1)
     smoke.gmm_edge_phase()
     smoke.moe_layer_phase("layer0_prefill", model.layers[0].moe, captured["prefill"][0])
     smoke.moe_layer_phase("layer0_decode", model.layers[0].moe, captured["decode"][0])
@@ -1700,6 +1954,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     smoke.f32_check("olmoe_1b_7b_f32_teacher_forced", cfg, prompts, outs)
     torch.cuda.empty_cache()
+    emit({"script_seconds": time.perf_counter() - started})
     smoke.kernels_line()
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,31 +9,56 @@
 // finite NEG_INF. Here the sequential K axis is a loop inside the block.
 //
 // Layout as the reference: q [B, S, H, D], k and v [B, S, Hkv, D], out
-// [B, S, H, D] in q's dtype (f32 or bf16, widened to f32; every sum in f32).
-// Query row r of a block is position q0 + r / g of head hk * g + r % g.
+// [B, S, H, D] in q's dtype (f32 or bf16; every sum in f32).
 //
 // Bound on this card: 4 D operations per visible (query, key) pair and head
 // against 2 D bytes per position and head of Q, K, V and O in bf16, so at
 // D = 64 and prompts of thousands of tokens the function does hundreds of
 // operations a byte and is bound by operations (989 TFLOP/s on the bf16
-// tensor cores). This kernel does them as f32 FMAs (67 TFLOP/s without the
-// tensor cores), so its own ceiling is that rate: a later kernel can move
-// both products to mma/wgmma bf16 with f32 accumulation, which is exact for
-// bf16 operands. Design: one block of 256 threads per (query tile, KV head,
-// batch) with 64 query rows (bq = 64 / g positions times the g heads), four
-// threads per row. A thread keeps its row's Q (D floats) and a quarter of
-// its output (D / 4 floats) in registers, with the row's (m, l) state; K and
-// V tiles of 64 keys are staged in shared memory as f32 (K rows padded to
-// D + 1 floats, so the four threads of a row read four banks), and the
-// probabilities of a tile go through shared memory (rows padded to 65) to
-// the P V product. Shared memory is 49,664 bytes at D = 64 (K 16,640, V
-// 16,384, P 16,640) and 82,432 at D = 128. The loop over key tiles starts at
-// the first tile the window lets the tile's first row see and ends at the
+// tensor cores). Two routes, one for each dtype:
+//
+// "tc" (bf16): flash attention on the tensor cores, in the structure of
+// FlashAttention-2 with mma.sync.m16n8k16 (bf16 operands, f32 accumulators;
+// a bf16 x bf16 product is exact in f32, so only the summation order
+// differs from the plain version). A block of 4 warps owns 64 query rows
+// (GQA folded as below), 16 a warp. Q is copied once into shared memory and
+// held as ldmatrix A fragments in registers. K and V tiles of 64 keys stay
+// bf16 in shared memory (rows swizzled by 16-byte chunk, so ldmatrix reads
+// no bank twice) and arrive by cp.async into a ring of two stages: the next
+// tile loads while this one computes; keys past S are zero-filled by the
+// copy. S = Q K^T stays in registers (ldmatrix of K rows gives the B
+// fragments); the online softmax reduces each row over the 4 lanes of a
+// quad; the masking is the FMA kernel's. P V: the plain version multiplies
+// f32 P by V, and one bf16 rounding of P would move outputs near
+// cancellation by more than the gate allows, so P is split into
+// P_hi = bf16(P) and P_lo = bf16(P - P_hi) and both products accumulate in
+// f32 (about 16 bits of P, 1.5x FlashAttention-2's MMA count). The S
+// accumulators are already the A fragments of P V (P never goes through
+// shared memory); V's B fragments come from ldmatrix.trans. Shared memory:
+// Q 64 D plus 2 stages of K and V of 64 D each, bf16: 40 KB at D = 64,
+// 80 KB at D = 128.
+//
+// "fma" (f32): every sum by f32 FMAs (67 TFLOP/s without the tensor
+// cores, which have no f32-exact mode). One block of 256 threads per (query tile, KV
+// head, batch) with 64 query rows, four threads per row. A thread keeps its
+// row's Q (D floats) and a quarter of its output (D / 4 floats) in
+// registers, with the row's (m, l) state; K and V tiles of 64 keys are
+// staged in shared memory as f32 (K rows padded to D + 1 floats, so the four
+// threads of a row read four banks), and the probabilities of a tile go
+// through shared memory (rows padded to 65) to the P V product. Shared
+// memory is 49,664 bytes at D = 64 (K 16,640, V 16,384, P 16,640) and 82,432
+// at D = 128.
+//
+// Both: query row r of a block is position q0 + r / g of head hk * g + r % g
+// (bq = 64 / g positions times the g heads). The loop over key tiles starts
+// at the first tile the window lets the tile's first row see and ends at the
 // tile holding its last row: the work skip of pl.when, by loop bounds.
-// Blocks are issued heaviest (last) query tile first. The kernel masks its
-// own ragged edge, so any S works; offsets are 64-bit.
+// Blocks are issued heaviest (last) query tile first. The kernels mask
+// their own ragged edge, so any S works; offsets are 64-bit; the output is
+// acc / max(l, 1e-30), rounded once to the output dtype.
 
 #include "attn_common.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
@@ -158,20 +183,229 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---- route "tc": bf16 on the tensor cores ---------------------------------
+
+constexpr int TC_ROWS = 64;                 // query rows of a block
+constexpr int TC_WARPS = TC_ROWS / 16;     // 16 query rows a warp
+constexpr int TC_THREADS = 32 * TC_WARPS;  // 128
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS)
+    flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            __nv_bfloat16* __restrict__ o, int S, int H, int Hkv, int g,
+                            int bq, int window, float scale) {
+  constexpr int C = D / 8;       // 16-byte chunks of a row
+  constexpr int KD = D / 16;     // k16 steps of Q K^T
+  constexpr int ND = D / 8;      // n8 tiles of the output
+  constexpr int NK = BK / 8;     // n8 tiles of S (keys)
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [TC_ROWS][D]
+  __nv_bfloat16* ks = qs + TC_ROWS * D;                              // [2][BK][D]
+  __nv_bfloat16* vs = ks + 2 * BK * D;                               // [2][BK][D]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * bq;
+
+  // Q rows, zero past the block's bq * g rows or past S
+  for (int i = tid; i < TC_ROWS * C; i += TC_THREADS) {
+    const int r = i / C, c = i % C, pos = q0 + r / g;
+    const bool valid = r < bq * g && pos < S;
+    const __nv_bfloat16* src =
+        q + (((int64_t)b * S + (valid ? pos : 0)) * H + hk * g + r % g) * D + c * 8;
+    tc::cp_async16(tc::smem_addr(qs + r * D + tc::swz(r, c) * 8), src, valid);
+  }
+  tc::cp_async_commit();
+
+  const int64_t pos_stride = (int64_t)Hkv * D;
+  const int64_t base = ((int64_t)b * S * Hkv + hk) * D;
+  auto load_kv = [&](int kt, int st) {
+    const int k0 = kt * BK;
+    for (int i = tid; i < BK * C; i += TC_THREADS) {
+      const int j = i / C, c = i % C;
+      const bool valid = k0 + j < S;
+      const int64_t off = base + (valid ? k0 + j : 0) * pos_stride + c * 8;
+      const int dst = st * BK * D + j * D + tc::swz(j, c) * 8;
+      tc::cp_async16(tc::smem_addr(ks + dst), k + off, valid);
+      tc::cp_async16(tc::smem_addr(vs + dst), v + off, valid);
+    }
+  };
+
+  const int q_last = min(q0 + bq, S) - 1;
+  const int kt_hi = q_last / BK;
+  const int kt_lo = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
+  load_kv(kt_lo, 0);
+  tc::cp_async_commit();
+  tc::cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+
+  // Q as A fragments: matrix i of ldmatrix.x4 is rows + 8 (i & 1), chunk + (i >> 1)
+  uint32_t qf[KD][4];
+  {
+    const int i = lane / 8, r = warp * 16 + (i & 1) * 8 + lane % 8;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      tc::ldsm_x4(qf[kk], tc::smem_addr(qs + r * D + tc::swz(r, 2 * kk + (i >> 1)) * 8));
+  }
+
+  // this thread's two rows: warp * 16 + lane / 4 + 8 i
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) qpos[i] = q0 + (warp * 16 + lane / 4 + 8 * i) / g;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's part
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int st = (kt - kt_lo) & 1;
+    if (kt < kt_hi) load_kv(kt + 1, st ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // tile kt has landed
+    __syncthreads();
+    const __nv_bfloat16* kst = ks + st * BK * D;
+    const __nv_bfloat16* vst = vs + st * BK * D;
+    const int k0 = kt * BK;
+
+    // S = Q K^T: matrix i is keys + 8 (i >> 1), chunk + (i & 1)
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int n2 = 0; n2 < NK / 2; ++n2) {
+        const int i = lane / 8, key = n2 * 16 + (i >> 1) * 8 + lane % 8;
+        uint32_t kb[4];
+        tc::ldsm_x4(kb, tc::smem_addr(kst + key * D + tc::swz(key, 2 * kk + (i & 1)) * 8));
+        tc::mma_bf16(s[2 * n2], qf[kk], kb[0], kb[1]);
+        tc::mma_bf16(s[2 * n2 + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    // scale and mask (the FMA kernel's rule), then the online softmax
+    const bool full = k0 + BK - 1 <= q0 && k0 + BK <= S &&
+                      (window <= 0 || q_last - k0 < window);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e / 2, kpos = k0 + n * 8 + 2 * (lane % 4) + (e & 1);
+        float x = s[n][e] * scale;
+        if (!full) {
+          const bool visible = kpos <= qpos[i] && kpos < S &&
+                               (window <= 0 || qpos[i] - kpos < window);
+          x = visible ? x : NEG_INF;
+        }
+        s[n][e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - m[e / 2]);
+        l[e / 2] += p;
+        s[n][e] = p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e / 2];
+
+    // O += (P_hi + P_lo) V over 16 keys a step: the S tiles 2 kk and 2 kk + 1
+    // are the A fragment; V's matrix i is keys + 8 (i & 1), chunk + (i >> 1)
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const float* pr = s[2 * kk + f / 2] + 2 * (f % 2);
+        hi[f] = tc::pack_bf16(pr[0], pr[1]);
+        lo[f] = tc::pack_bf16(pr[0] - tc::bf16_lo(hi[f]), pr[1] - tc::bf16_hi(hi[f]));
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < ND / 2; ++n2) {
+        const int i = lane / 8, key = kk * 16 + (i & 1) * 8 + lane % 8;
+        uint32_t vb[4];
+        tc::ldsm_x4_t(vb, tc::smem_addr(vst + key * D + tc::swz(key, 2 * n2 + (i >> 1)) * 8));
+        tc::mma_bf16(acc[2 * n2], hi, vb[0], vb[1]);
+        tc::mma_bf16(acc[2 * n2], lo, vb[0], vb[1]);
+        tc::mma_bf16(acc[2 * n2 + 1], hi, vb[2], vb[3]);
+        tc::mma_bf16(acc[2 * n2 + 1], lo, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = warp * 16 + lane / 4 + 8 * i;
+    if (r >= bq * g || qpos[i] >= S) continue;
+    __nv_bfloat16* dst = o + (((int64_t)b * S + qpos[i]) * H + hk * g + r % g) * D +
+                         2 * (lane % 4);
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(dst + n * 8) =
+          tc::pack_bf16(acc[n][2 * i] / den, acc[n][2 * i + 1] / den);
+  }
+}
+
+// ---- launch -----------------------------------------------------------------
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int Hkv, int window, cudaStream_t stream) {
   const int g = H / Hkv;
   const int bq = ROWS / g;
   const size_t smem = (size_t)(BK * (D + 1) + BK * D + ROWS * (BK + 1)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = tc::allow_smem(flash_prefill_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((S + bq - 1) / bq), (unsigned)Hkv, (unsigned)B);
   const float scale = (float)(1.0 / sqrt((double)D));
   flash_prefill_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), S, H, Hkv, g, bq, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+              int Hkv, int window, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const int g = H / Hkv;
+  const int bq = TC_ROWS / g;
+  const size_t smem = (size_t)(TC_ROWS + 4 * BK) * D * sizeof(bf);
+  static const cudaError_t attr = tc::allow_smem(flash_prefill_tc_kernel<D>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((unsigned)((S + bq - 1) / bq), (unsigned)Hkv, (unsigned)B);
+  const float scale = (float)(1.0 / sqrt((double)D));
+  flash_prefill_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<bf*>(o), S, H, Hkv, g, bq, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -187,9 +421,9 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). window 0 is
-// plain causal attention. D is 64 or 128 (the head widths of the ported
-// configs); H / Hkv at most 64.
+// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
+// kernel); q, k, v and out share it. window 0 is plain causal attention. D
+// is 64 or 128 (the head widths of the ported configs); H / Hkv at most 64.
 extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
                                     void* o, int B, int S, int H, int Hkv, int D,
                                     int window, int dtype, void* stream) {
@@ -197,9 +431,12 @@ extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, D, window, s);
-  return launch_d<float>(q, k, v, o, B, S, H, Hkv, D, window, s);
+  if (dtype != 1) return launch_d<float>(q, k, v, o, B, S, H, Hkv, D, window, s);
+  switch (D) {
+    case 64: return launch_tc<64>(q, k, v, o, B, S, H, Hkv, window, s);
+    case 128: return launch_tc<128>(q, k, v, o, B, S, H, Hkv, window, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* flash_prefill_launch_error_string(int e) {

@@ -1,9 +1,11 @@
 """Causal GQA flash attention for prefill.
 
 The port of the JAX package's ``kernels/flash_prefill.py``. On the card,
-:func:`flash_prefill` launches the CUDA kernel ``csrc/flash_prefill.cu``; on
-the CPU it runs :func:`flash_prefill_plain`, the same chunked online softmax
-in plain PyTorch. Both take q ``[B, S, H, D]`` and k, v ``[B, S, Hkv, D]`` and
+:func:`flash_prefill` launches a CUDA kernel of ``csrc/flash_prefill.cu``
+by one of two routes (:func:`choose_route`): ``"tc"``, bf16 on the tensor
+cores, or ``"fma"``, f32 on f32 FMAs; on the CPU it runs
+:func:`flash_prefill_plain`, the same chunked online softmax in plain
+PyTorch. Both take q ``[B, S, H, D]`` and k, v ``[B, S, Hkv, D]`` and
 return ``[B, S, H, D]`` in q's dtype: 1/sqrt(D) scale, causal (plus an
 optional sliding ``window``), the finite ``NEG_INF`` mask, f32 statistics and
 sums, and ``acc / max(l, 1e-30)``. GQA is folded: query head ``h`` reads KV
@@ -21,11 +23,20 @@ import torch
 
 from repro_torch.kernels._build import LaunchCounter, launch, require
 
-LAUNCHES = LaunchCounter()
+LAUNCHES = LaunchCounter()                    # every launch of the kernel
+ROUTES = ("tc", "fma")
+ROUTE_LAUNCHES = {r: LaunchCounter() for r in ROUTES}   # the launches of each route
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)       # the kernel's instantiations: the ported configs' widths
 MAX_GROUP = 64              # query heads per KV head the kernel folds into a tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def choose_route(dtype: torch.dtype) -> str:
+    """The kernel a card call takes: bf16 on the tensor cores (``"tc"``:
+    bf16 products, f32 sums), f32 on f32 FMAs (``"fma"``), since the tensor
+    cores have no f32-exact mode."""
+    return "tc" if dtype == torch.bfloat16 else "fma"
 
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -88,7 +99,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal (plus ``window``) GQA attention of a prompt batch. CPU tensors
     take the plain version (with ``bq``/``bk``); CUDA tensors launch the
     kernel, which takes f32 or bf16, D in ``HEAD_DIMS``, H / Hkv at most
-    ``MAX_GROUP`` and contiguous operands."""
+    ``MAX_GROUP`` and contiguous operands, on :func:`choose_route`'s route."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
                          "expected [B, S, H, D] and [B, S, Hkv, D]")
@@ -112,4 +123,5 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launch("flash_prefill", "flash_prefill_launch", [q, k, v, out],
            [b, s, h, hkv, d, window, _DTYPES[q.dtype]])
     LAUNCHES.bump()
+    ROUTE_LAUNCHES[choose_route(q.dtype)].bump()
     return out

@@ -3,8 +3,9 @@
 The port of the JAX package's ``kernels/grouped_matmul.py``. The rows of x
 come in segments, each of one group: segment s is rows ``[seg_rows[s],
 seg_rows[s + 1])`` of x and y, multiplied by ``w[seg_group[s]]``. Two
-entries launch the same CUDA kernel (``csrc/grouped_matmul.cu``) on the card
-and run :func:`grouped_matmul_plain` on the CPU:
+entries launch a kernel of ``csrc/grouped_matmul.cu`` on the card, by the
+route :func:`choose_route` picks, and run :func:`grouped_matmul_plain` on
+the CPU:
 
 * :func:`grouped_matmul_padded`, the reference's API: rows sorted by group
   and each group padded to a multiple of ``bt``, one group id per ``bt``-row
@@ -18,8 +19,31 @@ and run :func:`grouped_matmul_plain` on the CPU:
   computed: the kernel leaves them unwritten and the plain version writes
   zeros.
 
-Products and sums are f32 (bf16 operands widened, so each product is
-exact), and y is rounded once to ``out_dtype`` (default x's dtype).
+Products and sums are f32 (a product of bf16 operands is exact in f32),
+and y is rounded once to ``out_dtype`` (default x's dtype). The routes,
+chosen from what the host knows without reading the card:
+
+* ``"tile"``: bf16 x and w to a bf16 y, more than ``SMALL_ROWS_MAX`` rows
+  (prefill: about 124k): 128 x 256 tiles of y on ``wgmma`` through a
+  four-stage ``cp.async`` ring.
+* ``"small"``: bf16 to bf16 with at most ``SMALL_ROWS_MAX`` rows (decode:
+  64 rows, one to eight an expert): ``mma.sync`` with the operands swapped,
+  each block streaming one expert's 128-column weight slab through a
+  four-stage ``cp.async`` ring.
+* ``"fma"``: everything else: f32 operands (the tensor cores have no
+  f32-exact mode), an f32 output, K or N not a multiple of 8, or x or w not
+  16-byte aligned (the other routes copy 16-byte chunks): f32 FMAs.
+
+Every route is right for every grouping; only the time differs.
+``SMALL_ROWS_MAX`` = 512 lies between the two shapes the OLMoE serve path
+sends, whose times on every route ``chip_smoke.py`` prints (numbers in
+``PERF.md``). At prefill (T = 123,968) the small route, which re-reads an
+expert's weight slab for every 32 rows, is about 5x slower than the tile
+route; at decode (T = 64) the two tensor-core routes take about the same
+time, near the weight bytes' bound. Between the two shapes the value is a
+choice, not a measurement: at 512 rows over 64 experts a segment averages 8
+rows, inside one of the small route's 32-row passes, so it still reads each
+touched expert's weights about once.
 """
 
 from __future__ import annotations
@@ -29,9 +53,23 @@ import torch
 
 from repro_torch.kernels._build import LaunchCounter, launch, require
 
-LAUNCHES = LaunchCounter()
-TILE_ROWS = 128      # rows of y a block of the kernel owns (BM in the source)
+LAUNCHES = LaunchCounter()                    # every launch of the kernel
+ROUTES = {"tile": 1, "small": 2, "fma": 0}   # route -> the C entry's route argument
+ROUTE_LAUNCHES = {r: LaunchCounter() for r in ROUTES}   # the launches of each route
+TILE_ROWS = 128      # rows of y a block of the tile and fma routes owns (BM)
+SMALL_ROWS_MAX = 512   # rows of x at or below which bf16 takes the small route
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def choose_route(dtype: torch.dtype, out_dtype: torch.dtype, k: int, n: int, t: int,
+                 aligned: bool = True) -> str:
+    """The kernel a card call takes for x ``[t, k]`` in ``dtype`` by w
+    ``[E, k, n]`` into y in ``out_dtype`` (``aligned``: x and w start on
+    16-byte boundaries)."""
+    if (dtype != torch.bfloat16 or out_dtype != torch.bfloat16 or k % 8 or n % 8
+            or not aligned):
+        return "fma"
+    return "small" if t <= SMALL_ROWS_MAX else "tile"
 
 
 def plan_groups(group_sizes, bt: int):
@@ -67,7 +105,23 @@ def _check_operands(x: torch.Tensor, w: torch.Tensor) -> None:
                          "and [E, K, N]")
 
 
-def _launch(x, w, seg_rows, seg_group, n_seg: int, n_tiles: int, out_dtype) -> torch.Tensor:
+def _route(x, w, out_dtype, route: str | None) -> str:
+    """:func:`choose_route`'s route, or ``route`` if the operands fit it."""
+    auto = choose_route(x.dtype, out_dtype, w.shape[1], w.shape[2], x.shape[0],
+                        x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    if route is None:
+        return auto
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r} is not one of {tuple(ROUTES)}")
+    if route != "fma" and auto == "fma":
+        raise ValueError(f"the {route} route takes bf16 x and w, a bf16 output, K and N "
+                         f"multiples of 8 and 16-byte aligned x and w; got {x.dtype} -> "
+                         f"{out_dtype}, K={w.shape[1]}, N={w.shape[2]}")
+    return route
+
+
+def _launch(x, w, seg_rows, seg_group, n_seg: int, n_tiles: int, out_dtype,
+            route: str) -> torch.Tensor:
     """The kernel on the card: operand checks, the output, one launch."""
     if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
         raise ValueError(f"the kernel takes f32/bf16 operands and output; got {x.dtype} "
@@ -80,25 +134,31 @@ def _launch(x, w, seg_rows, seg_group, n_seg: int, n_tiles: int, out_dtype) -> t
     e, k, n = w.shape
     y = torch.empty((x.shape[0], n), dtype=out_dtype, device=x.device)
     launch("grouped_matmul", "grouped_matmul_launch", [x, w, y, seg_rows, seg_group],
-           [n_seg, n_tiles, k, n, e, _DTYPES[x.dtype], _DTYPES[out_dtype]])
+           [n_seg, n_tiles, k, n, e, _DTYPES[x.dtype], _DTYPES[out_dtype], ROUTES[route]])
     LAUNCHES.bump()
+    ROUTE_LAUNCHES[route].bump()
     return y
 
 
 def grouped_matmul_ragged(x: torch.Tensor, w: torch.Tensor, seg_rows: torch.Tensor,
-                          out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                          out_dtype: torch.dtype | None = None,
+                          route: str | None = None) -> torch.Tensor:
     """x ``[T, K]`` with group g's rows at ``[seg_rows[g], seg_rows[g + 1])``
     (``seg_rows`` int64 ``[E + 1]``, ascending, ``seg_rows[E] <= T``), w
-    ``[E, K, N]``; returns y ``[T, N]``. Nothing is read back to the host."""
+    ``[E, K, N]``; returns y ``[T, N]``. Nothing is read back to the host.
+    ``route`` names the card route instead of :func:`choose_route`'s (so
+    that every route can run on the same operands); one the operands do not
+    fit raises, on any device."""
     _check_operands(x, w)
     if tuple(seg_rows.shape) != (w.shape[0] + 1,):
         raise ValueError(f"seg_rows {tuple(seg_rows.shape)} != ({w.shape[0] + 1},)")
     out_dtype = out_dtype or x.dtype
+    route = _route(x, w, out_dtype, route)
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, seg_rows, out_dtype=out_dtype)
     e = w.shape[0]
     n_tiles = -(-x.shape[0] // TILE_ROWS) + e
-    return _launch(x, w, seg_rows, None, e, n_tiles, out_dtype)
+    return _launch(x, w, seg_rows, None, e, n_tiles, out_dtype, route)
 
 
 def grouped_matmul_padded(x: torch.Tensor, w: torch.Tensor, tile_group,
@@ -125,4 +185,5 @@ def grouped_matmul_padded(x: torch.Tensor, w: torch.Tensor, tile_group,
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, seg_rows, seg_group, out_dtype)
     n_tiles = len(groups) * -(-bt // TILE_ROWS)
-    return _launch(x, w, seg_rows, seg_group, len(groups), n_tiles, out_dtype)
+    return _launch(x, w, seg_rows, seg_group, len(groups), n_tiles, out_dtype,
+                   _route(x, w, out_dtype, None))

@@ -8,6 +8,10 @@
   ``flash_attention``, which pads as the plain version does.
 * ``decode_attention_plain`` against ``ops.decode_attention`` in interpret
   mode and ``ref.decode_attention_ref``, with ragged lengths.
+* Both plain versions at the GQA widths of the other ported configs, g in
+  {3, 8, 9} (minitron-4b, deepseek-67b, starcoder2-7b) at D = 128, against
+  the Pallas kernels in interpret mode, narrow and short; g = 9 does not
+  divide the card kernels' 64-row query tile.
 * ``models.attention.flash_attention`` / ``attention_ref`` against the
   reference's functions of those names (non-causal and offset queries too).
 * The wrappers refuse operands that do not fit.
@@ -115,6 +119,32 @@ def test_decode_attention_plain_matches_pallas_and_ref(rng, s, bs_kv, g):
     np.testing.assert_allclose(got.numpy(), want_ref, atol=ATOL, rtol=0)
     np.testing.assert_allclose(ref.decode_attention_ref(*targs).numpy(), want_ref,
                                atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("g", [3, 8, 9])
+def test_flash_prefill_plain_wide_gqa_d128(rng, g, window):
+    b, s, hkv, d = 1, 32, 1, 128
+    q, k, v = _qkv(rng, b, s, g * hkv, hkv, d)
+    want = np.asarray(ref_ops.flash_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                            bq=16, bk=16, window=window, interpret=True))
+    got = ops.flash_prefill(*_t(q, k, v), bq=16, bk=16, window=window)
+    assert got.shape == (b, s, g * hkv, d)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("g", [3, 8, 9])
+def test_decode_attention_plain_wide_gqa_d128(rng, g):
+    b, hkv, d, s = 3, 1, 128, 64
+    q = rng.standard_normal((b, hkv, g, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    lengths = np.array([s, 33, 1], np.int32)
+    jargs = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths))
+    want = np.asarray(ref_ops.decode_attention(*jargs, bs_kv=32, interpret=True))
+    got = ops.decode_attention(*_t(q, k, v, lengths))
+    assert got.shape == (b, hkv, g, d)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
 
 
 def test_decode_attention_plain_bf16_and_empty_length(rng):
