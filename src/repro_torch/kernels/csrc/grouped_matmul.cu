@@ -38,9 +38,7 @@
 // each) and read with the B transpose flag, so no K-major copy of the
 // weights is made. Rows of a tile past its segment's end, columns past N
 // and k past K are zero-filled by the copies (their sources are not read),
-// and those rows are never stored. At the OLMoE prefill shapes this tile
-// and depth measured faster than 128 x 128 tiles with four or five stages
-// and 128 x 256 tiles with three.
+// and those rows are never stored.
 //
 // "small" (bf16 in and out, a few rows an expert: decode): the operands
 // are swapped, y^T[N-slab, rows] = w[g]^T x[rows]^T on mma.sync.m16n8k16, the expert's
@@ -52,8 +50,9 @@
 // 8); a longer segment is walked in passes of 32 rows, so the route is
 // right for any grouping. Blocks of empty segments exit at once; at decode
 // the 28 experts the tokens choose times 8 (w1, w3) or 16 (w2) slabs fill
-// the 132 SMs. (Passes of 64 rows, or six stages, measured slower at the
-// decode shape.)
+// the 132 SMs. At the OLMoE decode step (16 layers x w1, w3, w2; 64 rows
+// over 28 experts) this route takes 4.9% less time than "tile" on an H100
+// 80GB HBM3 at 700 W (gmm_route_ablation.py: 24 alternated steps each).
 //
 // "fma" (f32 operands; bf16 operands with an f32 output, or with K or N
 // not a multiple of 8, or misaligned): f32 FMAs. A block of 256 threads
