@@ -3,12 +3,15 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the CUDA kernels of
-``src/repro_torch/kernels/csrc`` (into ``build/repro_torch/``), finds the
+``src/repro_torch/kernels/csrc`` (into ``build/repro_torch/``; the dense-slab
+and decode-attention sources must build without register spills), finds the
 tensor-core instructions in the libraries of the two routed kernels
 (``cuobjdump -sass``: HMMA in the prefill's, HGMMA and HMMA in the grouped
 GEMM's), holds each kernel, in both streaming orders, against its plain PyTorch version at the
 shapes the main path stages, at a four-chunk plan with a nonzero C_prev, and
-on a small geometry whose dense output row fills its hash table, then runs
+on a small geometry whose dense output row fills its hash table (the dense
+slab on its aligned float4 path at the main-path shapes and on its masked
+scalar path at the four-chunk plan, its two orders equal bit for bit), then runs
 the main path — ``multigrid.problem`` on the card, the host
 symbolic phase and planner, ``chunked_spgemm`` — on the paper's problems, and
 checks every result against the port's plain ``spgemm`` on the card and
@@ -22,8 +25,11 @@ backend on brick3d n=48 and ``ops.bsr_spmm`` of brick3d n=48 by a
 BSR x BSR and BSR x dense kernels first held to their plain versions. Then
 the third path, serving: the flash-prefill and decode-attention kernels
 held to their plain versions in f32 and bf16 (the prefill kernel's FMA and
-tensor-core routes) at the serve run's shapes and on small ragged cases (GQA
-groups of 1 and 4 at D = 64, and of 1, 3, 4, 8 and 9 at D = 128), then
+tensor-core routes) at the serve run's shapes (the decode kernel at both
+serve models' shapes, timed by launch events and by the profiler beside
+SDPA) and on small ragged cases (GQA groups of 1 and 4 at D = 64, and of 1,
+3, 4, 8 and 9 at D = 128; for decode also fewer live positions than cache
+splits), then
 ``serve_batch`` of Llama-3.2-1B at full width
 (random weights from a seed, 8 prompts of 128-2048 tokens, 32 new tokens),
 its kernel launches counted, and its prefill and per-step logits held,
@@ -94,10 +100,18 @@ SOURCE_FILE = {"decode_attention": "chunked_attention"}   # kernel -> csrc/<file
 ROUTED = ("flash_prefill", "grouped_matmul")
 SASS_OPS = {"flash_prefill": ("HMMA",), "grouped_matmul": ("HGMMA", "HMMA")}
 TRACE_NAMES = {"flash_prefill": ("flash_prefill_kernel", "flash_prefill_tc_kernel"),
-               "decode_attention": ("decode_attention_kernel",),
+               "decode_attention": ("decode_split_kernel", "decode_combine_kernel"),
                "grouped_matmul": ("gmm_tile_kernel", "gmm_small_kernel",
                                   "grouped_matmul_kernel")}
 TRACE_TRIES = 3   # traces of one call taken until one holds every expected launch
+# sources whose kernels must build without register spills: the two whose
+# register tiles were sized to fit (the dense slab's 8 x 8 FMA tile, the
+# decode kernel's row tiles)
+NO_SPILL = ("ranged_spgemm", "chunked_attention")
+# the dense slab's load path each of its recorded phases must take: the
+# quickstart staging is 16-byte aligned (float4 / cp.async), the chunk1
+# staging (k_pad 42,043, span 9,275) is not (masked scalar loads)
+DENSE_PATHS = {"brick3d32_quickstart": "vec", "brick3d32_chunk1_c0": "scalar"}
 
 # the attention kernels against their plain versions: in f32 the sums are
 # taken in another order; in bf16 both versions sum the same bf16 inputs in
@@ -275,6 +289,27 @@ def device_ms(torch, fn, reps: int = 5) -> tuple:
     return (statistics.median(seen) if seen else None), reps - len(seen)
 
 
+def kernel_device_ms(torch, fn, names, launches: int, reps: int = 5,
+                     tries: int = 20) -> tuple:
+    """Median device milliseconds of the port kernels (activities whose
+    name holds one of ``names``) that one call of ``fn`` launches, over
+    ``reps`` profiler traces that hold all ``launches`` of them, after a
+    warm-up call; the profiler loses activities of some calls, so up to
+    ``tries`` calls are traced. Returns the median (None when no trace was
+    complete) and the number of incomplete traces."""
+    fn()
+    torch.cuda.synchronize()
+    times, incomplete = [], 0
+    while len(times) < reps and len(times) + incomplete < tries:
+        hits = [v for name, v in device_by_name(profiled(torch, fn)).items()
+                if any(n in name for n in names)]
+        if sum(c for _, c in hits) == launches:
+            times.append(sum(ms for ms, _ in hits))
+        else:
+            incomplete += 1
+    return (statistics.median(times) if times else None), incomplete
+
+
 def launch_ms(torch, timer_cls, fn, reps: int = 5) -> float:
     """Median milliseconds of the kernels one wrapper call launches, from
     events recorded on the stream around each launch, after a warm-up call."""
@@ -385,6 +420,11 @@ class Smoke:
         emit({"build": {"seconds": seconds,
                         "per_source_s": {k: v["seconds"] for k, v in log.items()},
                         "ptxas": resources}})
+        for name in NO_SPILL:
+            for entry, res in resources[name].items():
+                check(res["spill_stores"] == 0 and res["spill_loads"] == 0,
+                      f"{name}: {entry} spills {res['spill_stores']} / "
+                      f"{res['spill_loads']} bytes (stores / loads)")
 
     def sass_phase(self) -> None:
         """The tensor-core instructions in the built libraries of the routed
@@ -544,14 +584,24 @@ class Smoke:
         r0s, _ = plan.b_ranges()
         run = lambda order: mod.ranged_spgemm_stream(a, slabs, c0, r0s, order=order)  # noqa: E731
         plain = lambda order: mod.ranged_spgemm_plain(a, slabs, c0, r0s, order=order)  # noqa: E731
-        orders = {}
+        path = mod.choose_path(a, slabs, c0, r0s)
+        check(path == DENSE_PATHS.get(label, path),
+              f"ranged_spgemm/{label}: path {path}, expected {DENSE_PATHS.get(label)}")
+        orders, outs = {}, {}
         for order in ORDERS:
-            orders[order] = self.hold_dense(f"ranged_spgemm/{label}/{order}", run(order),
+            before = mod.PATH_LAUNCHES[path].count
+            outs[order] = run(order)
+            check(mod.PATH_LAUNCHES[path].count == before + 1,
+                  f"ranged_spgemm/{label}: the {path} path launched no kernel")
+            orders[order] = self.hold_dense(f"ranged_spgemm/{label}/{order}", outs[order],
                                             plain(order))
             orders[order]["ms"] = self.launch_ms(lambda: run(order))
             orders[order]["wrapper_ms"] = cuda_ms(torch, lambda: run(order))
             if record:
                 orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order))
+        bitwise = bool(torch.equal(outs["chunk1"], outs["chunk2"]))
+        check(bitwise, f"ranged_spgemm/{label}: chunk1 and chunk2 differ bit for bit")
+        del outs
         batch, n_ac, strip_rows, k_pad = a.shape
         n_b, span, n = slabs.shape[1:]
         # the work the real rows need: A's rows x its columns, every B row
@@ -571,7 +621,8 @@ class Smoke:
                           "chunk2" if plan.algorithm == "chunk2" else "chunk1",
                           moved, flops, library,
                           {"strips": n_ac, "chunks": n_b, "strip_rows": strip_rows,
-                           "k_pad": k_pad, "span": span, "n": n,
+                           "k_pad": k_pad, "span": span, "n": n, "path": path,
+                           "chunk1_equals_chunk2_bitwise": bitwise,
                            "staged_a_bytes": nbytes(a), "c0": "zero" if c0_seed is None
                            else f"normal(seed={c0_seed})"}, record)
         del a, slabs, c0
@@ -589,6 +640,8 @@ class Smoke:
         if record:
             main = orders[main_order]
             self.phase[kernel] = {"ms": main["ms"], "wrapper_ms": main["wrapper_ms"],
+                                  **({"device_ms": main["device_ms"]}
+                                     if "device_ms" in main else {}),
                                   "plain_ms": main["plain_ms"], **bound,
                                   "library_ms": lib["library_ms"],
                                   "library_device_ms": lib["library_device_ms"],
@@ -654,14 +707,19 @@ class Smoke:
         cs, mod = self.m["chunk_stream"], self.kernels["ranged_spgemm"]
         ad, slabs = self.dense_stage(A, B, plan)
         cd = cs._dense_stack(C0s, levels=1)[None]
+        dense = {order: mod.ranged_spgemm_stream(ad, slabs, cd, r0s, order=order)
+                 for order in ORDERS}
         result["ranged_spgemm"] = {order: self.hold_dense(
-            f"ranged_spgemm/edge/{order}",
-            mod.ranged_spgemm_stream(ad, slabs, cd, r0s, order=order),
+            f"ranged_spgemm/edge/{order}", dense[order],
             mod.ranged_spgemm_plain(ad, slabs, cd, r0s, order=order)) for order in ORDERS}
+        check(bool(torch.equal(dense["chunk1"], dense["chunk2"])),
+              "ranged_spgemm/edge: chunk1 and chunk2 differ bit for bit")
+        dense_path = mod.choose_path(ad, slabs, cd, r0s)
         for kernel, orders in result.items():
             self.max_err[kernel] = max(self.max_err.get(kernel, 0.0),
                                        *(o["max_abs_err"] for o in orders.values()))
         emit({"edge_phase": "dense_row_thirds", "shape": [rows, k, n],
+              "ranged_spgemm_path": dense_path,
               "c_max_row_nnz": row_cap, "table_size": table,
               "nnz_c0": int(C0.indptr[..., -1].sum()), "kernels": result})
 
@@ -1247,14 +1305,19 @@ class Smoke:
                            "visible_pairs_per_head": pairs}, record, 1, "bf16_flops")
 
     def decode_kernel_phase(self, label: str, b: int, hkv: int, g: int, d: int, s: int,
-                            lengths: list, record: bool = False) -> None:
+                            lengths: list, *, timed: bool = False,
+                            record: bool = False) -> int:
         """The decode kernel against its plain version in f32 and bf16 over
-        a seeded normal cache; ``record`` times the bf16 run, its plain
-        version and SDPA (GQA, a length mask) for the kernels line."""
+        a seeded normal cache. ``timed`` (a serve shape) adds each dtype's
+        profiler device time of the wrapper call (both kernels it launches),
+        and in bf16 the plain version and SDPA (GQA, a length mask); with
+        ``record`` the bf16 numbers go into the kernels line. Returns the
+        wrapper's split count at this shape."""
         torch, mod = self.torch, self.kernels["decode_attention"]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         base = self.attn_inputs(s + g, (b, hkv, g, d), (b, s, hkv, d), (b, s, hkv, d))
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        n_split = mod.device_split(b, hkv, s, lens.device)
         orders, library = {}, (None,) * 4
         for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             q, k, v = (x.to(dtype) for x in base)
@@ -1264,7 +1327,10 @@ class Smoke:
                                                       run(), plain(), ATTN_F32_ATOL,
                                                       ATTN_BF16_ULPS),
                        "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
-            if record and name == "bf16":
+            if timed:
+                numbers["device_ms"], numbers["device_incomplete_traces"] = kernel_device_ms(
+                    torch, run, TRACE_NAMES["decode_attention"], mod.kernel_launches(n_split))
+            if timed and name == "bf16":
                 numbers["plain_ms"] = cuda_ms(torch, plain)
                 mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None]
                 qt, kt, vt = q.reshape(b, hkv * g, 1, d), k.transpose(1, 2), v.transpose(1, 2)
@@ -1276,7 +1342,9 @@ class Smoke:
         flops = 4 * d * g * hkv * live
         self.finish_phase("decode_attention", label, orders, "bf16", moved, flops, library,
                           {"b": b, "hkv": hkv, "g": g, "d": d, "s": s,
-                           "lengths": list(lengths)}, record, 1, "bf16_flops")
+                           "lengths": list(lengths), "n_split": n_split}, record,
+                          mod.kernel_launches(n_split), "bf16_flops")
+        return n_split
 
     def lm_batch(self, prompts) -> dict:
         """The prompts right-padded into one prefill batch, with their lengths."""
@@ -1455,7 +1523,10 @@ class Smoke:
         def step():
             with torch.inference_mode():
                 tf.decode_step(model, cache, out_t[:, -1:], cfg)
-        step_trace = traced_call(torch, step, {"decode_attention": cfg.n_layers,
+        dec = self.kernels["decode_attention"]
+        per_call = dec.kernel_launches(dec.device_split(LM_BATCH, cfg.n_kv_heads, LM_CACHE,
+                                                        torch.device("cuda")))
+        step_trace = traced_call(torch, step, {"decode_attention": per_call * cfg.n_layers,
                                                "grouped_matmul": n_gmm})
         del cache
 
@@ -1916,13 +1987,25 @@ def main() -> int:
     s_pad = max(len(p) for p in prompts)
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     smoke.prefill_kernel_phase("serve_prefill", LM_BATCH, s_pad, h, hkv, d, record=True)
-    smoke.decode_kernel_phase("serve_decode_mid", LM_BATCH, hkv, h // hkv, d, LM_CACHE,
-                              [s_pad + LM_NEW // 2] * LM_BATCH, record=True)
+    mid = [s_pad + LM_NEW // 2] * LM_BATCH
+    smoke.decode_kernel_phase("serve_decode_mid", LM_BATCH, hkv, h // hkv, d, LM_CACHE, mid,
+                              timed=True, record=True)
+    moe_cfg = get_config(MOE_ARCH)   # the MoE serve run's decode shape (same prompt lengths)
+    smoke.decode_kernel_phase("serve_decode_mid_olmoe", LM_BATCH, moe_cfg.n_kv_heads,
+                              moe_cfg.n_heads // moe_cfg.n_kv_heads, moe_cfg.head_dim,
+                              LM_CACHE, mid, timed=True)
     for g, dg in ATTN_RAGGED_GQA:
         tag = f"g{g}" if dg == d else f"g{g}_d{dg}"
         for window in (0, 24):
             smoke.prefill_kernel_phase(f"ragged_{tag}_w{window}", 2, 100, 2 * g, 2, dg, window)
         smoke.decode_kernel_phase(f"ragged_{tag}", 4, 2, g, dg, 300, [300, 1, 129, 0])
+    # fewer live positions than splits (most splits empty) beside a
+    # sequence that fills the cache
+    for label, g, dg, lens in (("few_live", 4, 64, [3, LM_CACHE]),
+                               ("few_live_g9_d128", 9, 128, [5, LM_CACHE])):
+        n_split = smoke.decode_kernel_phase(label, 2, 1, g, dg, LM_CACHE, lens)
+        check(min(n for n in lens if n) < n_split,
+              f"decode_attention/{label}: {n_split} splits, no fewer live positions")
     model = smoke.m["transformer"].init_params(
         cfg, torch.Generator(device="cuda").manual_seed(LM_WEIGHT_SEED), "cuda")
     smoke.serve_run("serve_llama3_2_1b", cfg, model, prompts, gate=True)

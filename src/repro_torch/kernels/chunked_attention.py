@@ -12,9 +12,18 @@ length 0 gets zeros (the reference's kernel divides 0 by 0 there).
 The reference's ``bs_kv`` chunk size (and its ``S % bs_kv == 0``) has no
 counterpart: the kernel's chunk is its own constant and it stops at each
 sequence's length.
+
+The kernel splits the cache axis across ``n_split`` blocks per (sequence,
+KV head) and combines their partial softmax states in a second pass
+(flash-decoding). :func:`choose_split` picks ``n_split`` on the host from
+the shapes and the card's SM count only, never from ``lengths`` (no host
+sync); each block takes ``ceil(len / n_split)`` positions of its own
+sequence, rounded up to a ``BKV`` chunk.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -23,8 +32,38 @@ from repro_torch.kernels._build import LaunchCounter, launch, require
 LAUNCHES = LaunchCounter()
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)       # the kernel's instantiations: the ported configs' widths
-MAX_OUTPUTS = 2048          # G * D: 256 threads, 8 outputs each
+MAX_OUTPUTS = 2048          # G * D: at most 128 (row tile, part of D) items, one a thread
+BKV = 64                    # cache positions of one chunk of the kernel
+MAX_SPLIT = 32              # splits of one sequence at most: the combine reads every split
+BLOCKS_PER_SM = 2           # resident split-kernel blocks an SM (bf16, G >= 2: 213 registers)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def choose_split(b: int, hkv: int, s: int, n_sm: int) -> int:
+    """Blocks per (sequence, KV head): as many as fit ``BLOCKS_PER_SM``
+    blocks an SM over the ``b * hkv`` pairs, so that every block runs in
+    one wave (a second wave of a few blocks costs more than the splits
+    gain); at least 1, at most ``MAX_SPLIT`` and at most one a chunk of the
+    cache. Shapes only: the lengths are not read."""
+    fit = BLOCKS_PER_SM * n_sm // max(b * hkv, 1)
+    return max(1, min(fit, MAX_SPLIT, -(-s // BKV)))
+
+
+def kernel_launches(n_split: int) -> int:
+    """CUDA kernels one wrapper call launches: the split kernel, and the
+    combine when the cache is split."""
+    return 1 if n_split == 1 else 2
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_split(b: int, hkv: int, s: int, device: torch.device) -> int:
+    """:func:`choose_split` with the SM count of ``device`` (cached)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return choose_split(b, hkv, s, _sm_count(index))
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,8 +103,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     require(lengths, "lengths", torch.int32, q.device)
+    s = k.shape[1]
+    n_split = device_split(b, hkv, s, q.device)
     out = torch.empty_like(q)
-    launch("chunked_attention", "decode_attention_launch", [q, k, v, lengths, out],
-           [b, k.shape[1], hkv, g, d, _DTYPES[q.dtype]])
+    # the split partials (acc, then m and l), f32, written before they are read
+    part = (torch.empty(b * hkv * n_split * g * (d + 2), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
+    launch("chunked_attention", "decode_attention_launch", [q, k, v, lengths, out, part],
+           [b, s, hkv, g, d, _DTYPES[q.dtype], n_split])
     LAUNCHES.bump()
     return out

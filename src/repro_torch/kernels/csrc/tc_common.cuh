@@ -3,6 +3,8 @@
 // source outside the operand, ldmatrix (plain and transposed), the bf16
 // mma.sync.m16n8k16 with f32 accumulation, bf16 packing, the 128-byte
 // swizzle of the shared-memory tiles, and the dynamic shared memory limit.
+// The cp.async rings of chunked_attention.cu and ranged_spgemm.cu use the
+// copies, the swizzle and the limit too.
 #pragma once
 
 #include <cuda_bf16.h>

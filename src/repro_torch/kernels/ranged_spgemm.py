@@ -2,9 +2,12 @@
 
 The port of the JAX package's ``ranged_spgemm_stream`` (a Pallas kernel that
 streamed one operand through a two-slot VMEM buffer). On the card this is
-the CUDA kernel ``csrc/ranged_spgemm.cu``: full-float32 FMAs in 64x64 output
-tiles, the chunk loop inside the block (chunk1) or one launch per chunk
-(chunk2). On the CPU the wrapper runs :func:`ranged_spgemm_plain`.
+the CUDA kernel ``csrc/ranged_spgemm.cu``: full-float32 FMAs in 128x128
+output tiles with 8x8 register tiles, the span staged through two
+shared-memory buffers, the chunk loop inside the block (chunk1) or one
+launch per chunk (chunk2). :func:`choose_path` picks its float4 / cp.async
+path (``"vec"``) where alignment allows and its masked scalar path
+otherwise. On the CPU the wrapper runs :func:`ranged_spgemm_plain`.
 
 Like the reference, entry-level sparsity is traded for dense tiles: the
 staged B chunk is a dense ``[span, n]`` slab (its padding rows are zero), the
@@ -21,6 +24,7 @@ from repro_torch.kernels._build import LaunchCounter, launch, require
 
 LAUNCHES = LaunchCounter()
 ORDERS = ("chunk1", "chunk2")
+PATH_LAUNCHES = {"vec": LaunchCounter(), "scalar": LaunchCounter()}   # by load path
 
 
 def _geometry(a_dense, b_slabs, c0, order: str) -> tuple:
@@ -59,6 +63,19 @@ def _chunk_starts(r0s, n_b: int, span: int, k_pad: int) -> list:
     return r0s
 
 
+def choose_path(a_dense: torch.Tensor, b_slabs: torch.Tensor, c0: torch.Tensor,
+                r0s) -> str:
+    """The kernel's load path: ``"vec"`` (float4 loads of A and C, 16-byte
+    cp.async of B) when the three operands start on 16 bytes and ``k_pad``,
+    ``span``, ``n`` and every chunk start are multiples of 4 floats, so that
+    every row slice starts on 16 bytes; else ``"scalar"`` (masked 4-byte
+    loads). The output, a fresh allocation, is always aligned."""
+    k_pad, (span, n) = a_dense.shape[-1], b_slabs.shape[-2:]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (a_dense, b_slabs, c0))
+    multiples = all(int(x) % 4 == 0 for x in (k_pad, span, n, *torch.as_tensor(r0s).tolist()))
+    return "vec" if aligned and multiples else "scalar"
+
+
 def ranged_spgemm_stream(a_dense: torch.Tensor, b_slabs: torch.Tensor,
                          c0: torch.Tensor, r0s, *, order: str) -> torch.Tensor:
     """Fused streaming multiply ``C[b, i] = sum_j A[b, i][:, r0_j:r0_j+span] @
@@ -80,13 +97,16 @@ def ranged_spgemm_stream(a_dense: torch.Tensor, b_slabs: torch.Tensor,
         return ranged_spgemm_plain(a_dense, b_slabs, c0, r0s, order=order)
     batch, n_ac, strip_rows, k_pad, n_b, span, n = _geometry(a_dense, b_slabs, c0, order)
     dev = a_dense.device
-    r0s = torch.tensor(_chunk_starts(r0s, n_b, span, k_pad), dtype=torch.int32,
-                       device=dev)
+    starts = _chunk_starts(r0s, n_b, span, k_pad)
     for t, what in ((a_dense, "a_dense"), (b_slabs, "b_slabs"), (c0, "c0")):
         require(t, what, torch.float32, dev)
+    path = choose_path(a_dense, b_slabs, c0, starts)
+    r0s = torch.tensor(starts, dtype=torch.int32, device=dev)
     out = torch.empty_like(c0)
     launch("ranged_spgemm", "ranged_spgemm_launch",
            [a_dense, b_slabs, c0, r0s, out],
-           [batch, n_ac, strip_rows, k_pad, n_b, span, n, ORDERS.index(order) + 1])
+           [batch, n_ac, strip_rows, k_pad, n_b, span, n, ORDERS.index(order) + 1,
+            int(path == "vec")])
     LAUNCHES.bump()
+    PATH_LAUNCHES[path].bump()
     return out

@@ -166,7 +166,7 @@ def attn_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.
         if x.device.type != "cpu":
             raise NotImplementedError(
                 "sliding-window decode on the card is not ported (its ring-buffer "
-                "mask is not a length); see ROADMAP.md Queue 1 item 9")
+                "mask is not a length); see ROADMAP.md Queue 1 item 8")
         o = _window_decode_plain(qg, cache_k, cache_v, pos, cfg.sliding_window)
     else:
         o = ops.decode_attention(qg, cache_k, cache_v, (pos + 1).to(torch.int32))
