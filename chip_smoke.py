@@ -1329,7 +1329,7 @@ class Smoke:
                        "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
             if timed:
                 numbers["device_ms"], numbers["device_incomplete_traces"] = kernel_device_ms(
-                    torch, run, TRACE_NAMES["decode_attention"], mod.kernel_launches(n_split))
+                    torch, run, TRACE_NAMES["decode_attention"], mod.KERNELS_PER_CALL)
             if timed and name == "bf16":
                 numbers["plain_ms"] = cuda_ms(torch, plain)
                 mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None]
@@ -1343,7 +1343,7 @@ class Smoke:
         self.finish_phase("decode_attention", label, orders, "bf16", moved, flops, library,
                           {"b": b, "hkv": hkv, "g": g, "d": d, "s": s,
                            "lengths": list(lengths), "n_split": n_split}, record,
-                          mod.kernel_launches(n_split), "bf16_flops")
+                          mod.KERNELS_PER_CALL, "bf16_flops")
         return n_split
 
     def lm_batch(self, prompts) -> dict:
@@ -1523,9 +1523,7 @@ class Smoke:
         def step():
             with torch.inference_mode():
                 tf.decode_step(model, cache, out_t[:, -1:], cfg)
-        dec = self.kernels["decode_attention"]
-        per_call = dec.kernel_launches(dec.device_split(LM_BATCH, cfg.n_kv_heads, LM_CACHE,
-                                                        torch.device("cuda")))
+        per_call = self.kernels["decode_attention"].KERNELS_PER_CALL
         step_trace = traced_call(torch, step, {"decode_attention": per_call * cfg.n_layers,
                                                "grouped_matmul": n_gmm})
         del cache
@@ -2006,6 +2004,11 @@ def main() -> int:
         n_split = smoke.decode_kernel_phase(label, 2, 1, g, dg, LM_CACHE, lens)
         check(min(n for n in lens if n) < n_split,
               f"decode_attention/{label}: {n_split} splits, no fewer live positions")
+    # a batch of more (sequence, KV head) pairs than two blocks an SM: one
+    # split, still through the combine
+    n_split = smoke.decode_kernel_phase("one_split", 32, hkv, h // hkv, d, LM_CACHE,
+                                        [LM_CACHE, 1, 0, 1953] * 8)
+    check(n_split == 1, f"decode_attention/one_split: {n_split} splits, not 1")
     model = smoke.m["transformer"].init_params(
         cfg, torch.Generator(device="cuda").manual_seed(LM_WEIGHT_SEED), "cuda")
     smoke.serve_run("serve_llama3_2_1b", cfg, model, prompts, gate=True)

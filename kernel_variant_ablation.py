@@ -22,6 +22,9 @@ Run from the root of a checkout, on a CUDA card. Two parts:
   XOR-swizzled tile (dynamic shared memory). The two variants without
   loads compute wrong results by design; the shipped kernel and ``bk32``
   are held to the plain version at ``chip_smoke.py``'s gate first.
+  The edits are exact strings of ``csrc/ranged_spgemm.cu`` as of commit
+  c7c22c5; a later edit of that file makes them fail loudly, and the
+  variants are then rebuilt from that commit's file, not from HEAD's.
 
 Every line of output is one JSON object; the last one is
 ``{"ok": true, ...}``.
@@ -126,7 +129,7 @@ def decode_part(torch, smoke) -> None:
             smoke.hold_close(f"decode_attention/{label}/split{n}", run(), want,
                              ATTN_F32_ATOL, ATTN_BF16_ULPS)
             ms, incomplete = chip_smoke.kernel_device_ms(
-                torch, run, chip_smoke.TRACE_NAMES["decode_attention"], mod.kernel_launches(n))
+                torch, run, chip_smoke.TRACE_NAMES["decode_attention"], mod.KERNELS_PER_CALL)
             rows[n] = {"device_ms": ms, "incomplete_traces": incomplete,
                        "blocks": b * hkv * n}
         mod.device_split = chosen_split

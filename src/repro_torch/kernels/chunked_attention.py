@@ -15,7 +15,7 @@ sequence's length.
 
 The kernel splits the cache axis across ``n_split`` blocks per (sequence,
 KV head) and combines their partial softmax states in a second pass
-(flash-decoding). :func:`choose_split` picks ``n_split`` on the host from
+(flash-decoding), also when ``n_split`` is 1. :func:`choose_split` picks ``n_split`` on the host from
 the shapes and the card's SM count only, never from ``lengths`` (no host
 sync); each block takes ``ceil(len / n_split)`` positions of its own
 sequence, rounded up to a ``BKV`` chunk.
@@ -36,6 +36,7 @@ MAX_OUTPUTS = 2048          # G * D: at most 128 (row tile, part of D) items, on
 BKV = 64                    # cache positions of one chunk of the kernel
 MAX_SPLIT = 32              # splits of one sequence at most: the combine reads every split
 BLOCKS_PER_SM = 2           # resident split-kernel blocks an SM (bf16, G >= 2: 213 registers)
+KERNELS_PER_CALL = 2        # CUDA kernels one wrapper call launches: split, then combine
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -44,15 +45,14 @@ def choose_split(b: int, hkv: int, s: int, n_sm: int) -> int:
     blocks an SM over the ``b * hkv`` pairs, so that every block runs in
     one wave (a second wave of a few blocks costs more than the splits
     gain); at least 1, at most ``MAX_SPLIT`` and at most one a chunk of the
-    cache. Shapes only: the lengths are not read."""
+    cache. Shapes only: the lengths are not read, nor the dtype.
+
+    The rule is sized for the bf16 serve kernels (registers allow two
+    blocks an SM). The f32 D = 128 instantiation's 128 KB ring of shared
+    memory fits one block an SM, so its blocks take two waves where this
+    fills two."""
     fit = BLOCKS_PER_SM * n_sm // max(b * hkv, 1)
     return max(1, min(fit, MAX_SPLIT, -(-s // BKV)))
-
-
-def kernel_launches(n_split: int) -> int:
-    """CUDA kernels one wrapper call launches: the split kernel, and the
-    combine when the cache is split."""
-    return 1 if n_split == 1 else 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,8 +107,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_split = device_split(b, hkv, s, q.device)
     out = torch.empty_like(q)
     # the split partials (acc, then m and l), f32, written before they are read
-    part = (torch.empty(b * hkv * n_split * g * (d + 2), dtype=torch.float32,
-                        device=q.device) if n_split > 1 else None)
+    part = torch.empty(b * hkv * n_split * g * (d + 2), dtype=torch.float32, device=q.device)
     launch("chunked_attention", "decode_attention_launch", [q, k, v, lengths, out, part],
            [b, s, hkv, g, d, _DTYPES[q.dtype], n_split])
     LAUNCHES.bump()

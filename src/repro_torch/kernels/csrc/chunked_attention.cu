@@ -23,8 +23,8 @@
 // Design:
 // - decode_split_kernel, grid (n_split, Hkv, B), 128 threads. The host picks
 //   n_split from the shapes and the SM count alone (chunked_attention.py::
-//   choose_split: at most two blocks an SM, so every block runs in one
-//   wave); it never reads lengths. Each block reads lengths[b] itself and
+//   choose_split: at most two blocks an SM, so the bf16 serve kernels'
+//   blocks run in one wave); it never reads lengths. Each block reads lengths[b] itself and
 //   takes positions [split * share, split * share + share) below the
 //   length, share = ceil(len / n_split) rounded up to the 64-position chunk.
 //   A block whose share is empty writes the partial (m = NEG_INF, l = 0,
@@ -47,10 +47,10 @@
 //   (log2 js rounds through shared memory), as the combine merges splits.
 //   Visibility is an explicit flag (a position past the share contributes
 //   p = 0), so a state that has seen no visible key keeps l = 0.
-// - With n_split = 1 the block writes acc / l in q's dtype; else it writes
-//   its f32 partial (m, l, acc) to the scratch the wrapper allocates, and
-//   decode_combine_kernel (a thread an output element) rescales each live
-//   split by exp(m_i - M) and divides by the summed l. Splits with l = 0
+// - Every block writes its f32 partial (m, l, acc) to the scratch the
+//   wrapper allocates, and decode_combine_kernel (a thread an output
+//   element) rescales each live split by exp(m_i - M) and divides by the
+//   summed l, also when n_split = 1 (one output path). Splits with l = 0
 //   get weight 0 (the finite NEG_INF never becomes exp(0) = 1); l = 0
 //   overall gives zeros.
 
@@ -106,8 +106,7 @@ template <typename T, int D, int GT>
 __global__ void __launch_bounds__(THREADS)
     decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ lengths,
-                        T* __restrict__ o, float* __restrict__ part, int S, int Hkv,
-                        int G, float scale) {
+                        float* __restrict__ part, int S, int Hkv, int G, float scale) {
   using Gm = Geo<T, D, GT>;
   constexpr int CH = Gm::CH, CPT = Gm::CPT, EPT = Gm::EPT, NL = Gm::NL, PB = Gm::PB;
   constexpr int STAGES = Gm::STAGES;
@@ -273,18 +272,6 @@ __global__ void __launch_bounds__(THREADS)
   }
   if (jsub != 0) return;
 
-  if (n_split == 1) {
-    T* ob = o + bh * G * D;
-#pragma unroll
-    for (int gt = 0; gt < GT; ++gt) {
-      if (g0 + gt < G) {
-#pragma unroll
-        for (int e = 0; e < EPT; ++e)
-          attn::store(ob + (g0 + gt) * D + cl * EPT + e, l[gt] > 0.f ? acc[gt][e] / l[gt] : 0.f);
-      }
-    }
-    return;
-  }
   // the partial: acc [B Hkv][n_split][G D], then m and l [B Hkv][n_split][G]
   const int64_t n_bh = (int64_t)gridDim.z * Hkv;
   float* pa = part + (bh * n_split + split) * G * D;
@@ -339,9 +326,9 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, void
   const float scale = (float)(1.0 / sqrt((double)D));
   decode_split_kernel<T, D, GT><<<dim3(n_split, Hkv, B), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      static_cast<T*>(o), part, S, Hkv, G, scale);
+      part, S, Hkv, G, scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return (int)err;
+  if (err != cudaSuccess) return (int)err;
   const int64_t n_bh = (int64_t)B * Hkv;
   const unsigned blocks = (unsigned)((n_bh * G * D + THREADS - 1) / THREADS);
   decode_combine_kernel<T><<<blocks, THREADS, 0, stream>>>(part, static_cast<T*>(o), G, D,
@@ -368,15 +355,14 @@ int launch_d(const void* q, const void* k, const void* v, const int* lengths, vo
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). D is 64 or
 // 128 (the head widths of the ported configs), G * D at most 2048, n_split
-// in [1, 32]. part: f32 scratch of B Hkv n_split G (D + 2) floats when
-// n_split > 1 (unused, may be NULL, at 1). One call launches the split
-// kernel and, when n_split > 1, the combine.
+// in [1, 32]. part: f32 scratch of B Hkv n_split G (D + 2) floats. One
+// call launches the split kernel, then the combine.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const int* lengths, void* o, void* part, int B,
                                        int S, int Hkv, int G, int D, int dtype, int n_split,
                                        void* stream) {
   if (B < 0 || S < 0 || Hkv < 0 || G < 0 || G * D > MAX_GD || n_split < 1 ||
-      n_split > MAX_SPLIT || (n_split > 1 && part == nullptr))
+      n_split > MAX_SPLIT || part == nullptr)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Hkv == 0 || G == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;

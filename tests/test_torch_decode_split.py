@@ -72,6 +72,7 @@ def test_split_choice_reads_shapes_only():
     (8, 16, 4096, 2),     # OLMoE-1B-7B decode step: 256 blocks
     (4, 2, 300, 5),       # the smoke's ragged cases: one split a chunk
     (2, 1, 4096, 32),     # the few-live cases: MAX_SPLIT
+    (32, 8, 4096, 1),     # the smoke's one-split case: 256 pairs, one block each
     (64, 8, 512, 1),      # more (sequence, head) pairs than the target
 ])
 def test_split_choice_at_the_smoke_shapes(b, hkv, s, want):
