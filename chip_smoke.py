@@ -3,15 +3,19 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the CUDA kernels of
-``src/repro_torch/kernels/csrc`` (into ``build/repro_torch/``; the dense-slab
-and decode-attention sources must build without register spills), finds the
+``src/repro_torch/kernels/csrc`` (into ``build/repro_torch/``; the dense-slab,
+decode-attention, BSR x BSR and ESC sources must build without register
+spills), finds the
 tensor-core instructions in the libraries of the two routed kernels
 (``cuobjdump -sass``: HMMA in the prefill's, HGMMA and HMMA in the grouped
 GEMM's), holds each kernel, in both streaming orders, against its plain PyTorch version at the
 shapes the main path stages, at a four-chunk plan with a nonzero C_prev, and
 on a small geometry whose dense output row fills its hash table (the dense
 slab on its aligned float4 path at the main-path shapes and on its masked
-scalar path at the four-chunk plan, its two orders equal bit for bit), then runs
+scalar path at the four-chunk plan, its two orders equal bit for bit; the
+ESC kernel also where its sort leaves the register classes: shared memory
+and 64-bit keys; the CSR kernels also timed by the profiler, split by
+kernel), then runs
 the main path — ``multigrid.problem`` on the card, the host
 symbolic phase and planner, ``chunked_spgemm`` — on the paper's problems, and
 checks every result against the port's plain ``spgemm`` on the card and
@@ -22,7 +26,9 @@ product ``R x (A x P)`` on brick3d n=48 (``pipeline_spgemm`` through the
 hash and ESC kernels, intermediate resident and spilled), the ``bsr``
 backend on brick3d n=48 and ``ops.bsr_spmm`` of brick3d n=48 by a
 110,592 x 128 dense block, each held to scipy in float64, with the masked,
-BSR x BSR and BSR x dense kernels first held to their plain versions. Then
+BSR x BSR (also with sentinels inside rows, 40 steps a row, blocks of 4 and
+16; timed by the profiler) and BSR x dense kernels first held to their
+plain versions. Then
 the third path, serving: the flash-prefill and decode-attention kernels
 held to their plain versions in f32 and bf16 (the prefill kernel's FMA and
 tensor-core routes) at the serve run's shapes (the decode kernel at both
@@ -102,12 +108,16 @@ SASS_OPS = {"flash_prefill": ("HMMA",), "grouped_matmul": ("HGMMA", "HMMA")}
 TRACE_NAMES = {"flash_prefill": ("flash_prefill_kernel", "flash_prefill_tc_kernel"),
                "decode_attention": ("decode_split_kernel", "decode_combine_kernel"),
                "grouped_matmul": ("gmm_tile_kernel", "gmm_small_kernel",
-                                  "grouped_matmul_kernel")}
+                                  "grouped_matmul_kernel"),
+               "bsr_spgemm": ("bsr_spgemm",),
+               # the CSR-output skeleton's three kernels (ESC and hash merges)
+               "csr_accum": ("accum_rows_kernel", "scan_rows_kernel", "copy_rows_kernel")}
 TRACE_TRIES = 3   # traces of one call taken until one holds every expected launch
-# sources whose kernels must build without register spills: the two whose
-# register tiles were sized to fit (the dense slab's 8 x 8 FMA tile, the
-# decode kernel's row tiles)
-NO_SPILL = ("ranged_spgemm", "chunked_attention")
+# sources whose kernels must build without register spills: those whose
+# register tiles or sorts were sized to fit (the dense slab's 8 x 8 FMA tile,
+# the decode kernel's row tiles, the BSR warp's output tile, the ESC merge's
+# register sort)
+NO_SPILL = ("ranged_spgemm", "chunked_attention", "bsr_spgemm", "sparse_accum_spgemm")
 # the dense slab's load path each of its recorded phases must take: the
 # quickstart staging is 16-byte aligned (float4 / cp.async), the chunk1
 # staging (k_pad 42,043, span 9,275) is not (masked scalar loads)
@@ -289,25 +299,35 @@ def device_ms(torch, fn, reps: int = 5) -> tuple:
     return (statistics.median(seen) if seen else None), reps - len(seen)
 
 
-def kernel_device_ms(torch, fn, names, launches: int, reps: int = 5,
-                     tries: int = 20) -> tuple:
+def kernel_device_split(torch, fn, names, launches: int, reps: int = 5,
+                        tries: int = 20) -> tuple:
     """Median device milliseconds of the port kernels (activities whose
     name holds one of ``names``) that one call of ``fn`` launches, over
     ``reps`` profiler traces that hold all ``launches`` of them, after a
     warm-up call; the profiler loses activities of some calls, so up to
     ``tries`` calls are traced. Returns the median (None when no trace was
-    complete) and the number of incomplete traces."""
+    complete), the number of incomplete traces, and per name the median of
+    its share over the complete traces."""
     fn()
     torch.cuda.synchronize()
-    times, incomplete = [], 0
+    times, split, incomplete = [], {n: [] for n in names}, 0
     while len(times) < reps and len(times) + incomplete < tries:
-        hits = [v for name, v in device_by_name(profiled(torch, fn)).items()
-                if any(n in name for n in names)]
-        if sum(c for _, c in hits) == launches:
-            times.append(sum(ms for ms, _ in hits))
+        by_name = device_by_name(profiled(torch, fn))
+        hits = {n: [v for name, v in by_name.items() if n in name] for n in names}
+        if sum(c for vs in hits.values() for _, c in vs) == launches:
+            times.append(sum(ms for vs in hits.values() for ms, _ in vs))
+            for n, vs in hits.items():
+                split[n].append(sum(ms for ms, _ in vs))
         else:
             incomplete += 1
-    return (statistics.median(times) if times else None), incomplete
+    return ((statistics.median(times) if times else None), incomplete,
+            {n: statistics.median(v) for n, v in split.items() if v})
+
+
+def kernel_device_ms(torch, fn, names, launches: int, reps: int = 5,
+                     tries: int = 20) -> tuple:
+    """``kernel_device_split`` without the split: (median, incomplete)."""
+    return kernel_device_split(torch, fn, names, launches, reps, tries)[:2]
 
 
 def launch_ms(torch, timer_cls, fn, reps: int = 5) -> float:
@@ -538,13 +558,21 @@ class Smoke:
         torch = self.torch
         Ast, Bst, C0, r0s, r1s, caps = self.stage_csr(A, P, plan, c0_from)
         run, plain = self.csr_runners(kernel, Ast, Bst, C0, r0s, r1s, caps.c_max_row_nnz)
+        esc = self.kernels["sparse_accum_spgemm"]
         orders = {}
         for order in ORDERS:
             orders[order] = self.hold_csr(f"{kernel}/{label}/{order}", run(order), plain(order))
             orders[order]["ms"] = self.launch_ms(lambda: run(order))
             orders[order]["wrapper_ms"] = cuda_ms(torch, lambda: run(order))
+            # the profiler's device time of the call's kernels, and by kernel
+            (orders[order]["device_ms"], orders[order]["device_incomplete_traces"],
+             orders[order]["device_split_ms"]) = kernel_device_split(
+                torch, lambda: run(order), TRACE_NAMES["csr_accum"],
+                esc.kernels_per_call(order, plan.n_b))
             if record:
                 orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order), reps=3)
+        steps = (esc.sort_steps(Ast, Bst, C0, r0s, r1s, row_cap=caps.c_max_row_nnz)
+                 if kernel == "sparse_accum_spgemm" else None)
         out = run(main_order)
         moved = (live_bytes(Ast) + live_bytes(Bst) + live_bytes(C0) + nbytes(*out)
                  + 8 * len(r0s))
@@ -556,7 +584,8 @@ class Smoke:
                            "strip_rows": Ast.n_rows, "a_cap": Ast.nnz_pad,
                            "chunk_cap": Bst.nnz_pad, "c_cap": C0.nnz_pad,
                            "nnz_c0": int(C0.indptr[..., -1].sum()),
-                           "c_max_row_nnz": caps.c_max_row_nnz}, record)
+                           "c_max_row_nnz": caps.c_max_row_nnz,
+                           "esc_sort_steps": steps}, record)
 
     def dense_stage(self, A, P, plan):
         """The dense strips (``k + span`` columns) and slabs the ``pallas``
@@ -668,12 +697,12 @@ class Smoke:
             "plain_ms": numbers["plain_ms"], **bound,
             **library_fields(library, bound["bound_ms"]), **extra}
 
-    def edge_phase(self) -> None:
-        """Every kernel in both orders against its plain version on the
-        full-table geometry: one fully dense C row, so that row's hash table
-        has exactly ``n_cols`` slots and fills them all, with a nonzero C_prev
-        and A and B cut in thirds (three chunks, three strips)."""
-        torch, csr, ch = self.torch, self.m["csr"], self.m["chunking"]
+    def edge_geometry(self):
+        """The full-table geometry: 96 x 32 x 128 with one fully dense C row
+        (a dense A row reaching a dense B row), so that row's hash table has
+        exactly ``n_cols`` slots and fills them all, and a nonzero C_prev.
+        Returns A, B, C_prev and the densest output row."""
+        csr = self.m["csr"]
         rng = np.random.default_rng(EDGE_SEED)
         rows, k, n = 96, 32, 128
 
@@ -686,18 +715,32 @@ class Smoke:
         b[0] = rng.standard_normal(n)    # ... reaching a dense B row
         pattern = ((a != 0).astype(np.int64) @ (b != 0).astype(np.int64) > 0) | (c0 != 0)
         row_cap = int(pattern.sum(1).max())
+        A, B, C0m = (csr.csr_from_dense(m, device="cuda") for m in (a, b, c0))
+        return A, B, C0m, row_cap
+
+    def stage_edge(self, A, B, C0m, plan, c_cap: int):
+        """A, B and C_prev staged as the CSR kernels take them under ``plan``
+        (C_prev's strips at capacity ``c_cap``)."""
+        csr, ch = self.m["csr"], self.m["chunking"]
+        Ast = csr.csr_stack([csr.csr_stack(ch.a_strips(A, plan.p_ac))])
+        Bst = csr.csr_stack([csr.csr_stack(ch.b_chunks(B, plan.p_b))])
+        C0s = csr.csr_stack([csr.csr_pad_to(s, c_cap) for s in ch.a_strips(C0m, plan.p_ac)])
+        return Ast, Bst, C0s, csr.csr_stack([C0s])
+
+    def edge_phase(self) -> None:
+        """Every kernel in both orders against its plain version on the
+        full-table geometry, A and B cut in thirds (three chunks, three
+        strips)."""
+        torch = self.torch
+        A, B, C0m, row_cap = self.edge_geometry()
+        rows, k = A.shape
+        n = B.n_cols
         table = self.m["planner"].hash_table_slots(row_cap)
         check(row_cap == n and table == n, f"edge geometry: row cap {row_cap}, "
               f"table {table}, expected a full table of {n}")
-        A, B, C0m = (csr.csr_from_dense(m, device="cuda") for m in (a, b, c0))
         plan = self.m["planner"].ChunkPlan("chunk1", (0, 32, 64, rows), (0, 11, 22, k),
                                           0.0, 0.0)
-        strips = ch.a_strips(A, plan.p_ac)
-        c_cap = strips[0].n_rows * n
-        Ast = csr.csr_stack([csr.csr_stack(strips)])
-        Bst = csr.csr_stack([csr.csr_stack(ch.b_chunks(B, plan.p_b))])
-        C0s = csr.csr_stack([csr.csr_pad_to(s, c_cap) for s in ch.a_strips(C0m, plan.p_ac)])
-        C0 = csr.csr_stack([C0s])
+        Ast, Bst, C0s, C0 = self.stage_edge(A, B, C0m, plan, 32 * n)
         r0s, r1s = plan.b_ranges()
         result = {}
         for kernel in ("hash_accum_spgemm", "sparse_accum_spgemm"):
@@ -722,6 +765,65 @@ class Smoke:
               "ranged_spgemm_path": dense_path,
               "c_max_row_nnz": row_cap, "table_size": table,
               "nnz_c0": int(C0.indptr[..., -1].sum()), "kernels": result})
+
+    def esc_case(self, label: str, Ast, Bst, C0, r0s, r1s, row_cap: int, want: str) -> None:
+        """The ESC kernel in both orders against its plain version on staged
+        operands whose merge steps must reach the sort ``want`` (a key of
+        ``sort_steps``: a size class and key width)."""
+        mod = self.kernels["sparse_accum_spgemm"]
+        steps = mod.sort_steps(Ast, Bst, C0, r0s, r1s, row_cap=row_cap)
+        check(steps.get(want, 0) > 0, f"sparse_accum_spgemm/{label}: no step sorts "
+              f"as {want} ({steps})")
+        run, plain = self.csr_runners("sparse_accum_spgemm", Ast, Bst, C0, r0s, r1s, row_cap)
+        orders = {order: self.hold_csr(f"sparse_accum_spgemm/{label}/{order}", run(order),
+                                       plain(order)) for order in ORDERS}
+        self.note_err("sparse_accum_spgemm", max(o["max_abs_err"] for o in orders.values()))
+        work_cap, _ = mod.esc_workspace(Ast.max_row_nnz, Bst.max_row_nnz, row_cap)
+        emit({"esc_case": label, "shape": [Ast.n_rows * Ast.indptr.shape[1], Ast.n_cols,
+                                           Bst.n_cols],
+              "strips": Ast.indptr.shape[1], "chunks": Bst.indptr.shape[1],
+              "c_max_row_nnz": row_cap, "work_cap": work_cap, "sort_steps": steps,
+              "wanted": want, "orders": orders})
+
+    def esc_class_phase(self) -> None:
+        """The ESC kernel where its sort leaves the main path's register
+        classes: the full-table geometry under one chunk (the dense row's
+        step holds more keys than the largest register class, so it sorts in
+        shared memory), and a geometry 2^25 + 9 columns wide whose columns do
+        not fit 32-bit keys beside its positions (64-bit keys, sorted in
+        shared memory)."""
+        planner, csr = self.m["planner"], self.m["csr"]
+        A, B, C0m, row_cap = self.edge_geometry()
+        plan = planner.ChunkPlan("chunk1", (0, 32, 64, A.n_rows), (0, A.n_cols), 0.0, 0.0)
+        Ast, Bst, _, C0 = self.stage_edge(A, B, C0m, plan, 32 * B.n_cols)
+        self.esc_case("edge_one_chunk", Ast, Bst, C0, *plan.b_ranges(), row_cap, "shared/64")
+
+        rng = np.random.default_rng(EDGE_SEED + 2)
+        rows, k, n = 64, 48, (1 << 25) + 9
+
+        def coo(n_rows, per_row):
+            r = np.repeat(np.arange(n_rows), per_row)
+            c = np.concatenate([rng.choice(n, m, replace=False) for m in per_row])
+            return r, c, rng.standard_normal(r.size).astype(np.float32)
+        a = np.where(rng.random((rows, k)) < 0.2, rng.standard_normal((rows, k)), 0.0)
+        b_per_row = rng.integers(0, 9, k)
+        b_per_row[0] = 60                  # one long B row
+        b_per_row[5] = 0                   # and an empty one
+        br, bc, bv = coo(k, b_per_row)
+        c0r, c0c, c0v = coo(rows, rng.integers(0, 5, rows))
+        A = csr.csr_from_dense(a.astype(np.float32), device="cuda")
+        B = csr.csr_from_coo(br, bc, bv, (k, n), device="cuda")
+        C0m = csr.csr_from_coo(c0r, c0c, c0v, (rows, n), device="cuda")
+        union = [set(c0c[c0r == i]) for i in range(rows)]
+        for i, j in zip(*np.nonzero(a)):
+            union[i].update(bc[br == j])
+        plan = planner.ChunkPlan("chunk1", (0, 22, 44, rows), (0, 16, 32, k), 0.0, 0.0)
+        strip_nnz = [sum(len(union[i]) for i in range(s, e))
+                     for s, e in zip(plan.p_ac[:-1], plan.p_ac[1:])]
+        c_cap = -(-max(strip_nnz) // 8) * 8
+        Ast, Bst, _, C0 = self.stage_edge(A, B, C0m, plan, c_cap)
+        self.esc_case("wide_columns", Ast, Bst, C0, *plan.b_ranges(),
+                      max(len(u) for u in union), "wide/64")
 
     # -- main path ---------------------------------------------------------
 
@@ -1065,15 +1167,17 @@ class Smoke:
               "check": {"plain_structure_equal": structure, "plain_max_abs_err": err,
                         "scipy_rel_err": scipy_err}})
 
-    def bsr_pairs(self, A, P, plan):
-        """The (strip, chunk) pairs the ``bsr`` executor stages, as kernel
-        operands and metas, with the envelope that capped them."""
+    def bsr_pairs(self, A, P, plan, block: int = BSR_BLOCK, first: bool = False):
+        """The (strip, chunk) pairs the ``bsr`` executor stages at block size
+        ``block`` (only the first with ``first``), as kernel operands and
+        metas, with the envelope that capped them."""
         caps = self.m["symbolic"].strip_output_caps(A, P, plan.p_ac)
         env = self.m["chunking"].instance_envelope(A, P, plan, caps=caps,
-                                                   block_size=BSR_BLOCK)
-        pairs = [(ops, meta) for _, ops, meta
-                 in self.m["chunk_stream"].stage_bsr_pairs(A, P, plan, env)]
-        return pairs, env
+                                                   block_size=block)
+        staged = self.m["chunk_stream"].stage_bsr_pairs(A, P, plan, env)
+        if first:
+            staged = [next(staged)]
+        return [(ops, meta) for _, ops, meta in staged], env
 
     def hold_tiles(self, what: str, got, want) -> float:
         self.torch.cuda.synchronize()
@@ -1100,8 +1204,13 @@ class Smoke:
         err16 = self.hold_tiles(f"bsr_spgemm/{label}/bf16",
                                 mod.bsr_spgemm_blocks(a16, b16, sa, sb, nc, u, BSR_BLOCK),
                                 mod.bsr_spgemm_plain(a16, b16, sa, sb, nc, u, BSR_BLOCK))
-        numbers = {"max_abs_err": max(err, err16), "bf16_max_abs_err": err16,
+        cases = self.bsr_cases(A, P, plan, label, pairs[0][0], nc, u)
+        numbers = {"max_abs_err": max(err, err16, *(c["max_abs_err"] for c in cases.values())),
+                   "bf16_max_abs_err": err16,
                    "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
+        # the profiler's device time of the six launches
+        numbers["device_ms"], numbers["device_incomplete_traces"], _ = kernel_device_split(
+            torch, run, TRACE_NAMES["bsr_spgemm"], len(pairs))
         if record:
             numbers["plain_ms"] = cuda_ms(torch, plain, reps=3)
         # each pair reads the live blocks its slot tables name and one
@@ -1120,8 +1229,52 @@ class Smoke:
                           flops, library,
                           {"block": BSR_BLOCK, "pairs": len(pairs),
                            "bsr_caps": list(env.bsr_caps),
-                           "c_blocks": [meta.n_c_blocks for _, meta in pairs]},
+                           "c_blocks": [meta.n_c_blocks for _, meta in pairs],
+                           "cases": cases},
                           record, len(pairs))
+
+    def bsr_cases(self, A, P, plan, label: str, first, nc: int, u: int) -> dict:
+        """The BSR x BSR kernel on tables and block sizes the main path does
+        not give it, each against its plain version: the first pair's tables
+        with each row's steps shuffled (sentinels inside a row, not only at
+        its end), the same widened to 40 steps (two slot passes of a warp),
+        and the first pair staged at blocks of 4 and 16."""
+        torch, mod = self.torch, self.kernels["bsr_spgemm"]
+        a, b, sa, sb = first
+        gen = torch.Generator(device="cuda").manual_seed(EDGE_SEED)
+
+        def shuffled(ta, tb, width):
+            pad = width - ta.shape[1]
+            ta = torch.cat([ta, ta.new_full((nc, pad), a.shape[0] - 1)], 1)
+            tb = torch.cat([tb, tb.new_full((nc, pad), b.shape[0] - 1)], 1)
+            perm = torch.argsort(torch.rand(nc, width, generator=gen, device="cuda"), 1)
+            return ta.gather(1, perm).contiguous(), tb.gather(1, perm).contiguous()
+        cases = {}
+        for name, width in (("interior_sentinels", u), ("u_max40", 40)):
+            ta, tb = shuffled(sa, sb, width)
+            interior = int(((ta[:, :-1] == a.shape[0] - 1) & (ta[:, 1:] != a.shape[0] - 1))
+                           .any(1).sum())
+            past = int((ta[:, 32:] != a.shape[0] - 1).any(1).sum())
+            check(interior > 0, f"bsr_spgemm/{label}/{name}: no sentinel inside a row")
+            check(width <= 32 or past > 0, f"bsr_spgemm/{label}/{name}: no live step "
+                  "in the second slot pass")
+            cases[name] = {"u_max": width, "rows_with_interior_sentinels": interior,
+                           "rows_live_past_32": past,
+                           "max_abs_err": self.hold_tiles(
+                               f"bsr_spgemm/{label}/{name}",
+                               mod.bsr_spgemm_blocks(a, b, ta, tb, nc, width, BSR_BLOCK),
+                               mod.bsr_spgemm_plain(a, b, ta, tb, nc, width, BSR_BLOCK))}
+        for block in (4, 16):
+            pairs, env = self.bsr_pairs(A, P, plan, block, first=True)
+            (ab, bb, ta, tb), meta = pairs[0]
+            _, _, _, ncb, ub = env.bsr_caps
+            cases[f"bs{block}"] = {"u_max": ub, "nc_pad": ncb, "c_blocks": meta.n_c_blocks,
+                                   "max_abs_err": self.hold_tiles(
+                                       f"bsr_spgemm/{label}/bs{block}",
+                                       mod.bsr_spgemm_blocks(ab, bb, ta, tb, ncb, ub, block),
+                                       mod.bsr_spgemm_plain(ab, bb, ta, tb, ncb, ub, block))}
+            del pairs
+        return cases
 
     def spmm_inputs(self):
         if not hasattr(self, "_spmm"):
@@ -1928,6 +2081,7 @@ def main() -> int:
     smoke.dense_kernel_phase(A32, P32, plan32c1, label="brick3d32_chunk1_c0",
                              c0_seed=EDGE_SEED)
     smoke.edge_phase()
+    smoke.esc_class_phase()
 
     # the main path, counters reset before each run
     smoke.main_run("brick3d48_auto", "brick3d", 48, "auto", expect_backend="hash")

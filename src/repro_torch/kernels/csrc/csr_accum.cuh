@@ -14,8 +14,9 @@
 //     (a partial row is a subset of the final row, so the slab of
 //     `row_cap` slots never overflows when the symbolic caps are right).
 // Then a hand-written block scan of the per-row counts writes each strip's
-// indptr, and a copy pass compacts the slabs into the CSR at capacity c_cap
-// with a zero tail, the reference's layout.
+// indptr (one block a strip, eight rows a thread), and a copy pass compacts
+// the slabs into the CSR at capacity c_cap with a zero tail, the
+// reference's layout.
 //
 // Bound: the products read B rows gathered by A's columns and the strip CSR
 // is written once; the work is a few hundred bytes per row, so the kernels
@@ -145,58 +146,76 @@ __device__ int for_each_product(const Params& p, const int* a_ix,
 
 // One warp per strip row: load the accumulator (C0 on the first chunk, the
 // slab afterwards), merge chunks [j_begin, j_end), store the row to the slab.
+// A merge asks for Merge::kMinBlocksPerSM blocks of kMaxAccumThreads an SM,
+// which caps its registers.
+constexpr int kMaxAccumThreads = 8 * kWarp;
+
 template <class Merge>
-__global__ void accum_rows_kernel(Params p, int j_begin, int j_end) {
+__global__ void __launch_bounds__(kMaxAccumThreads, Merge::kMinBlocksPerSM)
+    accum_rows_kernel(Params p, int j_begin, int j_end) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
-  const long long rows = (long long)p.batch * p.n_ac * p.strip_rows;
-  const long long g = (long long)blockIdx.x * (blockDim.x / kWarp) + warp;
+  const int rows = p.batch * p.n_ac * p.strip_rows;   // < 2^31 (launch checks)
+  const int g = blockIdx.x * (blockDim.x / kWarp) + warp;
   if (g >= rows) return;  // warp-uniform
-  const long long strip = g / p.strip_rows;
-  const int r = (int)(g % p.strip_rows);
-  const long long b = strip / p.n_ac;
+  const int strip = g / p.strip_rows;
+  const int r = g - strip * p.strip_rows;
+  const int b = strip / p.n_ac;
 
   Merge m(smem + (size_t)warp * p.smem_per_warp, p);
   m.clear(lane);
   if (j_begin == 0) {
-    const int* ip = p.c0_ip + strip * (p.strip_rows + 1);
+    const int* ip = p.c0_ip + (long long)strip * (p.strip_rows + 1);
     int s = min(ip[r], p.c_cap), e = min(ip[r + 1], p.c_cap);
-    m.load(p, p.c0_ix + strip * p.c_cap + s, p.c0_d + strip * p.c_cap + s,
-           max(e - s, 0), lane);
+    m.load(p, p.c0_ix + (long long)strip * p.c_cap + s,
+           p.c0_d + (long long)strip * p.c_cap + s, max(e - s, 0), lane);
   } else {
-    m.load(p, p.slab_cols + g * p.row_cap, p.slab_vals + g * p.row_cap,
-           p.slab_cnt[g], lane);
+    m.load(p, p.slab_cols + (long long)g * p.row_cap,
+           p.slab_vals + (long long)g * p.row_cap, p.slab_cnt[g], lane);
   }
-  const int* a_ip = p.a_ip + strip * (p.strip_rows + 1);
-  const int* a_ix = p.a_ix + strip * p.a_cap;
-  const float* a_d = p.a_d + strip * p.a_cap;
+  const int* a_ip = p.a_ip + (long long)strip * (p.strip_rows + 1);
+  const int* a_ix = p.a_ix + (long long)strip * p.a_cap;
+  const float* a_d = p.a_d + (long long)strip * p.a_cap;
   const int a_start = min(a_ip[r], p.a_cap), a_end = min(a_ip[r + 1], p.a_cap);
   for (int j = j_begin; j < j_end; ++j) {
-    const long long chunk = b * p.n_b + j;
+    const long long chunk = (long long)b * p.n_b + j;
     m.merge(p, a_ix, a_d, a_start, a_end, p.b_ip + chunk * (p.chunk_rows + 1),
             p.b_ix + chunk * p.chunk_cap, p.b_d + chunk * p.chunk_cap,
             p.r0s[j], p.r1s[j], lane);
   }
-  p.slab_cnt[g] = m.store(p, p.slab_cols + g * p.row_cap,
-                          p.slab_vals + g * p.row_cap, lane);
+  p.slab_cnt[g] = m.store(p, p.slab_cols + (long long)g * p.row_cap,
+                          p.slab_vals + (long long)g * p.row_cap, lane);
 }
 
-// One block per strip: exclusive scan of the row counts into indptr, then
-// the zero tail past the strip's nnz.
+// One block per strip: exclusive scan of the row counts into indptr. A
+// thread takes kScanRows consecutive rows, so a strip of tens of thousands
+// of rows takes a few block-wide steps (the scan is a chain of dependent
+// steps on one SM per strip). The zero tail is the copy pass's: written by
+// this one block, the mostly empty tail of a strip of padding rows (megabytes
+// at the main path's shapes) took the most of the scan's time.
+constexpr int kScanThreads = 1024;
+constexpr int kScanRows = 8;
+
 __global__ void scan_rows_kernel(Params p) {
   __shared__ int warp_sums[kWarp];
   __shared__ int tile_total;
   const long long strip = blockIdx.x;
   const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
-  const int n_warps = blockDim.x / kWarp;
+  const int n_warps = blockDim.x / kWarp;   // <= 32
   const int* cnt = p.slab_cnt + strip * p.strip_rows;
   int* ip = p.out_ip + strip * (p.strip_rows + 1);
   int carry = 0;
-  for (int base = 0; base < p.strip_rows; base += blockDim.x) {
-    int r = base + tid;
-    int v = r < p.strip_rows ? cnt[r] : 0;
-    int incl = warp_incl_scan(v, lane);
+  for (int base = 0; base < p.strip_rows; base += blockDim.x * kScanRows) {
+    const int r0 = base + tid * kScanRows;
+    int v[kScanRows];
+    int sum = 0;
+#pragma unroll
+    for (int t = 0; t < kScanRows; ++t) {
+      v[t] = r0 + t < p.strip_rows ? cnt[r0 + t] : 0;
+      sum += v[t];
+    }
+    const int incl = warp_incl_scan(sum, lane);
     if (lane == kWarp - 1) warp_sums[warp] = incl;
     __syncthreads();
     if (warp == 0) {
@@ -206,7 +225,12 @@ __global__ void scan_rows_kernel(Params p) {
       if (lane == n_warps - 1) tile_total = ws_incl;
     }
     __syncthreads();
-    if (r < p.strip_rows) ip[r] = carry + warp_sums[warp] + incl - v;
+    int run = carry + warp_sums[warp] + incl - sum;
+#pragma unroll
+    for (int t = 0; t < kScanRows; ++t) {
+      if (r0 + t < p.strip_rows) ip[r0 + t] = run;
+      run += v[t];
+    }
     carry += tile_total;
     __syncthreads();
   }
@@ -214,28 +238,41 @@ __global__ void scan_rows_kernel(Params p) {
     ip[p.strip_rows] = carry;
     if (carry > p.c_cap) flag_overflow(p);
   }
-  for (int t = min(carry, p.c_cap) + tid; t < p.c_cap; t += blockDim.x) {
-    p.out_ix[strip * p.c_cap + t] = 0;
-    p.out_d[strip * p.c_cap + t] = 0.f;
-  }
 }
 
-// One warp per row: copy the row's slab entries to their CSR positions.
+// Half a warp per row, rows in a grid-stride loop (two rows in flight a
+// warp): copy the row's slab entries to their CSR positions. Then the
+// grid's threads zero every strip's tail past its nnz.
+constexpr int kCopyThreads = 256;
+constexpr int kCopyBlocks = 2048;
+
 __global__ void copy_rows_kernel(Params p) {
-  const int lane = threadIdx.x % kWarp;
-  const long long rows = (long long)p.batch * p.n_ac * p.strip_rows;
-  const long long g =
-      (long long)blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
-  if (g >= rows) return;
-  const long long strip = g / p.strip_rows;
-  const int r = (int)(g % p.strip_rows);
-  const int dst0 = p.out_ip[strip * (p.strip_rows + 1) + r];
-  const int n = p.slab_cnt[g];
-  for (int t = lane; t < n; t += kWarp) {
-    int d = dst0 + t;
-    if (d < p.c_cap) {
-      p.out_ix[strip * p.c_cap + d] = p.slab_cols[g * p.row_cap + t];
-      p.out_d[strip * p.c_cap + d] = p.slab_vals[g * p.row_cap + t];
+  const int half = threadIdx.x % kWarp / 16, hl = threadIdx.x % 16;
+  const int rows = p.batch * p.n_ac * p.strip_rows;
+  const int halves = gridDim.x * (blockDim.x / 16);
+  for (int g = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp * 2 + half; g < rows;
+       g += halves) {
+    const int strip = g / p.strip_rows;
+    const int r = g - strip * p.strip_rows;
+    const int dst0 = p.out_ip[(long long)strip * (p.strip_rows + 1) + r];
+    const int n = p.slab_cnt[g];
+    for (int t = hl; t < n; t += 16) {
+      const int d = dst0 + t;
+      if (d < p.c_cap) {
+        p.out_ix[(long long)strip * p.c_cap + d] = p.slab_cols[(long long)g * p.row_cap + t];
+        p.out_d[(long long)strip * p.c_cap + d] = p.slab_vals[(long long)g * p.row_cap + t];
+      }
+    }
+  }
+  const int threads = gridDim.x * blockDim.x;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int strip = 0; strip < p.batch * p.n_ac; ++strip) {
+    const int nnz = p.out_ip[(long long)strip * (p.strip_rows + 1) + p.strip_rows];
+    int* ix = p.out_ix + (long long)strip * p.c_cap;
+    float* d = p.out_d + (long long)strip * p.c_cap;
+    for (int t = max(min(nnz, p.c_cap), 0) + tid; t < p.c_cap; t += threads) {
+      ix[t] = 0;
+      d[t] = 0.f;
     }
   }
 }
@@ -245,12 +282,19 @@ int launch(const Params& p, int warps_per_block, int order,
            cudaStream_t stream) {
   const long long rows = (long long)p.batch * p.n_ac * p.strip_rows;
   const int strips = p.batch * p.n_ac;
+  if (rows >= (1ll << 31)) return (int)cudaErrorInvalidValue;   // rows are int
   if (strips == 0) return (int)cudaGetLastError();
   const size_t smem = (size_t)warps_per_block * p.smem_per_warp;
-  cudaError_t err = cudaFuncSetAttribute(
-      accum_rows_kernel<Merge>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  // the kernel's dynamic shared memory limit, raised only when a call needs
+  // more than the largest earlier one (one setting per merge)
+  static size_t smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        accum_rows_kernel<Merge>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed = smem;
+  }
   if (rows > 0) {
     const unsigned blocks =
         (unsigned)((rows + warps_per_block - 1) / warps_per_block);
@@ -262,9 +306,11 @@ int launch(const Params& p, int warps_per_block, int order,
         accum_rows_kernel<Merge><<<blocks, threads, smem, stream>>>(p, j, j + 1);
     }
   }
-  scan_rows_kernel<<<strips, 256, 0, stream>>>(p);
-  if (rows > 0)
-    copy_rows_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p);
+  scan_rows_kernel<<<strips, kScanThreads, 0, stream>>>(p);
+  const long long copy_blocks = (rows * 16 + kCopyThreads - 1) / kCopyThreads;
+  copy_rows_kernel<<<(unsigned)(copy_blocks < 1 ? 1 : copy_blocks > kCopyBlocks
+                                                          ? kCopyBlocks : copy_blocks),
+                     kCopyThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -33,6 +33,7 @@ constexpr int kEmpty = -1;
 constexpr unsigned kKnuth = 2654435769u;
 
 struct HashMerge {
+  static constexpr int kMinBlocksPerSM = 1;
   int* keys;     // [T]
   float* vals;   // [T]
   int table;     // T, a power of two

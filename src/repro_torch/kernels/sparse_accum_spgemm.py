@@ -15,17 +15,24 @@ the wrapper runs :func:`sparse_accum_plain`. The skeleton's launch helper,
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from repro_torch.core.kkmem import spgemm_ranged_impl
 from repro_torch.kernels._build import LaunchCounter, launch, require
-from repro_torch.sparse.csr import CSR
+from repro_torch.sparse.csr import CSR, csr_row_of_entry
 
 LAUNCHES = LaunchCounter()
 ORDERS = ("chunk1", "chunk2")
 SMEM_PER_BLOCK = 232_448        # bytes of shared memory one block may use (H100)
 SMEM_TARGET = 96 * 1024         # per-block target when choosing warps per block
 MAX_WARPS_PER_BLOCK = 8
+# the ESC merge's sort by size class: a merge step of n keys (the row's
+# in-range products plus its accumulator) whose columns fit 32-bit keys sorts
+# in registers, holding 1, 2 or 4 keys a lane, when n fits the class; a
+# larger step, or one whose columns need 64-bit keys, sorts in shared memory
+SORT_CLASSES = (("reg1", 32), ("reg2", 64), ("reg4", 128))
 
 
 def stack_geometry(Ast: CSR, Bst: CSR, C0st: CSR, order: str) -> dict:
@@ -140,6 +147,85 @@ def launch_csr_accum(lib: str, fn: str, counter: LaunchCounter, Ast: CSR,
             f"{fn}: a row or strip exceeded its capacity (row_cap={row_cap}, "
             f"c_cap={g['c_cap']}); size them from the exact symbolic phase")
     return out_ip, out_ix, out_d
+
+
+def kernels_per_call(order: str, n_b: int) -> int:
+    """Kernels one call of the skeleton launches: the merge once (chunk1)
+    or once a chunk (chunk2), then the scan and the copy."""
+    return (n_b if order == "chunk2" else 1) + 2
+
+
+def sort_class(n: int, bits: int = 32) -> str:
+    """The sort an ESC merge step of ``n`` keys of ``bits`` bits
+    (``key_bits``) takes: "none" (no key), the register class
+    ``"reg<keys a lane>"`` that 32-bit keys fit, "wide" (64-bit keys, at most
+    128, sorted in shared memory) or "shared" (more keys, in shared memory,
+    64-bit keys)."""
+    if n <= 0:
+        return "none"
+    for name, cap in SORT_CLASSES:
+        if n <= cap:
+            return name if bits == 32 else "wide"
+    return "shared"
+
+
+def key_bits(n_cols: int, work_cap: int) -> int:
+    """Width of a packed ESC sort key ``(column << pos_bits) | position``,
+    ``pos_bits = bits(work_cap - 1)``: 32 where ``bits(n_cols - 1) + pos_bits
+    <= 32``, else 64. The kernel applies the rule to each step of at most
+    128 keys with the step's largest column + 1 as ``n_cols``; its
+    shared-memory sorts pack 64-bit keys ``(column << 32) | position``."""
+    bits = (max(n_cols, 1) - 1).bit_length() + (max(work_cap, 1) - 1).bit_length()
+    return 32 if bits <= 32 else 64
+
+
+def _per_row(m: CSR, values: torch.Tensor, live: torch.Tensor, reduce: str) -> torch.Tensor:
+    """Per row of ``m``: the sum or the max (-1 where none) of ``values``
+    over the entries ``live`` marks."""
+    out = torch.full((m.n_rows,), 0 if reduce == "sum" else -1, dtype=torch.int64,
+                     device=m.device)
+    return out.scatter_reduce_(0, csr_row_of_entry(m)[live], values[live], reduce)
+
+
+def sort_steps(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *, row_cap: int) -> dict:
+    """How the ESC kernel sorts: the number of (strip row, chunk) merge
+    steps of each ``"class/key bits"`` (``sort_class`` of the step's key
+    count and ``key_bits`` of its largest column; "none" has no key). The
+    accumulator before a step comes from the plain version's steps; both
+    orders run the same steps."""
+    g = stack_geometry(Ast, Bst, C0st, "chunk1")
+    work_cap, _ = esc_workspace(Ast.max_row_nnz, Bst.max_row_nnz, max(int(row_cap), 1))
+    r0s = [int(v) for v in torch.as_tensor(r0s).tolist()]
+    r1s = [int(v) for v in torch.as_tensor(r1s).tolist()]
+    c_cap = g["c_cap"]
+
+    def live(m: CSR, nnz) -> torch.Tensor:
+        return torch.arange(m.nnz_pad, device=m.device) < nnz
+
+    steps = collections.Counter()
+    for b in range(g["batch"]):
+        for i in range(g["n_ac"]):
+            A = _element(Ast, b, i)
+            acc = _element(C0st, b, i, c_cap)
+            for j in range(g["n_b"]):
+                B = _element(Bst, b, j)
+                b_len = (B.indptr[1:] - B.indptr[:-1]).long().clamp(0, Bst.max_row_nnz)
+                b_top = _per_row(B, B.indices.long(), live(B, B.indptr[-1]), "amax")
+                col = A.indices.long()
+                in_range = live(A, A.indptr[-1]) & (col >= r0s[j]) & (col < r1s[j])
+                b_row = (col - r0s[j]).clamp(0, B.n_rows - 1)
+                acc_ip = acc.indptr.long().clamp(max=c_cap)
+                acc_live = live(acc, acc_ip[-1])
+                n = _per_row(A, b_len[b_row], in_range, "sum") + acc_ip[1:] - acc_ip[:-1]
+                top = torch.maximum(_per_row(A, b_top[b_row], in_range, "amax"),
+                                    _per_row(acc, acc.indices.long(), acc_live, "amax"))
+                steps.update(zip(n.tolist(), top.tolist()))
+                acc = spgemm_ranged_impl(A, B, r0s[j], r1s[j], acc, c_cap)
+    counts = collections.Counter()
+    for (n, top), k in steps.items():
+        cls = sort_class(n, key_bits(top + 1, work_cap))
+        counts[cls if cls == "none" else f"{cls}/{32 if cls.startswith('reg') else 64}"] += k
+    return dict(sorted(counts.items()))
 
 
 def esc_workspace(a_max_row_nnz: int, b_max_row_nnz: int, row_cap: int) -> tuple:
