@@ -4,8 +4,8 @@
 
 Run from the root of a checkout. It builds the CUDA kernels of
 ``src/repro_torch/kernels/csrc`` (into ``build/repro_torch/``; the dense-slab,
-decode-attention, BSR x BSR and ESC sources must build without register
-spills), finds the
+decode-attention, BSR x BSR, ESC and both hash sources must build without
+register spills), finds the
 tensor-core instructions in the libraries of the two routed kernels
 (``cuobjdump -sass``: HMMA in the prefill's, HGMMA and HMMA in the grouped
 GEMM's), holds each kernel, in both streaming orders, against its plain PyTorch version at the
@@ -14,8 +14,9 @@ on a small geometry whose dense output row fills its hash table (the dense
 slab on its aligned float4 path at the main-path shapes and on its masked
 scalar path at the four-chunk plan, its two orders equal bit for bit; the
 ESC kernel also where its sort leaves the register classes: shared memory
-and 64-bit keys; the CSR kernels also timed by the profiler, split by
-kernel), then runs
+and 64-bit keys; the hash kernel also where its extraction compacts a wide
+table before the register sort and where it sorts in shared memory; the CSR
+kernels also timed by the profiler, split by kernel), then runs
 the main path — ``multigrid.problem`` on the card, the host
 symbolic phase and planner, ``chunked_spgemm`` — on the paper's problems, and
 checks every result against the port's plain ``spgemm`` on the card and
@@ -25,10 +26,12 @@ the masked hash kernel, one chunk and a chunk2 plan), the two-hop Galerkin
 product ``R x (A x P)`` on brick3d n=48 (``pipeline_spgemm`` through the
 hash and ESC kernels, intermediate resident and spilled), the ``bsr``
 backend on brick3d n=48 and ``ops.bsr_spmm`` of brick3d n=48 by a
-110,592 x 128 dense block, each held to scipy in float64, with the masked,
-BSR x BSR (also with sentinels inside rows, 40 steps a row, blocks of 4 and
-16; timed by the profiler) and BSR x dense kernels first held to their
-plain versions. Then
+110,592 x 128 dense block, each held to scipy in float64, with the masked
+(also with its rows cut at a forced small part size, in chunk2 with a
+nonzero C_prev; timed by the profiler, launch by launch), BSR x BSR (also
+with sentinels inside rows, 40 steps a row, blocks of 4 and 16; timed by
+the profiler) and BSR x dense kernels first held to their plain versions.
+Then
 the third path, serving: the flash-prefill and decode-attention kernels
 held to their plain versions in f32 and bf16 (the prefill kernel's FMA and
 tensor-core routes) at the serve run's shapes (the decode kernel at both
@@ -60,6 +63,7 @@ exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -110,14 +114,17 @@ TRACE_NAMES = {"flash_prefill": ("flash_prefill_kernel", "flash_prefill_tc_kerne
                "grouped_matmul": ("gmm_tile_kernel", "gmm_small_kernel",
                                   "grouped_matmul_kernel"),
                "bsr_spgemm": ("bsr_spgemm",),
+               "hash_masked_accum_spgemm": ("masked_part_kernel", "masked_seed_kernel",
+                                            "masked_gather_kernel"),
                # the CSR-output skeleton's three kernels (ESC and hash merges)
                "csr_accum": ("accum_rows_kernel", "scan_rows_kernel", "copy_rows_kernel")}
 TRACE_TRIES = 3   # traces of one call taken until one holds every expected launch
 # sources whose kernels must build without register spills: those whose
 # register tiles or sorts were sized to fit (the dense slab's 8 x 8 FMA tile,
 # the decode kernel's row tiles, the BSR warp's output tile, the ESC merge's
-# register sort)
-NO_SPILL = ("ranged_spgemm", "chunked_attention", "bsr_spgemm", "sparse_accum_spgemm")
+# register sort), and the two hash sources
+NO_SPILL = ("ranged_spgemm", "chunked_attention", "bsr_spgemm", "sparse_accum_spgemm",
+            "hash_accum_spgemm", "hash_masked_accum_spgemm")
 # the dense slab's load path each of its recorded phases must take: the
 # quickstart staging is 16-byte aligned (float4 / cp.async), the chunk1
 # staging (k_pad 42,043, span 9,275) is not (masked scalar loads)
@@ -158,6 +165,7 @@ GMM_DECODE_LABEL = "serve_decode_layer0_w1"
 # in f32 no rounding flip of a near-tied route is plausible)
 F32_LOGIT_MAX_TOL, F32_LOGIT_MEAN_TOL = 0.01, 0.001
 RMAT_SCALE, RMAT_EDGE_FACTOR, RMAT_SEED = 18, 16, 7   # graph500-style, ISSUE size
+MASKED_SPLIT_PART = 256   # the part size forced on the masked kernel's split case
 BSR_BLOCK = 8
 SPMM_COLS, SPMM_SEED = 128, 12
 # pipeline fast limits, as fractions of size(A) + size(P) + size(R): at the
@@ -322,6 +330,22 @@ def kernel_device_split(torch, fn, names, launches: int, reps: int = 5,
             incomplete += 1
     return ((statistics.median(times) if times else None), incomplete,
             {n: statistics.median(v) for n, v in split.items() if v})
+
+
+def device_launch_list(torch, fn, names, launches: int, tries: int = 10) -> list | None:
+    """The device ms of each launch of the port kernels (activities whose
+    name holds one of ``names``) in one call of ``fn``, in launch order, from
+    the first of up to ``tries`` traces that holds all ``launches`` of them
+    (None when none does)."""
+    from torch.autograd import DeviceType
+
+    for _ in range(tries):
+        events = [e for e in profiled(torch, fn).events()
+                  if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
+        if len(events) == launches:
+            events.sort(key=lambda e: e.time_range.start)
+            return [e.time_range.elapsed_us() / 1e3 for e in events]
+    return None
 
 
 def kernel_device_ms(torch, fn, names, launches: int, reps: int = 5,
@@ -574,6 +598,7 @@ class Smoke:
         steps = (esc.sort_steps(Ast, Bst, C0, r0s, r1s, row_cap=caps.c_max_row_nnz)
                  if kernel == "sparse_accum_spgemm" else None)
         out = run(main_order)
+        extract = self.extract_rows(out[0]) if kernel == "hash_accum_spgemm" else None
         moved = (live_bytes(Ast) + live_bytes(Bst) + live_bytes(C0) + nbytes(*out)
                  + 8 * len(r0s))
         flops = (self.m["symbolic"].spgemm_structure_host(A, P).flops
@@ -585,7 +610,14 @@ class Smoke:
                            "chunk_cap": Bst.nnz_pad, "c_cap": C0.nnz_pad,
                            "nnz_c0": int(C0.indptr[..., -1].sum()),
                            "c_max_row_nnz": caps.c_max_row_nnz,
-                           "esc_sort_steps": steps}, record)
+                           "esc_sort_steps": steps, "hash_extract_rows": extract}, record)
+
+    def extract_rows(self, indptr) -> dict:
+        """Rows of a hash kernel's output by the sort its extraction takes
+        (``extract_class`` of each row's nnz)."""
+        counts = (indptr[..., 1:] - indptr[..., :-1]).flatten().tolist()
+        mod = self.kernels["hash_accum_spgemm"]
+        return dict(sorted(collections.Counter(map(mod.extract_class, counts)).items()))
 
     def dense_stage(self, A, P, plan):
         """The dense strips (``k + span`` columns) and slabs the ``pallas``
@@ -697,14 +729,14 @@ class Smoke:
             "plain_ms": numbers["plain_ms"], **bound,
             **library_fields(library, bound["bound_ms"]), **extra}
 
-    def edge_geometry(self):
-        """The full-table geometry: 96 x 32 x 128 with one fully dense C row
-        (a dense A row reaching a dense B row), so that row's hash table has
-        exactly ``n_cols`` slots and fills them all, and a nonzero C_prev.
-        Returns A, B, C_prev and the densest output row."""
+    def edge_geometry(self, n: int = 128):
+        """The full-table geometry: 96 x 32 x ``n`` with one fully dense C
+        row (a dense A row reaching a dense B row), so that row's hash table
+        has exactly ``n_cols`` slots and fills them all, and a nonzero
+        C_prev. Returns A, B, C_prev and the densest output row."""
         csr = self.m["csr"]
         rng = np.random.default_rng(EDGE_SEED)
-        rows, k, n = 96, 32, 128
+        rows, k = 96, 32
 
         def sparse_normal(shape, density):
             vals = rng.standard_normal(shape).astype(np.float32)
@@ -747,6 +779,8 @@ class Smoke:
             run, plain = self.csr_runners(kernel, Ast, Bst, C0, r0s, r1s, row_cap)
             result[kernel] = {order: self.hold_csr(f"{kernel}/edge/{order}", run(order),
                                                    plain(order)) for order in ORDERS}
+        hash_run, _ = self.csr_runners("hash_accum_spgemm", Ast, Bst, C0, r0s, r1s, row_cap)
+        extract = self.extract_rows(hash_run("chunk1")[0])
         cs, mod = self.m["chunk_stream"], self.kernels["ranged_spgemm"]
         ad, slabs = self.dense_stage(A, B, plan)
         cd = cs._dense_stack(C0s, levels=1)[None]
@@ -764,7 +798,40 @@ class Smoke:
         emit({"edge_phase": "dense_row_thirds", "shape": [rows, k, n],
               "ranged_spgemm_path": dense_path,
               "c_max_row_nnz": row_cap, "table_size": table,
+              "hash_extract_rows": extract,
               "nnz_c0": int(C0.indptr[..., -1].sum()), "kernels": result})
+
+    def hash_class_phase(self) -> None:
+        """The hash kernel in both orders against its plain version where
+        its extraction leaves the main path's class (a 32-slot table sorted
+        in registers): the full-table geometry's tables at 4 and 16 times
+        their size (the occupied slots compacted before the register sort),
+        and the geometry 256 columns wide, whose dense row's 256 entries sort
+        in shared memory."""
+        planner, mod = self.m["planner"], self.kernels["hash_accum_spgemm"]
+        for label, n, scale, want in (("edge_table_x4", 128, 4, "reg4"),
+                                      ("edge_table_x16", 128, 16, "reg4"),
+                                      ("dense_row_256", 256, 1, "shared")):
+            A, B, C0m, row_cap = self.edge_geometry(n)
+            plan = planner.ChunkPlan("chunk1", (0, 32, 64, A.n_rows), (0, 11, 22, A.n_cols),
+                                     0.0, 0.0)
+            Ast, Bst, _, C0 = self.stage_edge(A, B, C0m, plan, 32 * n)
+            r0s, r1s = plan.b_ranges()
+            table = planner.hash_table_slots(row_cap) * scale
+            orders = {order: self.hold_csr(
+                f"hash_accum_spgemm/{label}/{order}",
+                mod.hash_accum_spgemm_stream(Ast, Bst, C0, r0s, r1s, order=order,
+                                             table_size=table),
+                mod.hash_accum_plain(Ast, Bst, C0, r0s, r1s, order=order, table_size=table))
+                for order in ORDERS}
+            self.note_err("hash_accum_spgemm", max(o["max_abs_err"] for o in orders.values()))
+            extract = self.extract_rows(mod.hash_accum_plain(
+                Ast, Bst, C0, r0s, r1s, order="chunk1", table_size=table)[0])
+            check(extract.get(want, 0) > 0, f"hash_accum_spgemm/{label}: no row extracts "
+                  f"as {want} ({extract})")
+            emit({"hash_case": label, "shape": [A.n_rows, A.n_cols, n], "c_max_row_nnz": row_cap,
+                  "table_size": table, "hash_extract_rows": extract, "wanted": want,
+                  "orders": orders})
 
     def esc_case(self, label: str, Ast, Bst, C0, r0s, r1s, row_cap: int, want: str) -> None:
         """The ESC kernel in both orders against its plain version on staged
@@ -998,48 +1065,82 @@ class Smoke:
         return int(lens[A.indices[: A.nnz()].long()].sum())
 
     def masked_kernel_phase(self, label, A, B, M, plan, main_order, *, c0_from=None,
-                            record=False) -> None:
+                            part_size: int | None = None, record=False) -> dict:
         """The masked kernel in both orders against its plain version on the
-        staged operands of ``plan``, both timed."""
+        staged operands of ``plan``, both timed, the kernel's device time by
+        launch. ``part_size`` forces the size its rows are cut at (else the
+        wrapper's ``masked_part_size``). Returns the rows split and their
+        parts."""
+        from unittest import mock
+
         torch, mod = self.torch, self.kernels["hash_masked_accum_spgemm"]
         caps = self.m["symbolic"].masked_output_caps(M, plan.p_ac)
         args, table, _ = self.m["chunk_stream"].stage_hash_masked(
             A, B, M, plan, caps.c_pad, caps, c_prev=c0_from)
+        forced = (contextlib.nullcontext() if part_size is None else
+                  mock.patch.object(mod, "masked_part_size", lambda products, n_sm: part_size))
         run = lambda order: mod.hash_masked_accum_spgemm_stream(  # noqa: E731
             *args, order=order, table_size=table)
         plain = lambda order: mod.hash_masked_plain(  # noqa: E731
             *args, order=order, table_size=table)
+        Ast, Bst, C0, Mst, r0s, r1s = args
+        names = TRACE_NAMES["hash_masked_accum_spgemm"]
         orders = {}
-        for order in ORDERS:
-            orders[order] = self.hold_csr(f"hash_masked_accum_spgemm/{label}/{order}",
-                                          run(order), plain(order))
-            orders[order]["ms"] = self.launch_ms(lambda: run(order))
-            orders[order]["wrapper_ms"] = cuda_ms(torch, lambda: run(order))
-            orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order), reps=3)
-        counter = self.counters["hash_masked_accum_spgemm"]
-        before = counter.count
-        out = run(main_order)
-        per_call = counter.count - before
-        Ast, Bst, C0, Mst = args[:4]
+        with forced:
+            work, launches = mod.masked_plan(Ast, Bst, Mst, r0s, r1s)
+            for order in ORDERS:
+                orders[order] = self.hold_csr(f"hash_masked_accum_spgemm/{label}/{order}",
+                                              run(order), plain(order))
+                orders[order]["ms"] = self.launch_ms(lambda: run(order))
+                orders[order]["wrapper_ms"] = cuda_ms(torch, lambda: run(order))
+                # the profiler's device time of the call's kernels, and of
+                # each launch in launch order
+                kernels = mod.masked_kernels_per_call(Ast, Bst, Mst, r0s, r1s, order)
+                (orders[order]["device_ms"], orders[order]["device_incomplete_traces"],
+                 orders[order]["device_split_ms"]) = kernel_device_split(
+                    torch, lambda: run(order), names, kernels)
+                orders[order]["device_launches_ms"] = device_launch_list(
+                    torch, lambda: run(order), names, kernels)
+                orders[order]["kernels_per_call"] = kernels
+                orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order), reps=3)
+            counter = self.counters["hash_masked_accum_spgemm"]
+            before = counter.count
+            out = run(main_order)
+            per_call = counter.count - before
         m_nnz = int(Mst.indptr[..., -1].sum())
         moved = (live_bytes(Ast) + live_bytes(Bst) + live_bytes(C0)
-                 + nbytes(Mst.indptr) + 4 * m_nnz + nbytes(*out) + 8 * len(args[4]))
+                 + nbytes(Mst.indptr) + 4 * m_nnz + nbytes(*out) + 8 * len(r0s))
         flops = 2 * self.products(A, B) + int(C0.indptr[..., -1].sum())
-        _, _, meta, global_slots = mod.masked_bins(Mst)
+        # the launches: each one's parts, products and heaviest part, in
+        # launch order (the global rows' seed before them, gather after)
+        ends = np.cumsum([grp[2] for grp in launches.groups]).tolist()
+        groups = [{"team": mod.MASKED_TEAMS[t], "table_slots": sl, "parts": n, "threads": th,
+                   "products": int(launches.products[e0:e1].sum()),
+                   "heaviest_part": int(launches.products[e0:e1].max())}
+                  for (t, sl, n, th), e0, e1 in zip(launches.groups, [0, *ends], ends)]
+        split_rows = torch.unique(work.row[~work.only])
         self.finish_phase("hash_masked_accum_spgemm", label, orders, main_order, moved,
                           flops, (None,) * 4,
                           {"strips": plan.n_ac, "chunks": plan.n_b,
                            "strip_rows": Ast.n_rows, "mask_nnz": m_nnz,
                            "densest_mask_row": int(M.max_row_nnz),
                            "reference_table_slots": table,
-                           "bins": [list(b) for b in meta],
-                           "global_table_slots": global_slots,
+                           "products": int(work.products.sum()),
+                           "part_size": work.part_size, "parts": int(work.row.numel()),
+                           "rows_split": int(split_rows.numel()),
+                           "parts_of_split_rows": int((~work.only).sum()),
+                           "launches": groups,
+                           "global_rows": int(launches.grows.numel()),
+                           "global_table_slots": int(launches.goff[-1]),
                            "nnz_c0": int(C0.indptr[..., -1].sum())}, record, per_call)
+        return {"rows_split": int(split_rows.numel()),
+                "parts_of_split_rows": int((~work.only).sum())}
 
     def masked_edge_phase(self) -> None:
-        """A 64 x 48 x 48,000 geometry whose mask rows fall in every bin, one
-        of them 40,000 entries (a 65,536-slot table in global memory), with a
-        nonzero C_prev, under a 3 x 3 plan and a one-chunk knl plan."""
+        """A 64 x 48 x 48,000 geometry whose mask rows take every team, two
+        of them 20,000 and 40,000 entries (tables of 65,536 and 131,072 slots
+        in global memory, their rows cut into parts), with a nonzero C_prev,
+        under a 3 x 3 plan and a one-chunk knl plan."""
         csr, planner = self.m["csr"], self.m["planner"]
         rng = np.random.default_rng(EDGE_SEED + 1)
         rows, k, n = 64, 48, 48_000
@@ -2082,6 +2183,7 @@ def main() -> int:
                              c0_seed=EDGE_SEED)
     smoke.edge_phase()
     smoke.esc_class_phase()
+    smoke.hash_class_phase()
 
     # the main path, counters reset before each run
     smoke.main_run("brick3d48_auto", "brick3d", 48, "auto", expect_backend="hash")
@@ -2113,9 +2215,16 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(EDGE_SEED)
     c0 = torch.rand(n12, n12, generator=gen, device="cuda")
     c0 = torch.where(c0 < 0.01, c0, 0.0).tril(-1)   # partly inside L's mask
+    c0 = csr.csr_from_dense(c0, device="cuda")
     smoke.masked_kernel_phase("tc_rmat12_3x3_c0", L12, L12, L12,
                               planner.ChunkPlan("chunk2", thirds, thirds, 0.0, 0.0),
-                              "chunk2", c0_from=csr.csr_from_dense(c0, device="cuda"))
+                              "chunk2", c0_from=c0)
+    # rows cut into parts small enough that split rows meet C_prev and
+    # chunk2's later launches, which add onto the output
+    split = smoke.masked_kernel_phase("tc_rmat12_3x3_c0_split", L12, L12, L12,
+                                      planner.ChunkPlan("chunk2", thirds, thirds, 0.0, 0.0),
+                                      "chunk2", c0_from=c0, part_size=MASKED_SPLIT_PART)
+    check(split["rows_split"] > 0, "tc_rmat12_3x3_c0_split: no row was split")
     smoke.masked_edge_phase()
     smoke.bsr_kernel_phase(A48, P48, plan48, label="brick3d48_bsr", record=True)
     smoke.spmm_kernel_phase(label="bsr_spmm_brick3d48", record=True)

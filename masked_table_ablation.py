@@ -52,11 +52,11 @@ def main() -> int:
         try:
             outputs[name] = run()
             times[name].append(smoke.launch_ms(run))
-            _, _, meta, global_slots = mod.masked_bins(args[3])
+            _, launches = mod.masked_plan(*args[:2], *args[3:])
         finally:
             mod.masked_table_slots = shipped
-        emit({"variant": name, "ms": times[name][-1], "bins": [list(b) for b in meta],
-              "global_table_slots": global_slots})
+        emit({"variant": name, "ms": times[name][-1], "launches": launches.groups,
+              "global_table_slots": int(launches.goff[-1])})
     got, want = outputs["load_le_one"], outputs["load_le_half"]
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
           "the full tables give another structure")

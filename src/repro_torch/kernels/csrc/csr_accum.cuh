@@ -110,38 +110,126 @@ __device__ void warp_bitonic(Key* keys, int n2, int lane, Swap swap_extra) {
   }
 }
 
-// Walk the in-range products of one A row against B chunk j, in the
-// reference's order: A entries in entry order, each one's B row in order.
-// emit(pos, col, val) receives the product's position in that order.
-template <class Emit>
-__device__ int for_each_product(const Params& p, const int* a_ix,
-                                const float* a_d, int a_start, int a_end,
-                                const int* b_ip, const int* b_ix,
-                                const float* b_d, int r0, int r1, int lane,
-                                Emit emit) {
-  int total = 0;
-  for (int base = a_start; base < a_end; base += kWarp) {
-    int e = base + lane;
-    int cnt = 0, b_start = 0;
-    float a_val = 0.f;
-    if (e < a_end) {
-      int col = a_ix[e];
-      if (col >= r0 && col < r1) {
-        int b_row = min(max(col - r0, 0), p.chunk_rows - 1);
-        b_start = b_ip[b_row];
-        cnt = max(min(b_ip[b_row + 1] - b_start, p.b_mrn), 0);
-        a_val = a_d[e];
+// The load-balanced expand the merges share: one batch of up to 32 of a
+// row's A entries, one a lane, with the warp's exclusive scan of their
+// in-range product counts. Lane l then takes products l, l + 32, ... of the
+// batch (locate), so neighbouring lanes read neighbouring entries of one B
+// row, and no lane walks a long B row alone. A product's index in the
+// batch is its place in the reference's order (A entries in order, each
+// one's B row in order).
+struct Batch {
+  int b_start;   // this lane's entry: the first entry of its B row
+  float a_val;
+  int excl;      // products of the batch before this lane's entry
+  int total;     // products of the batch
+};
+
+__device__ __forceinline__ Batch load_batch(const Params& p, const int* a_ix,
+                                            const float* a_d, int e, int a_end,
+                                            const int* b_ip, int r0, int r1,
+                                            int lane) {
+  Batch bt{0, 0.f, 0, 0};
+  int cnt = 0;
+  if (e < a_end) {
+    const int col = a_ix[e];
+    if (col >= r0 && col < r1) {
+      const int b_row = min(max(col - r0, 0), p.chunk_rows - 1);
+      bt.b_start = b_ip[b_row];
+      cnt = max(min(b_ip[b_row + 1] - bt.b_start, p.b_mrn), 0);
+      bt.a_val = a_d[e];
+    }
+  }
+  const int incl = warp_incl_scan(cnt, lane);
+  bt.excl = incl - cnt;
+  bt.total = __shfl_sync(kFull, incl, kWarp - 1);
+  return bt;
+}
+
+// Product q of the batch: its A entry is the last lane whose exclusive scan
+// is <= q, found by a binary search over the lanes; its B entry (src) is
+// q - excl into that entry's B row, and a the entry's value. src = -1 when
+// q is outside [0, total). Every lane of the warp calls it; the caller
+// loads the B entries, all of a lane's at once.
+__device__ __forceinline__ void locate(const Params& p, const Batch& bt, int q, int& src,
+                                       float& a) {
+  int lo = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1)
+    if (__shfl_sync(kFull, bt.excl, lo + s) <= q) lo += s;
+  const int excl = __shfl_sync(kFull, bt.excl, lo);
+  const int start = __shfl_sync(kFull, bt.b_start, lo);
+  a = __shfl_sync(kFull, bt.a_val, lo);
+  src = q < 0 || q >= bt.total ? -1 : min(start + q - excl, p.chunk_cap - 1);
+}
+
+// Ascending bitonic sort of 32 K keys held K a lane, key r of a lane at
+// index lane * K + r.
+template <int K, class Key>
+__device__ __forceinline__ void bitonic_regs(Key (&key)[K], int lane) {
+#pragma unroll
+  for (int k = 2; k <= K * kWarp; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j < K) {   // both keys of a pair in this lane
+#pragma unroll
+        for (int r = 0; r < K; ++r) {
+          if ((r & j) == 0) {
+            const bool up = ((lane * K + r) & k) == 0;
+            const Key x = key[r], y = key[r | j];
+            const bool swap = (x > y) == up;
+            key[r] = swap ? y : x;
+            key[r | j] = swap ? x : y;
+          }
+        }
+      } else {       // the partner is register r of lane ^ (j / K)
+#pragma unroll
+        for (int r = 0; r < K; ++r) {
+          const int i = lane * K + r;
+          const Key y = __shfl_xor_sync(kFull, key[r], j / K);
+          const bool keep_min = ((i & j) == 0) == ((i & k) == 0);
+          key[r] = keep_min ? (y < key[r] ? y : key[r]) : (y > key[r] ? y : key[r]);
+        }
       }
     }
-    int incl = warp_incl_scan(cnt, lane);
-    int excl = incl - cnt;
-    for (int jj = 0; jj < cnt; ++jj) {
-      int src = min(b_start + jj, p.chunk_cap - 1);
-      emit(total + excl + jj, b_ix[src], a_val * b_d[src]);
-    }
-    total += __shfl_sync(kFull, incl, kWarp - 1);
   }
-  return total;
+}
+
+// bitonic_regs with a value carried beside each key. Keys that tie may
+// end in either order with their values (distinct keys never tie).
+template <int K, class Key, class Val>
+__device__ __forceinline__ void bitonic_regs_kv(Key (&key)[K], Val (&val)[K], int lane) {
+#pragma unroll
+  for (int k = 2; k <= K * kWarp; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j < K) {
+#pragma unroll
+        for (int r = 0; r < K; ++r) {
+          if ((r & j) == 0) {
+            const bool up = ((lane * K + r) & k) == 0;
+            const Key x = key[r], y = key[r | j];
+            const Val xv = val[r], yv = val[r | j];
+            const bool swap = (x > y) == up;
+            key[r] = swap ? y : x;
+            key[r | j] = swap ? x : y;
+            val[r] = swap ? yv : xv;
+            val[r | j] = swap ? xv : yv;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < K; ++r) {
+          const int i = lane * K + r;
+          const Key y = __shfl_xor_sync(kFull, key[r], j / K);
+          const Val yv = __shfl_xor_sync(kFull, val[r], j / K);
+          const bool keep_min = ((i & j) == 0) == ((i & k) == 0);
+          const bool take = keep_min ? y < key[r] : y > key[r];
+          key[r] = take ? y : key[r];
+          val[r] = take ? yv : val[r];
+        }
+      }
+    }
+  }
 }
 
 // One warp per strip row: load the accumulator (C0 on the first chunk, the
@@ -316,8 +404,10 @@ int launch(const Params& p, int warps_per_block, int order,
 
 }  // namespace csr_accum
 
-// The C entry point both accumulator libraries export, under their own name.
-#define CSR_ACCUM_ENTRY(NAME, MERGE)                                         \
+// The C entry point both accumulator libraries export, under their own
+// name: LAUNCH(params, warps_per_block, order, stream) launches the call
+// (csr_accum::launch of a merge, or a choice among several).
+#define CSR_ACCUM_ENTRY_FN(NAME, LAUNCH)                                     \
   extern "C" int NAME(                                                       \
       const int* a_ip, const int* a_ix, const float* a_d, const int* b_ip,  \
       const int* b_ix, const float* b_d, const int* c0_ip, const int* c0_ix, \
@@ -334,9 +424,10 @@ int launch(const Params& p, int warps_per_block, int order,
                         n_b,       strip_rows, chunk_rows, a_cap, chunk_cap, \
                         c_cap,     a_mrn,     b_mrn,    row_cap, work_cap,  \
                         smem_per_warp};                                      \
-    return csr_accum::launch<MERGE>(p, warps_per_block, order,             \
-                                    (cudaStream_t)stream);                   \
+    return LAUNCH(p, warps_per_block, order, (cudaStream_t)stream);         \
   }                                                                          \
   extern "C" const char* NAME##_error_string(int e) {                       \
     return cudaGetErrorString((cudaError_t)e);                               \
   }
+
+#define CSR_ACCUM_ENTRY(NAME, MERGE) CSR_ACCUM_ENTRY_FN(NAME, csr_accum::launch<MERGE>)

@@ -46,88 +46,13 @@
 
 namespace {
 
+using csr_accum::Batch;
 using csr_accum::Params;
-using csr_accum::kWarp;
+using csr_accum::bitonic_regs;
 using csr_accum::kFull;
-
-// One batch of up to 32 of the row's A entries, one a lane, with the warp's
-// exclusive scan of their in-range product counts.
-struct Batch {
-  int b_start;   // this lane's entry: the first entry of its B row
-  float a_val;
-  int excl;      // products of the batch before this lane's entry
-  int total;     // products of the batch
-};
-
-__device__ __forceinline__ Batch load_batch(const Params& p, const int* a_ix,
-                                            const float* a_d, int e, int a_end,
-                                            const int* b_ip, int r0, int r1,
-                                            int lane) {
-  Batch bt{0, 0.f, 0, 0};
-  int cnt = 0;
-  if (e < a_end) {
-    const int col = a_ix[e];
-    if (col >= r0 && col < r1) {
-      const int b_row = min(max(col - r0, 0), p.chunk_rows - 1);
-      bt.b_start = b_ip[b_row];
-      cnt = max(min(b_ip[b_row + 1] - bt.b_start, p.b_mrn), 0);
-      bt.a_val = a_d[e];
-    }
-  }
-  const int incl = csr_accum::warp_incl_scan(cnt, lane);
-  bt.excl = incl - cnt;
-  bt.total = __shfl_sync(kFull, incl, kWarp - 1);
-  return bt;
-}
-
-// Product q of the batch: its A entry is the last lane whose exclusive scan
-// is <= q, found by a binary search over the lanes; its B entry (src) is
-// q - excl into that entry's B row, and a the entry's value. src = -1 when
-// q is outside [0, total). Every lane of the warp calls it; the caller
-// loads the B entries, all of a lane's at once.
-__device__ __forceinline__ void locate(const Params& p, const Batch& bt, int q, int& src,
-                                       float& a) {
-  int lo = 0;
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1)
-    if (__shfl_sync(kFull, bt.excl, lo + s) <= q) lo += s;
-  const int excl = __shfl_sync(kFull, bt.excl, lo);
-  const int start = __shfl_sync(kFull, bt.b_start, lo);
-  a = __shfl_sync(kFull, bt.a_val, lo);
-  src = q < 0 || q >= bt.total ? -1 : min(start + q - excl, p.chunk_cap - 1);
-}
-
-// Ascending bitonic sort of 32 K keys held K a lane, key r of a lane at
-// index lane * K + r.
-template <int K, class Key>
-__device__ __forceinline__ void bitonic_regs(Key (&key)[K], int lane) {
-#pragma unroll
-  for (int k = 2; k <= K * kWarp; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      if (j < K) {   // both keys of a pair in this lane
-#pragma unroll
-        for (int r = 0; r < K; ++r) {
-          if ((r & j) == 0) {
-            const bool up = ((lane * K + r) & k) == 0;
-            const Key x = key[r], y = key[r | j];
-            const bool swap = (x > y) == up;
-            key[r] = swap ? y : x;
-            key[r | j] = swap ? x : y;
-          }
-        }
-      } else {       // the partner is register r of lane ^ (j / K)
-#pragma unroll
-        for (int r = 0; r < K; ++r) {
-          const int i = lane * K + r;
-          const Key y = __shfl_xor_sync(kFull, key[r], j / K);
-          const bool keep_min = ((i & j) == 0) == ((i & k) == 0);
-          key[r] = keep_min ? (y < key[r] ? y : key[r]) : (y > key[r] ? y : key[r]);
-        }
-      }
-    }
-  }
-}
+using csr_accum::kWarp;
+using csr_accum::load_batch;
+using csr_accum::locate;
 
 struct EscMerge {
   static constexpr int kMinBlocksPerSM = 4;   // 32 warps an SM: at most 64 registers

@@ -9,7 +9,8 @@ extraction sorts each row by column into the fixed-capacity CSR scratch —
 the same output as the ESC merge.
 
 On the card this is the CUDA kernel ``csrc/hash_accum_spgemm.cu`` over the
-skeleton it shares with the ESC kernel; on the CPU the wrapper runs
+skeleton it shares with the ESC kernel (its extraction sorts by
+:func:`extract_class`); on the CPU the wrapper runs
 :func:`hash_accum_plain`, which keeps the reference's steps (fresh tables per
 chunk, products inserted in entry order, then ``C_prev``, sort on extract),
 vectorized across rows, so a table-capacity or probe fault shows on the CPU
@@ -18,18 +19,22 @@ too.
 The mask-fused variant, ``hash_masked_accum_spgemm_stream`` (the port of
 ``hash_masked_merge_impl``), seeds every row's table from the mask row and
 accumulates probe-only, so C's structure is the mask's: the fused path of
-triangle counting. On the card it is ``csrc/hash_masked_accum_spgemm.cu``,
-whose tables are sized per row; on the CPU :func:`hash_masked_plain`.
+triangle counting. On the card it is ``csrc/hash_masked_accum_spgemm.cu``:
+the rows are cut into parts by products (:func:`masked_work`), grouped into
+launches by team and by table, sized per row (:func:`masked_launches`); on
+the CPU :func:`hash_masked_plain`.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.planner import hash_table_slots
 from repro_torch.kernels._build import LaunchCounter, launch, require
 from repro_torch.kernels.sparse_accum_spgemm import (
-    SMEM_PER_BLOCK, launch_csr_accum, stack_geometry,
+    SMEM_PER_BLOCK, launch_csr_accum, sort_class, stack_geometry,
 )
 from repro_torch.sparse.csr import CSR
 
@@ -157,6 +162,15 @@ def hash_accum_plain(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *, order: str,
     return shape(ip), shape(ix), shape(d)
 
 
+def extract_class(n: int) -> str:
+    """How the hash kernel sorts a row's ``n`` occupied slots when it writes
+    the row: "none", a register class "reg<keys a lane>" (n <= 32, 64,
+    128; the keys are columns, 32 bits, with the values beside them) or
+    "shared" (more, in shared memory): the ESC merge's ``sort_class`` of
+    32-bit keys."""
+    return sort_class(n, 32)
+
+
 def hash_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *,
                              order: str, table_size: int):
     """Streamed hash-accumulated multiply over stacked CSR strips and chunks.
@@ -188,17 +202,29 @@ def masked_table_slots(mask_row_nnz: int) -> int:
     return hash_table_slots(2 * int(mask_row_nnz))
 
 
-# Row bins of the masked kernel by table size: (largest table slots, team,
-# table memory). A "warp" team is one warp per row with a table of the bin's
-# largest size in shared memory; a "block" team is one block of
-# MASKED_BLOCK_THREADS threads per row, its table in shared memory while it
-# fits a block (16,384 slots of 8 bytes, 128 KiB), in global memory above.
+# The masked kernel's work (masked_work, masked_launches): the rows are cut
+# into parts by products, each part one team's work. A part of at most
+# MASKED_WARP_PRODUCTS products whose table holds at most
+# MASKED_WARP_TABLE_MAX slots goes to a "warp" team (one warp, its table in
+# shared memory, MASKED_WARP_THREADS threads a block); a larger part to a
+# "block" team (one block of MASKED_BLOCK_THREADS threads, 1,024 where the
+# table leaves room for one block an SM, its table in shared memory); a part
+# of a row whose table exceeds MASKED_SHARED_MAX slots (128 KiB) to a
+# "global" team (a block of MASKED_BLOCK_THREADS threads; the row's parts
+# share one table in global memory). The part size gives each SM about
+# MASKED_PARTS_PER_SM parts of the call's products, and at least
+# MASKED_PART_MIN products.
+MASKED_TEAMS = ("warp", "block", "global")   # the kernel's team codes, in order
+MASKED_WARP_THREADS = 256
 MASKED_BLOCK_THREADS = 512
-MASKED_BINS = ((64, "warp", "shared"), (512, "warp", "shared"),
-               (2048, "warp", "shared"), (16384, "block", "shared"),
-               (None, "block", "global"))
-assert MASKED_BINS[3][0] * 8 <= SMEM_PER_BLOCK
-_MASKED_SMEM_TARGET = 96 * 1024   # per-block shared-memory target of warp bins
+MASKED_WARP_TABLE_MAX = 512
+MASKED_WARP_PRODUCTS = 2048
+MASKED_SHARED_MAX = 16384
+MASKED_PARTS_PER_SM = 32
+MASKED_PART_MIN = 4096
+_MASKED_FIRST, _MASKED_ONLY = 1, 2   # part flags: the row's first / only part
+# a 1,024-thread block team's table and its walk's scan (three words a thread)
+assert MASKED_SHARED_MAX * 8 + 1024 * 12 + 128 <= SMEM_PER_BLOCK
 _PLAIN_SLICE = 1 << 25            # products the plain version expands at once
 
 
@@ -332,42 +358,194 @@ def hash_masked_plain(Ast: CSR, Bst: CSR, C0st: CSR, Mst: CSR, r0s, r1s, *,
     return shape(indptr.to(torch.int32)), shape(indices), shape(data)
 
 
-def masked_bins(Mst: CSR):
-    """The masked kernel's row bins and tables: ``(rows, goff, meta,
-    global_slots)``.
+def masked_entry_products(Ast: CSR, Bst: CSR, r0s, r1s):
+    """The products each A entry of a stacked A makes with the B chunks that
+    hold its column, as the kernel walks them (B rows cut at B's
+    ``max_row_nnz``): ``(valid, row, products)``, each ``[S, a_cap]``."""
+    ip = Ast.indptr.reshape(-1, Ast.indptr.shape[-1]).contiguous()
+    pos = torch.arange(Ast.indices.shape[-1], device=ip.device, dtype=ip.dtype)
+    pos = pos.expand(ip.shape[0], -1).contiguous()
+    valid, row = pos < ip[:, -1:], torch.searchsorted(ip, pos, right=True).long() - 1
+    n_strips, n_ac = valid.shape[0], Ast.indptr.shape[1]
+    ix = Ast.indices.reshape(n_strips, -1).long()
+    b = (torch.arange(n_strips, device=ix.device) // n_ac)[:, None]
+    products = torch.zeros_like(ix)
+    r0s = [int(v) for v in torch.as_tensor(r0s).tolist()]
+    r1s = [int(v) for v in torch.as_tensor(r1s).tolist()]
+    for j, (r0, r1) in enumerate(zip(r0s, r1s)):
+        b_ptr = Bst.indptr[:, j].long()
+        b_row = (ix - r0).clamp(0, Bst.n_rows - 1)
+        lens = (b_ptr[b, b_row + 1] - b_ptr[b, b_row]).clamp(0, max(Bst.max_row_nnz, 0))
+        products += torch.where(valid & (ix >= r0) & (ix < r1), lens, 0)
+    return valid, row, products
 
-    ``rows`` (int32) holds the global strip rows bin after bin, each bin in
-    row order; ``goff`` (int64, one longer) is the exclusive prefix sum of
-    their tables' slots, :func:`masked_table_slots` of each row's mask nnz,
-    so the row at position ``t`` has a table of ``goff[t + 1] - goff[t]``
-    slots: the kernel takes every table's size from here. A row goes to the
-    first of :data:`MASKED_BINS` whose largest table holds its own; ``meta``
-    gives each bin as ``(rows, slots reserved per team in shared memory, or 0
-    for the global bin, warps per block)``; the global bin's tables are
-    packed at ``goff[t] - goff[first global row]``, ``global_slots`` in all.
-    Rows with an empty mask row are in no bin: their output row is empty."""
+
+def masked_part_size(products: int, n_sm: int) -> int:
+    """Products a part may hold: the call's ``products`` spread over
+    ``MASKED_PARTS_PER_SM`` parts an SM, at least ``MASKED_PART_MIN``."""
+    return max(MASKED_PART_MIN, -(-int(products) // (max(int(n_sm), 1) * MASKED_PARTS_PER_SM)))
+
+
+class MaskedWork(NamedTuple):
+    """The masked kernel's parts, heaviest first: each the global strip row
+    ``row``, its A entry range ``[e0, e1)`` (entry slots of the row's strip),
+    its ``products``, and whether it is its row's ``first`` and ``only``
+    part; ``part_size`` is the size the rows were cut at."""
+    row: torch.Tensor
+    e0: torch.Tensor
+    e1: torch.Tensor
+    products: torch.Tensor
+    first: torch.Tensor
+    only: torch.Tensor
+    part_size: int
+
+
+def masked_work(Ast: CSR, Bst: CSR, Mst: CSR, r0s, r1s, n_sm: int,
+                part_size: int | None = None) -> MaskedWork:
+    """Cut the rows of a masked call into parts by products.
+
+    Every row with a nonempty mask row gets parts that cover its A entries,
+    each A entry in exactly one part. A row of at most ``part_size``
+    products (:func:`masked_part_size` of the call's products and ``n_sm``,
+    unless given) is one part. A longer row is cut at every ``window``
+    products of its running sum, ``part_size`` less the most products one
+    A entry can make (B's ``max_row_nnz``), at least half the part size;
+    an A entry of more than ``part_size - window`` products is a part of
+    its own. So no part exceeds ``part_size`` unless it is a single A
+    entry. A row with no A entry is one empty part. Built with tensor ops
+    on the operands' device; the host reads the call's products and the
+    number of parts."""
+    valid, row, products = masked_entry_products(Ast, Bst, r0s, r1s)
+    n_strips, a_cap = valid.shape
+    strip_rows = Ast.indptr.shape[-1] - 1
+    dev = row.device
+    counts = _mask_row_counts(Mst)
+    n_rows = counts.numel()
+    g = torch.arange(n_strips, device=dev)[:, None] * strip_rows + row
+    keep = valid & (counts[g.clamp(0, max(n_rows - 1, 0))] > 0)
+    at = torch.nonzero(keep.flatten()).flatten()   # entry slots of masked rows, in order
+    gk, ek, pk = g.flatten()[at], at % max(a_cap, 1), products.flatten()[at]
+    if part_size is None:
+        part_size = masked_part_size(int(pk.sum()), n_sm)
+    # cut every `window` products of a row's running sum; an entry of more
+    # than part_size - window products is a part of its own, so a part's
+    # products stay below window + (part_size - window)
+    window = max(int(part_size) - max(Bst.max_row_nnz, 0), (int(part_size) + 1) // 2, 1)
+    total = torch.zeros(n_rows, dtype=torch.int64, device=dev).index_add_(0, gk, pk)
+    new_row = torch.ones_like(gk, dtype=torch.bool)
+    new_row[1:] = gk[1:] != gk[:-1]
+    incl = torch.cumsum(pk, 0)
+    excl = incl - pk
+    # the running sum within the row: less the sum at the row's first entry
+    row_base = torch.zeros(n_rows, dtype=torch.int64, device=dev)
+    row_excl = excl - row_base.index_add_(0, gk, torch.where(new_row, excl, 0))[gk]
+    split = total[gk] > part_size
+    big = split & (pk > part_size - window)
+    cut = torch.where(split, row_excl // window, 0)
+    boundary = new_row | big
+    boundary[1:] |= (cut[1:] != cut[:-1]) | big[:-1]
+    # rows with a mask row and no A entry: one empty part at the row's start
+    has_entries = torch.zeros(n_rows, dtype=torch.bool, device=dev)
+    has_entries[gk] = True
+    bare = torch.nonzero((counts > 0) & ~has_entries).flatten()
+    heads = torch.nonzero(boundary).flatten()   # each part's first entry
+    tails = torch.cat([heads[1:], heads.new_tensor([gk.numel()])]) - 1
+    p_row, p_e0, p_e1 = gk[heads], ek[heads], ek[tails] + 1
+    p_prod = incl[tails] - excl[heads]
+    p_first = new_row[heads]
+    ip = Ast.indptr.reshape(-1, strip_rows + 1).long()
+    start = ip[bare // strip_rows, bare % strip_rows].clamp(max=a_cap)
+    p_row = torch.cat([p_row, bare])
+    p_e0, p_e1 = torch.cat([p_e0, start]), torch.cat([p_e1, start])
+    p_prod = torch.cat([p_prod, torch.zeros_like(bare)])
+    p_first = torch.cat([p_first, torch.ones_like(bare, dtype=torch.bool)])
+    per_row = torch.zeros(n_rows, dtype=torch.int64, device=dev)
+    p_only = per_row.index_add_(0, p_row, torch.ones_like(p_row))[p_row] == 1
+    order = torch.sort(p_prod, descending=True, stable=True).indices
+    return MaskedWork(p_row[order], p_e0[order], p_e1[order], p_prod[order],
+                      p_first[order], p_only[order], int(part_size))
+
+
+def _block_threads(slots: int) -> int:
+    """A block team's threads: MASKED_BLOCK_THREADS, or 1,024 where its
+    table leaves room for one block an SM only."""
+    return 1024 if slots * 8 > SMEM_PER_BLOCK // 2 else MASKED_BLOCK_THREADS
+
+
+class MaskedLaunches(NamedTuple):
+    """The parts in launch order (by team, then table size; heaviest first
+    within a launch): ``parts`` int32 ``[n, 4]`` (row, e0, e1, flags),
+    ``pglob`` int32 (a global part's index among the global rows, else -1),
+    each part's table ``slots`` and ``products``; the global rows ``grows``
+    (int32) and their tables' offsets ``goff`` (int64, one longer, packed);
+    ``groups``,
+    one launch each: (team code, table slots, parts, threads), the slots 0
+    for the global parts' one launch."""
+    parts: torch.Tensor
+    pglob: torch.Tensor
+    slots: torch.Tensor
+    products: torch.Tensor
+    grows: torch.Tensor
+    goff: torch.Tensor
+    groups: list
+
+
+def masked_launches(work: MaskedWork, Mst: CSR) -> MaskedLaunches:
+    """Group a call's parts into the kernel's launches: each part's table is
+    :func:`masked_table_slots` of its row's mask nnz, its team follows that
+    table and its products (the rule above); one launch per team and table
+    size, each reserving exactly that table, and one for the global parts.
+    The host reads the distinct mask row sizes and the launches."""
     counts = _mask_row_counts(Mst)
     dev = counts.device
-    uniq, inv = torch.unique(counts, return_inverse=True)
-    slots = torch.tensor([masked_table_slots(c) if c else 0 for c in uniq.tolist()],
-                         dtype=torch.int64, device=dev)[inv]
-    rows, meta, lo = [], [], 1
-    for hi, team, where in MASKED_BINS:
-        sel = slots >= lo if hi is None else (slots >= lo) & (slots <= hi)
-        r = torch.nonzero(sel).flatten()
-        rows.append(r)
-        if where == "shared":
-            warps = (max(1, min(8, _MASKED_SMEM_TARGET // (hi * 8)))
-                     if team == "warp" else MASKED_BLOCK_THREADS // 32)
-            meta.append((r.numel(), hi, warps))
-            lo = hi + 1
-        else:
-            meta.append((r.numel(), 0, MASKED_BLOCK_THREADS // 32))
-    rows = torch.cat(rows)
-    goff = torch.zeros(rows.numel() + 1, dtype=torch.int64, device=dev)
-    goff[1:] = torch.cumsum(slots[rows], 0)
-    global_slots = int(goff[-1] - goff[rows.numel() - meta[-1][0]])
-    return rows.to(torch.int32), goff, meta, global_slots
+    uniq, inv = torch.unique(counts[work.row], return_inverse=True)
+    slots = torch.tensor([masked_table_slots(c) for c in uniq.tolist()], dtype=torch.int64,
+                         device=dev)[inv]
+    team = torch.where((slots <= MASKED_WARP_TABLE_MAX)
+                       & (work.products <= MASKED_WARP_PRODUCTS), 0, 1)
+    team = torch.where(slots > MASKED_SHARED_MAX, 2, team)
+    key = team * (1 << 40) + torch.where(team == 2, 0, slots)   # one launch of global parts
+    order = torch.sort(key, stable=True).indices
+    key, slots, team = key[order], slots[order], team[order]
+    flags = (work.first.long() * _MASKED_FIRST + work.only.long() * _MASKED_ONLY)[order]
+    rows = work.row[order]
+    parts = torch.stack([rows, work.e0[order], work.e1[order], flags], 1).to(torch.int32)
+    groups = []
+    if key.numel():
+        _, sizes = torch.unique_consecutive(key, return_counts=True)
+        starts = torch.cumsum(sizes, 0) - sizes
+        for t, sl, n in zip(*torch.stack([team[starts], slots[starts], sizes]).tolist()):
+            threads = (MASKED_WARP_THREADS if t == 0 else
+                       _block_threads(sl) if t == 1 else MASKED_BLOCK_THREADS)
+            groups.append((t, sl if t < 2 else 0, n, threads))
+    n_glob = groups[-1][2] if groups and groups[-1][0] == 2 else 0
+    pglob = torch.full_like(rows, -1)
+    grows, ginv = torch.unique(rows[rows.numel() - n_glob:], return_inverse=True)
+    pglob[rows.numel() - n_glob:] = ginv
+    gslots = torch.zeros(grows.numel(), dtype=torch.int64, device=dev)
+    gslots[ginv] = slots[rows.numel() - n_glob:]
+    goff = torch.zeros(grows.numel() + 1, dtype=torch.int64, device=dev)
+    goff[1:] = torch.cumsum(gslots, 0)
+    return MaskedLaunches(parts, pglob.to(torch.int32), slots, work.products[order],
+                          grows.to(torch.int32), goff, groups)
+
+
+def masked_plan(Ast: CSR, Bst: CSR, Mst: CSR, r0s, r1s) -> tuple:
+    """``(work, launches)`` of a masked call on the card, cut for its SM
+    count."""
+    dev = Ast.indptr.device
+    work = masked_work(Ast, Bst, Mst, r0s, r1s,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    return work, masked_launches(work, Mst)
+
+
+def masked_kernels_per_call(Ast: CSR, Bst: CSR, Mst: CSR, r0s, r1s, order: str) -> int:
+    """Kernels one call of the masked wrapper launches on the card: one a
+    launch group, once (chunk1) or once a chunk (chunk2), and the global
+    rows' seed and gather when there are any."""
+    _, launches = masked_plan(Ast, Bst, Mst, r0s, r1s)
+    steps = Bst.indptr.shape[1] if order == "chunk2" else 1
+    return len(launches.groups) * steps + (2 if launches.grows.numel() else 0)
 
 
 def hash_masked_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, Mst: CSR,
@@ -379,8 +557,9 @@ def hash_masked_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, Mst: CSR,
     Operands as in :func:`hash_accum_spgemm_stream`, plus ``Mst``, the mask's
     stacked strips (leading ``[batch, n_ac]`` axes, the strip shape of
     ``C0st``); ``table_size`` is ``hash_table_slots`` of the densest mask
-    row, as in the reference. On the card each row's table is sized from
-    that row's own mask nnz instead (:func:`masked_bins`). CPU tensors take the plain
+    row, as in the reference. On the card the rows are cut into parts by
+    products (:func:`masked_work`) and each row's table is sized from its own
+    mask nnz instead (:func:`masked_launches`). CPU tensors take the plain
     version; CUDA tensors launch the kernel.
     """
     g = stack_geometry(Ast, Bst, C0st, order)
@@ -394,6 +573,7 @@ def hash_masked_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, Mst: CSR,
                                  table_size=T)
     check_mask(Mst, g["c_cap"], T)
     dev = Ast.indptr.device
+    _, plan = masked_plan(Ast, Bst, Mst, r0s, r1s)
     r0s = torch.as_tensor(r0s, dtype=torch.int32).to(dev)
     r1s = torch.as_tensor(r1s, dtype=torch.int32).to(dev)
     for st, what in ((Ast, "A"), (Bst, "B"), (C0st, "C0"), (Mst, "M")):
@@ -401,22 +581,32 @@ def hash_masked_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, Mst: CSR,
         require(st.indices, f"{what}.indices", torch.int32, dev)
         if what != "M":
             require(st.data, f"{what}.data", torch.float32, dev)
-    rows, goff, meta, global_slots = masked_bins(Mst)
-    gkeys = torch.empty(max(global_slots, 1), dtype=torch.int32, device=dev)
-    gvals = torch.empty(max(global_slots, 1), dtype=torch.float32, device=dev)
+    n_grows = plan.grows.numel()
+    if n_grows > 65535:
+        raise ValueError(f"{n_grows} rows need a global table; the seed and gather "
+                         "grids take at most 65,535")
+    gslots, grow_max_nnz = 1, 0
+    if n_grows:
+        gslots, grow_max_nnz = torch.stack(
+            [plan.goff[-1], _mask_row_counts(Mst)[plan.grows.long()].max()]).tolist()
+    gkeys = torch.full((gslots,), _EMPTY, dtype=torch.int32, device=dev)
+    gvals = torch.zeros(gslots, dtype=torch.float32, device=dev)
     out_ip = Mst.indptr.clone()
     out_ix = torch.zeros_like(C0st.indices)
     out_d = torch.zeros_like(C0st.data)
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-    rows = rows if rows.numel() else torch.zeros(1, dtype=torch.int32, device=dev)
+    groups = torch.tensor(plan.groups, dtype=torch.int32).reshape(-1, 4)
+    def nonempty(t):   # a pointer the launch may pass but never reads
+        return t if t.numel() else torch.zeros(4, dtype=t.dtype, device=t.device)
     launch("hash_masked_accum_spgemm", "hash_masked_accum_launch",
            [Ast.indptr, Ast.indices, Ast.data, Bst.indptr, Bst.indices, Bst.data,
-            C0st.indptr, C0st.indices, C0st.data, r0s, r1s, Mst.indptr,
-            Mst.indices, rows, goff, gkeys, gvals, out_ix, out_d, overflow],
+            C0st.indptr, C0st.indices, C0st.data, r0s, r1s, Mst.indptr, Mst.indices,
+            nonempty(plan.parts), nonempty(plan.pglob), nonempty(plan.grows), plan.goff,
+            gkeys, gvals, out_ix, out_d, overflow, nonempty(groups)],
            [g["batch"], g["n_ac"], g["n_b"], g["strip_rows"], g["chunk_rows"],
             g["a_cap"], g["chunk_cap"], g["c_cap"], Ast.max_row_nnz,
             Bst.max_row_nnz, Mst.indices.shape[-1], ("chunk1", "chunk2").index(order) + 1,
-            *(v for m in meta for v in m)])
+            len(plan.groups), n_grows, grow_max_nnz])
     MASKED_LAUNCHES.bump()
     if int(overflow.item()):
         raise RuntimeError("hash_masked_accum_launch: a mask key found no slot "

@@ -181,31 +181,43 @@ def test_masked_mask_contract_raises():
 
 
 def test_masked_bins_cover_every_mask_row_once():
-    """The kernel's row bins: every row with a nonempty mask row in exactly
-    one bin, by its table of at least twice its nnz; global tables sized per
-    row, offsets packed."""
+    """The kernel's launches: every row with a nonempty mask row in exactly
+    one part (no row here outgrows a part), by its table of at least twice
+    its nnz; each shared-memory launch reserves exactly its parts' table;
+    global tables sized per row, offsets packed."""
     counts = np.array([0, 1, 32, 33, 256, 257, 1024, 1025, 8192, 8193, 40000, 3])
     n_cols = 50000
     ptr = np.concatenate([[0], np.cumsum(counts)])
     idx = np.concatenate([np.arange(c) for c in counts]).astype(np.int32)
     M = csr_from_fields(ptr, idx, np.ones(idx.size, np.float32), (counts.size, n_cols),
                         int(counts.max()), device="cpu")
-    Mst = dataclasses.replace(M, indptr=M.indptr[None, None], indices=M.indices[None, None],
-                              data=M.data[None, None])
-    rows, goff, meta, total = port_hash.masked_bins(Mst)
-    assert [m[0] for m in meta] == [3, 2, 2, 2, 2]
-    assert rows.tolist() == [1, 2, 11, 3, 4, 5, 6, 7, 8, 9, 10]
-    assert [m[1] for m in meta[:4]] == [64, 512, 2048, 16384]
+    stack = lambda m: dataclasses.replace(  # noqa: E731
+        m, indptr=m.indptr[None, None], indices=m.indices[None, None],
+        data=m.data[None, None])
+    A = csr_from_fields(np.arange(counts.size + 1), np.zeros(counts.size, np.int32),
+                        np.ones(counts.size, np.float32), (counts.size, 1), 1, device="cpu")
+    B = csr_from_fields(np.array([0, 2]), np.array([0, 1], np.int32),
+                        np.ones(2, np.float32), (1, n_cols), 2, device="cpu")
+    Mst = stack(M)
+    work = port_hash.masked_work(stack(A), stack(B), Mst, [0], [1], 132)
+    launches = port_hash.masked_launches(work, Mst)
+    rows = launches.parts[:, 0].tolist()
+    assert sorted(rows) == [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11]
+    assert rows == [1, 11, 2, 3, 4, 5, 6, 7, 8, 9, 10]
     assert [port_hash.masked_table_slots(c) for c in (1, 32, 33, 8193, 40000)] == [
         2, 64, 128, 32768, 131072]
-    # every table's size comes from goff, one power of two of at least twice
-    # the row's nnz, and fits its bin's reservation
-    sizes = (goff[1:] - goff[:-1]).tolist()
-    assert goff[0] == 0 and sizes == [port_hash.masked_table_slots(c)
-                                      for c in counts[rows.numpy()]]
-    bin_of = np.repeat(np.arange(len(meta)), [m[0] for m in meta])
-    assert all(size <= meta[b][1] for size, b in zip(sizes, bin_of) if b < 4)
-    assert total == 32768 + 131072 == sum(sizes[-2:])
+    # every table is one power of two of at least twice the row's nnz, and
+    # each shared launch reserves exactly its parts' table
+    sizes = launches.slots.tolist()
+    assert sizes == [port_hash.masked_table_slots(c) for c in counts[rows]]
+    ends = np.cumsum([g[2] for g in launches.groups])
+    for (team, slots, n, _), end in zip(launches.groups, ends):
+        if team < 2:
+            assert sizes[end - n:end] == [slots] * n
+            assert slots <= port_hash.MASKED_SHARED_MAX
+    assert [g[:3] for g in launches.groups][-1] == (2, 0, 2)
+    assert launches.grows.tolist() == [9, 10]
+    assert launches.goff.tolist() == [0, 32768, 32768 + 131072]
 
 
 def test_masked_backend_roster_matches_reference():
