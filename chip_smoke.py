@@ -4,7 +4,8 @@
 
 Run from the root of a checkout. It builds the CUDA kernels of
 ``src/repro_torch/kernels/csrc`` (into ``build/repro_torch/``; the dense-slab,
-decode-attention, BSR x BSR, ESC and both hash sources must build without
+decode-attention, BSR x BSR, ESC and both hash sources, and the f32 FMA
+kernels of the prefill and grouped-GEMM sources, must build without
 register spills), finds the
 tensor-core instructions in the libraries of the two routed kernels
 (``cuobjdump -sass``: HMMA in the prefill's, HGMMA and HMMA in the grouped
@@ -54,7 +55,11 @@ kernel path and the plain path; ``serve_batch`` of OLMoE-1B-7B at full
 width, its launches counted by route, one prefill and one decode step
 traced, and its bf16 logits and routes compared with the plain path
 (printed); and the same model in f32, teacher-forced through both paths,
-its launches all on the fma routes and its logits held to the plain path's.
+its launches all on the fma routes (the grouped GEMM's counted by tiling:
+tile at prefill, rows-few at decode) and its logits held to the plain
+path's, the kernel path's prefill and decode steps timed in a second run.
+The f32 rows of both kernels (the prefill kernel also at that model's
+shape) are timed by the profiler and by back-to-back CUDA events.
 Every line of output is one JSON object; the last one is
 ``{"ok": true, "device": ...}``. Any failed check raises, so the exit code
 is not 0. Without a CUDA card, or without the package beside this file, it
@@ -112,7 +117,7 @@ SASS_OPS = {"flash_prefill": ("HMMA",), "grouped_matmul": ("HGMMA", "HMMA")}
 TRACE_NAMES = {"flash_prefill": ("flash_prefill_kernel", "flash_prefill_tc_kernel"),
                "decode_attention": ("decode_split_kernel", "decode_combine_kernel"),
                "grouped_matmul": ("gmm_tile_kernel", "gmm_small_kernel",
-                                  "grouped_matmul_kernel"),
+                                  "grouped_matmul_kernel", "grouped_matmul_rows_kernel"),
                "bsr_spgemm": ("bsr_spgemm",),
                "hash_masked_accum_spgemm": ("masked_part_kernel", "masked_seed_kernel",
                                             "masked_gather_kernel"),
@@ -125,6 +130,10 @@ TRACE_TRIES = 3   # traces of one call taken until one holds every expected laun
 # register sort), and the two hash sources
 NO_SPILL = ("ranged_spgemm", "chunked_attention", "bsr_spgemm", "sparse_accum_spgemm",
             "hash_accum_spgemm", "hash_masked_accum_spgemm")
+# and the kernels of the other sources held to no spills: the f32 FMA
+# routes' register tiles (names as in the mangled entry)
+NO_SPILL_KERNELS = {"grouped_matmul": ("grouped_matmul_kernel", "grouped_matmul_rows_kernel"),
+                    "flash_prefill": ("flash_prefill_kernel",)}
 # the dense slab's load path each of its recorded phases must take: the
 # quickstart staging is 16-byte aligned (float4 / cp.async), the chunk1
 # staging (k_pad 42,043, span 9,275) is not (masked scalar loads)
@@ -199,6 +208,22 @@ def cuda_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(torch, fn, reps: int = 5) -> float:
+    """Milliseconds a call by CUDA events around ``reps`` calls issued back
+    to back after a warm-up call: the device's time of a call whose kernels
+    outlast the host's issue of the next, without the profiler (which loses
+    the traces of some calls)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def profiled(torch, fn):
@@ -413,6 +438,9 @@ class Smoke:
         for kernel in ROUTED:
             for route, counter in self.kernels[kernel].ROUTE_LAUNCHES.items():
                 self.counters[f"{kernel}/{route}"] = counter
+        # the grouped GEMM's fma launches by tiling, as "grouped_matmul/fma/tiling"
+        for tiling, counter in grouped_matmul.TILING_LAUNCHES.items():
+            self.counters[f"grouped_matmul/fma/{tiling}"] = counter
         self.backend_kernel = {"pallas": "ranged_spgemm",
                                "sparse": "sparse_accum_spgemm",
                                "hash": "hash_accum_spgemm",
@@ -464,11 +492,12 @@ class Smoke:
         emit({"build": {"seconds": seconds,
                         "per_source_s": {k: v["seconds"] for k, v in log.items()},
                         "ptxas": resources}})
-        for name in NO_SPILL:
-            for entry, res in resources[name].items():
-                check(res["spill_stores"] == 0 and res["spill_loads"] == 0,
-                      f"{name}: {entry} spills {res['spill_stores']} / "
-                      f"{res['spill_loads']} bytes (stores / loads)")
+        for name, entries in resources.items():
+            for entry, res in entries.items():
+                if name in NO_SPILL or any(k in entry for k in NO_SPILL_KERNELS.get(name, ())):
+                    check(res["spill_stores"] == 0 and res["spill_loads"] == 0,
+                          f"{name}: {entry} spills {res['spill_stores']} / "
+                          f"{res['spill_loads']} bytes (stores / loads)")
 
     def sass_phase(self) -> None:
         """The tensor-core instructions in the built libraries of the routed
@@ -721,11 +750,14 @@ class Smoke:
     def route_row(self, kernel: str, route: str, shape: str, numbers: dict, moved: int,
                   flops: int, flop_rate: str, library, **extra) -> None:
         """File one route's kernels-line numbers at one served shape: its
-        ``ms``, ``wrapper_ms`` and ``plain_ms``, the bound of the function in
+        ``ms``, ``wrapper_ms`` (``device_ms``, ``queued_ms`` and
+        ``fma_tiling`` where measured or chosen) and ``plain_ms``, the
+        bound of the function in
         the row's dtype, and the library yardstick in that dtype."""
         bound = bound_of(moved, flops, flop_rate)
         self.route_rows[kernel, route, shape] = {
             "ms": numbers["ms"], "wrapper_ms": numbers["wrapper_ms"],
+            **{k: numbers[k] for k in ("device_ms", "queued_ms", "fma_tiling") if k in numbers},
             "plain_ms": numbers["plain_ms"], **bound,
             **library_fields(library, bound["bound_ms"]), **extra}
 
@@ -1519,12 +1551,14 @@ class Smoke:
         return [self.torch.randn(*shape, generator=gen, device="cuda") for shape in shapes]
 
     def prefill_kernel_phase(self, label: str, b: int, s: int, h: int, hkv: int, d: int,
-                             window: int = 0, record: bool = False) -> None:
+                             window: int = 0, record: bool = False,
+                             dtypes: tuple = ("f32", "bf16")) -> None:
         """The prefill kernel against its plain version in f32 (the fma
-        route) and bf16 (the tc route) on seeded normal q, k, v; ``record``
-        times both runs, their plain versions and SDPA (causal, GQA) in their
-        dtype: the bf16 numbers are the kernel's recorded phase, and each
-        route gets a kernels-line row at this shape."""
+        route) and bf16 (the tc route), or in ``dtypes`` only, on seeded
+        normal q, k, v; ``record`` times each run (f32 also by the
+        profiler and by ``queued_ms``), its plain version and SDPA (causal, GQA) in its dtype,
+        and each route gets a kernels-line row at this shape; the bf16
+        numbers, where bf16 runs, are the kernel's recorded phase."""
         torch, mod = self.torch, self.kernels["flash_prefill"]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         base = self.attn_inputs(s + h + window, (b, s, h, d), (b, s, hkv, d), (b, s, hkv, d))
@@ -1535,6 +1569,8 @@ class Smoke:
         flops = 4 * d * pairs * b * h
         orders, libraries = {}, {}
         for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            if name not in dtypes:
+                continue
             q, k, v = (x.to(dtype) for x in base)
             run = lambda: mod.flash_prefill(q, k, v, window=window)  # noqa: E731
             plain = lambda: mod.flash_prefill_plain(q, k, v, window=window)  # noqa: E731
@@ -1545,6 +1581,10 @@ class Smoke:
             numbers = {"route": route, "max_abs_err": err,
                        "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
             if record:
+                if name == "f32":
+                    numbers["device_ms"], numbers["device_incomplete_traces"] = (
+                        kernel_device_ms(torch, run, TRACE_NAMES["flash_prefill"], 1))
+                    numbers["queued_ms"] = queued_ms(torch, run)
                 numbers["plain_ms"] = cuda_ms(torch, plain, reps=3)
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
                 fn = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
@@ -1553,10 +1593,13 @@ class Smoke:
                 self.route_row("flash_prefill", route, label, numbers, size * elems, flops,
                                rate, libraries[name], dtype=name)
             orders[name] = numbers
-        self.finish_phase("flash_prefill", label, orders, "bf16", 2 * elems, flops,
-                          libraries.get("bf16", (None,) * 4),
+        main = "bf16" if "bf16" in orders else "f32"
+        size, rate = (2, "bf16_flops") if main == "bf16" else (4, "f32_flops")
+        self.finish_phase("flash_prefill", label, orders, main, size * elems, flops,
+                          libraries.get(main, (None,) * 4),
                           {"b": b, "s": s, "h": h, "hkv": hkv, "d": d, "window": window,
-                           "visible_pairs_per_head": pairs}, record, 1, "bf16_flops")
+                           "visible_pairs_per_head": pairs}, record and main == "bf16", 1,
+                          rate)
 
     def decode_kernel_phase(self, label: str, b: int, hkv: int, g: int, d: int, s: int,
                             lengths: list, *, timed: bool = False,
@@ -1610,18 +1653,27 @@ class Smoke:
         return {"tokens": torch.from_numpy(toks).cuda(),
                 "lengths": torch.tensor(lens, dtype=torch.int32, device="cuda")}
 
-    def teacher_forced(self, model, cfg, batch, outs) -> tuple:
+    def teacher_forced(self, model, cfg, batch, outs, times: dict | None = None) -> tuple:
         """Prefill, then one decode step per generated token, each fed the
-        serve run's own token: (the logits of every step, the cache)."""
+        serve run's own token: (the logits of every step, the cache). With
+        ``times``, CUDA events around the prefill and around the decode steps
+        fill in ``prefill_ms`` and ``decode_ms_per_step``."""
         tf = self.m["transformer"]
         torch = self.torch
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         with torch.inference_mode():
+            marks[0].record()
             logits, cache = tf.prefill(model, batch, cfg, LM_CACHE)
+            marks[1].record()
             steps = [logits]
             for t in range(LM_NEW - 1):
                 logits, cache = tf.decode_step(model, cache, outs[:, t:t + 1], cfg)
                 steps.append(logits)
+            marks[2].record()
         torch.cuda.synchronize()
+        if times is not None:
+            times["prefill_ms"] = marks[0].elapsed_time(marks[1])
+            times["decode_ms_per_step"] = marks[1].elapsed_time(marks[2]) / (LM_NEW - 1)
         return steps, cache
 
     @contextlib.contextmanager
@@ -1705,16 +1757,22 @@ class Smoke:
         and ``passes - 1`` decode steps of ``cfg``: in bf16 the prefill on the
         tensor cores, the grouped GEMM on the tile route at prefill (B x S x
         k rows) and the small route at decode (B x k rows); in f32 all on the
-        fma routes."""
+        fma routes, the grouped GEMM's by its tile tiling at prefill and
+        its rows-few tiling at decode."""
         layers = cfg.n_layers
         n_gmm = 3 * layers if cfg.family == "moe" else 0
         if cfg.compute_dtype == "bfloat16":
             counts = {"flash_prefill/tc": layers, "grouped_matmul/tile": n_gmm,
                       "grouped_matmul/small": n_gmm * (passes - 1)}
         else:
-            counts = {"flash_prefill/fma": layers, "grouped_matmul/fma": n_gmm * passes}
-        return {f"{kernel}/{route}": counts.get(f"{kernel}/{route}", 0)
-                for kernel in ROUTED for route in self.kernels[kernel].ROUTE_LAUNCHES}
+            counts = {"flash_prefill/fma": layers, "grouped_matmul/fma": n_gmm * passes,
+                      "grouped_matmul/fma/tile": n_gmm,
+                      "grouped_matmul/fma/rows_few": n_gmm * (passes - 1)}
+        keys = [f"{kernel}/{route}" for kernel in ROUTED
+                for route in self.kernels[kernel].ROUTE_LAUNCHES]
+        keys += [f"grouped_matmul/fma/{t}"
+                 for t in self.kernels["grouped_matmul"].TILING_LAUNCHES]
+        return {key: counts.get(key, 0) for key in keys}
 
     def check_routes(self, label: str, cfg, launches: dict) -> dict:
         """Every route's launches in a main-path run against ``route_want``;
@@ -1906,7 +1964,8 @@ class Smoke:
     def gmm_kernel_phase(self, label: str, x, seg_rows, w) -> None:
         """The grouped GEMM against its plain version on rows ``x`` grouped by
         ``seg_rows`` against ``w``: in bf16 by every route (tile, small, fma)
-        and in f32 (the operands widened; the fma route). The plain version
+        and in f32 (the operands widened; the fma route, its tiling named,
+        also timed by the profiler and by ``queued_ms``). The plain version
         and the library yardstick are timed in each dtype, and the tile and
         small routes (bf16) and the fma route (f32) each get a kernels-line
         row at this shape. At the prefill shape the wrapper's own choice in
@@ -1933,6 +1992,12 @@ class Smoke:
             self.note_err(f"grouped_matmul/{route}", err)
             numbers = {"route": route, "max_abs_err": err, "ms": self.launch_ms(run),
                        "wrapper_ms": cuda_ms(torch, run)}
+            if route == "fma":
+                numbers["fma_tiling"] = gm.fma_tiling(x.shape[0])
+            if dname == "f32":
+                numbers["device_ms"], numbers["device_incomplete_traces"] = kernel_device_ms(
+                    torch, run, TRACE_NAMES["grouped_matmul"], 1)
+                numbers["queued_ms"] = queued_ms(torch, run)
             tag = str(dtype).removeprefix("torch.")
             if tag not in plain_ms:
                 plain_ms[tag] = cuda_ms(torch, plain, reps=3)
@@ -1962,7 +2027,8 @@ class Smoke:
     def gmm_edge_phase(self) -> None:
         """The kernel on ragged cases: empty groups, groups of one row, a
         single group, all groups empty, N and K off the tensor-core routes'
-        16-byte chunks, rows past the last group. f32 (the fma route), bf16
+        16-byte chunks, rows past the last group, each fma tiling (named in
+        the phase line). f32 (the fma route), bf16
         by every route the operands fit (tile and small need K and N
         multiples of 8; forcing either on other operands must raise), and
         bf16 to an f32 output (the fma route; forcing a tensor-core route
@@ -1970,8 +2036,11 @@ class Smoke:
         (plain) run, pad rows zero."""
         torch, gm, ops = self.torch, self.kernels["grouped_matmul"], self.m["ops"]
         gen = torch.Generator(device="cuda").manual_seed(GMM_EDGE_SEED)
+        # the first five take the fma route's rows-few tiling, the last two
+        # (more than SMALL_ROWS_MAX rows) its tile tiling
         cases = [([37, 0, 91, 12, 0, 300], 2048, 1000), ([1] * 8, 40, 72),
-                 ([129], 17, 130), ([0, 0, 0], 64, 64), ([0, 5, 0, 250], 33, 1)]
+                 ([129], 17, 130), ([0, 0, 0], 64, 64), ([0, 5, 0, 250], 33, 1),
+                 ([300, 0, 1, 257, 64], 36, 98), ([700, 5], 2048, 1000)]
         result = []
         for sizes, k, n in cases:
             t = sum(sizes)
@@ -2019,8 +2088,8 @@ class Smoke:
                 pad = sum(float(y[offs[g] + m: offs[g + 1]].abs().sum())
                           for g, m in enumerate(sizes))
                 check(pad == 0, f"padded {sizes}/{dname}: pad rows are not zero")
-            result.append({"sizes": sizes, "k": k, "n": n, "max_abs_err": errs,
-                           "refused_routes": refused})
+            result.append({"sizes": sizes, "k": k, "n": n, "fma_tiling": gm.fma_tiling(t + 9),
+                           "max_abs_err": errs, "refused_routes": refused})
             self.note_err("grouped_matmul", max(errs.values()))
         emit({"edge_phase": "grouped_matmul_ragged", "cases": result})
 
@@ -2070,7 +2139,9 @@ class Smoke:
         their rounding) teacher-forced on the served tokens through the
         kernel path and the plain path: every step's logits within
         F32_LOGIT_MAX_TOL (worst element) and F32_LOGIT_MEAN_TOL (mean) of
-        the plain logits' std, every first token equal."""
+        the plain logits' std, every first token equal. The kernel path's
+        prefill and decode steps are timed by CUDA events in a second,
+        warm run (``kernel_path_ms``)."""
         torch = self.torch
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
         model = self.m["transformer"].init_params(
@@ -2084,6 +2155,8 @@ class Smoke:
         del cache
         peak = torch.cuda.max_memory_allocated()
         route_launches = self.check_routes(label, cfg32, self.read_counters())
+        kernel_path_ms = {}
+        self.teacher_forced(model, cfg32, batch, out_t, kernel_path_ms)
         with self.plain_path(), self.routes(model) as plain_routes:
             plain, cache = self.teacher_forced(model, cfg32, batch, out_t)
         del cache, model
@@ -2094,7 +2167,7 @@ class Smoke:
         result["tolerances"] = [F32_LOGIT_MAX_TOL, F32_LOGIT_MEAN_TOL]
         emit({"run": label, "arch": cfg32.name, "compute_dtype": cfg32.compute_dtype,
               "peak_memory_bytes": peak, "route_launches": route_launches,
-              "check": result})
+              "kernel_path_ms": kernel_path_ms, "check": result})
         check(result["logit_max_over_std"] <= F32_LOGIT_MAX_TOL
               and result["logit_mean_over_std"] <= F32_LOGIT_MEAN_TOL,
               f"{label}: f32 teacher-forced logits differ from the plain path by up to "
@@ -2248,10 +2321,15 @@ def main() -> int:
     s_pad = max(len(p) for p in prompts)
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     smoke.prefill_kernel_phase("serve_prefill", LM_BATCH, s_pad, h, hkv, d, record=True)
+    moe_cfg = get_config(MOE_ARCH)
+    # the f32 OLMoE check's prefill shape (its fma launches come from there)
+    smoke.prefill_kernel_phase("serve_prefill_olmoe", LM_BATCH, s_pad, moe_cfg.n_heads,
+                               moe_cfg.n_kv_heads, moe_cfg.head_dim, record=True,
+                               dtypes=("f32",))
     mid = [s_pad + LM_NEW // 2] * LM_BATCH
     smoke.decode_kernel_phase("serve_decode_mid", LM_BATCH, hkv, h // hkv, d, LM_CACHE, mid,
                               timed=True, record=True)
-    moe_cfg = get_config(MOE_ARCH)   # the MoE serve run's decode shape (same prompt lengths)
+    # the MoE serve run's decode shape (same prompt lengths)
     smoke.decode_kernel_phase("serve_decode_mid_olmoe", LM_BATCH, moe_cfg.n_kv_heads,
                               moe_cfg.n_heads // moe_cfg.n_kv_heads, moe_cfg.head_dim,
                               LM_CACHE, mid, timed=True)

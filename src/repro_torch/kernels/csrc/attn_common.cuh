@@ -1,6 +1,6 @@
-// Helpers shared by the attention kernels (flash_prefill.cu,
-// chunked_attention.cu): 16-byte vector loads widened to f32, stores that
-// round f32 to the tensor's dtype, and the finite mask value.
+// Helpers of the attention kernels: the finite mask value (flash_prefill.cu
+// and chunked_attention.cu), 16-byte vector loads widened to f32 and stores
+// that round f32 to the tensor's dtype (chunked_attention.cu).
 #pragma once
 
 #include <cuda_bf16.h>

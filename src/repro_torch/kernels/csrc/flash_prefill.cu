@@ -39,15 +39,22 @@
 // 80 KB at D = 128.
 //
 // "fma" (f32): every sum by f32 FMAs (67 TFLOP/s without the tensor
-// cores, which have no f32-exact mode). One block of 256 threads per (query tile, KV
-// head, batch) with 64 query rows, four threads per row. A thread keeps its
-// row's Q (D floats) and a quarter of its output (D / 4 floats) in
-// registers, with the row's (m, l) state; K and V tiles of 64 keys are
-// staged in shared memory as f32 (K rows padded to D + 1 floats, so the four
-// threads of a row read four banks), and the probabilities of a tile go
-// through shared memory (rows padded to 65) to the P V product. Shared
-// memory is 49,664 bytes at D = 64 (K 16,640, V 16,384, P 16,640) and 82,432
-// at D = 128.
+// cores, which have no f32-exact mode). An SM's shared memory gives 32
+// words a clock against 128 FMAs, so one word read an FMA would cap the
+// kernel near a quarter of that rate; the design is about FMAs per word
+// read: one block of 256 threads per (query tile, KV head,
+// batch) with 64 query rows, a 16 x 16 grid of threads. S = Q K^T: a
+// thread computes 4 rows x 4 keys (rows 4 tr + i, keys tc + 16 j) in steps
+// of 4 d from 16-byte reads of Q and K, 64 FMAs for 8 reads; Q is staged
+// once and K and V tiles of 64 keys arrive by cp.async into a two-stage
+// ring, so the next tile loads while this one computes (rows padded to D
+// + 4 floats: the 16 keys a half-warp reads fall in distinct banks). The
+// online softmax reduces a row's max over its 16 threads by shuffles; each
+// thread keeps its part of the row sum, rescaled with the max each tile and
+// added by a shuffle tree at the end. P goes through shared memory as P^T,
+// and P V gives a thread 4 rows x D / 16 columns, 16 or 32 FMAs for one
+// 16-byte read of P^T and one or two of V a key. Shared memory: 102,400
+// bytes at D = 64 (two blocks an SM), 184,320 at D = 128 (one).
 //
 // Both: query row r of a block is position q0 + r / g of head hk * g + r % g
 // (bq = 64 / g positions times the g heads). The loop over key tiles starts
@@ -64,124 +71,208 @@ namespace {
 
 using attn::NEG_INF;
 
-constexpr int ROWS = 64;              // query rows of a block
-constexpr int TPR = 4;                // threads per row
-constexpr int THREADS = ROWS * TPR;   // 256
+constexpr int ROWS = 64;              // query rows of a block (both routes)
 constexpr int BK = 64;                // keys per tile
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, T* __restrict__ o, int S,
-                         int H, int Hkv, int g, int bq, int window,
-                         float scale) {
-  constexpr int N = attn::Pack<T>::N;
-  constexpr int KS = D + 1;        // padded K row (floats)
-  constexpr int PS = BK + 1;       // padded P row (floats)
-  constexpr int DPT = D / TPR;     // output columns per thread
-  constexpr int KPT = BK / TPR;    // keys per thread per tile
-  extern __shared__ float sh[];
-  float* ks = sh;                  // [BK][D + 1]
-  float* vs = ks + BK * KS;        // [BK][D]
-  float* ps = vs + BK * D;         // [ROWS][BK + 1]
+// ---- route "fma": f32 on f32 FMAs -------------------------------------------
+
+namespace ffma {
+
+constexpr int THREADS = 256;          // 16 x 16: 4 rows x (4 keys or D / 16 columns) each
+constexpr int PP = ROWS + 4;          // padded row of P^T (floats)
+
+template <int D>
+struct Layout {
+  static constexpr int QP = D + 4;    // padded row of Q and K (floats)
+  static constexpr int Q = 0;                       // [ROWS][QP]
+  static constexpr int K = Q + ROWS * QP;           // [2][BK][QP]
+  static constexpr int V = K + 2 * BK * QP;         // [2][BK][D]
+  static constexpr int P = V + 2 * BK * D;          // [BK][PP]: P^T
+  static constexpr size_t BYTES = (size_t)(P + BK * PP) * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
+    flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o, int S, int H,
+                         int Hkv, int g, int bq, int window, float scale) {
+  using L = Layout<D>;
+  constexpr int QP = L::QP, C = D / 4;   // 16-byte chunks of a row
+  constexpr int DC = D / 64;             // 4-column groups of the output a thread owns
+  extern __shared__ __align__(16) float sh[];
+  float* qs = sh + L::Q;
+  float* ks = sh + L::K;
+  float* vs = sh + L::V;
+  float* ps = sh + L::P;
 
   const int tid = threadIdx.x;
-  const int row = tid / TPR, c = tid % TPR;
+  const int tr = tid / 16, tc = tid % 16;   // rows 4 tr + i; keys tc + 16 j
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
   const int hk = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * bq;
-  const int qpos = q0 + row / g;
-  const int head = hk * g + row % g;
-  const bool active = row < bq * g && qpos < S;
 
-  float qr[D];
-  if (active) {
-    const T* src = q + (((int64_t)b * S + qpos) * H + head) * D;
-#pragma unroll
-    for (int d = 0; d < D; d += N) attn::load_vec(src + d, qr + d);
-  } else {
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = 0.f;
+  // Q rows, zero past the block's bq * g rows or past S
+  for (int i = tid; i < ROWS * C; i += THREADS) {
+    const int r = i / C, c = i % C, pos = q0 + r / g;
+    const bool valid = r < bq * g && pos < S;
+    const float* src =
+        q + (((int64_t)b * S + (valid ? pos : 0)) * H + hk * g + r % g) * D + c * 4;
+    tc::cp_async16(tc::smem_addr(qs + r * QP + c * 4), src, valid);
   }
-  float m = NEG_INF, l = 0.f, acc[DPT], s[KPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
+  tc::cp_async_commit();
+
+  const int64_t pos_stride = (int64_t)Hkv * D;
+  const int64_t base = ((int64_t)b * S * Hkv + hk) * D;
+  auto load_kv = [&](int kt, int st) {
+    const int k0 = kt * BK;
+    for (int i = tid; i < BK * C; i += THREADS) {
+      const int j = i / C, c = i % C;
+      const bool valid = k0 + j < S;
+      const int64_t off = base + (valid ? k0 + j : 0) * pos_stride + c * 4;
+      tc::cp_async16(tc::smem_addr(ks + (st * BK + j) * QP + c * 4), k + off, valid);
+      tc::cp_async16(tc::smem_addr(vs + (st * BK + j) * D + c * 4), v + off, valid);
+    }
+  };
 
   const int q_last = min(q0 + bq, S) - 1;
   const int kt_hi = q_last / BK;
   const int kt_lo = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
-  const int64_t pos_stride = (int64_t)Hkv * D;
-  const int64_t base = ((int64_t)b * S * Hkv + hk) * D;
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's reads of ks, vs and ps are done
-    for (int i = tid; i < BK * (D / N); i += THREADS) {
-      const int j = i / (D / N), d = (i % (D / N)) * N;
-      float kv[N], vv[N];
-      if (k0 + j < S) {
-        const int64_t off = base + (k0 + j) * pos_stride + d;
-        attn::load_vec(k + off, kv);
-        attn::load_vec(v + off, vv);
-      } else {
-#pragma unroll
-        for (int e = 0; e < N; ++e) kv[e] = vv[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < N; ++e) {
-        ks[j * KS + d + e] = kv[e];
-        vs[j * D + d + e] = vv[e];
-      }
-    }
-    __syncthreads();
+  load_kv(kt_lo, 0);
+  tc::cp_async_commit();
 
-    float mx = NEG_INF;
+  int qpos[4];
 #pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int j = c + TPR * i;
-      const float* kr = ks + j * KS;
-      float dot = 0.f;
+  for (int i = 0; i < 4; ++i) qpos[i] = q0 + (4 * tr + i) / g;
+  // per row: the running max (the same in the 16 threads of a row) and this
+  // thread's part of the running sum (its keys tc + 16 j)
+  float m[4], l[4], acc[4][4 * DC];
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-      const int kpos = k0 + j;
-      const bool visible = kpos <= qpos && kpos < S &&
-                           (window <= 0 || qpos - kpos < window);
-      s[i] = visible ? dot * scale : NEG_INF;
-      mx = fmaxf(mx, s[i]);
-    }
-    // the four threads of a row are neighbouring lanes
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float rs = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const float p = expf(s[i] - m_new);
-      rs += p;
-      ps[row * PS + c + TPR * i] = p;
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-    l = l * alpha + rs;
-    m = m_new;
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-    for (int j = 0; j < BK; ++j) {
-      const float p = ps[row * PS + j];
-      const float* vr = vs + j * D + c;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] = fmaf(p, vr[TPR * i], acc[i]);
-    }
+    for (int c = 0; c < 4 * DC; ++c) acc[i][c] = 0.f;
   }
-  if (active) {
-    T* dst = o + (((int64_t)b * S + qpos) * H + head) * D + c;
-    const float denom = fmaxf(l, 1e-30f);
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int st = (kt - kt_lo) & 1;
+    if (kt < kt_hi) load_kv(kt + 1, st ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();   // tile kt (and Q) has landed
+    __syncthreads();
+    const float* kst = ks + st * BK * QP;
+    const float* vst = vs + st * BK * D;
+    const int k0 = kt * BK;
+
+    // S = Q K^T over d in steps of 4: 4 rows x 4 keys from 8 16-byte reads
+    float s[4][4];
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) attn::store(dst + TPR * i, acc[i] / denom);
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (4 * tr + i) * QP + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(kst + (tc + 16 * j) * QP + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+
+    // scale and mask, then the online softmax: a row's max over its 16
+    // threads (lanes tc of one half-warp) by shuffles
+    const bool full = k0 + BK - 1 <= q0 && k0 + BK <= S &&
+                      (window <= 0 || q_last - k0 < window);
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tc + 16 * j;
+        float x = s[i][j] * scale;
+        if (!full) {
+          const bool visible = kpos <= qpos[i] && kpos < S &&
+                               (window <= 0 || qpos[i] - kpos < window);
+          x = visible ? x : NEG_INF;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        rs += s[i][j];
+      }
+      l[i] = l[i] * alpha[i] + rs;
+    }
+    // P^T: key tc + 16 j's row holds the probabilities of rows 4 tr .. 4 tr + 3
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(ps + (tc + 16 * j) * PP + 4 * tr) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncthreads();
+
+    // O = O alpha + P V: 4 rows x 4 DC columns (4 tc + 64 c + (0..3)) a
+    // thread, a 16-byte read of P^T and DC of V a key
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4 * DC; ++c) acc[i][c] *= alpha[i];
+#pragma unroll 8
+    for (int j = 0; j < BK; ++j) {
+      const float4 p = *reinterpret_cast<const float4*>(ps + j * PP + 4 * tr);
+      const float pr[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float4 vv = *reinterpret_cast<const float4*>(vst + j * D + 64 * c + 4 * tc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][4 * c] = fmaf(pr[i], vv.x, acc[i][4 * c]);
+          acc[i][4 * c + 1] = fmaf(pr[i], vv.y, acc[i][4 * c + 1]);
+          acc[i][4 * c + 2] = fmaf(pr[i], vv.z, acc[i][4 * c + 2]);
+          acc[i][4 * c + 3] = fmaf(pr[i], vv.w, acc[i][4 * c + 3]);
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with stage st and P before they are refilled
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int r = 4 * tr + i;
+    if (r >= bq * g || qpos[i] >= S) continue;
+    float* dst = o + (((int64_t)b * S + qpos[i]) * H + hk * g + r % g) * D + 4 * tc;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      *reinterpret_cast<float4*>(dst + 64 * c) =
+          make_float4(acc[i][4 * c] / den, acc[i][4 * c + 1] / den, acc[i][4 * c + 2] / den,
+                      acc[i][4 * c + 3] / den);
   }
 }
+
+}  // namespace ffma
 
 // ---- route "tc": bf16 on the tensor cores ---------------------------------
 
@@ -376,19 +467,19 @@ __global__ void __launch_bounds__(TC_THREADS)
 
 // ---- launch -----------------------------------------------------------------
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int Hkv, int window, cudaStream_t stream) {
+template <int D>
+int launch_fma(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+               int Hkv, int window, cudaStream_t stream) {
   const int g = H / Hkv;
   const int bq = ROWS / g;
-  const size_t smem = (size_t)(BK * (D + 1) + BK * D + ROWS * (BK + 1)) * sizeof(float);
-  cudaError_t err = tc::allow_smem(flash_prefill_kernel<T, D>, smem);
-  if (err != cudaSuccess) return (int)err;
+  constexpr size_t smem = ffma::Layout<D>::BYTES;
+  static const cudaError_t attr = tc::allow_smem(ffma::flash_prefill_kernel<D>, smem);
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((unsigned)((S + bq - 1) / bq), (unsigned)Hkv, (unsigned)B);
   const float scale = (float)(1.0 / sqrt((double)D));
-  flash_prefill_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, Hkv, g, bq, window, scale);
+  ffma::flash_prefill_kernel<D><<<grid, ffma::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, H, Hkv, g, bq, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -409,16 +500,6 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B, int S,
-             int H, int Hkv, int D, int window, cudaStream_t stream) {
-  switch (D) {
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, Hkv, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, Hkv, window, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
@@ -431,7 +512,13 @@ extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype != 1) return launch_d<float>(q, k, v, o, B, S, H, Hkv, D, window, s);
+  if (dtype != 1) {
+    switch (D) {
+      case 64: return launch_fma<64>(q, k, v, o, B, S, H, Hkv, window, s);
+      case 128: return launch_fma<128>(q, k, v, o, B, S, H, Hkv, window, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (D) {
     case 64: return launch_tc<64>(q, k, v, o, B, S, H, Hkv, window, s);
     case 128: return launch_tc<128>(q, k, v, o, B, S, H, Hkv, window, s);

@@ -55,17 +55,39 @@
 // 80GB HBM3 at 700 W (gmm_route_ablation.py: 24 alternated steps each).
 //
 // "fma" (f32 operands; bf16 operands with an f32 output, or with K or N
-// not a multiple of 8, or misaligned): f32 FMAs. A block of 256 threads
-// holds a 128 x 128 tile of y in registers (8 x 8 a thread,
-// as two 4 x 4 quarters 64 rows and 64 columns apart, so that the
-// shared-memory reads of a warp are contiguous 16-byte vectors) and walks K
-// in steps of 16 through two shared-memory stages, the next step's loads
-// held in registers (in their own type) while the current one is computed.
-// Rows of a tile past its segment's end are neither loaded nor computed: a
-// warp whose rows all lie past the end skips the products.
+// not a multiple of 8, or misaligned): f32 FMAs, by one of two tilings the
+// host picks from T with the small route's threshold (512 rows), each on
+// 4-element cp.async chunks where K and N are multiples of 4 and x and w
+// start on a chunk, else copied element by element:
 //
-// "tile" and "fma": each block finds its tile itself (warp 0 scans the
-// segments' tile counts, 32 at a time), so the grid can be sized by an
+// - rows-few (decode: 64 rows over some 28 experts, 1 to 8 rows each):
+//   bound by the bytes of the touched experts' weights. A block of 8
+//   warps owns one segment and one 128-column slab of w[g] and streams the
+//   slab once through a four-stage cp.async ring, each warp owning 4 of a
+//   stage's 32 k rows and copying what it multiplies, so that the warps
+//   wait on nothing but their own copies; the segment's rows go in passes
+//   of 8 against the streamed slab, and the warps' partial sums are added
+//   in a fixed order through shared memory (no atomics). Blocks of empty
+//   segments exit at once. At the served decode product (224 blocks, two
+//   an SM: one wave) this reads the weights at about 2.8 TB/s on an H100
+//   80GB HBM3 at 700 W, where 64-column slabs (448 blocks) are 18% slower
+//   (PERF.md, f32_variant_ablation.py).
+// - tile (prefill: thousands of rows an expert): bound by the operations
+//   against the f32 FMA rate. A block of 512 threads holds a 128 x 256
+//   tile of y in registers (8 x 8 a thread, as four 4 x 4 quarters 64 rows
+//   and 128 columns apart, so that a warp's shared-memory reads are
+//   contiguous 16-byte vectors) within 128 registers, one block an SM; K
+//   is walked in steps of 16, w's rows by cp.async two steps ahead into a
+//   three-stage ring, x's by 16-byte loads one step ahead, stored
+//   transposed after the current step, and the fragments of step kk + 1
+//   read while step kk's 64 FMAs run. On the same card, 128 x 128 tiles
+//   (two blocks an SM) are 4% slower, K steps of 8 or 32 slower still (32
+//   spills at 128 x 128). Rows of a tile past its segment's end are
+//   neither loaded nor computed: a warp whose rows all lie past the end
+//   skips the products.
+//
+// "tile" and the fma route's tile tiling: each block finds its tile itself
+// (warp 0 scans the segments' tile counts, 32 at a time), so the grid can be sized by an
 // upper bound (ceil(T / 128) + segments) that the host knows without
 // reading the segments back: blocks past the real tile count exit at once.
 // Consecutive blocks take consecutive row tiles of the same column tile, so
@@ -75,14 +97,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tc_common.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 16, THREADS = 256;
-constexpr int XS = BM + 4;                      // padded row of the x stage
-constexpr int X_LOADS = BM * BK / THREADS;      // 8 x elements a thread a step
-constexpr int W_LOADS = BK * BN / THREADS;      // 8 w elements a thread a step
+constexpr int BM = 128;   // rows of y a block of the tile routes owns
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -136,14 +157,229 @@ __device__ void find_tile(const long long* __restrict__ seg_rows,
 
 // ---- route "fma" -----------------------------------------------------------
 
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(THREADS)
+namespace ffma {
+
+// 4 consecutive elements at p (aligned to 4 elements), widened to f32
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(tc::bf16_lo(u.x), tc::bf16_hi(u.x), tc::bf16_lo(u.y), tc::bf16_hi(u.y));
+}
+
+// the 4-element chunk at src into shared dst by cp.async (16 bytes of f32,
+// 8 of bf16), or zeros when !valid (src is then not read)
+template <typename T>
+__device__ __forceinline__ void cp_async4(T* dst, const T* src, bool valid) {
+  if constexpr (sizeof(T) == 4) {
+    tc::cp_async16(tc::smem_addr(dst), src, valid);
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(tc::smem_addr(dst)),
+                 "l"(src), "r"(valid ? 8 : 0));
+  }
+}
+
+// the first n (0..4) elements at src into dst, zeros after: the element
+// copy of operands that are not chunk-aligned
+template <typename T>
+__device__ __forceinline__ void copy4(T* dst, const T* src, int n) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) dst[e] = e < n ? src[e] : T(0.f);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// -- the rows-few tiling (the note at the top) ------------------------------
+//
+// Warp v owns k rows 4 v .. 4 v + 3 of every 32-deep stage; lane l of it
+// the 4 columns 4 (l % (BN / 4)) of its k rows l / (BN / 4) + SUB i. A
+// thread sums RC rows x 4 columns over its k in stage order; the lanes
+// sharing a column (BN = 64: l and l + 16) and then the warps 0..7 are
+// added in that order.
+
+#ifndef GMM_FMA_FEW_BN
+#define GMM_FMA_FEW_BN 128
+#endif
+
+namespace few {
+
+constexpr int BN = GMM_FMA_FEW_BN;   // columns of a block's slab (64 or 128)
+constexpr int WARPS = 8, THREADS = 32 * WARPS;
+constexpr int KW = 4;               // k rows of a stage a warp owns (one chunk of x)
+constexpr int BK = KW * WARPS;      // k rows a stage
+constexpr int RC = 8;               // rows of the segment a pass
+constexpr int STAGES = 4;
+constexpr int LPR = BN / 4;         // lanes over one k row of the slab
+constexpr int SUB = 32 / LPR;       // k rows a warp covers at once
+constexpr int KT = KW / SUB;        // k rows a thread owns a stage
+constexpr int WARP_ELEMS = KW * BN + RC * KW;   // a warp's part of a stage
+constexpr int STAGE_ELEMS = WARPS * WARP_ELEMS;
+static_assert(BN == 64 || BN == 128, "the slab is 64 or 128 columns");
+
+template <typename Tin>
+constexpr size_t smem_bytes() {
+  const size_t ring = (size_t)STAGES * STAGE_ELEMS * sizeof(Tin);
+  const size_t red = (size_t)WARPS * RC * BN * sizeof(float);
+  return ring > red ? ring : red;
+}
+
+template <typename Tin, typename Tout, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+    grouped_matmul_rows_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
+                               Tout* __restrict__ y, const long long* __restrict__ seg_rows,
+                               const int* __restrict__ seg_group, int K, int N, int E) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Tin* ring = reinterpret_cast<Tin*>(smem_raw);
+  float* red = reinterpret_cast<float*>(smem_raw);   // [WARPS][RC][BN], after the ring
+  const int seg = blockIdx.x;
+  const long long r_begin = seg_rows[seg], r_end = seg_rows[seg + 1];
+  const int g = seg_group != nullptr ? seg_group[seg] : seg;
+  if (r_end <= r_begin || g < 0 || g >= E) return;   // uniform over the block
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int sub = lane / LPR, cq = lane % LPR;
+  const int col0 = blockIdx.y * BN, c = col0 + 4 * cq;
+  const Tin* W = w + (long long)g * K * N;
+  const int nk = (K + BK - 1) / BK;
+
+  for (long long p0 = r_begin; p0 < r_end; p0 += RC) {
+    const int nrows = (int)(r_end - p0 < RC ? r_end - p0 : RC);
+    auto load = [&](int kt) {
+      Tin* wst = ring + (kt % STAGES) * STAGE_ELEMS + warp * WARP_ELEMS;
+      const int kb = kt * BK + warp * KW;
+#pragma unroll
+      for (int i = 0; i < KT; ++i) {
+        const int kr = sub + SUB * i, k = kb + kr;
+        if constexpr (VEC) {
+          const bool valid = k < K && c < N;
+          cp_async4(wst + kr * BN + 4 * cq, W + (valid ? (long long)k * N + c : 0), valid);
+        } else {
+          const int n = k < K ? max(0, min(4, N - c)) : 0;
+          copy4(wst + kr * BN + 4 * cq, W + (n > 0 ? (long long)k * N + c : 0), n);
+        }
+      }
+      if (lane < RC) {
+        Tin* xst = wst + KW * BN + lane * KW;
+        const Tin* src = x + (p0 + lane) * K + kb;
+        if constexpr (VEC) {
+          const bool valid = lane < nrows && kb < K;
+          cp_async4(xst, valid ? src : x, valid);
+        } else {
+          const int n = lane < nrows ? max(0, min(4, K - kb)) : 0;
+          copy4(xst, n > 0 ? src : x, n);
+        }
+      }
+    };
+
+    float acc[RC][4];
+#pragma unroll
+    for (int r = 0; r < RC; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nk) load(s);
+      tc::cp_async_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      tc::cp_async_wait<STAGES - 2>();   // step kt has landed (this thread's copies)
+      __syncwarp();                      // the warp's x chunks; step kt - 1 is read
+      if (kt + STAGES - 1 < nk) load(kt + STAGES - 1);
+      tc::cp_async_commit();
+      const Tin* wst = ring + (kt % STAGES) * STAGE_ELEMS + warp * WARP_ELEMS;
+      const Tin* xst = wst + KW * BN;
+      float4 wv[KT];
+#pragma unroll
+      for (int i = 0; i < KT; ++i) wv[i] = ld4(wst + (sub + SUB * i) * BN + 4 * cq);
+#pragma unroll
+      for (int r = 0; r < RC; ++r) {
+        if (r < nrows) {   // uniform over the block
+          const float4 xv = ld4(xst + r * KW);
+#pragma unroll
+          for (int i = 0; i < KT; ++i) {
+            const float a = SUB == 1 ? comp(xv, i) : comp(xv, sub + SUB * i);
+            acc[r][0] = fmaf(a, wv[i].x, acc[r][0]);
+            acc[r][1] = fmaf(a, wv[i].y, acc[r][1]);
+            acc[r][2] = fmaf(a, wv[i].z, acc[r][2]);
+            acc[r][3] = fmaf(a, wv[i].w, acc[r][3]);
+          }
+        }
+      }
+    }
+    tc::cp_async_wait<0>();
+    __syncthreads();   // every warp is done with the ring: it holds the partial sums now
+
+    // the lanes sharing a column (BN = 64: lane and lane + 16), then the warps
+#pragma unroll
+    for (int r = 0; r < RC; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (SUB == 2) acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], 16);
+    if (sub == 0) {
+#pragma unroll
+      for (int r = 0; r < RC; ++r)
+        if (r < nrows)
+          *reinterpret_cast<float4*>(red + (warp * RC + r) * BN + 4 * cq) =
+              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+    __syncthreads();
+    for (int e = tid; e < nrows * BN; e += THREADS) {
+      const int r = e / BN, col = col0 + e % BN;
+      float sum = red[r * BN + e % BN];
+#pragma unroll
+      for (int v = 1; v < WARPS; ++v) sum += red[(v * RC + r) * BN + e % BN];
+      if (col < N) put(y + (p0 + r) * N + col, sum);
+    }
+    __syncthreads();   // the next pass refills the ring
+  }
+}
+
+}  // namespace few
+
+// -- the tile tiling (the note at the top) -----------------------------------
+//
+// THREADS = 16 (BN / 8) threads; thread (ty, tx) holds rows 4 ty + (0..3)
+// and 64 + 4 ty + (0..3), columns 4 tx + (0..3) and BN / 2 + 4 tx + (0..3).
+// One __syncthreads a K step.
+
+#ifndef GMM_FMA_BK
+#define GMM_FMA_BK 16
+#endif
+#ifndef GMM_FMA_BN
+#define GMM_FMA_BN 256
+#endif
+
+namespace tiled {
+
+constexpr int BK = GMM_FMA_BK, BN = GMM_FMA_BN;
+constexpr int TX = BN / 8;                  // threads across a tile's columns
+constexpr int THREADS = 16 * TX;            // 256 or 512
+constexpr int WSTAGES = 3;
+constexpr int XS = BM + 4;                  // padded row of the x stage (floats)
+constexpr int XCH = BM * BK / 4;            // 4-element chunks of x a step
+constexpr int XQ = (XCH + THREADS - 1) / THREADS;   // x chunks a thread a step
+constexpr int WCH = BK * BN / 4;            // 4-element chunks of w a step
+constexpr int WQ = (WCH + THREADS - 1) / THREADS;
+constexpr int ROWS_PER_WARP = 32 / TX * 4;  // rows of each 64-row half a warp holds
+static_assert(BN == 128 || BN == 256, "the tile is 128 or 256 columns");
+static_assert(BK % 4 == 0, "BK is a multiple of the 4-element chunk");
+
+template <typename Tin>
+constexpr size_t smem_bytes() {
+  return (size_t)2 * BK * XS * sizeof(float) + (size_t)WSTAGES * BK * BN * sizeof(Tin);
+}
+
+template <typename Tin, typename Tout, bool VEC>
+__global__ void __launch_bounds__(THREADS, 512 / THREADS)
     grouped_matmul_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
                           Tout* __restrict__ y, const long long* __restrict__ seg_rows,
                           const int* __restrict__ seg_group, int n_seg, int K, int N,
                           int E) {
-  __shared__ __align__(16) float xs[2][BK][XS];   // x tile, transposed: [k][row]
-  __shared__ __align__(16) float ws[2][BK][BN];   // w tile: [k][col]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw);          // [2][BK][XS]: x^T
+  Tin* ws = reinterpret_cast<Tin*>(xs + 2 * BK * XS);      // [WSTAGES][BK][BN]
   __shared__ long long s_row0;
   __shared__ int s_rows, s_group;
 
@@ -158,73 +394,108 @@ __global__ void __launch_bounds__(THREADS)
   const int col0 = blockIdx.y * BN;
   const Tin* X = x + row0 * K;
   const Tin* W = w + (long long)g * K * N;
+  const int nk = (K + BK - 1) / BK;
 
-  // global -> register loads: x as 2 rows x 16 k a warp (k fastest), w as
-  // 32 consecutive columns of one k a warp
-  const int xk = tid % BK, xr = tid / BK;      // rows xr + 16 i
-  const int wc = tid % BN, wk = tid / BN;      // k rows wk + 2 i
-  // the loaded values stay in their own type until they are staged, so
-  // that nothing waits on the loads before the current step's products
-  Tin xreg[X_LOADS], wreg[W_LOADS];
-  const Tin zero = Tin(0.f);
-  auto load = [&](int k0) {
+  // w: chunk i is k row i / (BN / 4), columns 4 (i % (BN / 4)) + (0..3)
+  auto load_w = [&](int kt) {
+    Tin* st = ws + (kt % WSTAGES) * BK * BN;
 #pragma unroll
-    for (int i = 0; i < X_LOADS; ++i) {
-      const int r = xr + 16 * i, k = k0 + xk;
-      xreg[i] = (r < rows && k < K) ? X[(long long)r * K + k] : zero;
-    }
-#pragma unroll
-    for (int i = 0; i < W_LOADS; ++i) {
-      const int k = k0 + wk + 2 * i, c = col0 + wc;
-      wreg[i] = (k < K && c < N) ? W[(long long)k * N + c] : zero;
+    for (int q = 0; q < WQ; ++q) {
+      const int i = tid + q * THREADS;
+      if (WCH % THREADS != 0 && i >= WCH) break;
+      const int kr = i / (BN / 4), cq = i % (BN / 4);
+      const int k = kt * BK + kr, c = col0 + 4 * cq;
+      if constexpr (VEC) {
+        const bool valid = k < K && c < N;
+        cp_async4(st + kr * BN + 4 * cq, W + (valid ? (long long)k * N + c : 0), valid);
+      } else {
+        const int n = k < K ? max(0, min(4, N - c)) : 0;
+        copy4(st + kr * BN + 4 * cq, W + (n > 0 ? (long long)k * N + c : 0), n);
+      }
     }
   };
-  auto stage = [&](int buf) {
+  // x: chunk i is row i / (BK / 4), k 4 (i % (BK / 4)) + (0..3), held in
+  // registers in its own type until it is stored
+  Tin xr[XQ][4];
+  auto load_x = [&](int kt) {
 #pragma unroll
-    for (int i = 0; i < X_LOADS; ++i) xs[buf][xk][xr + 16 * i] = widen(xreg[i]);
+    for (int q = 0; q < XQ; ++q) {
+      const int i = tid + q * THREADS;
+      if (XCH % THREADS != 0 && i >= XCH) break;
+      const int r = i / (BK / 4), k = kt * BK + 4 * (i % (BK / 4));
+      if constexpr (VEC) {
+        if (r < rows && k < K) {
+          using V = typename std::conditional<sizeof(Tin) == 4, float4, uint2>::type;
+          *reinterpret_cast<V*>(xr[q]) = *reinterpret_cast<const V*>(X + (long long)r * K + k);
+        } else {
 #pragma unroll
-    for (int i = 0; i < W_LOADS; ++i) ws[buf][wk + 2 * i][wc] = widen(wreg[i]);
+          for (int e = 0; e < 4; ++e) xr[q][e] = Tin(0.f);
+        }
+      } else {
+        const int n = r < rows ? max(0, min(4, K - k)) : 0;
+        copy4(xr[q], X + (n > 0 ? (long long)r * K + k : 0), n);
+      }
+    }
+  };
+  auto store_x = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < XQ; ++q) {
+      const int i = tid + q * THREADS;
+      if (XCH % THREADS != 0 && i >= XCH) break;
+      const int r = i / (BK / 4), kk = 4 * (i % (BK / 4));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[(buf * BK + kk + e) * XS + r] = widen(xr[q][e]);
+    }
   };
 
-  // this thread's outputs: rows ty*4 + {0..3} and 64 + ty*4 + {0..3},
-  // columns tx*4 + {0..3} and 64 + tx*4 + {0..3}; warp w holds rows
-  // [8w, 8w + 8) and [64 + 8w, 64 + 8w + 8)
-  const int tx = tid % 16, ty = tid / 16;
-  const bool live = warp * 8 < rows;
+  // this thread's outputs: rows ty * 4 + (0..3) and 64 + ty * 4 + (0..3),
+  // columns tx * 4 + (0..3) and BN / 2 + tx * 4 + (0..3)
+  const int tx = tid % TX, ty = tid / TX;
+  const bool live = warp * ROWS_PER_WARP < rows;
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  load(0);
-  stage(0);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool more = k0 + BK < K;
-    if (more) load(k0 + BK);
+  load_w(0);
+  tc::cp_async_commit();
+  if (nk > 1) load_w(1);
+  tc::cp_async_commit();
+  load_x(0);
+  store_x(0);
+  for (int kt = 0; kt < nk; ++kt) {
+    tc::cp_async_wait<1>();   // step kt's w has landed (this thread's copies)
+    __syncthreads();          // everyone's w and x of step kt; step kt - 1 is read
+    if (kt + 2 < nk) load_w(kt + 2);   // into step kt - 1's stage
+    tc::cp_async_commit();
+    const bool more = kt + 1 < nk;
+    if (more) load_x(kt + 1);
     if (live) {
+      const float* xb = xs + (kt & 1) * BK * XS;
+      const Tin* wb = ws + (kt % WSTAGES) * BK * BN;
+      float a[2][8], b[2][8];
+      auto frag = [&](int kk, float (&af)[8], float (&bf)[8]) {
+        const float4 a0 = *reinterpret_cast<const float4*>(xb + kk * XS + ty * 4);
+        const float4 a1 = *reinterpret_cast<const float4*>(xb + kk * XS + 64 + ty * 4);
+        const float4 b0 = ld4(wb + kk * BN + tx * 4);
+        const float4 b1 = ld4(wb + kk * BN + BN / 2 + tx * 4);
+        af[0] = a0.x; af[1] = a0.y; af[2] = a0.z; af[3] = a0.w;
+        af[4] = a1.x; af[5] = a1.y; af[6] = a1.z; af[7] = a1.w;
+        bf[0] = b0.x; bf[1] = b0.y; bf[2] = b0.z; bf[3] = b0.w;
+        bf[4] = b1.x; bf[5] = b1.y; bf[6] = b1.z; bf[7] = b1.w;
+      };
+      frag(0, a[0], b[0]);
 #pragma unroll
       for (int kk = 0; kk < BK; ++kk) {
-        float a[8], b[8];
-        const float4 a0 = *reinterpret_cast<const float4*>(&xs[buf][kk][ty * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&xs[buf][kk][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&ws[buf][kk][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&ws[buf][kk][64 + tx * 4]);
-        a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-        a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-        b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-        b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+        if (kk + 1 < BK) frag(kk + 1, a[(kk + 1) & 1], b[(kk + 1) & 1]);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[kk & 1][i], b[kk & 1][j], acc[i][j]);
       }
     }
-    if (more) stage(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
+    if (more) store_x((kt + 1) & 1);
   }
 
   if (!live) return;
@@ -235,11 +506,15 @@ __global__ void __launch_bounds__(THREADS)
     Tout* out = y + (row0 + r) * N;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int c = col0 + (j < 4 ? 0 : 64) + tx * 4 + j % 4;
+      const int c = col0 + (j < 4 ? 0 : BN / 2) + tx * 4 + j % 4;
       if (c < N) put(out + c, acc[i][j]);
     }
   }
 }
+
+}  // namespace tiled
+
+}  // namespace ffma
 
 // ---- route "tile": bf16 on wgmma --------------------------------------------
 
@@ -535,15 +810,56 @@ __global__ void __launch_bounds__(THREADS)
 
 // ---- launch -----------------------------------------------------------------
 
-template <typename Tin, typename Tout>
-int launch_fma(const void* x, const void* w, void* y, const long long* seg_rows,
-               const int* seg_group, int n_seg, int n_tiles, int K, int N, int E,
-               cudaStream_t stream) {
+template <typename Tin, typename Tout, bool VEC>
+int launch_rows_few(const void* x, const void* w, void* y, const long long* seg_rows,
+                    const int* seg_group, int n_seg, int K, int N, int E,
+                    cudaStream_t stream) {
+  using namespace ffma::few;
+  constexpr size_t smem = smem_bytes<Tin>();
+  static const cudaError_t attr =
+      tc::allow_smem(grouped_matmul_rows_kernel<Tin, Tout, VEC>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((unsigned)n_seg, (unsigned)((N + BN - 1) / BN));
+  grouped_matmul_rows_kernel<Tin, Tout, VEC><<<grid, THREADS, smem, stream>>>(
+      static_cast<const Tin*>(x), static_cast<const Tin*>(w), static_cast<Tout*>(y),
+      seg_rows, seg_group, K, N, E);
+  return (int)cudaGetLastError();
+}
+
+template <typename Tin, typename Tout, bool VEC>
+int launch_tiled(const void* x, const void* w, void* y, const long long* seg_rows,
+                 const int* seg_group, int n_seg, int n_tiles, int K, int N, int E,
+                 cudaStream_t stream) {
+  using namespace ffma::tiled;
+  constexpr size_t smem = smem_bytes<Tin>();
+  static const cudaError_t attr = tc::allow_smem(grouped_matmul_kernel<Tin, Tout, VEC>, smem);
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((unsigned)n_tiles, (unsigned)((N + BN - 1) / BN));
-  grouped_matmul_kernel<Tin, Tout><<<grid, THREADS, 0, stream>>>(
+  grouped_matmul_kernel<Tin, Tout, VEC><<<grid, THREADS, smem, stream>>>(
       static_cast<const Tin*>(x), static_cast<const Tin*>(w), static_cast<Tout*>(y),
       seg_rows, seg_group, n_seg, K, N, E);
   return (int)cudaGetLastError();
+}
+
+// the fma route: the rows-few or the tile tiling, each on 4-element chunks
+// (cp.async) where K and N are multiples of 4 and x and w start on a chunk
+// boundary, else element by element
+template <typename Tin, typename Tout>
+int launch_fma(const void* x, const void* w, void* y, const long long* seg_rows,
+               const int* seg_group, int n_seg, int n_tiles, int K, int N, int E,
+               bool rows_few, cudaStream_t stream) {
+  const uintptr_t chunk = 4 * sizeof(Tin);
+  const bool vec = K % 4 == 0 && N % 4 == 0 && (uintptr_t)x % chunk == 0 &&
+                   (uintptr_t)w % chunk == 0;
+  if (rows_few)
+    return vec ? launch_rows_few<Tin, Tout, true>(x, w, y, seg_rows, seg_group, n_seg, K, N,
+                                                  E, stream)
+               : launch_rows_few<Tin, Tout, false>(x, w, y, seg_rows, seg_group, n_seg, K,
+                                                   N, E, stream);
+  return vec ? launch_tiled<Tin, Tout, true>(x, w, y, seg_rows, seg_group, n_seg, n_tiles, K,
+                                             N, E, stream)
+             : launch_tiled<Tin, Tout, false>(x, w, y, seg_rows, seg_group, n_seg, n_tiles,
+                                              K, N, E, stream);
 }
 
 int launch_tile(const void* x, const void* w, void* y, const long long* seg_rows,
@@ -575,32 +891,36 @@ int launch_small(const void* x, const void* w, void* y, const long long* seg_row
 
 // n_tiles: the grid's row tiles (routes fma and tile), at least the
 // segments' real 128-row tiles. in_dtype (x and w) and out_dtype (y): 0 =
-// float32, 1 = bfloat16. route: 0 = fma (any dtypes), 1 = tile, 2 = small
-// (both: bf16 in and out, K and N multiples of 8, x and w 16-byte aligned).
+// float32, 1 = bfloat16. route: 0 = fma by its tile tiling, 3 = fma by its
+// rows-few tiling (any dtypes), 1 = tile, 2 = small (both: bf16 in and out,
+// K and N multiples of 8, x and w 16-byte aligned).
 extern "C" int grouped_matmul_launch(const void* x, const void* w, void* y,
                                      const long long* seg_rows, const int* seg_group,
                                      int n_seg, int n_tiles, int K, int N, int E,
                                      int in_dtype, int out_dtype, int route,
                                      void* stream) {
-  if (n_seg < 0 || n_tiles < 0 || K < 0 || N < 0 || E < 1 || route < 0 || route > 2 ||
-      (route > 0 && (in_dtype != 1 || out_dtype != 1 || K % 8 != 0 || N % 8 != 0)))
+  if (n_seg < 0 || n_tiles < 0 || K < 0 || N < 0 || E < 1 || route < 0 || route > 3 ||
+      ((route == 1 || route == 2) &&
+       (in_dtype != 1 || out_dtype != 1 || K % 8 != 0 || N % 8 != 0)))
     return (int)cudaErrorInvalidValue;
   if (n_seg == 0 || n_tiles == 0 || N == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (route == 1)
     return launch_tile(x, w, y, seg_rows, seg_group, n_seg, n_tiles, K, N, E, s);
   if (route == 2) return launch_small(x, w, y, seg_rows, seg_group, n_seg, K, N, E, s);
+  const bool few = route == 3;
   if (in_dtype == 1) {
     if (out_dtype == 1)
       return launch_fma<__nv_bfloat16, __nv_bfloat16>(x, w, y, seg_rows, seg_group, n_seg,
-                                                      n_tiles, K, N, E, s);
+                                                      n_tiles, K, N, E, few, s);
     return launch_fma<__nv_bfloat16, float>(x, w, y, seg_rows, seg_group, n_seg, n_tiles,
-                                            K, N, E, s);
+                                            K, N, E, few, s);
   }
   if (out_dtype == 1)
     return launch_fma<float, __nv_bfloat16>(x, w, y, seg_rows, seg_group, n_seg, n_tiles, K,
-                                            N, E, s);
-  return launch_fma<float, float>(x, w, y, seg_rows, seg_group, n_seg, n_tiles, K, N, E, s);
+                                            N, E, few, s);
+  return launch_fma<float, float>(x, w, y, seg_rows, seg_group, n_seg, n_tiles, K, N, E,
+                                  few, s);
 }
 
 extern "C" const char* grouped_matmul_launch_error_string(int e) {

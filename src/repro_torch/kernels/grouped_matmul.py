@@ -32,7 +32,12 @@ chosen from what the host knows without reading the card:
   four-stage ``cp.async`` ring.
 * ``"fma"``: everything else: f32 operands (the tensor cores have no
   f32-exact mode), an f32 output, K or N not a multiple of 8, or x or w not
-  16-byte aligned (the other routes copy 16-byte chunks): f32 FMAs.
+  16-byte aligned (the other routes copy 16-byte chunks): f32 FMAs, by one
+  of two tilings that :func:`fma_tiling` picks from the rows by the same
+  ``SMALL_ROWS_MAX``: ``"rows_few"`` (decode), each block streaming one
+  expert's 128-column weight slab once through a four-stage ``cp.async``
+  ring for a segment's rows, or ``"tile"`` (prefill), 128 x 256 tiles of y
+  with w arriving by ``cp.async`` through a three-stage ring.
 
 Every route is right for every grouping; only the time differs.
 ``SMALL_ROWS_MAX`` = 512 lies between the two shapes the OLMoE serve path
@@ -58,6 +63,10 @@ from repro_torch.kernels._build import LaunchCounter, launch, require
 LAUNCHES = LaunchCounter()                    # every launch of the kernel
 ROUTES = {"tile": 1, "small": 2, "fma": 0}   # route -> the C entry's route argument
 ROUTE_LAUNCHES = {r: LaunchCounter() for r in ROUTES}   # the launches of each route
+# the fma route's two tilings -> the C entry's route argument, and the
+# launches of each
+FMA_TILINGS = {"tile": 0, "rows_few": 3}
+TILING_LAUNCHES = {t: LaunchCounter() for t in FMA_TILINGS}
 TILE_ROWS = 128      # rows of y a block of the tile and fma routes owns (BM)
 SMALL_ROWS_MAX = 512   # rows of x at or below which bf16 takes the small route
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -72,6 +81,14 @@ def choose_route(dtype: torch.dtype, out_dtype: torch.dtype, k: int, n: int, t: 
             or not aligned):
         return "fma"
     return "small" if t <= SMALL_ROWS_MAX else "tile"
+
+
+def fma_tiling(t: int) -> str:
+    """The fma route's tiling for x with ``t`` rows, by the small route's
+    threshold: ``"rows_few"`` (a block streams one expert's weight slab
+    once for a segment's rows) at or below ``SMALL_ROWS_MAX``, else
+    ``"tile"`` (128-row tiles of y)."""
+    return "rows_few" if t <= SMALL_ROWS_MAX else "tile"
 
 
 def plan_groups(group_sizes, bt: int):
@@ -135,10 +152,14 @@ def _launch(x, w, seg_rows, seg_group, n_seg: int, n_tiles: int, out_dtype,
         require(seg_group, "seg_group", torch.int32, x.device)
     e, k, n = w.shape
     y = torch.empty((x.shape[0], n), dtype=out_dtype, device=x.device)
+    tiling = fma_tiling(x.shape[0]) if route == "fma" else None
+    code = FMA_TILINGS[tiling] if tiling else ROUTES[route]
     launch("grouped_matmul", "grouped_matmul_launch", [x, w, y, seg_rows, seg_group],
-           [n_seg, n_tiles, k, n, e, _DTYPES[x.dtype], _DTYPES[out_dtype], ROUTES[route]])
+           [n_seg, n_tiles, k, n, e, _DTYPES[x.dtype], _DTYPES[out_dtype], code])
     LAUNCHES.bump()
     ROUTE_LAUNCHES[route].bump()
+    if tiling:
+        TILING_LAUNCHES[tiling].bump()
     return y
 
 
