@@ -27,11 +27,17 @@ the masked hash kernel, one chunk and a chunk2 plan), the two-hop Galerkin
 product ``R x (A x P)`` on brick3d n=48 (``pipeline_spgemm`` through the
 hash and ESC kernels, intermediate resident and spilled), the ``bsr``
 backend on brick3d n=48 and ``ops.bsr_spmm`` of brick3d n=48 by a
-110,592 x 128 dense block, each held to scipy in float64, with the masked
+110,592 x 128 dense block (on the BSR x dense kernel's group path, counted
+by path), each held to scipy in float64, with the masked
 (also with its rows cut at a forced small part size, in chunk2 with a
 nonzero C_prev; timed by the profiler, launch by launch), BSR x BSR (also
 with sentinels inside rows, 40 steps a row, blocks of 4 and 16; timed by
-the profiler) and BSR x dense kernels first held to their plain versions.
+the profiler) and BSR x dense kernels first held to their plain versions
+(the BSR x dense kernel timed by the profiler and back to back beside
+``torch.sparse_bsr_tensor`` and ``torch.sparse.mm`` of A as CSR, and on
+edge cases of both its paths in f32 and bf16: bs 4 and 16, nf 64 and 256,
+empty and sentinel-only block rows, shuffled tables, bs 5 and a 64-column
+tile on the generic path).
 Then
 the third path, serving: the flash-prefill and decode-attention kernels
 held to their plain versions in f32 and bf16 (the prefill kernel's FMA and
@@ -59,7 +65,8 @@ its launches all on the fma routes (the grouped GEMM's counted by tiling:
 tile at prefill, rows-few at decode) and its logits held to the plain
 path's, the kernel path's prefill and decode steps timed in a second run.
 The f32 rows of both kernels (the prefill kernel also at that model's
-shape) are timed by the profiler and by back-to-back CUDA events.
+shape) are timed by the profiler and by back-to-back CUDA events; a phase
+timed by the profiler records what its incomplete traces held.
 Every line of output is one JSON object; the last one is
 ``{"ok": true, "device": ...}``. Any failed check raises, so the exit code
 is not 0. Without a CUDA card, or without the package beside this file, it
@@ -119,6 +126,9 @@ TRACE_NAMES = {"flash_prefill": ("flash_prefill_kernel", "flash_prefill_tc_kerne
                "grouped_matmul": ("gmm_tile_kernel", "gmm_small_kernel",
                                   "grouped_matmul_kernel", "grouped_matmul_rows_kernel"),
                "bsr_spgemm": ("bsr_spgemm",),
+               # both BSR x dense kernels (group and generic); not a
+               # substring of the BSR x BSR kernel's name
+               "bsr_spmm": ("bsr_spmm",),
                "hash_masked_accum_spgemm": ("masked_part_kernel", "masked_seed_kernel",
                                             "masked_gather_kernel"),
                # the CSR-output skeleton's three kernels (ESC and hash merges)
@@ -126,10 +136,11 @@ TRACE_NAMES = {"flash_prefill": ("flash_prefill_kernel", "flash_prefill_tc_kerne
 TRACE_TRIES = 3   # traces of one call taken until one holds every expected launch
 # sources whose kernels must build without register spills: those whose
 # register tiles or sorts were sized to fit (the dense slab's 8 x 8 FMA tile,
-# the decode kernel's row tiles, the BSR warp's output tile, the ESC merge's
-# register sort), and the two hash sources
-NO_SPILL = ("ranged_spgemm", "chunked_attention", "bsr_spgemm", "sparse_accum_spgemm",
-            "hash_accum_spgemm", "hash_masked_accum_spgemm")
+# the decode kernel's row tiles, the BSR warp's output tile, the BSR x dense
+# group kernel's bs x 4 tile a lane, the ESC merge's register sort), and the
+# two hash sources
+NO_SPILL = ("ranged_spgemm", "chunked_attention", "bsr_spgemm", "bsr_spmm",
+            "sparse_accum_spgemm", "hash_accum_spgemm", "hash_masked_accum_spgemm")
 # and the kernels of the other sources held to no spills: the f32 FMA
 # routes' register tiles (names as in the mangled entry)
 NO_SPILL_KERNELS = {"grouped_matmul": ("grouped_matmul_kernel", "grouped_matmul_rows_kernel"),
@@ -177,6 +188,8 @@ RMAT_SCALE, RMAT_EDGE_FACTOR, RMAT_SEED = 18, 16, 7   # graph500-style, ISSUE si
 MASKED_SPLIT_PART = 256   # the part size forced on the masked kernel's split case
 BSR_BLOCK = 8
 SPMM_COLS, SPMM_SEED = 128, 12
+SPMM_PATH = "group"   # the BSR x dense kernel's path at the bsr_spmm run's shape
+SPMM_EDGE_SEED = 21
 # pipeline fast limits, as fractions of size(A) + size(P) + size(R): at the
 # whole size the intermediate stays resident between chunked hops; at half it
 # spills (the planner's choice at every brick3d size tried)
@@ -300,6 +313,16 @@ def bound_of(moved: int, flops: int, flop_rate: str) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def err_key(kernel: str, route: str, dtype, tiling: str | None = None) -> str:
+    """The ``max_err`` key of one route of a routed kernel in one operand
+    dtype (a torch dtype or its name; "f32" and "bf16" as "float32" and
+    "bfloat16"), and for the grouped GEMM's fma route one tiling:
+    "kernel/route/dtype[/tiling]"."""
+    name = str(dtype).removeprefix("torch.")
+    name = {"f32": "float32", "bf16": "bfloat16"}.get(name, name)
+    return "/".join([kernel, route, name] + ([tiling] if tiling else []))
+
+
 def library_fields(library, bound_ms: float) -> dict:
     """A phase's library yardstick (wall ms, device ms, empty traces, error
     text) for the kernels line. A time under the phase's bound comes from a
@@ -332,6 +355,19 @@ def device_ms(torch, fn, reps: int = 5) -> tuple:
     return (statistics.median(seen) if seen else None), reps - len(seen)
 
 
+def trace_summary(by_name: dict, names) -> dict:
+    """What one profiler trace held: its device activities and their summed
+    ms, the activities whose name holds one of ``names`` (full name ->
+    count), and the three names with the most device ms (name -> [ms,
+    count])."""
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:3]
+    return {"activities": sum(n for _, n in by_name.values()),
+            "busy_ms": sum(ms for ms, _ in by_name.values()),
+            "matched": {name: n for name, (_, n) in by_name.items()
+                        if any(k in name for k in names)},
+            "top": {name: [ms, n] for name, (ms, n) in top}}
+
+
 def kernel_device_split(torch, fn, names, launches: int, reps: int = 5,
                         tries: int = 20) -> tuple:
     """Median device milliseconds of the port kernels (activities whose
@@ -339,11 +375,12 @@ def kernel_device_split(torch, fn, names, launches: int, reps: int = 5,
     ``reps`` profiler traces that hold all ``launches`` of them, after a
     warm-up call; the profiler loses activities of some calls, so up to
     ``tries`` calls are traced. Returns the median (None when no trace was
-    complete), the number of incomplete traces, and per name the median of
-    its share over the complete traces."""
+    complete), the number of incomplete traces, per name the median of its
+    share over the complete traces, and ``trace_summary`` of every
+    incomplete trace (what it held instead)."""
     fn()
     torch.cuda.synchronize()
-    times, split, incomplete = [], {n: [] for n in names}, 0
+    times, split, incomplete, held = [], {n: [] for n in names}, 0, []
     while len(times) < reps and len(times) + incomplete < tries:
         by_name = device_by_name(profiled(torch, fn))
         hits = {n: [v for name, v in by_name.items() if n in name] for n in names}
@@ -353,8 +390,9 @@ def kernel_device_split(torch, fn, names, launches: int, reps: int = 5,
                 split[n].append(sum(ms for ms, _ in vs))
         else:
             incomplete += 1
+            held.append(trace_summary(by_name, names))
     return ((statistics.median(times) if times else None), incomplete,
-            {n: statistics.median(v) for n, v in split.items() if v})
+            {n: statistics.median(v) for n, v in split.items() if v}, held)
 
 
 def device_launch_list(torch, fn, names, launches: int, tries: int = 10) -> list | None:
@@ -375,7 +413,8 @@ def device_launch_list(torch, fn, names, launches: int, tries: int = 10) -> list
 
 def kernel_device_ms(torch, fn, names, launches: int, reps: int = 5,
                      tries: int = 20) -> tuple:
-    """``kernel_device_split`` without the split: (median, incomplete)."""
+    """``kernel_device_split`` without the split and the incomplete
+    traces' summaries: (median, incomplete)."""
     return kernel_device_split(torch, fn, names, launches, reps, tries)[:2]
 
 
@@ -441,6 +480,9 @@ class Smoke:
         # the grouped GEMM's fma launches by tiling, as "grouped_matmul/fma/tiling"
         for tiling, counter in grouped_matmul.TILING_LAUNCHES.items():
             self.counters[f"grouped_matmul/fma/{tiling}"] = counter
+        # the BSR x dense kernel's launches by path, as "bsr_spmm/path"
+        for path, counter in bsr_spmm.PATH_LAUNCHES.items():
+            self.counters[f"bsr_spmm/{path}"] = counter
         self.backend_kernel = {"pallas": "ranged_spgemm",
                                "sparse": "sparse_accum_spgemm",
                                "hash": "hash_accum_spgemm",
@@ -619,7 +661,7 @@ class Smoke:
             orders[order]["wrapper_ms"] = cuda_ms(torch, lambda: run(order))
             # the profiler's device time of the call's kernels, and by kernel
             (orders[order]["device_ms"], orders[order]["device_incomplete_traces"],
-             orders[order]["device_split_ms"]) = kernel_device_split(
+             orders[order]["device_split_ms"], _) = kernel_device_split(
                 torch, lambda: run(order), TRACE_NAMES["csr_accum"],
                 esc.kernels_per_call(order, plan.n_b))
             if record:
@@ -743,8 +785,8 @@ class Smoke:
               "flop_rate": flop_rate, "ops_ms_at_f32": flops / PEAK["f32_flops"] * 1e3})
 
     def note_err(self, key: str, err: float) -> None:
-        """The largest error of a kernel (or "kernel/route") against its
-        plain version so far."""
+        """The largest error of a kernel (or of one route, dtype and tiling
+        of it, ``err_key``) against its plain version so far."""
         self.max_err[key] = max(self.max_err.get(key, 0.0), err)
 
     def route_row(self, kernel: str, route: str, shape: str, numbers: dict, moved: int,
@@ -1129,7 +1171,7 @@ class Smoke:
                 # each launch in launch order
                 kernels = mod.masked_kernels_per_call(Ast, Bst, Mst, r0s, r1s, order)
                 (orders[order]["device_ms"], orders[order]["device_incomplete_traces"],
-                 orders[order]["device_split_ms"]) = kernel_device_split(
+                 orders[order]["device_split_ms"], _) = kernel_device_split(
                     torch, lambda: run(order), names, kernels)
                 orders[order]["device_launches_ms"] = device_launch_list(
                     torch, lambda: run(order), names, kernels)
@@ -1342,7 +1384,7 @@ class Smoke:
                    "bf16_max_abs_err": err16,
                    "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
         # the profiler's device time of the six launches
-        numbers["device_ms"], numbers["device_incomplete_traces"], _ = kernel_device_split(
+        numbers["device_ms"], numbers["device_incomplete_traces"], _, _ = kernel_device_split(
             torch, run, TRACE_NAMES["bsr_spgemm"], len(pairs))
         if record:
             numbers["plain_ms"] = cuda_ms(torch, plain, reps=3)
@@ -1421,7 +1463,13 @@ class Smoke:
 
     def spmm_kernel_phase(self, *, label: str, record: bool = False) -> None:
         """The BSR x dense kernel at the ``bsr_spmm`` run's shapes against its
-        plain version."""
+        plain version, on the ``SPMM_PATH`` path (chosen and counted): times by
+        launch events, of the wrapper call (its table work included), by the
+        profiler over complete traces (``device_ms``) and by CUDA events
+        around five back-to-back calls (``queued_ms``). ``record`` adds the
+        plain version and two library yardsticks: ``torch.sparse_bsr_tensor``
+        times X (the blocks' zeros included) and ``torch.sparse.mm`` of A as
+        CSR by X (the same Y without them)."""
         torch, mod, ops = self.torch, self.kernels["bsr_spmm"], self.m["ops"]
         A, Ab, X, _ = self.spmm_inputs()
         meta = mod.bsr_spmm_symbolic(Ab)
@@ -1432,29 +1480,115 @@ class Smoke:
                                           BSR_BLOCK, SPMM_COLS)
         plain = lambda: mod.bsr_spmm_plain(blocks, X, sl, co, Ab.mb, meta.u_max,  # noqa: E731
                                            BSR_BLOCK)
-        numbers = {"max_abs_err": self.hold_tiles(f"bsr_spmm/{label}", run(), plain()),
+        path = mod.choose_path(blocks, X, BSR_BLOCK, SPMM_COLS)
+        check(path == SPMM_PATH, f"bsr_spmm/{label}: path {path}, expected {SPMM_PATH}")
+        before = mod.PATH_LAUNCHES[path].count
+        got = run()
+        check(mod.PATH_LAUNCHES[path].count == before + 1,
+              f"bsr_spmm/{label}: the {path} path launched no kernel")
+        numbers = {"path": path, "warps": mod.GROUP_WARPS,
+                   "max_abs_err": self.hold_tiles(f"bsr_spmm/{label}", got, plain()),
                    "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
+        del got
+        (numbers["device_ms"], numbers["device_incomplete_traces"], _,
+         numbers["incomplete_traces_held"]) = kernel_device_split(
+            torch, run, TRACE_NAMES["bsr_spmm"], 1)
+        numbers["queued_ms"] = queued_ms(torch, run)
         if record:
             numbers["plain_ms"] = cuda_ms(torch, plain, reps=3)
         n_blocks = Ab.n_blocks()
         moved = (n_blocks * BSR_BLOCK * BSR_BLOCK * 4 + nbytes(sl, co) + nbytes(X)
                  + Ab.mb * BSR_BLOCK * SPMM_COLS * 4)
         flops = meta.flops * SPMM_COLS
-        library = (None,) * 4
+        library = library_csr = (None,) * 4
         if record:
             values = Ab.blocks[:n_blocks]
             t = torch.sparse_bsr_tensor(Ab.block_indptr, Ab.block_indices[:n_blocks],
                                         values, size=Ab.shape)
-            fn = lambda: t @ X  # noqa: E731
-            try:
-                library = (cuda_ms(torch, fn), *device_ms(torch, fn), None)
-            except RuntimeError as err:   # torch refuses: record why, time nothing
-                library = (None, None, None, str(err).splitlines()[0])
+            nnz = A.nnz()
+            t_csr = torch.sparse_csr_tensor(A.indptr, A.indices[:nnz], A.data[:nnz],
+                                            size=A.shape)
+            library, library_csr = (self.library_call(lambda: t @ X),
+                                    self.library_call(lambda: torch.sparse.mm(t_csr, X)))
         self.finish_phase("bsr_spmm", label, {"dense_x": numbers}, "dense_x", moved,
                           flops, library,
                           {"block": BSR_BLOCK, "mb": Ab.mb, "u_max": meta.u_max,
-                           "n_blocks": n_blocks, "x": list(X.shape), "bn": SPMM_COLS},
+                           "n_blocks": n_blocks, "x": list(X.shape), "bn": SPMM_COLS,
+                           "library_csr": library_csr},
                           record, 1)
+        if record:
+            bound = self.phase["bsr_spmm"]["bound_ms"]
+            csr = library_fields(library_csr, bound)
+            self.phase["bsr_spmm"].update(
+                {k: numbers[k] for k in ("queued_ms", "path", "warps")},
+                library_call="torch.sparse_bsr_tensor @ X",
+                library_csr_call="torch.sparse.mm(A as CSR, X)",
+                library_csr_ms=csr["library_ms"],
+                library_csr_device_ms=csr["library_device_ms"],
+                library_csr_lost=csr["library_lost"])
+
+    def library_call(self, fn) -> tuple:
+        """One library yardstick: (wall ms, device ms, empty traces, error
+        text if torch refuses)."""
+        try:
+            return (cuda_ms(self.torch, fn), *device_ms(self.torch, fn), None)
+        except RuntimeError as err:   # torch refuses: record why, time nothing
+            return None, None, None, str(err).splitlines()[0]
+
+    def spmm_edge_phase(self) -> None:
+        """The BSR x dense kernel against its plain version off the main
+        path's shape, in f32 and bf16, each case's path chosen and counted:
+        the group path at bs 4 (nf 64: half a column tile) and at bs 16 (nf
+        256: two tiles); at bs 8 on a matrix with empty block rows, a run of
+        sentinel-only rows that fills a whole group at G 2, 3, 8 or 12, and
+        mb a multiple of none of them, also with every row's table shuffled
+        (sentinels inside rows, columns out of order). The generic path at
+        bs 5 and at a 64-column tile."""
+        torch, mod, ops = self.torch, self.kernels["bsr_spmm"], self.m["ops"]
+        rng = np.random.default_rng(SPMM_EDGE_SEED)
+        empty = [3, *range(12, 36)]   # rows 12-35 hold a whole group of 2, 3, 8 or 12
+        # (label, bs, block rows, block columns, nf, tile width, empty rows, shuffle)
+        cases = [("bs4_nf64", 4, 29, 23, 64, 128, [], False),
+                 ("bs16_nf256", 16, 19, 17, 256, 128, [], False),
+                 ("bs8_empty_rows", 8, 67, 41, 128, 128, empty, False),
+                 ("bs8_shuffled", 8, 67, 41, 128, 128, empty, True),
+                 ("bs5_generic", 5, 21, 19, 96, 128, [2], False),
+                 ("bs8_bn64_generic", 8, 23, 17, 128, 64, [], False)]
+        result = []
+        for label, bs, mb, kb, nf, bn, rows_empty, shuffle in cases:
+            mask = rng.random((mb, kb)) < 0.3
+            mask[rows_empty] = False
+            dense = (np.kron(mask, np.ones((bs, bs))) * rng.standard_normal((mb * bs, kb * bs))
+                     / np.sqrt(bs * max(mask.sum(1).max(), 1))).astype(np.float32)
+            Ab = self.m["bsr"].bsr_from_dense(dense, bs, device="cuda")
+            meta = mod.bsr_spmm_symbolic(Ab)
+            sl, co = meta.a_slots, meta.a_cols
+            if shuffle:
+                perm = np.argsort(rng.random(sl.shape), axis=1)
+                sl, co = np.take_along_axis(sl, perm, 1), np.take_along_axis(co, perm, 1)
+            sl, co = torch.from_numpy(sl).cuda(), torch.from_numpy(co).cuda()
+            x = torch.from_numpy(rng.standard_normal((kb * bs, nf)).astype(np.float32)).cuda()
+            blocks = ops._with_zero_block(Ab.blocks)
+            errs, paths = {}, {}
+            for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                b_d, x_d = blocks.to(dtype), x.to(dtype)
+                want = mod.bsr_spmm_plain(b_d, x_d, sl, co, mb, meta.u_max, bs)
+                path = mod.choose_path(b_d, x_d, bs, bn)
+                check(path == ("generic" if label.endswith("generic") else "group"),
+                      f"bsr_spmm/edge/{label}: path {path}")
+                paths[dname] = path
+                before = mod.PATH_LAUNCHES[path].count
+                got = mod.bsr_spmm_blocks(b_d, x_d, sl, co, mb, meta.u_max, bs, bn)
+                check(mod.PATH_LAUNCHES[path].count == before + 1,
+                      f"bsr_spmm/edge/{label}/{dname}: the {path} path launched nothing")
+                errs[dname] = self.hold_tiles(f"bsr_spmm/edge/{label}/{dname}", got, want)
+            self.note_err("bsr_spmm", max(errs.values()))
+            live = meta.a_slots != blocks.shape[0] - 1
+            result.append({"label": label, "bs": bs, "mb": mb, "block_cols": kb, "nf": nf,
+                           "bn": bn, "u_max": meta.u_max, "n_blocks": Ab.n_blocks(),
+                           "empty_block_rows": int((~live.any(1)).sum()),
+                           "shuffled": shuffle, "paths": paths, "max_abs_err": errs})
+        emit({"edge_phase": "bsr_spmm", "cases": result})
 
     def bsr_run(self, label: str) -> None:
         """``chunked_spgemm(backend="bsr")`` of brick3d n=48 under the
@@ -1502,6 +1636,9 @@ class Smoke:
         exec_s = time.perf_counter() - t0
         launches = self.read_counters()
         check(launches["bsr_spmm"] > 0, f"{label}: bsr_spmm was not launched")
+        check(launches[f"bsr_spmm/{SPMM_PATH}"] == launches["bsr_spmm"],
+              f"{label}: {launches['bsr_spmm']} bsr_spmm launches, "
+              f"{launches[f'bsr_spmm/{SPMM_PATH}']} on the {SPMM_PATH} path")
         self.launches["bsr_spmm"] = launches["bsr_spmm"]
         nnz = A.nnz()
         As = sp.csr_matrix((A.data[:nnz].cpu().numpy().astype(np.float64),
@@ -1577,13 +1714,14 @@ class Smoke:
             route = mod.choose_route(dtype)
             err = self.hold_close(f"flash_prefill/{label}/{name}", run(), plain(),
                                   ATTN_F32_ATOL, ATTN_BF16_ULPS)
-            self.note_err(f"flash_prefill/{route}", err)
+            self.note_err(err_key("flash_prefill", route, name), err)
             numbers = {"route": route, "max_abs_err": err,
                        "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
             if record:
                 if name == "f32":
-                    numbers["device_ms"], numbers["device_incomplete_traces"] = (
-                        kernel_device_ms(torch, run, TRACE_NAMES["flash_prefill"], 1))
+                    (numbers["device_ms"], numbers["device_incomplete_traces"], _,
+                     numbers["incomplete_traces_held"]) = kernel_device_split(
+                        torch, run, TRACE_NAMES["flash_prefill"], 1)
                     numbers["queued_ms"] = queued_ms(torch, run)
                 numbers["plain_ms"] = cuda_ms(torch, plain, reps=3)
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1989,13 +2127,15 @@ class Smoke:
             plain = lambda: gm.grouped_matmul_plain(xd, wd, seg_rows)  # noqa: E731
             err = self.hold_gmm(f"grouped_matmul/{label}/{dname}", run()[:n_rows],
                                 plain()[:n_rows])
-            self.note_err(f"grouped_matmul/{route}", err)
+            tiling = gm.fma_tiling(x.shape[0]) if route == "fma" else None
+            self.note_err(err_key("grouped_matmul", route, dtype, tiling), err)
             numbers = {"route": route, "max_abs_err": err, "ms": self.launch_ms(run),
                        "wrapper_ms": cuda_ms(torch, run)}
             if route == "fma":
-                numbers["fma_tiling"] = gm.fma_tiling(x.shape[0])
+                numbers["fma_tiling"] = tiling
             if dname == "f32":
-                numbers["device_ms"], numbers["device_incomplete_traces"] = kernel_device_ms(
+                (numbers["device_ms"], numbers["device_incomplete_traces"], _,
+                 numbers["incomplete_traces_held"]) = kernel_device_split(
                     torch, run, TRACE_NAMES["grouped_matmul"], 1)
                 numbers["queued_ms"] = queued_ms(torch, run)
             tag = str(dtype).removeprefix("torch.")
@@ -2058,7 +2198,9 @@ class Smoke:
                     errs[f"{dname}_{route}"] = self.hold_gmm(
                         f"grouped_matmul/edge{sizes}/{dname}_{route}",
                         gm.grouped_matmul_ragged(xd, wd, seg, route=route)[:t], want)
-                    self.note_err(f"grouped_matmul/{route}", errs[f"{dname}_{route}"])
+                    self.note_err(err_key("grouped_matmul", route, dtype,
+                                          gm.fma_tiling(t + 9) if route == "fma" else None),
+                                  errs[f"{dname}_{route}"])
                 outs = [(dtype, f"{dname}_out")]
                 if dtype == torch.bfloat16:
                     outs.append((torch.float32, "bf16_f32out"))
@@ -2078,7 +2220,8 @@ class Smoke:
                     got32 = gm.grouped_matmul_ragged(xd, wd, seg, torch.float32)
                     errs["bf16_f32out_fma"] = self.hold_gmm(
                         f"grouped_matmul/edge{sizes}/bf16_f32out", got32[:t], want32)
-                    self.note_err("grouped_matmul/fma", errs["bf16_f32out_fma"])
+                    self.note_err(err_key("grouped_matmul", "fma", dtype, gm.fma_tiling(t + 9)),
+                                  errs["bf16_f32out_fma"])
                 y, offs = ops.grouped_matmul(xd[:t], wd, sizes, bt=32, bn=1, bk=1)
                 y_cpu, offs_cpu = ops.grouped_matmul(xd[:t].cpu(), wd.cpu(), sizes, bt=32,
                                                      bn=1, bk=1)
@@ -2196,16 +2339,24 @@ class Smoke:
                              "max_abs_err": self.max_err[kernel], **numbers})
                 continue
             for route in self.kernels[kernel].ROUTE_LAUNCHES:
-                key = f"{kernel}/{route}"
-                check(key in self.route_runs, f"{key}: launched no time on the main path")
-                run, launches = self.route_runs[key]
                 shapes = [sh for (k, r, sh) in self.route_rows if (k, r) == (kernel, route)]
-                check(bool(shapes), f"{key}: no timed phase")
+                check(bool(shapes), f"{kernel}/{route}: no timed phase")
                 for shape in shapes:
+                    row = self.route_rows[kernel, route, shape]
+                    # the launches of the row's route, or of its fma tiling
+                    tiling = row.get("fma_tiling")
+                    key = "/".join([kernel, route] + ([tiling] if tiling else []))
+                    check(key in self.route_runs, f"{key}: launched no time on the main path")
+                    run, launches = self.route_runs[key]
+                    extra = {}
+                    if tiling:   # bf16 operands through the same tiling: a field of its own
+                        extra["bf16_operands_max_abs_err"] = self.max_err.get(
+                            err_key(kernel, route, "bfloat16", tiling))
                     rows.append({**base, "kernel_route": route, "shape": shape,
                                  "launches": launches, "launches_run": run,
-                                 "max_abs_err": self.max_err[key],
-                                 **self.route_rows[kernel, route, shape]})
+                                 "max_abs_err": self.max_err[err_key(kernel, route,
+                                                                     row["dtype"], tiling)],
+                                 **row, **extra})
         check({r["name"] for r in rows} == set(self.kernels), "a kernel phase is missing")
         emit({"kernels": rows})
 
@@ -2301,6 +2452,7 @@ def main() -> int:
     smoke.masked_edge_phase()
     smoke.bsr_kernel_phase(A48, P48, plan48, label="brick3d48_bsr", record=True)
     smoke.spmm_kernel_phase(label="bsr_spmm_brick3d48", record=True)
+    smoke.spmm_edge_phase()
 
     smoke.triangle_run("tc_rmat18_fused")
     smoke.triangle_run("tc_rmat18_chunk2", chunk2=True)

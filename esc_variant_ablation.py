@@ -125,7 +125,7 @@ def main() -> int:
         for _ in range(args.rounds):
             for name in names + names[::-1]:
                 use(name)
-                ms, incomplete, split = chip_smoke.kernel_device_split(
+                ms, incomplete, split, _ = chip_smoke.kernel_device_split(
                     torch, lambda: run(order), chip_smoke.TRACE_NAMES["csr_accum"],
                     mod.kernels_per_call(order, plan.n_b))
                 check(ms is not None, f"{name}/{label}: no complete trace")
