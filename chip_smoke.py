@@ -38,6 +38,17 @@ the profiler) and BSR x dense kernels first held to their plain versions
 edge cases of both its paths in f32 and bf16: bs 4 and 16, nf 64 and 256,
 empty and sentinel-only block rows, shuffled tables, bs 5 and a 64-column
 tile on the generic path).
+Then the batched entry point and the SpGEMM service: the ESC, hash,
+dense-slab and BSR x BSR kernels on width-8 stacks (brick3d n=16 A x P, one
+structure with per-instance values; L x L of eight RMAT scale-12 graphs,
+eight structures under their union envelope; the dense slab on the first
+only) against their plain versions, each call's launches and ms beside its
+width-1 call's; ``chunked_spgemm_batched`` through every batched backend
+and ``auto`` on both batches, each C held to scipy and to the unbatched
+``chunked_spgemm``; and ``SpGEMMService`` serving 96 requests of three
+families in a cold and a warm wave (every response held to scipy, the warm
+wave compiling nothing, the buckets within the retrace budget), beside a
+naive ``chunked_spgemm`` loop, then the same on 32 distinct RMAT graphs.
 Then
 the third path, serving: the flash-prefill and decode-attention kernels
 held to their plain versions in f32 and bf16 (the prefill kernel's FMA and
@@ -194,6 +205,20 @@ SPMM_EDGE_SEED = 21
 # whole size the intermediate stays resident between chunked hops; at half it
 # spills (the planner's choice at every brick3d size tried)
 PIPE_RESIDENT, PIPE_SPILL = 1.0, 0.5
+# the batched entry point: width-8 batches, (a) brick3d n=16 with values from
+# numpy seeds BATCH_SEED + instance, (b) L x L of eight RMAT graphs of scale 12
+BATCH_WIDTH, BATCH_SEED = 8, 300
+BATCH_RMAT_SCALE, BATCH_RMAT_SEEDS = 12, range(100, 108)
+BATCHED_BACKENDS = ("scan", "pallas", "sparse", "hash", "bsr", "auto")
+# the SpGEMM service: three families of 32 requests (values from numpy seeds
+# SERVICE_SEED + request), F = the largest L's row bytes / SERVICE_CHUNK_DIV;
+# the gated run serves L x L of four RMAT graphs in turn, the churn run the
+# 32 graphs of seeds 200-231, one request each
+SERVICE = {"backend": "auto", "max_batch": 8, "quantum": 32, "retrace_budget": 8,
+           "eviction_hysteresis": 4, "slo_s": 0.002}
+SERVICE_PER_FAMILY, SERVICE_SEED, SERVICE_CHUNK_DIV = 32, 400, 5
+HASH_PLAIN_MAX = 1 << 28   # product entries the hash plain version may table at once
+SERVICE_RMAT_SEEDS, CHURN_RMAT_SEEDS = range(200, 204), range(200, 232)
 
 
 def emit(obj) -> None:
@@ -454,13 +479,15 @@ class Smoke:
         )
         from repro_torch.launch import serve
         from repro_torch.models import moe, transformer
+        from repro_torch.serve import spgemm_service
         from repro_torch.sparse import bsr, csr, graphs, multigrid
 
         self.m = dict(chunking=chunking, kkmem=kkmem, memory_model=memory_model,
                       planner=planner, symbolic=symbolic, chunk_stream=chunk_stream,
                       build=_build, csr=csr, multigrid=multigrid, graphs=graphs,
                       bsr=bsr, triangle=triangle, pipeline=pipeline_spgemm, ops=ops,
-                      serve=serve, transformer=transformer, moe=moe)
+                      serve=serve, transformer=transformer, moe=moe,
+                      service=spgemm_service)
         self.kernels = {"ranged_spgemm": ranged_spgemm,
                         "sparse_accum_spgemm": sparse_accum_spgemm,
                         "hash_accum_spgemm": hash_accum_spgemm,
@@ -497,6 +524,14 @@ class Smoke:
         # that route's kernels-line row at that shape
         self.route_runs = {}
         self.route_rows = {}
+        # the batched phases: kernel -> its width-8 numbers (the kernels
+        # line's "batched" field) and its launches in the batched run of
+        # batch (a); each batch's union envelope; (kernel, batch) pairs the
+        # kernel refuses
+        self.batched = {}
+        self.batched_launches = {}
+        self.batch_envs = {}
+        self.refused = {}
 
     # -- setup -------------------------------------------------------------
 
@@ -1656,6 +1691,430 @@ class Smoke:
                          "plan": stage_s, "bsr_spmm": exec_s},
               "check": {"scipy_rel_err": rel}})
 
+    # -- the batched entry point and the SpGEMM service --------------------
+
+    def rescaled(self, m, rng):
+        """``m`` with each value scaled by a factor in [0.5, 1.5) from
+        ``rng``: the same structure, the values of another instance."""
+        factors = rng.uniform(0.5, 1.5, m.nnz_pad).astype(np.float32)
+        return dataclasses.replace(m, data=m.data * self.torch.from_numpy(factors).to(m.device))
+
+    def rmat_l(self, seed: int):
+        """L of rmat(12, 16, seed), degree-sorted lower triangle, on the card."""
+        graphs = self.m["graphs"]
+        return graphs.lower_triangular_degree_sorted(
+            graphs.rmat(BATCH_RMAT_SCALE, RMAT_EDGE_FACTOR, seed=seed, device="cuda"))
+
+    def batches(self) -> dict:
+        """The two width-8 batches: (a) brick3d n=16 A x P, one structure,
+        values rescaled per instance (numpy seeds BATCH_SEED + w), under a
+        chunk1 plan of 4 strips over ``plan_knl``'s chunks at |P| / 3; (b)
+        L x L of eight RMAT graphs (``BATCH_RMAT_SEEDS``), eight structures,
+        under a one-strip chunk2 plan over ``plan_knl``'s chunks of the
+        first graph at |L| / 3 (the scan backend expands a strip's padded
+        entries times the densest B row a step: one strip is the fewest
+        entries)."""
+        planner = self.m["planner"]
+        A, P = self.problem("brick3d", 16)
+        pairs_a = []
+        for w in range(BATCH_WIDTH):
+            rng = np.random.default_rng(BATCH_SEED + w)
+            pairs_a.append((self.rescaled(A, rng), self.rescaled(P, rng)))
+        n = A.n_rows
+        p_b = planner.plan_knl(A, P, float(planner.row_bytes_csr(P).sum()) / 3).p_b
+        plan_a = planner.ChunkPlan("chunk1", (0, n // 4, n // 2, 3 * n // 4, n), p_b, 0.0, 0.0)
+        Ls = [self.rmat_l(s) for s in BATCH_RMAT_SEEDS]
+        n = Ls[0].n_rows
+        p_b = planner.plan_knl(Ls[0], Ls[0],
+                               float(planner.row_bytes_csr(Ls[0]).sum()) / 3).p_b
+        plan_b = planner.ChunkPlan("chunk2", (0, n), p_b, 0.0, 0.0)
+        return {"brick3d16": ([a for a, _ in pairs_a], [p for _, p in pairs_a], plan_a),
+                "rmat12": (Ls, Ls, plan_b)}
+
+    def device_kernel_counts(self, fn, names, expected: int, tries: int = 6) -> list:
+        """Device activities whose name holds one of ``names`` in traces of
+        one call of ``fn``, until a trace holds ``expected`` of them (up to
+        ``tries``; traces with no device activity at all are dropped ones
+        and not counted). A lost activity makes a count smaller, an extra
+        launch larger."""
+        counts = []
+        for _ in range(tries):
+            by_name = device_by_name(profiled(self.torch, fn))
+            if not by_name:
+                continue
+            counts.append(sum(n for name, (_, n) in by_name.items()
+                              if any(k in name for k in names)))
+            if counts[-1] == expected:
+                break
+        return counts
+
+    def width_pair(self, kernel: str, label: str, order: str, run8, run1, names,
+                   expected: int) -> dict:
+        """One kernel call at width 8 and the same call at width 1: launches
+        by the wrapper's count, which must be equal, and by the profiler's
+        device activities, which must pass ``expected`` kernels (the
+        width-1 call's by construction) in no trace of either width, and ms
+        by launch events. The profiler loses activities of some calls, so a
+        count under ``expected`` is recorded, not refused."""
+        counter = self.counters[kernel]
+        calls = []
+        for fn in (run8, run1):
+            before = counter.count
+            fn()
+            calls.append(counter.count - before)
+        check(calls[0] == calls[1] > 0, f"{kernel}/batched/{label}/{order}: {calls[0]} "
+              f"wrapper launches at width {BATCH_WIDTH}, {calls[1]} at width 1")
+        device = [self.device_kernel_counts(fn, names, expected) for fn in (run8, run1)]
+        for width, counts in zip((BATCH_WIDTH, 1), device):
+            check(max(counts, default=0) <= expected,
+                  f"{kernel}/batched/{label}/{order}: device kernels per call at width "
+                  f"{width} {counts}, more than {expected}")
+        ms8, ms1 = self.launch_ms(run8), self.launch_ms(run1)
+        return {"wrapper_launches": calls[0], "device_kernels": expected,
+                "device_counts": {"width8": device[0], "width1": device[1]},
+                "device_complete": [expected in c for c in device],
+                "ms": ms8, "ms_per_instance": ms8 / BATCH_WIDTH, "ms_width1": ms1}
+
+    def note_batched(self, kernel: str, label: str, err: float, numbers: dict) -> None:
+        self.note_err(kernel, err)
+        row = self.batched.setdefault(kernel, {"width": BATCH_WIDTH, "max_abs_err": 0.0,
+                                               "ms": {}, "ms_per_instance": {}})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ms"][label] = numbers["ms"]
+        row["ms_per_instance"][label] = numbers["ms_per_instance"]
+
+    def batched_kernel_phase(self, label: str, As, Bs, plan, dense: bool) -> None:
+        """The four sparse kernels (the dense slab only where ``dense``) on
+        the width-8 stacks ``chunked_spgemm_batched`` stages for ``plan``
+        (the batch's union envelope), in both orders, against their plain
+        versions at width 8; launches and ms beside the width-1 call of
+        instance 0 at the same envelope (``width_pair``)."""
+        torch, ch, cs = self.torch, self.m["chunking"], self.m["chunk_stream"]
+        csr = self.m["csr"]
+        t0 = time.perf_counter()
+        env = ch.batch_envelope(As, Bs, plan)
+        benv = ch.batch_envelope(As, Bs, plan, block_size=BSR_BLOCK)
+        self.batch_envs[label] = env
+        Ast, _ = cs._stage_strips_batched(As, plan, env)
+        Bst, _ = cs._stage_chunks_batched(Bs, plan, env)
+        C0 = cs._sparse_c0_stack(len(As), plan.n_ac, env.strip_rows, Bs[0].n_cols,
+                                 env.c_pad, As[0].dtype, As[0].device)
+        stage_s = time.perf_counter() - t0
+        r0s, r1s = plan.b_ranges()
+        row_cap = env.c_max_row_nnz
+        first = lambda st: csr.CSR(st.indptr[:1], st.indices[:1], st.data[:1],  # noqa: E731
+                                   st.shape, st.max_row_nnz)
+        esc = self.kernels["sparse_accum_spgemm"]
+        result = {}
+        # the hash plain version tables every row's products at once (rows x
+        # a_mrn x b_mrn entries): past HASH_PLAIN_MAX the kernel is held to
+        # the ESC plain version instead, whose output is the same stacked CSR
+        products = Ast.indptr.shape[0] * plan.n_ac * Ast.n_rows * Ast.max_row_nnz \
+            * Bst.max_row_nnz
+        for kernel in ("sparse_accum_spgemm", "hash_accum_spgemm"):
+            run, plain = self.csr_runners(kernel, Ast, Bst, C0, r0s, r1s, row_cap)
+            run1, _ = self.csr_runners(kernel, first(Ast), first(Bst), first(C0), r0s, r1s,
+                                       row_cap)
+            plain_of = kernel
+            if kernel == "hash_accum_spgemm" and products > HASH_PLAIN_MAX:
+                _, plain = self.csr_runners("sparse_accum_spgemm", Ast, Bst, C0, r0s, r1s,
+                                            row_cap)
+                plain_of = "sparse_accum_spgemm"
+            if kernel == "sparse_accum_spgemm":
+                _, smem = esc.esc_workspace(Ast.max_row_nnz, Bst.max_row_nnz, max(row_cap, 1))
+                if smem > esc.SMEM_PER_BLOCK:
+                    # one row's expansion does not fit a block's shared memory:
+                    # the wrapper must refuse, loudly
+                    try:
+                        run("chunk1")
+                    except ValueError as err:
+                        result[kernel] = {"refused": str(err), "row_smem_bytes": smem}
+                        self.refused[kernel, label] = smem
+                        continue
+                    check(False, f"{kernel}/batched/{label}: a {smem}-byte row was not refused")
+            # the plain versions add every strip's chunks in the same sequence in
+            # both orders: one plain result holds both
+            want = plain("chunk1")
+            orders = {}
+            for order in ORDERS:
+                orders[order] = self.hold_csr(f"{kernel}/batched/{label}/{order}", run(order),
+                                              want)
+                orders[order].update(self.width_pair(
+                    kernel, label, order, lambda: run(order), lambda: run1(order),
+                    TRACE_NAMES["csr_accum"], esc.kernels_per_call(order, plan.n_b)))
+            err = max(o["max_abs_err"] for o in orders.values())
+            self.note_batched(kernel, label, err, orders["chunk1" if plan.algorithm != "chunk2"
+                                                        else "chunk2"])
+            result[kernel] = {**orders, "plain_of": plain_of, "row_products_bound": products}
+            del want
+        if dense:
+            mod = self.kernels["ranged_spgemm"]
+            a = cs._dense_stack(Ast, levels=2, pad_cols=Bst.n_rows)
+            slabs = cs._dense_stack(Bst, levels=2)
+            c0 = torch.zeros(a.shape[:3] + (Bst.n_cols,), dtype=torch.float32, device=a.device)
+            orders, outs = {}, {}
+            for order in ORDERS:
+                outs[order] = mod.ranged_spgemm_stream(a, slabs, c0, r0s, order=order)
+                orders[order] = self.hold_dense(
+                    f"ranged_spgemm/batched/{label}/{order}", outs[order],
+                    mod.ranged_spgemm_plain(a, slabs, c0, r0s, order=order))
+                orders[order].update(self.width_pair(
+                    "ranged_spgemm", label, order,
+                    lambda: mod.ranged_spgemm_stream(a, slabs, c0, r0s, order=order),
+                    lambda: mod.ranged_spgemm_stream(a[:1], slabs[:1], c0[:1], r0s,
+                                                     order=order),
+                    ("ranged_dense_kernel",), 1 if order == "chunk1" else plan.n_b))
+            check(bool(torch.equal(outs["chunk1"], outs["chunk2"])),
+                  f"ranged_spgemm/batched/{label}: chunk1 and chunk2 differ bit for bit")
+            orders["path"] = mod.choose_path(a, slabs, c0, r0s)
+            del outs, a, slabs, c0
+            main = orders["chunk2" if plan.algorithm == "chunk2" else "chunk1"]
+            self.note_batched("ranged_spgemm", label,
+                              max(orders[o]["max_abs_err"] for o in ORDERS), main)
+            result["ranged_spgemm"] = orders
+        mod = self.kernels["bsr_spgemm"]
+        bs, _, _, nc, u = benv.bsr_caps
+        folded = [ops for _, ops, _ in cs.stage_bsr_pairs_batched(As, Bs, plan, benv)]
+        single = [ops for _, ops, _ in cs.stage_bsr_pairs(As[0], Bs[0], plan, benv)]
+        run = lambda: [mod.bsr_spgemm_blocks(*ops, BATCH_WIDTH * nc, u, bs)  # noqa: E731
+                       for ops in folded]
+        run1 = lambda: [mod.bsr_spgemm_blocks(*ops, nc, u, bs) for ops in single]  # noqa: E731
+        plain = [mod.bsr_spgemm_plain(*ops, BATCH_WIDTH * nc, u, bs) for ops in folded]
+        err = max(self.hold_tiles(f"bsr_spgemm/batched/{label}/pair{i}", g, w)
+                  for i, (g, w) in enumerate(zip(run(), plain)))
+        del plain
+        numbers = {"max_abs_err": err, "pairs": len(folded), "nc_pad": BATCH_WIDTH * nc,
+                   "u_max": u, "blocks_a": int(folded[0][0].shape[0]),
+                   **self.width_pair("bsr_spgemm", label, "pairs", run, run1,
+                                     TRACE_NAMES["bsr_spgemm"], len(folded))}
+        self.note_batched("bsr_spgemm", label, err, numbers)
+        result["bsr_spgemm"] = numbers
+        del folded, single
+        emit({"batched_kernel_phase": label, "width": BATCH_WIDTH,
+              "plan": {"algorithm": plan.algorithm, "n_ac": plan.n_ac, "n_b": plan.n_b},
+              "shapes": {"A": list(As[0].shape), "B": list(Bs[0].shape),
+                         "nnz_A": [A.nnz() for A in As],
+                         "envelope": dataclasses.asdict(env),
+                         "bsr_caps": list(benv.bsr_caps)},
+              "stage_s": stage_s, "kernels": result})
+        torch.cuda.empty_cache()
+
+    def batched_run(self, label: str, As, Bs, plan, backend: str) -> None:
+        """``chunked_spgemm_batched`` of one width-8 batch through
+        ``backend`` (counters reset before, read after): every C against
+        scipy in float64, and against the port's unbatched
+        ``chunked_spgemm`` of the instance (structure exactly for the CSR
+        outputs, densified values to the kernel tolerance for ``pallas`` and
+        ``bsr``), and the wall seconds of both."""
+        torch, ch, cs = self.torch, self.m["chunking"], self.m["chunk_stream"]
+        csr = self.m["csr"]
+        env = self.batch_envs[label]
+        chosen = (self.m["planner"].select_accumulator_backend(plan, env)
+                  if backend == "auto" else backend)
+        name = f"batched_run_{backend}"
+        self.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            Cs, stats = cs.chunked_spgemm_batched(As, Bs, plan, backend=backend)
+        except ValueError as err:
+            # the ESC kernel refuses rows whose expansion passes shared memory
+            # (batched_kernel_phase); so does every call through it
+            check(chosen == "sparse" and ("sparse_accum_spgemm", label) in self.refused
+                  and "shared memory" in str(err),
+                  f"{name}/{label}: {err}")
+            emit({"run": name, "batch": label, "backend": backend, "chosen": chosen,
+                  "refused": str(err)})
+            return
+        torch.cuda.synchronize()
+        batched_s = time.perf_counter() - t0
+        launches = self.read_counters()
+        kernel = self.backend_kernel.get(chosen)
+        if kernel is not None:
+            check(launches[kernel] > 0, f"{name}/{label}: {kernel} was not launched")
+            if label == "brick3d16":
+                self.batched_launches[kernel] = launches[kernel]
+        scipy_errs = [self.scipy_check(A, B, C) for A, B, C in zip(As, Bs, Cs)]
+        check(max(scipy_errs) <= SCIPY_RTOL,
+              f"{name}/{label}: relative error {max(scipy_errs)} vs scipy")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        singles = [ch.chunked_spgemm(A, B, plan, backend=chosen)[0] for A, B in zip(As, Bs)]
+        torch.cuda.synchronize()
+        unbatched_s = time.perf_counter() - t0
+        errs, exact = [], chosen in ("scan", "sparse", "hash")
+        for i, (C, S) in enumerate(zip(Cs, singles)):
+            if exact:
+                nnz = S.nnz()
+                check(C.nnz() == nnz and torch.equal(C.indptr, S.indptr)
+                      and torch.equal(C.indices[:nnz], S.indices[:nnz]),
+                      f"{name}/{label}/{i}: structure differs from the unbatched call")
+                got, want = C.data[:nnz], S.data[:nnz]
+            else:
+                got, want = csr.csr_to_dense(C), csr.csr_to_dense(S)
+            err = float((got - want).abs().max()) if want.numel() else 0.0
+            scale = float(want.abs().max()) if want.numel() else 0.0
+            check(err <= KERNEL_ATOL + KERNEL_RTOL * scale,
+                  f"{name}/{label}/{i}: values differ from the unbatched call by {err}")
+            errs.append(err)
+        emit({"run": name, "batch": label, "backend": backend, "chosen": chosen,
+              "width": len(As), "plan": {"algorithm": plan.algorithm, "n_ac": plan.n_ac,
+                                         "n_b": plan.n_b},
+              "launches": launches, "nnz_C": [C.nnz() for C in Cs],
+              "stats": {"kernel_calls": stats.kernel_calls,
+                        "copy_in_bytes": stats.copy_in_bytes},
+              "wall_s": {"batched": batched_s, "unbatched_loop": unbatched_s},
+              "check": {"scipy_rel_err": max(scipy_errs),
+                        "unbatched_structure_equal": exact or None,
+                        "unbatched_max_abs_err": max(errs)}})
+        del Cs, singles
+
+    def service_requests(self, rmat_seeds) -> tuple:
+        """The service's 96 requests, interleaved over three families of 32:
+        brick3d n=16 A x P and laplace3d n=24 A x P with values rescaled per
+        request (numpy seeds), and L x L of the RMAT graphs of
+        ``rmat_seeds`` in turn (rescaled when a graph repeats). Returns the
+        requests, the fast limit F (the largest L's row bytes over
+        ``SERVICE_CHUNK_DIV``) and the chunks ``plan_knl`` gives each family."""
+        planner = self.m["planner"]
+        Ls = [self.rmat_l(s) for s in rmat_seeds]
+        families = [self.problem("brick3d", 16), self.problem("laplace3d", 24)]
+        limit = max(float(planner.row_bytes_csr(L).sum()) for L in Ls) / SERVICE_CHUNK_DIV
+        chunks = {}
+        reqs = []
+        for i in range(SERVICE_PER_FAMILY):
+            rng = np.random.default_rng(SERVICE_SEED + i)
+            for fam, (A, B) in zip(("brick3d16", "laplace3d24"), families):
+                reqs.append((fam, self.rescaled(A, rng), self.rescaled(B, rng)))
+            L = Ls[i % len(Ls)]
+            if i >= len(Ls):
+                L = self.rescaled(L, rng)
+            reqs.append(("rmat12", L, L))
+        for fam, A, B in reqs:
+            chunks.setdefault(fam, set()).add(planner.plan_knl(A, B, limit).n_b)
+        for fam, n_b in chunks.items():
+            check(min(n_b) >= 2 and max(n_b) <= 6,
+                  f"service: plan_knl at F={limit} gives {fam} {sorted(n_b)} chunks, not 2-6")
+        return reqs, limit, {k: sorted(v) for k, v in chunks.items()}
+
+    def service_run(self, label: str, rmat_seeds, gate: bool) -> None:
+        """``SpGEMMService`` on the card: the 96 requests of
+        ``service_requests`` submitted in a cold wave, then resubmitted (the
+        same CSR objects) in a warm wave, ``poll()`` after every 8 submits
+        (each poll ``slo_s`` after the last submit, so a poll flushes every
+        queued bucket in both waves), then ``drain()``. Every response is
+        held to scipy; with ``gate`` the warm wave must compile nothing,
+        ``n_buckets`` stay within ``retrace_budget`` and each bucket compile
+        at most once a width it used. Counters reset before the cold wave
+        and read after the warm one."""
+        torch, svc_mod = self.torch, self.m["service"]
+        cs = self.m["chunk_stream"]
+        t0 = time.perf_counter()
+        reqs, limit, chunks = self.service_requests(rmat_seeds)
+        setup_s = time.perf_counter() - t0
+        svc = svc_mod.SpGEMMService(fast_limit_bytes=limit, **SERVICE)
+        traces0 = sum(v for k, v in cs.TRACE_COUNTS.items() if k.endswith("_batched"))
+        self.reset_counters()
+        waves, backend_of, worst = {}, {}, 0.0
+        for wave in ("cold", "warm"):
+            before = dataclasses.asdict(svc.stats)
+            out = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, (_, A, B) in enumerate(reqs):
+                svc.submit(A, B)
+                if (i + 1) % 8 == 0:
+                    time.sleep(SERVICE["slo_s"])
+                    out += svc.poll()
+            out += svc.drain()
+            wall = time.perf_counter() - t0
+            after = dataclasses.asdict(svc.stats)
+            delta = {k: after[k] - before[k] for k in after}
+            check(len(out) == len(reqs), f"{label}/{wave}: {len(out)} responses")
+            families = collections.Counter()
+            for r in out:
+                fam, A, B = reqs[r.req_id % len(reqs)]
+                err = self.scipy_check(A, B, r.C)
+                check(err <= SCIPY_RTOL, f"{label}/{wave}: request {r.req_id} ({fam}) "
+                      f"relative error {err} vs scipy")
+                worst = max(worst, err)
+                bucket = svc._buckets.get(r.bucket_key)
+                if bucket is not None:
+                    backend_of[r.req_id % len(reqs)] = bucket.backend
+                families[fam, r.padded_batch] += 1
+            lat = np.array([r.latency_s for r in out])
+            waves[wave] = {
+                "wall_s": wall, "exec_s": delta["exec_s"], "compile_s": delta["compile_s"],
+                "compiles": delta["compiles"],
+                "requests_per_s_exec": len(out) / delta["exec_s"],
+                "requests_per_s_wall": len(out) / wall,
+                "latency_p50_s": float(np.percentile(lat, 50)),
+                "latency_p95_s": float(np.percentile(lat, 95)),
+                "widths": {f"{fam}/{w}": n for (fam, w), n in sorted(families.items())},
+                "stats_delta": delta, "n_buckets": svc.n_buckets}
+            if gate:
+                check(svc.n_buckets <= svc.retrace_budget,
+                      f"{label}/{wave}: {svc.n_buckets} buckets > {svc.retrace_budget}")
+        launches = self.read_counters()
+        traces = sum(v for k, v in cs.TRACE_COUNTS.items() if k.endswith("_batched")) - traces0
+        check(traces == svc.stats.compiles, f"{label}: {traces} core traces, the service "
+              f"counted {svc.stats.compiles} compiles")
+        buckets = [{"family": f"{b.envelope.a_shape}x{b.envelope.b_shape}",
+                    "algorithm": b.plan.algorithm, "n_b": b.plan.n_b, "backend": b.backend,
+                    "compiles": b.compiles, "executions": b.executions, "served": b.served,
+                    "widths_used": sorted(b.widths_used)} for b in svc._buckets.values()]
+        for b in buckets:
+            if b["backend"] in self.backend_kernel:
+                kernel = self.backend_kernel[b["backend"]]
+                check(launches[kernel] > 0, f"{label}: {kernel} was not launched")
+        if gate:
+            check(waves["warm"]["compiles"] == 0,
+                  f"{label}: the warm wave compiled {waves['warm']['compiles']} times")
+            for b in buckets:
+                check(b["compiles"] <= len(b["widths_used"]),
+                      f"{label}: a bucket compiled {b['compiles']} times over widths "
+                      f"{b['widths_used']}")
+        result = {"run": label, "service": {**SERVICE, "fast_limit_bytes": limit},
+                  "rmat_seeds": [min(rmat_seeds), max(rmat_seeds)],
+                  "plan_chunks": chunks, "requests": len(reqs), "setup_s": setup_s,
+                  "waves": waves, "stats": dataclasses.asdict(svc.stats),
+                  "n_buckets": svc.n_buckets, "buckets": buckets, "launches": launches,
+                  "check": {"scipy_rel_err": worst}}
+        if gate:
+            result["traced_flush"] = self.traced_flush(svc, reqs)
+            result["naive_loop"] = self.naive_loop(reqs, limit, backend_of)
+        emit(result)
+        del svc, reqs
+        torch.cuda.empty_cache()
+
+    def traced_flush(self, svc, reqs) -> dict:
+        """One warm flush of brick3d requests under the profiler, as many as
+        the widest microbatch the waves gave that family's bucket: its
+        wall, the device's busy ms and share."""
+        shape = reqs[0][1].shape
+        width = max(w for b in svc._buckets.values() if b.envelope.a_shape == shape
+                    for w in b.widths_used)
+        bricks = [(A, B) for fam, A, B in reqs if fam == "brick3d16"][:width]
+
+        def flush():
+            for A, B in bricks:
+                svc.submit(A, B)
+            check(len(svc.drain()) == len(bricks), "traced flush: responses missing")
+        return traced_call(self.torch, flush)
+
+    def naive_loop(self, reqs, limit: float, backend_of: dict) -> dict:
+        """The service's requests one ``chunked_spgemm`` each, with the plan
+        and backend the service gave them: requests a second by wall."""
+        torch, planner, ch = self.torch, self.m["planner"], self.m["chunking"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, (_, A, B) in enumerate(reqs):
+            ch.chunked_spgemm(A, B, planner.plan_knl(A, B, limit), backend=backend_of[i])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return {"wall_s": wall, "requests_per_s": len(reqs) / wall,
+                "backends": dict(collections.Counter(backend_of.values()))}
+
     # -- third path: serving the dense LM ----------------------------------
 
     def lm_prompts(self, vocab_size: int) -> list:
@@ -2335,8 +2794,14 @@ class Smoke:
                               f"{SOURCE_FILE.get(kernel, kernel)}.cu",
                     "replaces": REPLACES[kernel]}
             if kernel not in ROUTED:
+                extra = {}
+                if kernel in self.batched:
+                    check(self.batched_launches.get(kernel, 0) > 0,
+                          f"{kernel}: launched no time in its batched run")
+                    extra["batched"] = {**self.batched[kernel],
+                                        "launches": self.batched_launches[kernel]}
                 rows.append({**base, "launches": self.launches[kernel],
-                             "max_abs_err": self.max_err[kernel], **numbers})
+                             "max_abs_err": self.max_err[kernel], **numbers, **extra})
                 continue
             for route in self.kernels[kernel].ROUTE_LAUNCHES:
                 shapes = [sh for (k, r, sh) in self.route_rows if (k, r) == (kernel, route)]
@@ -2462,6 +2927,23 @@ def main() -> int:
         smoke.galerkin_run(f"galerkin_brick3d48_{backend}_spill", backend, PIPE_SPILL, False)
     smoke.bsr_run("brick3d48_bsr")
     smoke.spmm_run("bsr_spmm_brick3d48")
+
+    # the batched entry point and the SpGEMM service: the four sparse
+    # kernels at width 8 against their plain versions (the dense slab on
+    # batch (a) only: 70 MB an instance), chunked_spgemm_batched through
+    # every batched backend, then the service (gated), then the service on
+    # 32 distinct graphs (churn, reported)
+    batches = smoke.batches()
+    for label, (As, Bs, plan) in batches.items():
+        smoke.batched_kernel_phase(label, As, Bs, plan, dense=label == "brick3d16")
+    for label, (As, Bs, plan) in batches.items():
+        for backend in BATCHED_BACKENDS:
+            if backend != "pallas" or label == "brick3d16":
+                smoke.batched_run(label, As, Bs, plan, backend)
+    del batches
+    smoke.service_run("spgemm_service_run", SERVICE_RMAT_SEEDS, gate=True)
+    smoke.service_run("spgemm_service_churn", CHURN_RMAT_SEEDS, gate=False)
+    torch.cuda.empty_cache()
 
     # the third path, serving: the attention kernels at the serve run's
     # shapes (these numbers go into the kernels line; decode at a mid-run

@@ -1,11 +1,12 @@
 """Backend registry: one `BackendSpec` per chunked-SpGEMM backend.
 
-A backend ships its executors plus a :class:`BackendSpec`; the dispatcher
-(``chunked_spgemm``) and the planner's ``auto`` resolve derive from
-``specs()``. Registrations live at the bottom of
-``repro_torch.core.chunk_stream`` (the module that owns the executors);
-:func:`ensure_registered` imports it on first use, so this module imports
-nothing from the rest of the package at module scope.
+A backend ships its executors plus a :class:`BackendSpec`; the dispatchers
+(``chunked_spgemm``, ``chunked_spgemm_batched``, ``SpGEMMService``) and the
+planner's ``auto`` resolve derive from ``specs()`` / ``all_backends()``.
+Registrations live at the bottom of ``repro_torch.core.chunk_stream`` (the
+module that owns the executors and their cores); :func:`ensure_registered`
+imports it on first use, so this module imports nothing from the rest of
+the package at module scope.
 
 Contracts a spec must honor:
 
@@ -13,6 +14,19 @@ Contracts a spec must honor:
   to an executor ``fn(A, B, plan, c_pad, ...) -> (C, ChunkStats)``.
   Executors with ``needs_output_caps`` additionally receive the symbolic
   phase's ``StripOutputCaps`` as ``caps=``.
+* ``run_batched(As, Bs, plan, envelope, *, caps_list, validate_caps,
+  cores)`` runs the whole microbatch under a shared
+  :class:`~repro_torch.sparse.csr.GeometryEnvelope`; ``None`` means the
+  backend is unbatched-only (the host-loop oracle).
+* ``trace_key`` / ``trace_key_batched`` are ``"{alg}"``-templates naming
+  the backend's ``chunk_stream.TRACE_COUNTS`` keys: one count each time a
+  core meets a static geometry it has not run before (the port's analogue
+  of a jit trace), the compile accounting the serving layer reads.
+* ``make_batched_cores(donate=False) -> dict`` builds a fresh set of the
+  batched cores (algorithm -> core), passed back as ``run_batched(...,
+  cores=...)``. The module-level cores remember every geometry for the life
+  of the process; a serving bucket that owns its set forgets its geometries
+  with the set when it is evicted, so a refault counts again.
 * ``byte_model(plan, envelope) -> BackendFastModel`` is the planner-side
   peak-resident model ``backend="auto"`` argmins over; accumulator
   backends (``is_accumulator``) must provide one.
@@ -22,9 +36,8 @@ Contracts a spec must honor:
   computes ``(A x B) ∘ mask`` with the mask applied inside the kernel; the
   fused triangle count (``repro_torch.core.triangle``) resolves through it.
 
-The JAX package's specs carry more fields (batched entry points, trace
-keys, audit and traffic models); they arrive with the slices that port
-those features.
+The JAX package's specs also carry audit and traffic models; they arrive
+with the static-auditor slice.
 """
 
 from __future__ import annotations
@@ -37,16 +50,25 @@ ALGORITHMS = ("knl", "chunk1", "chunk2")
 
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
-    """Everything the dispatch and planning layers need to run a backend."""
+    """Everything the dispatch, planning and serving layers need to run a
+    backend."""
 
     name: str
     executors: Mapping[str, Callable]           # algorithm -> executor
+    run_batched: Callable | None = None         # batched entry; None = unbatched-only
     byte_model: Callable | None = None          # (plan, envelope) -> BackendFastModel
+    trace_key: str | None = None                # "{alg}"-template, unbatched cores
+    trace_key_batched: str | None = None        # "{alg}"-template, batched cores
     needs_output_caps: bool = False             # executor takes caps=StripOutputCaps
     needs_block_caps: bool = False              # envelope must carry bsr_caps
     is_accumulator: bool = False                # participates in backend="auto"
     block_size: int | None = None               # default block edge (block backends)
     run_masked: Callable | None = None          # fused-mask executor, or None
+    make_batched_cores: Callable | None = None  # (donate=False) -> fresh batched cores
+
+    @property
+    def supports_batched(self) -> bool:
+        return self.run_batched is not None
 
     @property
     def supports_mask(self) -> bool:
@@ -69,6 +91,14 @@ def register(spec: BackendSpec) -> BackendSpec:
     if spec.is_accumulator and spec.byte_model is None:
         raise ValueError(
             f"accumulator backend {spec.name!r} needs a planner byte model")
+    # one TRACE_COUNTS key per algorithm: a template without the "{alg}" slot
+    # would fold the three algorithms onto one counter
+    for field in ("trace_key", "trace_key_batched"):
+        template = getattr(spec, field)
+        if template is not None and "{alg}" not in template:
+            raise ValueError(
+                f"backend {spec.name!r}: {field}={template!r} must contain "
+                "the '{alg}' placeholder (one TRACE_COUNTS key per algorithm)")
     if spec.needs_block_caps and spec.block_size is None:
         raise ValueError(
             f"backend {spec.name!r} needs_block_caps but registers no "
@@ -99,6 +129,16 @@ def specs() -> tuple:
     planner's tie-break priority for accumulators)."""
     ensure_registered()
     return tuple(_REGISTRY.values())
+
+
+def all_backends() -> tuple:
+    """Registered backend names, registration order (excludes ``auto``)."""
+    return tuple(s.name for s in specs())
+
+
+def batched_backends() -> tuple:
+    """Names of backends with a batched entry point."""
+    return tuple(s.name for s in specs() if s.supports_batched)
 
 
 def accumulator_specs() -> tuple:

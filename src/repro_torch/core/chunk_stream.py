@@ -34,6 +34,24 @@ The registered backends, in registry (= auto tie-break) order:
 ``backend="auto"`` argmins the accumulators' ``BackendFastModel`` byte
 models (``planner.select_accumulator_backend``).
 
+Every backend but ``loop`` runs its kernel calls through *cores*
+(:class:`_Core`), and its compile accounting is observable through
+``TRACE_COUNTS`` under the spec's ``trace_key``/``trace_key_batched``
+templates (``"{alg}"``, ``"{alg}_hash_batched"``, ...). The port has no
+tracer: a core's first call at a static geometry (operand shapes and
+dtypes, CSR metadata, static arguments: what the reference's jit keys a
+trace on) counts once, and later calls at it count nothing.
+
+:func:`chunked_spgemm_batched` runs a backend's batched entry over problem
+instances sharing one plan: the many-small-matrices serving scenario.
+Batches may mix sparsity structures: every instance is repadded to a shared
+``GeometryEnvelope`` (the batch union, or a caller-provided bucket
+envelope) before stacking, and the whole batch goes through one kernel call
+with the width as its leading axis (``pallas``, ``sparse``, ``hash``) or
+folded into the blocks of one launch per (strip, chunk) pair (``bsr``).
+``repro_torch.serve.spgemm_service`` builds the request-bucketing service on
+top.
+
 ChunkStats for these backends is *computed from the plan*: the uniform
 padding makes every staged chunk/strip/partial the same size, so the
 per-copy event sequence is reproducible host-side. ``planned_stats`` replays
@@ -45,19 +63,22 @@ slow memory).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import backend_registry
 from repro_torch.core.chunking import (
-    StatsLog, _assemble, _empty_like_c, a_strips, b_chunks, chunk_gpu1,
-    chunk_gpu2, chunk_knl, instance_envelope,
+    StatsLog, _assemble, _empty_like_c, a_strips, b_chunks, batch_envelope,
+    chunk_gpu1, chunk_gpu2, chunk_knl, instance_envelope,
 )
 from repro_torch.core.kkmem import spgemm_ranged_impl
 from repro_torch.core.planner import (
     ChunkPlan, check_output_caps, hash_table_slots, planned_stats_bsr,
     planned_stats_dense_slab, planned_stats_hash, planned_stats_sparse,
+    select_accumulator_backend,
 )
 from repro_torch.core.symbolic import masked_output_caps, strip_output_caps
 from repro_torch.kernels.bsr_spgemm import bsr_spgemm_blocks, bsr_spgemm_symbolic
@@ -71,6 +92,66 @@ from repro_torch.sparse.csr import (
     CSR, GeometryEnvelope, _csr_from_tensors, csr_from_dense, csr_pad_to,
     csr_stack, csr_unstack,
 )
+
+# One count under a core's key each time the core meets a static geometry it
+# has not run before: the port's trace (see :class:`_Core`).
+TRACE_COUNTS: collections.Counter = collections.Counter()
+
+
+def _signature(value):
+    """The static geometry of one core operand: a CSR's (stacked) field
+    shapes, dtype, shape and ``max_row_nnz``; a tensor's or array's shape
+    and dtype; a list's or tuple's items; anything else as it is."""
+    if isinstance(value, CSR):
+        return ("csr", tuple(value.indptr.shape), tuple(value.indices.shape),
+                str(value.dtype), value.shape, value.max_row_nnz)
+    if isinstance(value, (torch.Tensor, np.ndarray)):
+        return (tuple(value.shape), str(value.dtype))
+    if isinstance(value, (list, tuple)):
+        return tuple(_signature(v) for v in value)
+    return value
+
+
+class _Core:
+    """One executor core: ``run`` behind the record of the static geometries
+    it has met (the operands' :func:`_signature` and the keyword statics).
+
+    The reference jits its cores, and a jit traces once per static
+    geometry. The port runs eagerly and builds its kernel libraries once a
+    process (``kernels._build``), so the trace a core stands for is its
+    first call at a geometry: that call counts once under ``key`` in
+    :data:`TRACE_COUNTS`. A set of cores from a spec's
+    ``make_batched_cores`` starts with an empty record, so its owner (a
+    serving bucket) counts its own geometries, and drops them with it."""
+
+    def __init__(self, key: str, run):
+        self.key, self._run, self._seen = key, run, set()
+
+    def __call__(self, *operands, **statics):
+        geometry = (_signature(operands), tuple(sorted(statics.items())))
+        if geometry not in self._seen:
+            self._seen.add(geometry)
+            TRACE_COUNTS[self.key] += 1
+        return self._run(*operands, **statics)
+
+
+def _core_set(template: str, runs: dict) -> dict:
+    """A fresh core per algorithm, counted under ``template`` of it."""
+    return {alg: _Core(template.format(alg=alg), run) for alg, run in runs.items()}
+
+
+def _batched_core_factory(template: str, runs: dict):
+    """A spec's ``make_batched_cores``: each call a fresh set of the batched
+    cores (the module-level set's keys, an empty record). ``donate`` is the
+    reference's flag for donating the C accumulator stacks; the port stages
+    them fresh every call and its outputs are fresh allocations, so there is
+    nothing to donate."""
+
+    def make_batched_cores(donate: bool = False) -> dict:
+        del donate
+        return _core_set(template, runs)
+
+    return make_batched_cores
 
 
 # ---------------------------------------------------------------------------
@@ -167,30 +248,88 @@ def _pallas_stage_nbytes(strip_rows: int, k: int, span: int, n: int) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def _ranges(plan: ChunkPlan) -> list:
-    return list(zip(plan.p_b[:-1], plan.p_b[1:]))
+def _empty_c_stack(n: int, n_rows: int, n_cols: int, c_pad: int, dtype, device) -> CSR:
+    """Stacked empty partials ([n, ...] leading axis) for the Chunk2 carry."""
+    return CSR(
+        indptr=torch.zeros(n, n_rows + 1, dtype=torch.int32, device=device),
+        indices=torch.zeros(n, c_pad, dtype=torch.int32, device=device),
+        data=torch.zeros(n, c_pad, dtype=dtype, device=device),
+        shape=(n_rows, n_cols),
+        max_row_nnz=0,
+    )
+
+
+def _scan_knl(A: CSR, Bs: CSR, r0s, r1s, C0: CSR, *, c_pad: int) -> CSR:
+    """Algorithm 1 over the stacked chunks: C accumulates chunk by chunk."""
+    C = C0
+    for Bc, r0, r1 in zip(csr_unstack(Bs), r0s.tolist(), r1s.tolist()):
+        C = spgemm_ranged_impl(A, Bc, r0, r1, C, c_pad)
+    return C
+
+
+def _scan_chunk1(As: CSR, Bs: CSR, r0s, r1s, C0: CSR, *, c_pad: int) -> list:
+    """A/C strips outer (stationary), B chunks inner (streamed); every strip
+    starts from the template ``C0``. Returns the per-strip results."""
+    chunks = list(zip(csr_unstack(Bs), r0s.tolist(), r1s.tolist()))
+    out = []
+    for Ai in csr_unstack(As):
+        Ci = C0
+        for Bc, r0, r1 in chunks:
+            Ci = spgemm_ranged_impl(Ai, Bc, r0, r1, Ci, c_pad)
+        out.append(Ci)
+    return out
+
+
+def _scan_chunk2(As: CSR, Bs: CSR, r0s, r1s, C0s: CSR, *, c_pad: int) -> list:
+    """B chunk outer (stationary), A/C strips inner (streamed); all per-strip
+    partials ride along. Returns the per-strip results."""
+    As, Cs = csr_unstack(As), csr_unstack(C0s)
+    for Bc, r0, r1 in zip(csr_unstack(Bs), r0s.tolist(), r1s.tolist()):
+        Cs = [spgemm_ranged_impl(Ai, Bc, r0, r1, Ci, c_pad) for Ai, Ci in zip(As, Cs)]
+    return Cs
+
+
+# the batched cores run the unbatched loop once an instance (the reference
+# vmaps it), so same-structure batches equal the unbatched executors bit for
+# bit; chunk1 and chunk2 share one C0 across the batch, as the reference's do
+def _scan_knl_batched(Ast: CSR, Bst: CSR, r0s, r1s, C0s: CSR, *, c_pad: int) -> list:
+    return [_scan_knl(A, Bs, r0s, r1s, C0, c_pad=c_pad)
+            for A, Bs, C0 in zip(csr_unstack(Ast), csr_unstack(Bst), csr_unstack(C0s))]
+
+
+def _scan_chunk1_batched(Ast: CSR, Bst: CSR, r0s, r1s, C0: CSR, *, c_pad: int) -> list:
+    return [_scan_chunk1(As, Bs, r0s, r1s, C0, c_pad=c_pad)
+            for As, Bs in zip(csr_unstack(Ast), csr_unstack(Bst))]
+
+
+def _scan_chunk2_batched(Ast: CSR, Bst: CSR, r0s, r1s, C0s: CSR, *, c_pad: int) -> list:
+    return [_scan_chunk2(As, Bs, r0s, r1s, C0s, c_pad=c_pad)
+            for As, Bs in zip(csr_unstack(Ast), csr_unstack(Bst))]
+
+
+_SCAN_RUNS = {"knl": _scan_knl, "chunk1": _scan_chunk1, "chunk2": _scan_chunk2}
+_SCAN_RUNS_BATCHED = {"knl": _scan_knl_batched, "chunk1": _scan_chunk1_batched,
+                      "chunk2": _scan_chunk2_batched}
+_SCAN_CORES = _core_set("{alg}", _SCAN_RUNS)
+_SCAN_CORES_BATCHED = _core_set("{alg}_batched", _SCAN_RUNS_BATCHED)
 
 
 def chunk_knl_scan(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int):
     chunks = b_chunks(B, plan.p_b)
-    Bs = csr_stack(chunks)
-    C = _empty_like_c(A.n_rows, B.n_cols, c_pad, A.dtype, A.device)
-    for Bc, (r0, r1) in zip(csr_unstack(Bs), _ranges(plan)):
-        C = spgemm_ranged_impl(A, Bc, r0, r1, C, c_pad)
+    r0s, r1s = plan.b_ranges()
+    C0 = _empty_like_c(A.n_rows, B.n_cols, c_pad, A.dtype, A.device)
+    C = _SCAN_CORES["knl"](A, csr_stack(chunks), r0s, r1s, C0, c_pad=c_pad)
     return C, planned_stats(plan, chunks[0].nbytes(), 0, 0)
 
 
 def chunk_gpu1_scan(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int):
     strips = a_strips(A, plan.p_ac)
     chunks = b_chunks(B, plan.p_b)
-    As, Bs = csr_unstack(csr_stack(strips)), csr_unstack(csr_stack(chunks))
+    r0s, r1s = plan.b_ranges()
     strip_rows = strips[0].n_rows
-    out = []
-    for Ai in As:                       # A/C strip stationary, chunks streamed
-        Ci = _empty_like_c(strip_rows, B.n_cols, c_pad, A.dtype, A.device)
-        for Bc, (r0, r1) in zip(Bs, _ranges(plan)):
-            Ci = spgemm_ranged_impl(Ai, Bc, r0, r1, Ci, c_pad)
-        out.append(Ci)
+    C0 = _empty_like_c(strip_rows, B.n_cols, c_pad, A.dtype, A.device)
+    out = _SCAN_CORES["chunk1"](csr_stack(strips), csr_stack(chunks), r0s, r1s, C0,
+                                c_pad=c_pad)
     stats = planned_stats(plan, chunks[0].nbytes(), strips[0].nbytes(),
                           _c_strip_nbytes(strip_rows, c_pad, A.dtype))
     return _assemble(out, plan.p_ac, B.n_cols), stats
@@ -199,15 +338,14 @@ def chunk_gpu1_scan(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int):
 def chunk_gpu2_scan(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int):
     strips = a_strips(A, plan.p_ac)
     chunks = b_chunks(B, plan.p_b)
-    As, Bs = csr_unstack(csr_stack(strips)), csr_unstack(csr_stack(chunks))
+    r0s, r1s = plan.b_ranges()
     strip_rows = strips[0].n_rows
-    Cs = [_empty_like_c(strip_rows, B.n_cols, c_pad, A.dtype, A.device) for _ in As]
-    for Bc, (r0, r1) in zip(Bs, _ranges(plan)):   # B chunk stationary
-        Cs = [spgemm_ranged_impl(Ai, Bc, r0, r1, Ci, c_pad)
-              for Ai, Ci in zip(As, Cs)]
+    C0s = _empty_c_stack(plan.n_ac, strip_rows, B.n_cols, c_pad, A.dtype, A.device)
+    out = _SCAN_CORES["chunk2"](csr_stack(strips), csr_stack(chunks), r0s, r1s, C0s,
+                                c_pad=c_pad)
     stats = planned_stats(plan, chunks[0].nbytes(), strips[0].nbytes(),
                           _c_strip_nbytes(strip_rows, c_pad, A.dtype))
-    return _assemble(Cs, plan.p_ac, B.n_cols), stats
+    return _assemble(out, plan.p_ac, B.n_cols), stats
 
 
 # ---------------------------------------------------------------------------
@@ -246,29 +384,59 @@ def _pallas_assemble(dense: torch.Tensor, p_ac: tuple) -> CSR:
     return csr_from_dense(whole, device=dense.device)
 
 
+def _make_pallas_run(order: str, *, batched: bool, strips: bool):
+    """The staging-and-launch body of one dense-slab core: densify the
+    stacked A (a plain CSR for knl, a strip stack, or a per-instance stack of
+    either) and B chunks, and run ``ranged_spgemm_stream`` once with the
+    batch as its leading axis (width 1 unbatched). Returns dense f32 C:
+    ``[(batch,) (n_ac,) rows, n]``."""
+    a_levels = int(strips) + int(batched)
+
+    def run(Ast: CSR, Bst: CSR, r0s) -> torch.Tensor:
+        span = Bst.n_rows
+        a = _dense_stack(Ast, levels=a_levels, pad_cols=span)
+        slabs = _dense_stack(Bst, levels=2 if batched else 1)
+        if not strips:               # knl: the whole A is the single strip
+            a = a[:, None] if batched else a[None]
+        if not batched:              # width-1 batch axis
+            a, slabs = a[None], slabs[None]
+        c0 = torch.zeros(a.shape[:3] + (Bst.n_cols,), dtype=torch.float32,
+                         device=a.device)
+        out = ranged_spgemm_stream(a, slabs, c0, r0s, order=order)
+        if not batched:
+            out = out[0]
+        if not strips:
+            out = out[:, 0] if batched else out[0]
+        return out
+
+    return run
+
+
+def _pallas_runs(batched: bool) -> dict:
+    return {alg: _make_pallas_run("chunk2" if alg == "chunk2" else "chunk1",
+                                  batched=batched, strips=alg != "knl")
+            for alg in backend_registry.ALGORITHMS}
+
+
+_PALLAS_RUNS_BATCHED = _pallas_runs(True)
+_PALLAS_CORES = _core_set("{alg}_pallas", _pallas_runs(False))
+_PALLAS_CORES_BATCHED = _core_set("{alg}_pallas_batched", _PALLAS_RUNS_BATCHED)
+
+
 def _pallas_run(A: CSR, B: CSR, plan: ChunkPlan, strips: bool):
-    chunks = b_chunks(B, plan.p_b)
-    Bs = csr_stack(chunks)
-    span = Bs.n_rows
+    Bs = csr_stack(b_chunks(B, plan.p_b))
     r0s, _ = plan.b_ranges()
-    if strips:
-        As = csr_stack(a_strips(A, plan.p_ac))
-        a = _dense_stack(As, levels=1, pad_cols=span)[None]
-    else:                            # knl: the whole A is the single strip
-        a = _dense_stack(A, levels=0, pad_cols=span)[None, None]
-    slabs = _dense_stack(Bs, levels=1)[None]
-    c0 = torch.zeros(a.shape[:3] + (B.n_cols,), dtype=torch.float32, device=a.device)
-    order = "chunk2" if plan.algorithm == "chunk2" else "chunk1"
-    out = ranged_spgemm_stream(a, slabs, c0, r0s, order=order)[0]
+    As = csr_stack(a_strips(A, plan.p_ac)) if strips else A
+    out = _PALLAS_CORES[plan.algorithm](As, Bs, r0s)
     stats = planned_stats_pallas(
-        plan, *_pallas_stage_nbytes(a.shape[2], A.n_cols, span, B.n_cols))
+        plan, *_pallas_stage_nbytes(As.n_rows, A.n_cols, Bs.n_rows, B.n_cols))
     return out, stats
 
 
 def chunk_knl_pallas(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int):
     del c_pad  # capacity is implicit in the dense accumulator
     out, stats = _pallas_run(A, B, plan, strips=False)
-    return csr_from_dense(out[0], device=out.device), stats
+    return csr_from_dense(out, device=out.device), stats
 
 
 def chunk_gpu1_pallas(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int):
@@ -303,6 +471,32 @@ def _sparse_c0_stack(batch: int, n_ac: int, strip_rows: int, n_cols: int,
     )
 
 
+def _make_csr_accum_run(kind: str, order: str):
+    """The launch body of one CSR-output core: the ESC kernel with its
+    per-row accumulator width ``row_cap``, or the hash kernel with its
+    ``table_size``, both static. All staging happens before the call, so
+    batched cores share the body: the batch rides the stacks' leading axis."""
+    if kind == "hash":
+        def run(Ast, Bst, C0st, r0s, r1s, *, table_size: int):
+            return hash_accum_spgemm_stream(Ast, Bst, C0st, r0s, r1s, order=order,
+                                            table_size=table_size)
+    else:
+        def run(Ast, Bst, C0st, r0s, r1s, *, row_cap: int):
+            return sparse_accum_spgemm_stream(Ast, Bst, C0st, r0s, r1s, order=order,
+                                              row_cap=row_cap)
+    return run
+
+
+_SPARSE_RUNS = {alg: _make_csr_accum_run("sparse", order)
+                for alg, order in _CSR_ACCUM_ORDERS.items()}
+_HASH_RUNS = {alg: _make_csr_accum_run("hash", order)
+              for alg, order in _CSR_ACCUM_ORDERS.items()}
+_SPARSE_CORES = _core_set("{alg}_sparse", _SPARSE_RUNS)
+_SPARSE_CORES_BATCHED = _core_set("{alg}_sparse_batched", _SPARSE_RUNS)
+_HASH_CORES = _core_set("{alg}_hash", _HASH_RUNS)
+_HASH_CORES_BATCHED = _core_set("{alg}_hash_batched", _HASH_RUNS)
+
+
 def _sparse_run(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, backend: str,
                 caps=None):
     """Shared body of the CSR-output executors (ESC and hash): stage CSR
@@ -326,14 +520,12 @@ def _sparse_run(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, backend: str,
     strip_rows = strips[0].n_rows
     C0 = _sparse_c0_stack(1, plan.n_ac, strip_rows, B.n_cols, c_pad, A.dtype,
                           A.device)
-    order = _CSR_ACCUM_ORDERS[plan.algorithm]
     if backend == "hash":
-        ip, ix, d = hash_accum_spgemm_stream(Ast, Bst, C0, r0s, r1s,
-                                             order=order, table_size=table)
+        ip, ix, d = _HASH_CORES[plan.algorithm](Ast, Bst, C0, r0s, r1s,
+                                                table_size=table)
     else:
-        ip, ix, d = sparse_accum_spgemm_stream(Ast, Bst, C0, r0s, r1s,
-                                               order=order,
-                                               row_cap=caps.c_max_row_nnz)
+        ip, ix, d = _SPARSE_CORES[plan.algorithm](Ast, Bst, C0, r0s, r1s,
+                                                  row_cap=caps.c_max_row_nnz)
     stats = planned_stats_pallas(
         plan, chunks[0].nbytes(), strips[0].nbytes(),
         _c_strip_nbytes(strip_rows, c_pad, A.dtype))
@@ -469,21 +661,40 @@ def _stage_bsr(m: CSR, row0: int, row1: int, col0: int, col1: int,
                int(counts.max()) if counts.numel() else 0)
 
 
-def stage_bsr_pairs(A: CSR, B: CSR, plan: ChunkPlan, envelope: GeometryEnvelope):
-    """Stage the BSR executor's (strip, chunk) pairs in launch order (Chunk2
-    streams strips under a stationary chunk, the other orders chunks under
-    a stationary strip) at the envelope's block caps. Yields ``(strip,
-    operands, meta)``: the strip's index, ``(a_blocks, b_blocks, a_slots,
-    b_slots)`` of ``bsr_spgemm_blocks`` (blocks with the zero sentinel,
-    slot tables on the operands' device) and the pair's
-    :class:`BsrSpgemmMeta`.
+def _fold_bsr(blocks: list, slots: list, device) -> tuple:
+    """One launch's operand from ``width`` instances' pieces of one side:
+    their blocks (each with its zero sentinel last) end to end, then one
+    shared zero block, and their slot tables stacked, each instance's slots
+    moved past the blocks of the instances before it and its own sentinel
+    slot sent to the shared one. The kernel skips a step only at the last
+    block's slot, so an instance sentinel left in place would multiply zero
+    blocks: the same numbers, more work. Width 1 is the instance's own."""
+    if len(blocks) == 1:
+        return blocks[0], torch.from_numpy(slots[0]).to(device)
+    cap = blocks[0].shape[0] - 1
+    joined = torch.cat([b[:cap] for b in blocks] + [blocks[0][cap:]])
+    shared = len(blocks) * cap
+    table = np.concatenate([np.where(t == cap, shared, t + w * cap)
+                            for w, t in enumerate(slots)]).astype(np.int32)
+    return joined, torch.from_numpy(table).to(device)
 
-    The pair's A piece is the strip's rows with columns outside the chunk
-    dropped, at full contraction width, and the B piece is the chunk's rows
-    at full output width, so summing pair products over chunks is exactly
-    the strip product."""
+
+def stage_bsr_pairs_batched(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope):
+    """Stage the BSR executor's (strip, chunk) pairs of every instance in
+    launch order (Chunk2 streams strips under a stationary chunk, the other
+    orders chunks under a stationary strip) at the envelope's block caps,
+    each pair's instances folded into one launch (:func:`_fold_bsr`). Yields
+    ``(strip, operands, metas)``: the strip's index, ``(a_blocks, b_blocks,
+    a_slots, b_slots)`` of ``bsr_spgemm_blocks`` at ``nc_pad = width x
+    nc_cap`` C blocks (instance ``w``'s from row ``w x nc_cap``), and each
+    instance's :class:`BsrSpgemmMeta`.
+
+    An instance's A piece is its strip's rows with columns outside the chunk
+    dropped, at full contraction width, and its B piece the chunk's rows at
+    full output width, so summing pair products over chunks is exactly the
+    strip product."""
     bs, nbl_a_cap, nbl_b_cap, nc_cap, u_cap = envelope.bsr_caps
-    k, n = B.shape
+    k, n = Bs[0].shape
     kpad = -(-k // bs) * bs
     npad = -(-n // bs) * bs
     srpad = -(-envelope.strip_rows // bs) * bs
@@ -495,44 +706,47 @@ def stage_bsr_pairs(A: CSR, B: CSR, plan: ChunkPlan, envelope: GeometryEnvelope)
     for ia, jb in pairs:
         s, e = strips[ia]
         r0, r1 = chunks[jb]
-        Ab = _stage_bsr(A, s, e, r0, r1, s, (srpad, kpad), bs, nbl_a_cap)
-        Bb = _stage_bsr(B, r0, r1, 0, n, 0, (kpad, npad), bs, nbl_b_cap)
-        meta = bsr_spgemm_symbolic(Ab, Bb, nc_pad=nc_cap, u_max=u_cap)
-        slots = (torch.from_numpy(t).to(A.device) for t in (meta.a_slots, meta.b_slots))
-        yield ia, (bsr_blocks_with_sentinel(Ab), bsr_blocks_with_sentinel(Bb),
-                   *slots), meta
+        a_bl, b_bl, a_sl, b_sl, metas = [], [], [], [], []
+        for A, B in zip(As, Bs):
+            Ab = _stage_bsr(A, s, e, r0, r1, s, (srpad, kpad), bs, nbl_a_cap)
+            Bb = _stage_bsr(B, r0, r1, 0, n, 0, (kpad, npad), bs, nbl_b_cap)
+            meta = bsr_spgemm_symbolic(Ab, Bb, nc_pad=nc_cap, u_max=u_cap)
+            a_bl.append(bsr_blocks_with_sentinel(Ab))
+            b_bl.append(bsr_blocks_with_sentinel(Bb))
+            a_sl.append(meta.a_slots)
+            b_sl.append(meta.b_slots)
+            metas.append(meta)
+        a_blocks, a_slots = _fold_bsr(a_bl, a_sl, As[0].device)
+        b_blocks, b_slots = _fold_bsr(b_bl, b_sl, As[0].device)
+        yield ia, (a_blocks, b_blocks, a_slots, b_slots), metas
 
 
-def _bsr_execute(A: CSR, B: CSR, plan: ChunkPlan, envelope: GeometryEnvelope):
-    """Body of the BSR executor: launch the blocked kernel on every pair
-    :func:`stage_bsr_pairs` stages, sum the pairs' output blocks per strip
-    and keep the nonzero entries as C.
+def stage_bsr_pairs(A: CSR, B: CSR, plan: ChunkPlan, envelope: GeometryEnvelope):
+    """:func:`stage_bsr_pairs_batched` of one instance: yields ``(strip,
+    operands, meta)``."""
+    for ia, operands, metas in stage_bsr_pairs_batched([A], [B], plan, envelope):
+        yield ia, operands, metas[0]
 
-    The reference densified whole operands and the whole product to get
-    there; here the pieces come straight from the CSR and C from the output
-    blocks: the same blocks, the same block sums in the same pair order,
-    and the nonzero entries ``csr_from_dense`` would keep."""
-    bs, nbl_a_cap, nbl_b_cap, nc_cap, u_cap = envelope.bsr_caps
-    k, n = B.shape
-    kpad = -(-k // bs) * bs
-    npad = -(-n // bs) * bs
-    srpad = -(-envelope.strip_rows // bs) * bs
-    mbs, nbp = srpad // bs, npad // bs
-    dev = A.device
-    strips = list(zip(plan.p_ac[:-1], plan.p_ac[1:]))
-    parts = [[] for _ in strips]
-    for ia, operands, meta in stage_bsr_pairs(A, B, plan, envelope):
-        out = bsr_spgemm_blocks(*operands, nc_pad=nc_cap, u_max=u_cap, bs=bs)
-        n_c = meta.n_c_blocks
-        if not n_c:
-            continue
-        # crop to the real blocks: padded rows carry c_indices == 0 and would
-        # alias block column 0 if kept
-        brows = torch.repeat_interleave(
-            torch.arange(mbs, device=dev),
-            torch.from_numpy(meta.c_indptr[1:] - meta.c_indptr[:-1]).to(dev).long())
-        cols = torch.from_numpy(meta.c_indices[:n_c]).to(dev).long()
-        parts[ia].append((brows * nbp + cols, out[:n_c]))
+
+def _bsr_kernel(a_blocks, b_blocks, a_slots, b_slots, *, envelope: GeometryEnvelope):
+    """The launch body of the BSR cores; the whole envelope is the static
+    key, as in the reference (two envelopes whose block caps agree still
+    count apart)."""
+    bs, _, _, _, u_max = envelope.bsr_caps
+    return bsr_spgemm_blocks(a_blocks, b_blocks, a_slots, b_slots,
+                             nc_pad=a_slots.shape[0], u_max=u_max, bs=bs)
+
+
+_BSR_RUNS = dict.fromkeys(backend_registry.ALGORITHMS, _bsr_kernel)
+_BSR_CORES = _core_set("{alg}_bsr", _BSR_RUNS)
+_BSR_CORES_BATCHED = _core_set("{alg}_bsr_batched", _BSR_RUNS)
+
+
+def _bsr_strip_csr(parts: list, strips: list, n_rows: int, n: int, bs: int,
+                   nbp: int, dtype, dev) -> CSR:
+    """One instance's C from its pairs' output blocks: the blocks summed per
+    (block row, block column) of each strip, in pair order, and the nonzero
+    entries ``csr_from_dense`` would keep, inside the strip's real rows."""
     rows_all, cols_all, vals_all = [], [], []
     r = torch.arange(bs, device=dev)
     for (s, e), part in zip(strips, parts):
@@ -550,22 +764,60 @@ def _bsr_execute(A: CSR, B: CSR, plan: ChunkPlan, envelope: GeometryEnvelope):
         rows_all.append(row[keep] + s)
         cols_all.append(col[keep])
         vals_all.append(acc[keep])
-    block_bytes = bs * bs * 4
-    slab = (kpad // bs + 1) * 4 + nbl_b_cap * (4 + block_bytes) + block_bytes
-    a_stage = (mbs + 1) * 4 + nbl_a_cap * (4 + block_bytes) + block_bytes
-    c_stage = (mbs + 1) * 4 + nc_cap * (4 + block_bytes)
-    stats = planned_stats_pallas(plan, slab, a_stage, c_stage)
     if rows_all:
         rows, cols, vals = torch.cat(rows_all), torch.cat(cols_all), torch.cat(vals_all)
     else:
         rows = cols = torch.zeros(0, dtype=torch.int64, device=dev)
         vals = torch.zeros(0, dtype=torch.float32, device=dev)
     order = torch.argsort(rows * n + cols)
-    rows, cols, vals = rows[order], cols[order], vals[order].to(A.dtype)
-    indptr = torch.zeros(A.n_rows + 1, dtype=torch.int64, device=dev)
-    indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=A.n_rows), 0)
-    C = _csr_from_tensors(indptr, cols, vals, (A.n_rows, n), int(rows.numel()), None)
-    return C, stats
+    rows, cols, vals = rows[order], cols[order], vals[order].to(dtype)
+    indptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=n_rows), 0)
+    return _csr_from_tensors(indptr, cols, vals, (n_rows, n), int(rows.numel()), None)
+
+
+def _bsr_execute(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope, cores: dict):
+    """Body of the BSR executors over a list of instances: one launch of the
+    blocked kernel per (strip, chunk) pair for the whole list
+    (:func:`stage_bsr_pairs_batched`), each instance's output blocks summed
+    per strip into its C. Returns the list of C and the stats.
+
+    The reference densified whole operands and the whole product to get
+    there, and launched once per pair and instance; here the pieces come
+    straight from the CSR and C from the output blocks: the same blocks, the
+    same block sums in the same pair order, and the nonzero entries
+    ``csr_from_dense`` would keep."""
+    bs, nbl_a_cap, nbl_b_cap, nc_cap, _ = envelope.bsr_caps
+    k, n = Bs[0].shape
+    kpad = -(-k // bs) * bs
+    npad = -(-n // bs) * bs
+    srpad = -(-envelope.strip_rows // bs) * bs
+    mbs, nbp = srpad // bs, npad // bs
+    dev = As[0].device
+    strips = list(zip(plan.p_ac[:-1], plan.p_ac[1:]))
+    parts = [[[] for _ in strips] for _ in As]
+    core = cores[plan.algorithm]
+    for ia, operands, metas in stage_bsr_pairs_batched(As, Bs, plan, envelope):
+        out = core(*operands, envelope=envelope).view(len(As), nc_cap, bs, bs)
+        for w, meta in enumerate(metas):
+            n_c = meta.n_c_blocks
+            if not n_c:
+                continue
+            # crop to the real blocks: padded rows carry c_indices == 0 and
+            # would alias block column 0 if kept
+            brows = torch.repeat_interleave(
+                torch.arange(mbs, device=dev),
+                torch.from_numpy(meta.c_indptr[1:] - meta.c_indptr[:-1]).to(dev).long())
+            cols = torch.from_numpy(meta.c_indices[:n_c]).to(dev).long()
+            parts[w][ia].append((brows * nbp + cols, out[w, :n_c]))
+    block_bytes = bs * bs * 4
+    slab = (kpad // bs + 1) * 4 + nbl_b_cap * (4 + block_bytes) + block_bytes
+    a_stage = (mbs + 1) * 4 + nbl_a_cap * (4 + block_bytes) + block_bytes
+    c_stage = (mbs + 1) * 4 + nc_cap * (4 + block_bytes)
+    stats = planned_stats_pallas(plan, slab, a_stage, c_stage)
+    Cs = [_bsr_strip_csr(p, strips, A.n_rows, n, bs, nbp, A.dtype, dev)
+          for p, A in zip(parts, As)]
+    return Cs, stats
 
 
 def chunk_bsr(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps=None,
@@ -576,7 +828,238 @@ def chunk_bsr(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps=None,
     block edge."""
     env = instance_envelope(A, B, plan, c_pad=c_pad, caps=caps,
                             block_size=block_size or _BSR_DEFAULT_BLOCK)
-    return _bsr_execute(A, B, plan, env)
+    Cs, stats = _bsr_execute([A], [B], plan, env, _BSR_CORES)
+    return Cs[0], stats
+
+
+# ---------------------------------------------------------------------------
+# batched entry point: many problem instances, one plan, one kernel call
+# ---------------------------------------------------------------------------
+
+
+def _stage_chunks_batched(Bs, plan: ChunkPlan, envelope: GeometryEnvelope):
+    """Every instance's B chunks repadded to the envelope and doubly stacked
+    ([batch, n_b, ...]); returns the stack and one staged chunk's bytes."""
+    chunk_lists = [b_chunks(B, plan.p_b, envelope=envelope) for B in Bs]
+    return (csr_stack([csr_stack(cl) for cl in chunk_lists]),
+            chunk_lists[0][0].nbytes())
+
+
+def _stage_strips_batched(As, plan: ChunkPlan, envelope: GeometryEnvelope):
+    """Every instance's A strips repadded to the envelope and doubly stacked
+    ([batch, n_ac, ...]); returns the stack and one staged strip's bytes."""
+    strip_lists = [a_strips(A, plan.p_ac, envelope=envelope) for A in As]
+    return (csr_stack([csr_stack(sl) for sl in strip_lists]),
+            strip_lists[0][0].nbytes())
+
+
+def _stage_whole_a_batched(As, envelope: GeometryEnvelope) -> CSR:
+    """Every whole A (the knl operand) repadded to the envelope, stacked."""
+    return csr_stack([csr_pad_to(A, nnz_cap=envelope.a_nnz_cap,
+                                 max_row_nnz=envelope.a_max_row_nnz) for A in As])
+
+
+def _scan_run_batched(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope, *,
+                      caps_list=None, validate_caps: bool = True,
+                      cores: dict | None = None):
+    """Batched entry of the scan backend: equal bit for bit to the unbatched
+    executors on same-structure batches. ``cores`` substitutes a
+    caller-owned set from the spec's ``make_batched_cores``."""
+    del caps_list, validate_caps  # the ranged merge cannot overflow c_pad
+    if cores is None:
+        cores = _SCAN_CORES_BATCHED
+    c_pad = envelope.c_pad
+    r0s, r1s = plan.b_ranges()
+    n_cols = Bs[0].n_cols
+    dtype, dev = As[0].dtype, As[0].device
+    Bst, chunk_nbytes = _stage_chunks_batched(Bs, plan, envelope)
+    if plan.algorithm == "knl":
+        C0s = _empty_c_stack(len(As), envelope.a_shape[0], n_cols, c_pad, dtype, dev)
+        Cs = cores["knl"](_stage_whole_a_batched(As, envelope), Bst, r0s, r1s, C0s,
+                          c_pad=c_pad)
+        return Cs, planned_stats(plan, chunk_nbytes, 0, 0)
+    Ast, strip_nbytes = _stage_strips_batched(As, plan, envelope)
+    strip_rows = envelope.strip_rows
+    stats = planned_stats(plan, chunk_nbytes, strip_nbytes,
+                          _c_strip_nbytes(strip_rows, c_pad, dtype))
+    if plan.algorithm == "chunk1":
+        C0 = _empty_like_c(strip_rows, n_cols, c_pad, dtype, dev)
+    else:
+        C0 = _empty_c_stack(plan.n_ac, strip_rows, n_cols, c_pad, dtype, dev)
+    out = cores[plan.algorithm](Ast, Bst, r0s, r1s, C0, c_pad=c_pad)
+    return [_assemble(strips, plan.p_ac, n_cols) for strips in out], stats
+
+
+def _pallas_run_batched(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope, *,
+                        caps_list=None, validate_caps: bool = True,
+                        cores: dict | None = None):
+    """Batched entry of the dense-slab backend: the whole batch through one
+    ``ranged_spgemm_stream`` call whose leading axis is the batch (staging
+    and accumulation in f32: allclose, not bitwise, against the loop
+    oracle)."""
+    del caps_list, validate_caps  # dense accumulators cannot overflow
+    if cores is None:
+        cores = _PALLAS_CORES_BATCHED
+    r0s, _ = plan.b_ranges()
+    n_cols = Bs[0].n_cols
+    Bst, _ = _stage_chunks_batched(Bs, plan, envelope)
+    if plan.algorithm == "knl":
+        dense = cores["knl"](_stage_whole_a_batched(As, envelope), Bst, r0s)
+        stats = planned_stats_pallas(plan, *_pallas_stage_nbytes(
+            envelope.a_shape[0], envelope.a_shape[1], envelope.chunk_rows, n_cols))
+        return [csr_from_dense(d, device=d.device) for d in dense], stats
+    Ast, _ = _stage_strips_batched(As, plan, envelope)
+    dense = cores[plan.algorithm](Ast, Bst, r0s)
+    stats = planned_stats_pallas(plan, *_pallas_stage_nbytes(
+        envelope.strip_rows, envelope.a_shape[1], envelope.chunk_rows, n_cols))
+    return [_pallas_assemble(d, plan.p_ac) for d in dense], stats
+
+
+def _csr_accum_run_batched(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope,
+                           kind: str, *, caps_list=None, validate_caps: bool = True,
+                           cores: dict | None = None):
+    """Shared batched entry of the CSR-output accumulators (ESC and hash):
+    one kernel call, the batch on the stacks' leading axis, into CSR scratch
+    sized by the envelope.
+
+    ``validate_caps`` checks every instance's exact output structure against
+    the envelope's capacities and raises a ``ValueError`` naming the
+    instance on overflow. Callers whose envelopes dominate the instances by
+    construction (the serving layer) pass ``False`` to skip the host
+    symbolic expansion it costs; callers that already ran it pass
+    ``caps_list``."""
+    c_pad = envelope.c_pad
+    n_cols = Bs[0].n_cols
+    dtype, dev = As[0].dtype, As[0].device
+    # the row width is a static of the core, so it derives from the envelope
+    # alone: a zero c_max_row_nnz is exact when the symbolic phase ran (then
+    # c_nnz_cap is nonzero); only an envelope with neither falls back to the
+    # always-valid n_cols
+    row_cap = envelope.c_max_row_nnz if envelope.c_nnz_cap else n_cols
+    table = hash_table_slots(row_cap) if kind == "hash" else None
+    if validate_caps:
+        if caps_list is None:
+            caps_list = [strip_output_caps(A, B, plan.p_ac) for A, B in zip(As, Bs)]
+        for i, (A, B, caps) in enumerate(zip(As, Bs, caps_list)):
+            check_output_caps(caps.strip_nnz, caps.c_max_row_nnz, c_pad, table,
+                              backend=kind, a_shape=A.shape, b_shape=B.shape,
+                              instance=i)
+    r0s, r1s = plan.b_ranges()
+    Bst, chunk_nbytes = _stage_chunks_batched(Bs, plan, envelope)
+    # knl is the 1-strip special case (p_ac == (0, n_rows)): every
+    # algorithm stages strips
+    Ast, strip_nbytes = _stage_strips_batched(As, plan, envelope)
+    strip_rows = envelope.strip_rows
+    C0 = _sparse_c0_stack(len(As), plan.n_ac, strip_rows, n_cols, c_pad, dtype, dev)
+    if cores is None:
+        cores = _HASH_CORES_BATCHED if kind == "hash" else _SPARSE_CORES_BATCHED
+    if kind == "hash":
+        ip, ix, d = cores[plan.algorithm](Ast, Bst, C0, r0s, r1s, table_size=table)
+    else:
+        ip, ix, d = cores[plan.algorithm](Ast, Bst, C0, r0s, r1s, row_cap=row_cap)
+    stats = planned_stats_pallas(plan, chunk_nbytes, strip_nbytes,
+                                 _c_strip_nbytes(strip_rows, c_pad, dtype))
+    return [_assemble([CSR(ip[b, i], ix[b, i], d[b, i], (strip_rows, n_cols), c_pad)
+                       for i in range(plan.n_ac)], plan.p_ac, n_cols)
+            for b in range(len(As))], stats
+
+
+def _sparse_run_batched(As, Bs, plan, envelope, *, caps_list=None,
+                        validate_caps=True, cores=None):
+    return _csr_accum_run_batched(As, Bs, plan, envelope, "sparse",
+                                  caps_list=caps_list,
+                                  validate_caps=validate_caps, cores=cores)
+
+
+def _hash_run_batched(As, Bs, plan, envelope, *, caps_list=None,
+                      validate_caps=True, cores=None):
+    return _csr_accum_run_batched(As, Bs, plan, envelope, "hash",
+                                  caps_list=caps_list,
+                                  validate_caps=validate_caps, cores=cores)
+
+
+def _bsr_run_batched(As, Bs, plan, envelope, *, caps_list=None,
+                     validate_caps=True, cores=None):
+    """Batched entry of the BSR backend: one launch per (strip, chunk) pair
+    for the whole batch. Cap overflow is caught by the per-pair block
+    symbolic itself (``bsr_spgemm_symbolic`` raises when the envelope's
+    floors do not dominate an instance), so there is no validation to
+    skip."""
+    del caps_list, validate_caps
+    if not envelope.bsr_caps:
+        raise ValueError(
+            "backend 'bsr' needs a block-capped envelope; rebuild it with "
+            "batch_envelope(..., block_size=...)")
+    return _bsr_execute(As, Bs, plan, envelope,
+                        _BSR_CORES_BATCHED if cores is None else cores)
+
+
+def chunked_spgemm_batched(As, Bs, plan: ChunkPlan, c_pad: int | None = None,
+                           envelope: GeometryEnvelope | None = None,
+                           backend: str = "scan", validate_caps: bool = True,
+                           cores: dict | None = None):
+    """Run a backend's batched entry over problem instances sharing one plan.
+
+    Instances must share shapes, dtype and device but may differ in sparsity
+    *structure*: every instance's chunks and strips are repadded to a shared
+    :class:`GeometryEnvelope` (by default the batch's union envelope, or a
+    caller-provided one, e.g. a serving bucket's) before stacking, so one
+    core geometry serves the whole batch. Same-structure batches repad to
+    their own geometry, which keeps the scan backend's results equal bit for
+    bit to the unbatched executors'.
+
+    ``backend`` names any registered spec with a batched entry
+    (``backend_registry.batched_backends()``) or ``"auto"``, which resolves
+    to the accumulator whose planner byte model is smallest under the batch
+    envelope (``select_accumulator_backend``). Backends with
+    ``needs_block_caps`` (``"bsr"``) get a block-capped default envelope at
+    the spec's ``block_size``; a caller-provided envelope must carry block
+    caps for them. ``validate_caps`` is forwarded to the spec (see
+    ``_csr_accum_run_batched``). ``cores`` substitutes a caller-owned core
+    set (from the spec's ``make_batched_cores``) for the module-level one.
+
+    Returns ``(list_of_C, stats)``; ``stats`` is one instance's modeled copy
+    accounting at the envelope-padded staged sizes (the same for every
+    instance by construction). The results stay on the instances' device.
+    """
+    As, Bs = list(As), list(Bs)
+    if len(As) != len(Bs) or not As:
+        raise ValueError("need equal, nonzero numbers of A and B instances")
+    if plan.algorithm not in backend_registry.ALGORITHMS:
+        raise ValueError(f"unsupported algorithm {plan.algorithm!r}")
+    spec = None if backend == "auto" else backend_registry.get(backend)
+    if spec is not None and not spec.supports_batched:
+        raise ValueError(f"backend {backend!r} does not support batched execution")
+    for A, B in zip(As, Bs):
+        if A.shape != As[0].shape or B.shape != Bs[0].shape:
+            raise ValueError(
+                "batched instances must share shapes: "
+                f"{A.shape}x{B.shape} vs {As[0].shape}x{Bs[0].shape}")
+    devices = sorted({str(m.device) for m in As + Bs})
+    if len(devices) > 1:
+        raise ValueError(f"batched instances must share a device, got {devices}")
+    caps_list = None
+    if envelope is None:
+        # the per-instance symbolic expansions feeding the union envelope are
+        # exactly what cap validation needs: run them once
+        caps_list = [strip_output_caps(A, B, plan.p_ac) for A, B in zip(As, Bs)]
+        block = spec.block_size if spec is not None and spec.needs_block_caps else None
+        envelope = batch_envelope(As, Bs, plan, c_pad=c_pad, caps_list=caps_list,
+                                  block_size=block)
+    elif c_pad is not None and c_pad != envelope.c_pad:
+        raise ValueError(f"conflicting c_pad={c_pad} vs envelope.c_pad={envelope.c_pad}")
+    if envelope.a_shape != As[0].shape or envelope.b_shape != Bs[0].shape:
+        raise ValueError(
+            f"envelope shapes {envelope.a_shape}x{envelope.b_shape} do not "
+            f"match instances {As[0].shape}x{Bs[0].shape}")
+    if spec is None:
+        spec = backend_registry.get(select_accumulator_backend(plan, envelope))
+    if spec.needs_block_caps and not envelope.bsr_caps:
+        raise ValueError(
+            f"backend {spec.name!r} needs a block-capped envelope; rebuild it "
+            "with batch_envelope(..., block_size=...)")
+    return spec.run_batched(As, Bs, plan, envelope, caps_list=caps_list,
+                            validate_caps=validate_caps, cores=cores)
 
 
 # ---------------------------------------------------------------------------
@@ -597,37 +1080,58 @@ def _register_all() -> None:
         name="scan",
         executors={"knl": chunk_knl_scan, "chunk1": chunk_gpu1_scan,
                    "chunk2": chunk_gpu2_scan},
+        run_batched=_scan_run_batched,
+        trace_key="{alg}",
+        trace_key_batched="{alg}_batched",
+        make_batched_cores=_batched_core_factory("{alg}_batched", _SCAN_RUNS_BATCHED),
     ))
     register(Spec(
         name="pallas",
         executors={"knl": chunk_knl_pallas, "chunk1": chunk_gpu1_pallas,
                    "chunk2": chunk_gpu2_pallas},
+        run_batched=_pallas_run_batched,
         byte_model=planned_stats_dense_slab,
+        trace_key="{alg}_pallas",
+        trace_key_batched="{alg}_pallas_batched",
         is_accumulator=True,
+        make_batched_cores=_batched_core_factory("{alg}_pallas_batched",
+                                                 _PALLAS_RUNS_BATCHED),
     ))
     register(Spec(
         name="sparse",
         executors=dict.fromkeys(algs, chunk_sparse),
+        run_batched=_sparse_run_batched,
         byte_model=planned_stats_sparse,
+        trace_key="{alg}_sparse",
+        trace_key_batched="{alg}_sparse_batched",
         needs_output_caps=True,
         is_accumulator=True,
+        make_batched_cores=_batched_core_factory("{alg}_sparse_batched", _SPARSE_RUNS),
     ))
     register(Spec(
         name="hash",
         executors=dict.fromkeys(algs, chunk_hash),
+        run_batched=_hash_run_batched,
         byte_model=planned_stats_hash,
+        trace_key="{alg}_hash",
+        trace_key_batched="{alg}_hash_batched",
         needs_output_caps=True,
         is_accumulator=True,
         run_masked=chunk_hash_masked,
+        make_batched_cores=_batched_core_factory("{alg}_hash_batched", _HASH_RUNS),
     ))
     register(Spec(
         name="bsr",
         executors=dict.fromkeys(algs, chunk_bsr),
+        run_batched=_bsr_run_batched,
         byte_model=planned_stats_bsr,
+        trace_key="{alg}_bsr",
+        trace_key_batched="{alg}_bsr_batched",
         needs_output_caps=True,
         needs_block_caps=True,
         is_accumulator=True,
         block_size=_BSR_DEFAULT_BLOCK,
+        make_batched_cores=_batched_core_factory("{alg}_bsr_batched", _BSR_RUNS),
     ))
 
 

@@ -97,25 +97,36 @@ def _partition_caps(m: CSR, bounds: tuple) -> tuple:
     return max(cap, 1), rows
 
 
-def _row_pieces(m: CSR, bounds: tuple) -> list:
-    cap, rows = _partition_caps(m, bounds)
+def _row_pieces(m: CSR, bounds: tuple, caps: tuple | None = None) -> list:
+    """Row pieces of ``m`` padded to ``caps = (nnz cap, rows, max_row_nnz)``,
+    or to the largest piece's nnz and rows and ``m``'s own row bound."""
+    if caps is None:
+        cap, rows = _partition_caps(m, bounds)
+        caps = (cap, rows, m.max_row_nnz)
+    cap, rows, mrn = caps
     return [
         csr_pad_to(csr_select_rows_host(m, s, e, pad_to=cap),
-                   rows=rows, max_row_nnz=m.max_row_nnz)
+                   rows=rows, max_row_nnz=mrn)
         for s, e in zip(bounds[:-1], bounds[1:])
     ]
 
 
-def b_chunks(B: CSR, p_b: tuple) -> list:
-    """Row chunks of B, uniformly padded to the largest chunk's rows and nnz.
-    (The reference's batched path also pads to a shared envelope; that path
-    is not ported yet.)"""
-    return _row_pieces(B, p_b)
+def b_chunks(B: CSR, p_b: tuple, envelope: GeometryEnvelope | None = None) -> list:
+    """Row chunks of B, uniformly padded (rows and nnz).
+
+    Without an envelope the caps come from this instance's largest chunk (the
+    single-problem case); with one, every chunk is padded to the envelope's
+    ``chunk_nnz_cap``/``chunk_rows``/``b_max_row_nnz``, so chunks from
+    *different* instances stack into one batch."""
+    return _row_pieces(B, p_b, None if envelope is None else (
+        envelope.chunk_nnz_cap, envelope.chunk_rows, envelope.b_max_row_nnz))
 
 
-def a_strips(A: CSR, p_ac: tuple) -> list:
-    """Row strips of A, uniformly padded to the largest strip's rows and nnz."""
-    return _row_pieces(A, p_ac)
+def a_strips(A: CSR, p_ac: tuple, envelope: GeometryEnvelope | None = None) -> list:
+    """Row strips of A, uniformly padded (rows and nnz); with an envelope the
+    caps are the batch-wide ``strip_nnz_cap``/``strip_rows``/``a_max_row_nnz``."""
+    return _row_pieces(A, p_ac, None if envelope is None else (
+        envelope.strip_nnz_cap, envelope.strip_rows, envelope.a_max_row_nnz))
 
 
 def instance_envelope(A: CSR, B: CSR, plan: ChunkPlan,
@@ -150,6 +161,24 @@ def instance_envelope(A: CSR, B: CSR, plan: ChunkPlan,
         c_pad=int(c_pad), dtype=dtype_name(A.dtype),
         c_nnz_cap=caps.c_nnz_cap, c_max_row_nnz=caps.c_max_row_nnz,
         bsr_caps=bsr_caps,
+    )
+
+
+def batch_envelope(As, Bs, plan: ChunkPlan, c_pad: int | None = None,
+                   caps_list=None, block_size: int | None = None) -> GeometryEnvelope:
+    """Union of per-instance envelopes: the smallest shared padded geometry a
+    heterogeneous batch can be repadded to (``c_pad`` overrides the symbolic
+    default for every instance when given). Callers that already ran the
+    symbolic phase per instance pass its ``StripOutputCaps`` as ``caps_list``;
+    ``block_size`` folds block caps into every instance envelope (see
+    :func:`instance_envelope`) so the union is block-capped too."""
+    As, Bs = list(As), list(Bs)
+    if caps_list is None:
+        caps_list = [None] * len(As)
+    return GeometryEnvelope.batch(
+        instance_envelope(A, B, plan, c_pad=c_pad, caps=caps,
+                          block_size=block_size)
+        for A, B, caps in zip(As, Bs, caps_list)
     )
 
 

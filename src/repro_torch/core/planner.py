@@ -438,6 +438,27 @@ def check_output_caps(strip_nnz, c_max_row_nnz: int, c_pad: int,
         )
 
 
+def replan_for_latency(plan: ChunkPlan) -> ChunkPlan:
+    """Coarsen a plan's streamed-B partition one step: drop every other
+    interior boundary of ``p_b``, halving the chunk count (rounding up) and
+    with it the per-request kernel-launch count.
+
+    The serving layer's latency lever: when a bucket's observed per-request
+    execution time exceeds its SLO, small instances are bound by per-chunk
+    launch and staging overhead, not by the fast-memory limit the partition
+    was searched against. The coarser chunks need roughly twice the staged
+    fast bytes, and the cost fields are scaled to say so (the streamed copy
+    volume is unchanged). A single-chunk plan is returned unchanged."""
+    if plan.n_b <= 1:
+        return plan
+    interior = plan.p_b[1:-1]
+    p_b = (plan.p_b[0], *interior[1::2], plan.p_b[-1])
+    scale = (len(p_b) - 1) / plan.n_b
+    return dataclasses.replace(
+        plan, p_b=p_b,
+        fast_bytes_needed=plan.fast_bytes_needed / max(scale, 1e-9))
+
+
 def plan_knl(A: CSR, B: CSR, fast_limit_bytes: float,
              system: MemorySystem | None = None) -> ChunkPlan:
     """Algorithm 1 planning: np = ceil(size(B)/FastSize), equal-byte row partition of

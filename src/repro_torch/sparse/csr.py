@@ -94,6 +94,13 @@ class CSR:
         return sum(t.numel() * t.element_size()
                    for t in (self.indptr, self.indices, self.data))
 
+    def row_lengths(self) -> torch.Tensor:
+        return self.indptr[1:] - self.indptr[:-1]
+
+    def astype(self, dtype) -> "CSR":
+        return CSR(self.indptr, self.indices, self.data.to(dtype), self.shape,
+                   self.max_row_nnz)
+
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (
             f"CSR(shape={self.shape}, nnz_pad={self.nnz_pad}, "
@@ -370,6 +377,17 @@ class GeometryEnvelope:
             + self.chunk_nnz_cap * entry + (self.chunk_rows + 1) * 4
             + self.c_pad * entry
         )
+
+    @classmethod
+    def batch(cls, envelopes) -> "GeometryEnvelope":
+        """Union over per-instance envelopes (the batch's shared geometry)."""
+        envelopes = list(envelopes)
+        if not envelopes:
+            raise ValueError("GeometryEnvelope.batch needs at least one envelope")
+        out = envelopes[0]
+        for env in envelopes[1:]:
+            out = out.union(env)
+        return out
 
 
 def csr_pad_to(m: CSR, nnz_cap: int | None = None, rows: int | None = None,
