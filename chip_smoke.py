@@ -15,11 +15,14 @@ on a small geometry whose dense output row fills its hash table (the dense
 slab on its aligned float4 path at the main-path shapes and on its masked
 scalar path at the four-chunk plan, its two orders equal bit for bit; the
 ESC kernel also where its sort leaves the register classes: shared memory
-and 64-bit keys; the hash kernel also where its extraction compacts a wide
+and 64-bit keys, and on L x L of an RMAT scale-12 graph, whose largest merge
+steps pass a block's shared memory and take the kernel's global route; the
+hash kernel also where its extraction compacts a wide
 table before the register sort and where it sorts in shared memory; the CSR
 kernels also timed by the profiler, split by kernel), then runs
 the main path — ``multigrid.problem`` on the card, the host
-symbolic phase and planner, ``chunked_spgemm`` — on the paper's problems, and
+symbolic phase and planner, ``chunked_spgemm`` — on the paper's problems and
+on that RMAT product through ``backend="sparse"``, and
 checks every result against the port's plain ``spgemm`` on the card and
 against ``scipy.sparse`` in float64. Then the second path: fused-mask
 triangle counting on a graph500 scale-18 RMAT graph (``count_triangles``,
@@ -49,6 +52,10 @@ and ``auto`` on both batches, each C held to scipy and to the unbatched
 families in a cold and a warm wave (every response held to scipy, the warm
 wave compiling nothing, the buckets within the retrace budget), beside a
 naive ``chunked_spgemm`` loop, then the same on 32 distinct RMAT graphs.
+Then the port's examples (``examples/torch_*.py``) at their default sizes,
+their correctness lines checked, and the static auditor
+(``repro_torch.analysis.audit_all`` on the fast corpus, on the card, with
+the static shared memory of the build log), which must be clean.
 Then
 the third path, serving: the flash-prefill and decode-attention kernels
 held to their plain versions in f32 and bf16 (the prefill kernel's FMA and
@@ -130,7 +137,7 @@ SOURCE_FILE = {"decode_attention": "chunked_attention"}   # kernel -> csrc/<file
 # kernels with several routes (their wrappers count each route's launches),
 # the tensor-core instructions their built libraries must hold, and the
 # names their CUDA kernels have in a profiler trace
-ROUTED = ("flash_prefill", "grouped_matmul")
+ROUTED = ("flash_prefill", "grouped_matmul", "sparse_accum_spgemm")
 SASS_OPS = {"flash_prefill": ("HMMA",), "grouped_matmul": ("HGMMA", "HMMA")}
 TRACE_NAMES = {"flash_prefill": ("flash_prefill_kernel", "flash_prefill_tc_kernel"),
                "decode_attention": ("decode_split_kernel", "decode_combine_kernel"),
@@ -143,7 +150,9 @@ TRACE_NAMES = {"flash_prefill": ("flash_prefill_kernel", "flash_prefill_tc_kerne
                "hash_masked_accum_spgemm": ("masked_part_kernel", "masked_seed_kernel",
                                             "masked_gather_kernel"),
                # the CSR-output skeleton's three kernels (ESC and hash merges)
-               "csr_accum": ("accum_rows_kernel", "scan_rows_kernel", "copy_rows_kernel")}
+               # and the ESC merge's global route
+               "csr_accum": ("accum_rows_kernel", "scan_rows_kernel", "copy_rows_kernel",
+                             "esc_global_kernel")}
 TRACE_TRIES = 3   # traces of one call taken until one holds every expected launch
 # sources whose kernels must build without register spills: those whose
 # register tiles or sorts were sized to fit (the dense slab's 8 x 8 FMA tile,
@@ -526,12 +535,12 @@ class Smoke:
         self.route_rows = {}
         # the batched phases: kernel -> its width-8 numbers (the kernels
         # line's "batched" field) and its launches in the batched run of
-        # batch (a); each batch's union envelope; (kernel, batch) pairs the
-        # kernel refuses
+        # batch (a); each batch's union envelope
         self.batched = {}
         self.batched_launches = {}
         self.batch_envs = {}
-        self.refused = {}
+        # the ESC kernel's route launches at the last note_err of its errors
+        self.esc_routes_noted = {r: 0 for r in sparse_accum_spgemm.ROUTES}
 
     # -- setup -------------------------------------------------------------
 
@@ -557,6 +566,7 @@ class Smoke:
     def reset_counters(self) -> None:
         for counter in self.counters.values():
             counter.reset()
+        self.esc_routes_noted = dict.fromkeys(self.esc_routes_noted, 0)
 
     def read_counters(self) -> dict:
         return {k: c.count for k, c in self.counters.items()}
@@ -804,6 +814,9 @@ class Smoke:
         lib = library_fields(library, bound["bound_ms"])
         err = max(o["max_abs_err"] for o in orders.values())
         self.note_err(kernel, err)
+        if record and kernel == "sparse_accum_spgemm":   # the shared route's row
+            self.route_row(kernel, "shared", label, orders[main_order], moved, flops,
+                           flop_rate, library, dtype="float32")
         if record:
             main = orders[main_order]
             self.phase[kernel] = {"ms": main["ms"], "wrapper_ms": main["wrapper_ms"],
@@ -821,8 +834,15 @@ class Smoke:
 
     def note_err(self, key: str, err: float) -> None:
         """The largest error of a kernel (or of one route, dtype and tiling
-        of it, ``err_key``) against its plain version so far."""
+        of it, ``err_key``) against its plain version so far. An ESC error
+        also counts for each route the ESC kernel launched since its last
+        note (a call whose steps take both routes counts for both)."""
         self.max_err[key] = max(self.max_err.get(key, 0.0), err)
+        if key == "sparse_accum_spgemm":
+            for route, counter in self.kernels[key].ROUTE_LAUNCHES.items():
+                if counter.count > self.esc_routes_noted[route]:
+                    self.note_err(err_key(key, route, "float32"), err)
+                self.esc_routes_noted[route] = counter.count
 
     def route_row(self, kernel: str, route: str, shape: str, numbers: dict, moved: int,
                   flops: int, flop_rate: str, library, **extra) -> None:
@@ -902,8 +922,7 @@ class Smoke:
               "ranged_spgemm/edge: chunk1 and chunk2 differ bit for bit")
         dense_path = mod.choose_path(ad, slabs, cd, r0s)
         for kernel, orders in result.items():
-            self.max_err[kernel] = max(self.max_err.get(kernel, 0.0),
-                                       *(o["max_abs_err"] for o in orders.values()))
+            self.note_err(kernel, max(o["max_abs_err"] for o in orders.values()))
         emit({"edge_phase": "dense_row_thirds", "shape": [rows, k, n],
               "ranged_spgemm_path": dense_path,
               "c_max_row_nnz": row_cap, "table_size": table,
@@ -1044,6 +1063,7 @@ class Smoke:
         if kernel is not None:
             check(launches[kernel] > 0, f"{label}: {kernel} was not launched")
             self.launches.setdefault(kernel, launches[kernel])
+        self.note_esc_routes(label, launches)
 
         ws = kkmem.spgemm_symbolic_host(A, P)
         plain = kkmem.spgemm(A, P, ws.c_pad)
@@ -1080,6 +1100,179 @@ class Smoke:
                         "scipy_rel_err": scipy_err}})
         del C, plain
         torch.cuda.empty_cache()
+
+    def note_esc_routes(self, label: str, launches: dict) -> None:
+        """The first main-path run that launches each ESC route is the one
+        its kernels-line row reports."""
+        for route in self.kernels["sparse_accum_spgemm"].ROUTES:
+            key = f"sparse_accum_spgemm/{route}"
+            if launches[key]:
+                self.route_runs.setdefault(key, (label, launches[key]))
+
+    def rmat_plan(self, L):
+        """``plan_knl`` of L x L at a third of L's row bytes: the chunks the
+        batched RMAT phases use, a one-strip plan."""
+        planner = self.m["planner"]
+        return planner.plan_knl(L, L, float(planner.row_bytes_csr(L).sum()) / 3)
+
+    def esc_global_phase(self, label: str, L, plan) -> None:
+        """The ESC kernel where its steps pass a block's shared memory: L x L
+        of an RMAT scale-12 graph (densest row 1,311 entries; the launch-wide
+        bound asks for 25 MB of shared memory a row). ``esc_launch_plan``
+        routes each step by its own keys: most stay on the shared route,
+        the largest take the global route. Both orders against the plain
+        version; the global route's kernels-line row (``ms``, ``device_ms``
+        by kernel, ``plain_ms``, the bound of the whole product, and
+        ``torch.sparse.mm`` of L x L)."""
+        torch, esc = self.torch, self.kernels["sparse_accum_spgemm"]
+        Ast, Bst, C0, r0s, r1s, caps = self.stage_csr(L, L, plan)
+        row_cap = caps.c_max_row_nnz
+        launch = esc.esc_launch_plan(Ast, Bst, C0, r0s, r1s, row_cap=row_cap)
+        check(launch.split and launch.routes["global"] > 0,
+              f"sparse_accum_spgemm/{label}: no step takes the global route ({launch.routes})")
+        run, plain = self.csr_runners("sparse_accum_spgemm", Ast, Bst, C0, r0s, r1s, row_cap)
+        orders = {}
+        for order in ORDERS:
+            before = {r: c.count for r, c in esc.ROUTE_LAUNCHES.items()}
+            got = run(order)
+            routes = {r: c.count - before[r] for r, c in esc.ROUTE_LAUNCHES.items()}
+            check(routes == {"shared": 1, "global": 1},
+                  f"sparse_accum_spgemm/{label}/{order}: routes launched {routes}")
+            orders[order] = self.hold_csr(f"sparse_accum_spgemm/{label}/{order}", got,
+                                          plain(order))
+            del got
+            orders[order]["ms"] = self.launch_ms(lambda: run(order))
+            orders[order]["wrapper_ms"] = cuda_ms(torch, lambda: run(order))
+            (orders[order]["device_ms"], orders[order]["device_incomplete_traces"],
+             orders[order]["device_split_ms"], _) = kernel_device_split(
+                torch, lambda: run(order), TRACE_NAMES["csr_accum"],
+                esc.kernels_per_call(order, plan.n_b, launch))
+            orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order), reps=3)
+        self.note_err("sparse_accum_spgemm", max(o["max_abs_err"] for o in orders.values()))
+        out = run("chunk1")
+        moved = (live_bytes(Ast) + live_bytes(Bst) + live_bytes(C0) + nbytes(*out)
+                 + 8 * len(r0s))
+        flops = self.m["symbolic"].spgemm_structure_host(L, L).flops
+        library = self.library_spgemm(L, L)
+        main = orders["chunk1"]
+        self.route_row("sparse_accum_spgemm", "global", label, main, moved, flops,
+                       "f32_flops", library, dtype="float32")
+        emit({"esc_global_phase": label, "shape": list(L.shape), "nnz_L": L.nnz(),
+              "plan": {"algorithm": plan.algorithm, "n_b": plan.n_b},
+              "c_max_row_nnz": row_cap, "routes": launch.routes,
+              "work_cap": launch.work_cap, "shared_max_keys": launch.shared_max_keys,
+              "global_workspace_bytes": launch.workspace_bytes,
+              "bound_row_smem_bytes": esc.esc_workspace(Ast.max_row_nnz, Bst.max_row_nnz,
+                                                        row_cap)[1],
+              "kernels_per_call": esc.kernels_per_call("chunk1", plan.n_b, launch),
+              "orders": orders, "bytes": moved, "flops": flops,
+              **bound_of(moved, flops, "f32_flops"),
+              **library_fields(library, bound_of(moved, flops, "f32_flops")["bound_ms"])})
+        del out, Ast, Bst, C0
+        torch.cuda.empty_cache()
+
+    def rmat_run(self, label: str, L, plan) -> None:
+        """The main path on L x L of an RMAT scale-12 graph through
+        ``backend="sparse"`` (counters reset before, read after): the ESC
+        kernel computes it, its largest steps on the global route; C against
+        the port's plain ``spgemm`` on the card (structure exact) and scipy."""
+        torch, chunking, kkmem = self.torch, self.m["chunking"], self.m["kkmem"]
+        self.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C, stats = chunking.chunked_spgemm(L, L, plan, backend="sparse")
+        torch.cuda.synchronize()
+        exec_s = time.perf_counter() - t0
+        launches = self.read_counters()
+        check(launches["sparse_accum_spgemm/global"] > 0,
+              f"{label}: the ESC kernel's global route was not launched")
+        self.note_esc_routes(label, launches)
+        plain = kkmem.spgemm(L, L, kkmem.spgemm_symbolic_host(L, L).c_pad)
+        nnz = C.nnz()
+        structure = (nnz == plain.nnz() and torch.equal(C.indptr, plain.indptr)
+                     and torch.equal(C.indices[:nnz], plain.indices[:nnz]))
+        err = float((C.data[:nnz] - plain.data[:nnz]).abs().max()) if nnz else 0.0
+        check(structure, f"{label}: structure differs from the plain spgemm")
+        scale = float(plain.data[:nnz].abs().max()) if nnz else 0.0
+        check(err <= KERNEL_ATOL + KERNEL_RTOL * scale,
+              f"{label}: values differ from the plain spgemm by {err}")
+        scipy_err = self.scipy_check(L, L, C)
+        check(scipy_err <= SCIPY_RTOL, f"{label}: relative error {scipy_err} vs scipy")
+        emit({"run": label, "A": list(L.shape), "nnz_A": L.nnz(), "backend": "sparse",
+              "plan": {"algorithm": plan.algorithm, "n_ac": plan.n_ac, "n_b": plan.n_b},
+              "launches": launches, "nnz_C": nnz,
+              "stats": {"kernel_calls": stats.kernel_calls,
+                        "copy_in_bytes": stats.copy_in_bytes},
+              "wall_s": {"chunked_spgemm": exec_s},
+              "check": {"plain_structure_equal": structure, "plain_max_abs_err": err,
+                        "scipy_rel_err": scipy_err}})
+        del C, plain
+        torch.cuda.empty_cache()
+
+    def examples_phase(self) -> None:
+        """The port's three examples (``examples/torch_*.py``) on the card at
+        their default sizes (the multigrid driver through every backend and
+        ``auto``), their output captured: quickstart's ``chunked ==
+        unchunked == oracle`` line, every ``correct=`` of the multigrid
+        driver True, the triangle driver's ``agrees: True`` and dense-oracle
+        line. Counters reset before each, read after."""
+        import contextlib
+        import importlib
+        import io
+
+        sys.path.insert(0, str(ROOT))
+        runs = (("torch_quickstart", lambda mod: mod.main()),
+                ("torch_multigrid_spgemm", lambda mod: mod.main(["--backends", "all"])),
+                ("torch_triangle_count", lambda mod: mod.main([])))
+        for name, call in runs:
+            mod = importlib.import_module(f"examples.{name}")
+            buf = io.StringIO()
+            self.reset_counters()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                call(mod)
+            self.torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            lines = buf.getvalue().splitlines()
+            launches = {k: v for k, v in self.read_counters().items() if v}
+            if name == "torch_quickstart":
+                check(any(ln.startswith("chunked == unchunked == oracle") for ln in lines),
+                      f"examples/{name}: no 'chunked == unchunked == oracle' line")
+            elif name == "torch_multigrid_spgemm":
+                correct = [ln for ln in lines if "correct=" in ln]
+                check(len(correct) >= 8 and all("correct=True" in ln for ln in correct),
+                      f"examples/{name}: {[ln for ln in correct if 'correct=True' not in ln]}")
+                for kernel in ("ranged_spgemm", "sparse_accum_spgemm", "hash_accum_spgemm",
+                               "bsr_spgemm"):
+                    check(launches.get(kernel, 0) > 0, f"examples/{name}: {kernel} not launched")
+            else:
+                check(any("agrees: True" in ln and "kkmem baseline" in ln for ln in lines)
+                      and "[tc] dense oracle agrees: True" in lines,
+                      f"examples/{name}: the counts disagree")
+                check(launches.get("hash_masked_accum_spgemm", 0) > 0,
+                      f"examples/{name}: the masked kernel was not launched")
+            emit({"examples_phase": name, "seconds": seconds, "launches": launches,
+                  "lines": lines})
+
+    def audit_phase(self) -> None:
+        """The static auditor on the card: ``audit_all(cases="fast",
+        device="cuda")``, the corpus on the card, the shared-memory requests
+        with the static bytes of the build log. Must be clean."""
+        from repro_torch.analysis import audit_all
+
+        t0 = time.perf_counter()
+        rep = audit_all(cases="fast", device="cuda")
+        seconds = time.perf_counter() - t0
+        requests = {}
+        for r in rep["records"]:
+            for q in r.get("smem", {}).get("requests", ()):
+                key = f"{q['source']}/{q['kernel']}"
+                requests[key] = max(requests.get(key, 0), q["total"])
+                check(q["static"] is not None, f"audit: {key} has no build-log entry")
+        emit({"audit_phase": "fast", "seconds": seconds, "ok": rep["ok"],
+              "records": len(rep["records"]), "skipped": rep["skipped"],
+              "violations": rep["violations"], "largest_smem_requests": requests})
+        check(rep["ok"], f"audit: {len(rep['violations'])} violations: {rep['violations'][:3]}")
 
     def breakdown(self, label: str, name: str, n: int, backend: str) -> None:
         """Where one main-path call's time goes, on a repeat of that run:
@@ -1725,9 +1918,7 @@ class Smoke:
         plan_a = planner.ChunkPlan("chunk1", (0, n // 4, n // 2, 3 * n // 4, n), p_b, 0.0, 0.0)
         Ls = [self.rmat_l(s) for s in BATCH_RMAT_SEEDS]
         n = Ls[0].n_rows
-        p_b = planner.plan_knl(Ls[0], Ls[0],
-                               float(planner.row_bytes_csr(Ls[0]).sum()) / 3).p_b
-        plan_b = planner.ChunkPlan("chunk2", (0, n), p_b, 0.0, 0.0)
+        plan_b = planner.ChunkPlan("chunk2", (0, n), self.rmat_plan(Ls[0]).p_b, 0.0, 0.0)
         return {"brick3d16": ([a for a, _ in pairs_a], [p for _, p in pairs_a], plan_a),
                 "rmat12": (Ls, Ls, plan_b)}
 
@@ -1749,13 +1940,16 @@ class Smoke:
         return counts
 
     def width_pair(self, kernel: str, label: str, order: str, run8, run1, names,
-                   expected: int) -> dict:
+                   expected) -> dict:
         """One kernel call at width 8 and the same call at width 1: launches
         by the wrapper's count, which must be equal, and by the profiler's
         device activities, which must pass ``expected`` kernels (the
-        width-1 call's by construction) in no trace of either width, and ms
-        by launch events. The profiler loses activities of some calls, so a
-        count under ``expected`` is recorded, not refused."""
+        width-1 call's by construction; or a pair, width 8's and width 1's,
+        where the ESC merge routes steps by their keys) in no trace of
+        either width, and ms by launch events. The profiler loses
+        activities of some calls, so a count under ``expected`` is
+        recorded, not refused."""
+        expect8, expect1 = expected if isinstance(expected, tuple) else (expected, expected)
         counter = self.counters[kernel]
         calls = []
         for fn in (run8, run1):
@@ -1764,15 +1958,16 @@ class Smoke:
             calls.append(counter.count - before)
         check(calls[0] == calls[1] > 0, f"{kernel}/batched/{label}/{order}: {calls[0]} "
               f"wrapper launches at width {BATCH_WIDTH}, {calls[1]} at width 1")
-        device = [self.device_kernel_counts(fn, names, expected) for fn in (run8, run1)]
-        for width, counts in zip((BATCH_WIDTH, 1), device):
-            check(max(counts, default=0) <= expected,
+        device = [self.device_kernel_counts(fn, names, want)
+                  for fn, want in ((run8, expect8), (run1, expect1))]
+        for width, counts, want in zip((BATCH_WIDTH, 1), device, (expect8, expect1)):
+            check(max(counts, default=0) <= want,
                   f"{kernel}/batched/{label}/{order}: device kernels per call at width "
-                  f"{width} {counts}, more than {expected}")
+                  f"{width} {counts}, more than {want}")
         ms8, ms1 = self.launch_ms(run8), self.launch_ms(run1)
-        return {"wrapper_launches": calls[0], "device_kernels": expected,
+        return {"wrapper_launches": calls[0], "device_kernels": [expect8, expect1],
                 "device_counts": {"width8": device[0], "width1": device[1]},
-                "device_complete": [expected in c for c in device],
+                "device_complete": [want in c for c, want in zip(device, (expect8, expect1))],
                 "ms": ms8, "ms_per_instance": ms8 / BATCH_WIDTH, "ms_width1": ms1}
 
     def note_batched(self, kernel: str, label: str, err: float, numbers: dict) -> None:
@@ -1820,32 +2015,44 @@ class Smoke:
                 _, plain = self.csr_runners("sparse_accum_spgemm", Ast, Bst, C0, r0s, r1s,
                                             row_cap)
                 plain_of = "sparse_accum_spgemm"
+            routes = None
             if kernel == "sparse_accum_spgemm":
-                _, smem = esc.esc_workspace(Ast.max_row_nnz, Bst.max_row_nnz, max(row_cap, 1))
-                if smem > esc.SMEM_PER_BLOCK:
-                    # one row's expansion does not fit a block's shared memory:
-                    # the wrapper must refuse, loudly
-                    try:
-                        run("chunk1")
-                    except ValueError as err:
-                        result[kernel] = {"refused": str(err), "row_smem_bytes": smem}
-                        self.refused[kernel, label] = smem
-                        continue
-                    check(False, f"{kernel}/batched/{label}: a {smem}-byte row was not refused")
+                # each step routed by its own keys: rows past a block's shared
+                # memory take the global route (the RMAT batch's)
+                launch8 = esc.esc_launch_plan(Ast, Bst, C0, r0s, r1s, row_cap=row_cap)
+                launch1 = esc.esc_launch_plan(first(Ast), first(Bst), first(C0), r0s, r1s,
+                                              row_cap=row_cap)
+                routes = {"width8": launch8.routes, "width1": launch1.routes,
+                          "work_cap": launch8.work_cap,
+                          "global_workspace_bytes": launch8.workspace_bytes,
+                          "bound_row_smem_bytes": esc.esc_workspace(
+                              Ast.max_row_nnz, Bst.max_row_nnz, max(row_cap, 1))[1]}
+                global_before = esc.ROUTE_LAUNCHES["global"].count
             # the plain versions add every strip's chunks in the same sequence in
             # both orders: one plain result holds both
             want = plain("chunk1")
             orders = {}
             for order in ORDERS:
+                if routes is not None:
+                    expected = (esc.kernels_per_call(order, plan.n_b, launch8),
+                                esc.kernels_per_call(order, plan.n_b, launch1))
+                else:
+                    expected = esc.kernels_per_call(order, plan.n_b)
                 orders[order] = self.hold_csr(f"{kernel}/batched/{label}/{order}", run(order),
                                               want)
                 orders[order].update(self.width_pair(
                     kernel, label, order, lambda: run(order), lambda: run1(order),
-                    TRACE_NAMES["csr_accum"], esc.kernels_per_call(order, plan.n_b)))
+                    TRACE_NAMES["csr_accum"], expected))
+            if routes is not None:
+                routes["global_launches"] = esc.ROUTE_LAUNCHES["global"].count - global_before
+                if label == "rmat12":
+                    check(routes["global_launches"] > 0,
+                          f"{kernel}/batched/{label}: the global route launched no time")
             err = max(o["max_abs_err"] for o in orders.values())
             self.note_batched(kernel, label, err, orders["chunk1" if plan.algorithm != "chunk2"
                                                         else "chunk2"])
-            result[kernel] = {**orders, "plain_of": plain_of, "row_products_bound": products}
+            result[kernel] = {**orders, "plain_of": plain_of, "row_products_bound": products,
+                              "esc_routes": routes}
             del want
         if dense:
             mod = self.kernels["ranged_spgemm"]
@@ -1915,17 +2122,7 @@ class Smoke:
         self.reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        try:
-            Cs, stats = cs.chunked_spgemm_batched(As, Bs, plan, backend=backend)
-        except ValueError as err:
-            # the ESC kernel refuses rows whose expansion passes shared memory
-            # (batched_kernel_phase); so does every call through it
-            check(chosen == "sparse" and ("sparse_accum_spgemm", label) in self.refused
-                  and "shared memory" in str(err),
-                  f"{name}/{label}: {err}")
-            emit({"run": name, "batch": label, "backend": backend, "chosen": chosen,
-                  "refused": str(err)})
-            return
+        Cs, stats = cs.chunked_spgemm_batched(As, Bs, plan, backend=backend)
         torch.cuda.synchronize()
         batched_s = time.perf_counter() - t0
         launches = self.read_counters()
@@ -2817,6 +3014,11 @@ class Smoke:
                     if tiling:   # bf16 operands through the same tiling: a field of its own
                         extra["bf16_operands_max_abs_err"] = self.max_err.get(
                             err_key(kernel, route, "bfloat16", tiling))
+                    if kernel in self.batched:   # the ESC kernel at width 8
+                        check(self.batched_launches.get(kernel, 0) > 0,
+                              f"{kernel}: launched no time in its batched run")
+                        extra["batched"] = {**self.batched[kernel],
+                                            "launches": self.batched_launches[kernel]}
                     rows.append({**base, "kernel_route": route, "shape": shape,
                                  "launches": launches, "launches_run": run,
                                  "max_abs_err": self.max_err[err_key(kernel, route,
@@ -2873,6 +3075,11 @@ def main() -> int:
     smoke.edge_phase()
     smoke.esc_class_phase()
     smoke.hash_class_phase()
+    # the ESC kernel's global route: L x L of an RMAT scale-12 graph (these
+    # numbers go into the kernels line's global row)
+    L12 = smoke.rmat_l(BATCH_RMAT_SEEDS[0])
+    plan_l12 = smoke.rmat_plan(L12)
+    smoke.esc_global_phase("rmat12_knl", L12, plan_l12)
 
     # the main path, counters reset before each run
     smoke.main_run("brick3d48_auto", "brick3d", 48, "auto", expect_backend="hash")
@@ -2887,6 +3094,8 @@ def main() -> int:
     smoke.main_run("laplace3d64_auto", "laplace3d", 64, "auto")
     smoke.main_run("elasticity24_auto", "elasticity", 24, "auto")
     smoke.main_run("brick3d32_pallas", "brick3d", 32, "pallas")
+    smoke.rmat_run("rmat12_sparse", L12, plan_l12)
+    del L12
     smoke.breakdown("brick3d48_auto", "brick3d", 48, "auto")
 
     # the second path: its kernels against their plain versions (main-run
@@ -2943,6 +3152,11 @@ def main() -> int:
     del batches
     smoke.service_run("spgemm_service_run", SERVICE_RMAT_SEEDS, gate=True)
     smoke.service_run("spgemm_service_churn", CHURN_RMAT_SEEDS, gate=False)
+    torch.cuda.empty_cache()
+
+    # the port's examples at their default sizes, then the static auditor
+    smoke.examples_phase()
+    smoke.audit_phase()
     torch.cuda.empty_cache()
 
     # the third path, serving: the attention kernels at the serve run's

@@ -1,0 +1,34 @@
+"""Static backend auditor of the port: stages every registered backend core
+at corpus geometries (``audit_trace``), runs it once on the CPU under the
+copy-event recorder, and checks four things — the byte models against one
+staged step and the launches' shared memory against a block (``smem``),
+copy-event flow equality against the declared traffic models and the
+executors' ChunkStats (``traffic``), one static geometry per envelope
+(``retrace``), and dtypes, index widths and choosers of the staged launch
+(``preflight``). ``python -m repro_torch.analysis`` is the command line."""
+
+from repro_torch.analysis.preflight import LintDiagnostic, check_preflight
+from repro_torch.analysis.report import (
+    ANALYSES, Violation, audit_all, audit_backend_case, normalize_analyses,
+)
+from repro_torch.analysis.retrace import check_retrace, diff_summary, trace_text
+from repro_torch.analysis.smem import SmemAudit, audit_smem, check_smem
+from repro_torch.analysis.traffic import check_traffic, traced_flows
+
+__all__ = [
+    "ANALYSES",
+    "LintDiagnostic",
+    "SmemAudit",
+    "Violation",
+    "audit_all",
+    "audit_backend_case",
+    "audit_smem",
+    "check_preflight",
+    "check_retrace",
+    "check_smem",
+    "check_traffic",
+    "diff_summary",
+    "normalize_analyses",
+    "trace_text",
+    "traced_flows",
+]

@@ -1,0 +1,194 @@
+"""Audit orchestration: every registered backend x algorithm x geometry.
+
+One :func:`audit_all` call drives the static auditor. Per (backend,
+algorithm, corpus case) the spec's ``audit_trace`` stages the instance at its
+envelope; its core runs once on the CPU under the copy-event recorder
+(:func:`~repro_torch.analysis.traffic.traced_flows`), and the selected
+analyses read it:
+
+* ``smem`` — the byte model dominates one staged step, and every launch's
+  shared-memory request fits a block (on the card, with the static bytes of
+  the build log) (:mod:`repro_torch.analysis.smem`);
+* ``traffic`` — the recorded copy events equal the spec's ``traffic_model``
+  event for event and tie to the executors' ``ChunkStats``
+  (:mod:`repro_torch.analysis.traffic`);
+* ``retrace`` — the case and its structural-subset twin, staged at the
+  shared (union) envelope, give one static geometry and one compile
+  (:mod:`repro_torch.analysis.retrace`);
+* ``preflight`` — dtypes, index-table widths and shared memory of the
+  staged launch, and the choosers' paths (:mod:`repro_torch.analysis.preflight`).
+
+The JAX package's DMA-schedule and interleaving checks (``dma``,
+``interleave``, ``while``) have no counterpart yet: the port's N-stage
+``cp.async`` rings have no slot arithmetic to check them against.
+
+The output is a JSON-able report dict; ``python -m repro_torch.analysis``
+is the command line.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.analysis import corpus
+from repro_torch.analysis.preflight import check_preflight
+from repro_torch.analysis.retrace import check_retrace
+from repro_torch.analysis.smem import audit_smem, check_smem, launch_requests
+from repro_torch.analysis.traffic import check_traffic, traced_flows
+from repro_torch.core import backend_registry
+
+# every per-case analysis audit_backend_case can run, in run order
+ANALYSES = ("smem", "traffic", "retrace", "preflight")
+
+
+@dataclasses.dataclass(frozen=True)
+class Violation:
+    """One auditor finding, locatable to (analysis, backend, algorithm,
+    case)."""
+
+    analysis: str      # one of ANALYSES
+    backend: str
+    algorithm: str
+    case: str
+    message: str
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _case_envelope(spec, A, B, plan):
+    from repro_torch.core.chunking import instance_envelope
+
+    block = spec.block_size if spec.needs_block_caps else None
+    return instance_envelope(A, B, plan, block_size=block)
+
+
+def normalize_analyses(analyses) -> tuple:
+    """Validate/default an analysis subset (``None`` = all)."""
+    if analyses is None:
+        return ANALYSES
+    selected = tuple(analyses)
+    unknown = [a for a in selected if a not in ANALYSES]
+    if unknown:
+        raise ValueError(f"unknown analyses {unknown}; available: {list(ANALYSES)}")
+    return selected
+
+
+def normalize_cases(cases) -> list:
+    """``None`` or "all" = the whole corpus, "fast" = ``FAST_CASES``, else
+    the named cases."""
+    if cases is None or cases == "all":
+        return list(corpus.CASES)
+    if cases == "fast":
+        return list(corpus.FAST_CASES)
+    names = [cases] if isinstance(cases, str) else list(cases)
+    unknown = [c for c in names if c not in corpus.CASES]
+    if unknown:
+        raise ValueError(f"unknown cases {unknown}; available: {list(corpus.CASES)}")
+    return names
+
+
+def audit_backend_case(spec, algorithm: str, case_name: str, A, B,
+                       retrace: bool = True, analyses=None, build_log=None):
+    """All selected analyses for one (backend, algorithm, instance).
+    Returns ``(record, violations)``: a JSON-able measurement record and the
+    list of :class:`Violation`. ``retrace=False`` is shorthand for dropping
+    ``"retrace"`` from the selection; ``build_log`` is the kernels' build
+    log (``kernels._build.BUILD_LOG``) where the card built them."""
+    analyses = normalize_analyses(analyses)
+    plan = corpus.make_plan(algorithm, A, B)
+    env = _case_envelope(spec, A, B, plan)
+    target = spec.audit_trace(A, B, plan, env.c_pad, env)
+    violations = []
+
+    def flag(analysis, messages):
+        violations.extend(Violation(analysis, spec.name, algorithm, case_name, m)
+                          for m in messages)
+
+    record = {"backend": spec.name, "algorithm": algorithm, "case": case_name,
+              "analyses": list(analyses)}
+    launches = (traced_flows(target)
+                if {"smem", "traffic", "preflight"} & set(analyses) else [])
+    requests = launch_requests(target, launches, build_log)
+
+    if "smem" in analyses:
+        model = spec.byte_model(plan, env) if spec.byte_model is not None else None
+        audit = audit_smem(target, launches, model, build_log)
+        flag("smem", check_smem(audit))
+        record["smem"] = dataclasses.asdict(audit)
+        record["dominated"] = audit.dominated
+        record["n_launches"] = audit.n_launches
+
+    if "traffic" in analyses:
+        if spec.supports_traffic:
+            expected = spec.traffic_model(A, B, plan, env.c_pad, env, target.meta)
+            tv, tinfo = check_traffic(launches, expected)
+            flag("traffic", tv)
+            record["traffic"] = tinfo
+        else:
+            record["traffic"] = {
+                "checked": False,
+                "reason": "no traffic_model registered (the scan backend launches no "
+                          "kernel: its stats are a replay oracle by design)"}
+
+    if "preflight" in analyses:
+        pv, pinfo = check_preflight(spec.name, target, requests)
+        flag("preflight", pv)
+        record["preflight"] = pinfo
+
+    if retrace and "retrace" in analyses:
+        A2, B2 = corpus.retrace_pair(A, B)
+        plan2 = corpus.make_plan(algorithm, A2, B2)
+        env_shared = env.union(_case_envelope(spec, A2, B2, plan2))
+        t1 = spec.audit_trace(A, B, plan, env_shared.c_pad, env_shared)
+        t2 = spec.audit_trace(A2, B2, plan, env_shared.c_pad, env_shared)
+        flag("retrace", check_retrace(t1, t2))
+
+    record["n_violations"] = len(violations)
+    return record, violations
+
+
+def audit_all(backends=None, algorithms=None, cases=None, retrace: bool = True,
+              analyses=None, device: str = "cuda") -> dict:
+    """Run the static audit on ``device`` (the corpus is built there; on
+    ``cuda`` the kernels are built first and ``smem`` reads their build
+    log). ``cases`` is "fast", "all"/None or a list of corpus cases.
+    Returns a JSON-able report with ``records`` (per backend x algorithm x
+    case), ``violations``, ``skipped`` (non-auditable backends), and
+    ``ok``."""
+    from repro_torch.kernels import _build
+
+    backend_registry.ensure_registered()
+    names = list(backends) if backends else list(backend_registry.all_backends())
+    algorithms = list(algorithms) if algorithms else list(backend_registry.ALGORITHMS)
+    case_names = normalize_cases(cases)
+    analyses = normalize_analyses(analyses)
+    build_log = _build.build() if str(device).startswith("cuda") else {}
+
+    violations, records, skipped = [], [], []
+    for name in names:
+        spec = backend_registry.get(name)
+        if not spec.supports_audit:
+            skipped.append({"backend": name,
+                            "reason": "no audit_trace (the host-loop oracle has no core)"})
+            continue
+        for case_name in case_names:
+            A, B = corpus.build_case(case_name, device=device)
+            for algorithm in algorithms:
+                record, v = audit_backend_case(spec, algorithm, case_name, A, B,
+                                               retrace=retrace, analyses=analyses,
+                                               build_log=build_log)
+                records.append(record)
+                violations.extend(v)
+
+    return {
+        "device": str(device),
+        "backends": names,
+        "algorithms": algorithms,
+        "cases": case_names,
+        "analyses": list(analyses),
+        "records": records,
+        "skipped": skipped,
+        "violations": [v.to_dict() for v in violations],
+        "ok": not violations,
+    }

@@ -35,17 +35,68 @@ Contracts a spec must honor:
 * ``run_masked(A, B, mask, plan, c_pad, caps=...) -> (C, ChunkStats)``
   computes ``(A x B) ∘ mask`` with the mask applied inside the kernel; the
   fused triangle count (``repro_torch.core.triangle``) resolves through it.
-
-The JAX package's specs also carry audit and traffic models; they arrive
-with the static-auditor slice.
+* ``audit_trace(A, B, plan, c_pad, envelope) -> TraceTarget`` stages one
+  instance at an envelope exactly as the executors do, for the static
+  auditor (``repro_torch.analysis``); ``traffic_model(A, B, plan, c_pad,
+  envelope, meta) -> ExpectedTraffic`` declares the copy events of that
+  staged launch (a spec with one needs an ``audit_trace``);
+  ``stats_exempt`` names why a backend's ChunkStats are not tied to its
+  events.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Mapping
+from typing import Any, Callable, Mapping
 
 ALGORITHMS = ("knl", "chunk1", "chunk2")
+
+
+@dataclasses.dataclass(frozen=True)
+class OpFlow:
+    """Per-operand copy-event model: the ordered byte sizes of every
+    slow->fast (or fast->slow) copy one kernel operand performs across the
+    whole launch. ``key`` names the logical operand (the three field
+    operands of one CSR piece share one key — their per-event bytes then sum
+    into the single ``ChunkStats`` event the executor logs)."""
+
+    key: str
+    events: tuple     # ordered per-copy byte sizes, one float per copy event
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpectedTraffic:
+    """A backend's declared data-movement model for one staged core: the
+    per-operand copy-event lists the recorded launch must reproduce
+    *exactly* (``analysis/traffic.py`` checks equality, not domination),
+    plus the ``ChunkStats``-granularity event lists the executors report
+    (same-key operand flows merged event-wise). ``stats_exempt`` names a
+    documented reason the stats tie is skipped; the per-operand flow check
+    still applies."""
+
+    in_ops: tuple                  # tuple[OpFlow, ...], slow->fast
+    out_ops: tuple                 # tuple[OpFlow, ...], fast->slow
+    stats_in: tuple = ()           # ChunkStats.per_copy_in the executor logs
+    stats_out: tuple = ()          # ChunkStats.per_copy_out the executor logs
+    stats_exempt: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceTarget:
+    """One backend core as the executors launch it, for the static
+    auditor: ``fn(*args)`` runs it, ``fn`` being the core
+    (``chunk_stream._Core``) with its keyword statics bound
+    (``functools.partial``), ``args`` its staged envelope-shaped operands.
+    The port has no tracer: the core's static geometry (``_Core.geometry``:
+    the operands' shapes, dtypes and CSR metadata, and the statics) is its
+    trace, and ``meta`` carries the statics both sides were staged from
+    (``scalar_args``: r0s/r1s or the BSR slot tables; ``table_size``,
+    ``row_cap``). Kept here so the analysis package and the executor module
+    never import each other."""
+
+    fn: Callable
+    args: tuple
+    meta: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,10 +116,21 @@ class BackendSpec:
     block_size: int | None = None               # default block edge (block backends)
     run_masked: Callable | None = None          # fused-mask executor, or None
     make_batched_cores: Callable | None = None  # (donate=False) -> fresh batched cores
+    audit_trace: Callable | None = None         # (A, B, plan, c_pad, env) -> TraceTarget
+    traffic_model: Callable | None = None       # (A, B, plan, c_pad, env, meta) -> ExpectedTraffic
+    stats_exempt: str | None = None             # why the ChunkStats tie is not checked
 
     @property
     def supports_batched(self) -> bool:
         return self.run_batched is not None
+
+    @property
+    def supports_audit(self) -> bool:
+        return self.audit_trace is not None
+
+    @property
+    def supports_traffic(self) -> bool:
+        return self.traffic_model is not None
 
     @property
     def supports_mask(self) -> bool:
@@ -99,6 +161,11 @@ def register(spec: BackendSpec) -> BackendSpec:
             raise ValueError(
                 f"backend {spec.name!r}: {field}={template!r} must contain "
                 "the '{alg}' placeholder (one TRACE_COUNTS key per algorithm)")
+    if spec.traffic_model is not None and spec.audit_trace is None:
+        raise ValueError(
+            f"backend {spec.name!r} registers a traffic_model without an "
+            "audit_trace: the flow-equality analysis has no staged launch "
+            "to hold the model to")
     if spec.needs_block_caps and spec.block_size is None:
         raise ValueError(
             f"backend {spec.name!r} needs_block_caps but registers no "

@@ -65,6 +65,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+from functools import partial
 
 import numpy as np
 import torch
@@ -76,7 +77,7 @@ from repro_torch.core.chunking import (
 )
 from repro_torch.core.kkmem import spgemm_ranged_impl
 from repro_torch.core.planner import (
-    ChunkPlan, check_output_caps, hash_table_slots, planned_stats_bsr,
+    ChunkPlan, check_output_caps, csr_field_nbytes, hash_table_slots, planned_stats_bsr,
     planned_stats_dense_slab, planned_stats_hash, planned_stats_sparse,
     select_accumulator_backend,
 )
@@ -124,14 +125,25 @@ class _Core:
     ``make_batched_cores`` starts with an empty record, so its owner (a
     serving bucket) counts its own geometries, and drops them with it."""
 
-    def __init__(self, key: str, run):
+    def __init__(self, key: str, run, counts: collections.Counter | None = None):
         self.key, self._run, self._seen = key, run, set()
+        self.counts = TRACE_COUNTS if counts is None else counts
+
+    @staticmethod
+    def geometry(*operands, **statics) -> tuple:
+        """The static geometry a call is keyed on: the operands'
+        :func:`_signature` and the sorted keyword statics."""
+        return _signature(operands), tuple(sorted(statics.items()))
+
+    def fresh(self, counts: collections.Counter) -> "_Core":
+        """The same core with an empty record, counting into ``counts``."""
+        return _Core(self.key, self._run, counts)
 
     def __call__(self, *operands, **statics):
-        geometry = (_signature(operands), tuple(sorted(statics.items())))
+        geometry = self.geometry(*operands, **statics)
         if geometry not in self._seen:
             self._seen.add(geometry)
-            TRACE_COUNTS[self.key] += 1
+            self.counts[self.key] += 1
         return self._run(*operands, **statics)
 
 
@@ -1063,6 +1075,209 @@ def chunked_spgemm_batched(As, Bs, plan: ChunkPlan, c_pad: int | None = None,
 
 
 # ---------------------------------------------------------------------------
+# audit staging: TraceTargets for the static auditor (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+#
+# Each helper stages one instance at an explicit GeometryEnvelope (exactly
+# the envelope-driven padding the batched executors perform) and binds the
+# statics into the backend's core, so ``fn(*args)`` runs the very launch the
+# executors make. Two same-envelope instances must therefore stage to one
+# static geometry (the retrace contract); the staged launch is also what the
+# shared-memory and traffic audits read.
+
+
+def _audit_scan(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int,
+                envelope: GeometryEnvelope):
+    Bst = csr_stack(b_chunks(B, plan.p_b, envelope=envelope))
+    r0s, r1s = plan.b_ranges()
+    if plan.algorithm == "knl":
+        Ast = csr_pad_to(A, nnz_cap=envelope.a_nnz_cap,
+                         max_row_nnz=envelope.a_max_row_nnz)
+        C0 = _empty_like_c(A.n_rows, B.n_cols, c_pad, A.dtype, A.device)
+    else:
+        Ast = csr_stack(a_strips(A, plan.p_ac, envelope=envelope))
+        strip_rows = envelope.strip_rows
+        if plan.algorithm == "chunk1":
+            C0 = _empty_like_c(strip_rows, B.n_cols, c_pad, A.dtype, A.device)
+        else:
+            C0 = _empty_c_stack(plan.n_ac, strip_rows, B.n_cols, c_pad, A.dtype,
+                                A.device)
+    return backend_registry.TraceTarget(
+        fn=partial(_SCAN_CORES[plan.algorithm], c_pad=c_pad),
+        args=(Ast, Bst, r0s, r1s, C0))
+
+
+def _audit_pallas(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int,
+                  envelope: GeometryEnvelope):
+    del c_pad  # capacity is implicit in the dense accumulator
+    Bst = csr_stack(b_chunks(B, plan.p_b, envelope=envelope))
+    r0s, _ = plan.b_ranges()
+    if plan.algorithm == "knl":
+        Ast = csr_pad_to(A, nnz_cap=envelope.a_nnz_cap,
+                         max_row_nnz=envelope.a_max_row_nnz)
+    else:
+        Ast = csr_stack(a_strips(A, plan.p_ac, envelope=envelope))
+    return backend_registry.TraceTarget(
+        fn=partial(_PALLAS_CORES[plan.algorithm]), args=(Ast, Bst, r0s),
+        meta={"scalar_args": (r0s,)})
+
+
+def _make_audit_csr_accum(kind: str):
+    """Audit staging shared by the ESC ("sparse") and hash backends — the
+    doubly stacked width-1 staging of ``_sparse_run``, envelope-padded; the
+    static (table or row width) derives from the envelope, as in the
+    batched run."""
+
+    def audit(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int,
+              envelope: GeometryEnvelope):
+        Ast = csr_stack([csr_stack(a_strips(A, plan.p_ac, envelope=envelope))])
+        Bst = csr_stack([csr_stack(b_chunks(B, plan.p_b, envelope=envelope))])
+        r0s, r1s = plan.b_ranges()
+        C0 = _sparse_c0_stack(1, plan.n_ac, envelope.strip_rows, B.n_cols, c_pad,
+                              A.dtype, A.device)
+        args = (Ast, Bst, C0, r0s, r1s)
+        row_cap = envelope.c_max_row_nnz if envelope.c_nnz_cap else B.n_cols
+        if kind == "hash":
+            table = hash_table_slots(row_cap)
+            return backend_registry.TraceTarget(
+                fn=partial(_HASH_CORES[plan.algorithm], table_size=table), args=args,
+                meta={"table_size": table, "scalar_args": (r0s, r1s)})
+        return backend_registry.TraceTarget(
+            fn=partial(_SPARSE_CORES[plan.algorithm], row_cap=row_cap), args=args,
+            meta={"row_cap": row_cap, "scalar_args": (r0s, r1s)})
+
+    return audit
+
+
+def _audit_bsr(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int,
+               envelope: GeometryEnvelope):
+    """Stage the first (strip, chunk) pair exactly as ``_bsr_execute`` does;
+    every pair launches the same envelope-keyed kernel geometry, so one pair
+    is the whole compile surface."""
+    del c_pad
+    _, operands, _ = next(stage_bsr_pairs(A, B, plan, envelope))
+    a_slots, b_slots = operands[2], operands[3]
+    return backend_registry.TraceTarget(
+        fn=partial(_BSR_CORES[plan.algorithm], envelope=envelope), args=operands,
+        meta={"scalar_args": (a_slots, b_slots)})
+
+
+# ---------------------------------------------------------------------------
+# traffic models: the per-copy-event byte flows the recorded launches must equal
+# ---------------------------------------------------------------------------
+#
+# Each hook declares, per kernel operand and in operand order, the ordered
+# list of copy-event byte sizes the staged launch performs: the planner-side
+# half of the flow-equality audit (repro_torch.analysis.traffic), which
+# records the same lists from the kernels' plain versions
+# (kernels/copy_events.py) and demands exact equality, then ties the merged
+# flows to the ChunkStats the executors log.
+
+
+def _traffic_pallas(A, B, plan: ChunkPlan, c_pad: int, envelope: GeometryEnvelope, meta):
+    """Dense-slab flows. knl/chunk1: the stationary strip and its C_prev
+    block once a strip, the slab every step; chunk2 swaps the roles and
+    keeps all C partials resident (one fetch, one write-back)."""
+    del A, B, c_pad, meta
+    OpFlow = backend_registry.OpFlow
+    k, n = envelope.a_shape[1], envelope.b_shape[1]
+    strip_rows = (envelope.a_shape[0] if plan.algorithm == "knl"
+                  else envelope.strip_rows)
+    slab, a_stage, c_stage = (
+        float(v) for v in _pallas_stage_nbytes(strip_rows, k, envelope.chunk_rows, n))
+    n_ac, n_b = plan.n_ac, plan.n_b
+    if plan.algorithm in ("knl", "chunk1"):
+        in_ops = (OpFlow("stationary", (a_stage,) * n_ac),
+                  OpFlow("streamed", (slab,) * (n_ac * n_b)),
+                  OpFlow("c_prev", (c_stage,) * n_ac))
+        out_ops = (OpFlow("c_out", (c_stage,) * n_ac),)
+    else:
+        in_ops = (OpFlow("stationary", (slab,) * n_b),
+                  OpFlow("streamed", (a_stage,) * (n_b * n_ac)),
+                  OpFlow("c_prev", (n_ac * c_stage,)))
+        out_ops = (OpFlow("c_out", (n_ac * c_stage,)),)
+    st = planned_stats_pallas(plan, slab, a_stage, c_stage)
+    return backend_registry.ExpectedTraffic(
+        in_ops=in_ops, out_ops=out_ops,
+        stats_in=tuple(st.per_copy_in), stats_out=tuple(st.per_copy_out))
+
+
+def _traffic_csr_accum(A, B, plan: ChunkPlan, c_pad: int, envelope: GeometryEnvelope,
+                       meta):
+    """CSR-accumulator (ESC and hash) flows: every logical operand is three
+    field operands (indptr, indices, data) whose per-event bytes sum to the
+    staged triple's ``CSR.nbytes()``; same-key fields merge event-wise into
+    the single ChunkStats event the executors log. knl stages as the
+    1-strip chunk1 special case (see ``_sparse_run``)."""
+    del A, B, meta
+    OpFlow = backend_registry.OpFlow
+    itemsize = int(np.dtype(envelope.dtype).itemsize)
+    strip_f = csr_field_nbytes(envelope.strip_rows, envelope.strip_nnz_cap, itemsize)
+    chunk_f = csr_field_nbytes(envelope.chunk_rows, envelope.chunk_nnz_cap, itemsize)
+    c_f = csr_field_nbytes(envelope.strip_rows, c_pad, itemsize)
+    n_ac, n_b = plan.n_ac, plan.n_b
+    if plan.algorithm in ("knl", "chunk1"):
+        stat_f, stream_f = strip_f, chunk_f
+        n_stat, n_stream = n_ac, n_ac * n_b
+        c_in = tuple(OpFlow("c_prev", (f,) * n_ac) for f in c_f)
+        c_out = tuple(OpFlow("c_out", (f,) * n_ac) for f in c_f)
+    else:
+        stat_f, stream_f = chunk_f, strip_f
+        n_stat, n_stream = n_b, n_b * n_ac
+        c_in = tuple(OpFlow("c_prev", (n_ac * f,)) for f in c_f)
+        c_out = tuple(OpFlow("c_out", (n_ac * f,)) for f in c_f)
+    in_ops = (tuple(OpFlow("stationary", (f,) * n_stat) for f in stat_f)
+              + tuple(OpFlow("streamed", (f,) * n_stream) for f in stream_f)
+              + c_in)
+    st = planned_stats_pallas(
+        plan, int(sum(chunk_f)), int(sum(strip_f)),
+        _c_strip_nbytes(envelope.strip_rows, c_pad, np.dtype(envelope.dtype)))
+    return backend_registry.ExpectedTraffic(
+        in_ops=in_ops, out_ops=c_out,
+        stats_in=tuple(st.per_copy_in), stats_out=tuple(st.per_copy_out))
+
+
+_BSR_STATS_EXEMPT = (
+    "bsr executor stages per (strip, chunk) pair host-side; its "
+    "ChunkStats model the idealized BSR pipeline, not the audited "
+    "single-pair launch (documented in _bsr_execute)")
+
+
+def _traffic_bsr(A, B, plan: ChunkPlan, c_pad: int, envelope: GeometryEnvelope, meta):
+    """Blocked-kernel flows, replayed from the audited pair's slot tables: a
+    ``bs x bs`` tile is fetched whenever the slot changes between
+    consecutive grid steps (a resident block is reused where the step lands
+    on the same slot), and each output block writes back once. The
+    ChunkStats tie is exempt (``_BSR_STATS_EXEMPT``)."""
+    del A, B, plan, c_pad
+    OpFlow = backend_registry.OpFlow
+    bs = envelope.bsr_caps[0]
+    block_bytes = float(bs * bs * 4)
+    a_slots = np.asarray(_to_numpy(meta["scalar_args"][0]))
+    b_slots = np.asarray(_to_numpy(meta["scalar_args"][1]))
+
+    def slot_flow(table):
+        events, prev = [], None
+        for val in table.reshape(-1):      # row-major == grid order (e, u)
+            v = int(val)
+            if prev is None or v != prev:
+                events.append(block_bytes)
+            prev = v
+        return tuple(events)
+
+    nc_pad = int(a_slots.shape[0])
+    return backend_registry.ExpectedTraffic(
+        in_ops=(OpFlow("a_blocks", slot_flow(a_slots)),
+                OpFlow("b_blocks", slot_flow(b_slots))),
+        out_ops=(OpFlow("c_blocks", (block_bytes,) * nc_pad),),
+        stats_exempt=_BSR_STATS_EXEMPT)
+
+
+def _to_numpy(value):
+    return value.cpu().numpy() if isinstance(value, torch.Tensor) else value
+
+
+# ---------------------------------------------------------------------------
 # registrations (order = the planner's accumulator tie-break priority)
 # ---------------------------------------------------------------------------
 
@@ -1083,6 +1298,7 @@ def _register_all() -> None:
         run_batched=_scan_run_batched,
         trace_key="{alg}",
         trace_key_batched="{alg}_batched",
+        audit_trace=_audit_scan,
         make_batched_cores=_batched_core_factory("{alg}_batched", _SCAN_RUNS_BATCHED),
     ))
     register(Spec(
@@ -1094,6 +1310,8 @@ def _register_all() -> None:
         trace_key="{alg}_pallas",
         trace_key_batched="{alg}_pallas_batched",
         is_accumulator=True,
+        audit_trace=_audit_pallas,
+        traffic_model=_traffic_pallas,
         make_batched_cores=_batched_core_factory("{alg}_pallas_batched",
                                                  _PALLAS_RUNS_BATCHED),
     ))
@@ -1106,6 +1324,8 @@ def _register_all() -> None:
         trace_key_batched="{alg}_sparse_batched",
         needs_output_caps=True,
         is_accumulator=True,
+        audit_trace=_make_audit_csr_accum("sparse"),
+        traffic_model=_traffic_csr_accum,
         make_batched_cores=_batched_core_factory("{alg}_sparse_batched", _SPARSE_RUNS),
     ))
     register(Spec(
@@ -1118,6 +1338,8 @@ def _register_all() -> None:
         needs_output_caps=True,
         is_accumulator=True,
         run_masked=chunk_hash_masked,
+        audit_trace=_make_audit_csr_accum("hash"),
+        traffic_model=_traffic_csr_accum,
         make_batched_cores=_batched_core_factory("{alg}_hash_batched", _HASH_RUNS),
     ))
     register(Spec(
@@ -1131,6 +1353,9 @@ def _register_all() -> None:
         needs_block_caps=True,
         is_accumulator=True,
         block_size=_BSR_DEFAULT_BLOCK,
+        audit_trace=_audit_bsr,
+        traffic_model=_traffic_bsr,
+        stats_exempt=_BSR_STATS_EXEMPT,
         make_batched_cores=_batched_core_factory("{alg}_bsr_batched", _BSR_RUNS),
     ))
 

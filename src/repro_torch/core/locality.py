@@ -132,3 +132,13 @@ def analyze(A: CSR, B: CSR, value_bytes: int = 8, index_bytes: int = 4,
         avg_b_row_bytes=avg_row_bytes,
         mean_reuse=mean_reuse,
     )
+
+
+def miss_table(A: CSR, B: CSR, capacities_bytes: dict | None = None) -> dict:
+    """Paper Table 1/4 analogue: miss fractions at L1/L2-like capacities."""
+    caps = capacities_bytes or {"L1": 32 << 10, "L2": 1 << 20}
+    st = analyze(A, B)
+    return {name: st.miss_fraction_bytes(cap) for name, cap in caps.items()} | {
+        "mean_reuse_rows": st.mean_reuse,
+        "avg_b_row_bytes": st.avg_b_row_bytes,
+    }

@@ -137,6 +137,9 @@ class SpGEMMCost:
         # (OoO cores / warps), so total = max(memory, compute) + copies.
         return max(self.t_A + self.t_B + self.t_C, self.t_compute) + self.t_copy
 
+    def gflops(self, flops: float) -> float:
+        return flops / self.total / 1e9
+
 
 def spgemm_cost(system: MemorySystem, *, bytes_A: float, bytes_B: float, bytes_C: float,
                 flops: float, b_row_reads: float, b_row_bytes: float,

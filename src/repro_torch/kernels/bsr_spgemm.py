@@ -18,12 +18,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels import copy_events
 from repro_torch.kernels._build import LaunchCounter, launch, require
 from repro_torch.sparse.bsr import BSR
 from repro_torch.sparse.csr import _np
 
 LAUNCHES = LaunchCounter()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_BUDGET = 48 * 1024   # a block's shared memory, without an opt-in (csrc kSmemBudget)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +125,9 @@ def bsr_spgemm_plain(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
     the gathered block pairs, added in f32 into each C block's tile; steps on
     the zero-sentinel A slot add nothing (skipped, or a zero tile)."""
     a_zero = a_blocks.shape[0] - 1
+    # beside the blocks the kernel holds the slot tables and one f32 tile
+    copy_events.record_bsr(a_blocks, b_blocks, a_slots, b_slots,
+                           2 * nc_pad * u_max * 4 + bs * bs * 4)
     out = torch.zeros(nc_pad, bs, bs, dtype=torch.float32, device=a_blocks.device)
     a32, b32 = a_blocks.float(), b_blocks.float()
     for u in range(u_max):
@@ -132,6 +137,22 @@ def bsr_spgemm_plain(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
             prod = torch.where((sa != a_zero)[:, None, None], prod, 0.0)
         out += prod
     return out
+
+
+def ring_stages(bs: int, asynchronous: bool) -> int:
+    """Steps of a warp's shared-memory ring (``csrc/bsr_spgemm.cu``)."""
+    return 1 if not asynchronous else 2 if bs == 32 else 3 if bs == 16 else 4
+
+
+def launch_smem(a_blocks: torch.Tensor, b_blocks: torch.Tensor, bs: int) -> int:
+    """Dynamic shared memory one block of the kernel asks for: a ring of
+    block pairs a warp, as many warps as fit 48 KB, at most 8. The ring is
+    deep (cp.async) for f32 blocks of 8, 16 or 32 on 16 bytes."""
+    asynchronous = (a_blocks.dtype == torch.float32 and bs in (8, 16, 32)
+                    and a_blocks.data_ptr() % 16 == 0 and b_blocks.data_ptr() % 16 == 0)
+    per_warp = ring_stages(bs, asynchronous) * 2 * bs * bs * 4
+    warps = 8 if per_warp * 8 <= SMEM_BUDGET else SMEM_BUDGET // per_warp
+    return warps * per_warp
 
 
 def bsr_spgemm_blocks(a_blocks: torch.Tensor, b_blocks: torch.Tensor,

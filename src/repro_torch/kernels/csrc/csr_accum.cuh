@@ -63,6 +63,10 @@ struct Params {
   int row_cap;        // slots per row: accumulator (ESC) or table (hash)
   int work_cap;       // ESC sort workspace per warp (power of two); unused by hash
   int smem_per_warp;  // bytes
+  // [n_b, rows] or null: 1 where the step of (chunk, row) is not this
+  // merge's (the ESC merge's global route takes it); set only for
+  // launches of one chunk each
+  const unsigned char* skip;
 };
 
 __device__ __forceinline__ int warp_incl_scan(int v, int lane) {
@@ -247,6 +251,7 @@ __global__ void __launch_bounds__(kMaxAccumThreads, Merge::kMinBlocksPerSM)
   const int rows = p.batch * p.n_ac * p.strip_rows;   // < 2^31 (launch checks)
   const int g = blockIdx.x * (blockDim.x / kWarp) + warp;
   if (g >= rows) return;  // warp-uniform
+  if (p.skip != nullptr && p.skip[(long long)j_begin * rows + g]) return;  // warp-uniform
   const int strip = g / p.strip_rows;
   const int r = g - strip * p.strip_rows;
   const int b = strip / p.n_ac;
@@ -365,6 +370,30 @@ __global__ void copy_rows_kernel(Params p) {
   }
 }
 
+// The kernel's dynamic shared memory limit, raised only when a call needs
+// more than the largest earlier one (one setting per merge).
+template <class Merge>
+int allow_smem(size_t smem) {
+  static size_t smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        accum_rows_kernel<Merge>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed = smem;
+  }
+  return 0;
+}
+
+// The scan of the row counts into indptr, then the copy of the slabs.
+inline void finish(const Params& p, cudaStream_t stream) {
+  const long long rows = (long long)p.batch * p.n_ac * p.strip_rows;
+  scan_rows_kernel<<<p.batch * p.n_ac, kScanThreads, 0, stream>>>(p);
+  const long long copy_blocks = (rows * 16 + kCopyThreads - 1) / kCopyThreads;
+  copy_rows_kernel<<<(unsigned)(copy_blocks < 1 ? 1 : copy_blocks > kCopyBlocks
+                                                          ? kCopyBlocks : copy_blocks),
+                     kCopyThreads, 0, stream>>>(p);
+}
+
 template <class Merge>
 int launch(const Params& p, int warps_per_block, int order,
            cudaStream_t stream) {
@@ -373,16 +402,7 @@ int launch(const Params& p, int warps_per_block, int order,
   if (rows >= (1ll << 31)) return (int)cudaErrorInvalidValue;   // rows are int
   if (strips == 0) return (int)cudaGetLastError();
   const size_t smem = (size_t)warps_per_block * p.smem_per_warp;
-  // the kernel's dynamic shared memory limit, raised only when a call needs
-  // more than the largest earlier one (one setting per merge)
-  static size_t smem_allowed = 48 * 1024;
-  if (smem > smem_allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        accum_rows_kernel<Merge>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_allowed = smem;
-  }
+  if (int err = allow_smem<Merge>(smem)) return err;
   if (rows > 0) {
     const unsigned blocks =
         (unsigned)((rows + warps_per_block - 1) / warps_per_block);
@@ -394,11 +414,7 @@ int launch(const Params& p, int warps_per_block, int order,
         accum_rows_kernel<Merge><<<blocks, threads, smem, stream>>>(p, j, j + 1);
     }
   }
-  scan_rows_kernel<<<strips, kScanThreads, 0, stream>>>(p);
-  const long long copy_blocks = (rows * 16 + kCopyThreads - 1) / kCopyThreads;
-  copy_rows_kernel<<<(unsigned)(copy_blocks < 1 ? 1 : copy_blocks > kCopyBlocks
-                                                          ? kCopyBlocks : copy_blocks),
-                     kCopyThreads, 0, stream>>>(p);
+  finish(p, stream);
   return (int)cudaGetLastError();
 }
 
@@ -423,7 +439,7 @@ int launch(const Params& p, int warps_per_block, int order,
                         out_ix,    out_d,     overflow, batch,   n_ac,      \
                         n_b,       strip_rows, chunk_rows, a_cap, chunk_cap, \
                         c_cap,     a_mrn,     b_mrn,    row_cap, work_cap,  \
-                        smem_per_warp};                                      \
+                        smem_per_warp, nullptr};                             \
     return LAUNCH(p, warps_per_block, order, (cudaStream_t)stream);         \
   }                                                                          \
   extern "C" const char* NAME##_error_string(int e) {                       \

@@ -38,9 +38,35 @@
 //             whose products sum to zero stays an entry, as in the
 //             reference. After the register sort the runs are read from the
 //             registers (compress_regs), otherwise from shared memory.
-// The workspace per warp is work_cap = next_pow2(a_max_row_nnz *
-// b_max_row_nnz + row_cap) 64-bit keys and f32 values; the wrapper refuses
-// shapes whose workspace does not fit shared memory.
+// The workspace per warp is work_cap 64-bit keys and f32 values:
+// next_pow2(a_max_row_nnz * b_max_row_nnz + row_cap) where that fits shared
+// memory (every step then takes this, the shared route), else the next
+// power of two of the largest step that fits (the wrapper's
+// esc_launch_plan, from each step's exact key count).
+//
+// The global route takes the steps whose keys do not fit a block's shared
+// memory (rows of thousands of products: L x L of an RMAT graph). One block
+// of kGlobalThreads threads merges one (row, chunk) step in a workspace in
+// global memory, its slots placed by the wrapper (an exclusive scan of the
+// global steps' sort slots, next_pow2 of each step's keys):
+//   expand:   the block scans the product counts of
+//             kGlobalThreads A entries at a time in shared memory and each
+//             thread takes products t, t + kGlobalThreads, ... of the tile,
+//             finding its A entry by a binary search of the scan; keys
+//             (column << 32) | position, values by position, the
+//             accumulator's entries (C_prev at the first chunk, else the
+//             row's slab) after the products;
+//   sort:     a bitonic network over the step's next_pow2(n) slots in
+//             global memory, one __syncthreads a stage (the slots stay in
+//             the 50 MB L2 at the sizes it takes);
+//   compress: the block scans the run heads tile by tile; a head's thread
+//             sums its run in sorted order from 0.0f (the shared route's,
+//             and the reference's, summation order) and writes the row's
+//             slab.
+// A call with global steps launches chunk by chunk: the shared merge over
+// the rows whose step fits (Params::skip marks the others), then the
+// global merge over that chunk's global steps; a row's accumulator passes
+// between them, and between chunks, in its slab.
 
 #include "csr_accum.cuh"
 
@@ -370,6 +396,241 @@ struct EscMerge {
   }
 };
 
+// -- the global route ------------------------------------------------------
+
+constexpr int kGlobalThreads = 512;
+constexpr int kGlobalWarps = kGlobalThreads / kWarp;
+
+struct GlobalSteps {
+  const int* rows;              // [items] the step's global row, chunk-major
+  const long long* offsets;     // [items + 1] the step's sort slots in the workspace
+  unsigned long long* keys;     // workspace keys
+  float* vals;                  // workspace values, by position
+};
+
+// Exclusive scan of v over the block (x) and the block's sum (y). Every
+// thread calls it; it ends with a barrier, so scratch may be reused.
+__device__ __forceinline__ int2 block_excl_scan(int v, int* scratch) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int incl = csr_accum::warp_incl_scan(v, lane);
+  if (lane == kWarp - 1) scratch[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kGlobalWarps ? scratch[lane] : 0;
+    const int w_incl = csr_accum::warp_incl_scan(w, lane);
+    if (lane < kGlobalWarps) scratch[lane] = w_incl - w;
+    if (lane == kGlobalWarps - 1) scratch[kWarp] = w_incl;
+  }
+  __syncthreads();
+  const int2 out = make_int2(scratch[warp] + incl - v, scratch[kWarp]);
+  __syncthreads();
+  return out;
+}
+
+__global__ void __launch_bounds__(kGlobalThreads)
+    esc_global_kernel(Params p, GlobalSteps w, int item0, int j) {
+  __shared__ int s_excl[kGlobalThreads];
+  __shared__ int s_start[kGlobalThreads];
+  __shared__ float s_aval[kGlobalThreads];
+  __shared__ int s_scan[kWarp + 1];
+  const int tid = threadIdx.x;
+  const int item = item0 + blockIdx.x;
+  const int g = w.rows[item];
+  const long long base = w.offsets[item];
+  const long long cap = w.offsets[item + 1] - base;   // a power of two
+  unsigned long long* keys = w.keys + base;
+  float* vals = w.vals + base;
+  const int strip = g / p.strip_rows;
+  const int r = g - strip * p.strip_rows;
+  const int b = strip / p.n_ac;
+  int* out_c = p.slab_cols + (long long)g * p.row_cap;
+  float* out_v = p.slab_vals + (long long)g * p.row_cap;
+
+  // the accumulator: C_prev's row at the first chunk, else the row's slab
+  const int* acc_c;
+  const float* acc_v;
+  int acc_n;
+  if (j == 0) {
+    const int* ip = p.c0_ip + (long long)strip * (p.strip_rows + 1);
+    const int s = min(ip[r], p.c_cap), e = min(ip[r + 1], p.c_cap);
+    acc_c = p.c0_ix + (long long)strip * p.c_cap + s;
+    acc_v = p.c0_d + (long long)strip * p.c_cap + s;
+    acc_n = max(e - s, 0);
+  } else {
+    acc_c = out_c;
+    acc_v = out_v;
+    acc_n = p.slab_cnt[g];
+  }
+  if (acc_n > p.row_cap) {
+    if (tid == 0) csr_accum::flag_overflow(p);
+    acc_n = p.row_cap;
+  }
+
+  // expand the row's in-range products of chunk j, in the reference's order
+  const int* a_ip = p.a_ip + (long long)strip * (p.strip_rows + 1);
+  const int* a_ix = p.a_ix + (long long)strip * p.a_cap;
+  const float* a_d = p.a_d + (long long)strip * p.a_cap;
+  const int a_start = min(a_ip[r], p.a_cap), a_end = min(a_ip[r + 1], p.a_cap);
+  const long long chunk = (long long)b * p.n_b + j;
+  const int* b_ip = p.b_ip + chunk * (p.chunk_rows + 1);
+  const int* b_ix = p.b_ix + chunk * p.chunk_cap;
+  const float* b_d = p.b_d + chunk * p.chunk_cap;
+  const int r0 = p.r0s[j], r1 = p.r1s[j];
+  int n_prod = 0;   // <= the step's keys (the wrapper holds them to 2^30)
+  for (int tile = a_start; tile < a_end; tile += kGlobalThreads) {
+    const int e = tile + tid;
+    int cnt = 0, start = 0;
+    float a = 0.f;
+    if (e < a_end) {
+      const int col = a_ix[e];
+      if (col >= r0 && col < r1) {
+        const int b_row = min(max(col - r0, 0), p.chunk_rows - 1);
+        start = b_ip[b_row];
+        cnt = max(min(b_ip[b_row + 1] - start, p.b_mrn), 0);
+        a = a_d[e];
+      }
+    }
+    const int2 scan = block_excl_scan(cnt, s_scan);
+    const int total = scan.y;
+    s_excl[tid] = scan.x;
+    s_start[tid] = start;
+    s_aval[tid] = a;
+    __syncthreads();
+    for (int q = tid; q < total; q += kGlobalThreads) {
+      // the entry of product q: the last whose exclusive scan is <= q
+      int lo = 0;
+      for (int s = kGlobalThreads / 2; s > 0; s >>= 1)
+        if (s_excl[lo + s] <= q) lo += s;
+      const long long pos = n_prod + q;
+      if (pos < cap) {
+        const int src = min(s_start[lo] + q - s_excl[lo], p.chunk_cap - 1);
+        keys[pos] = ((unsigned long long)(unsigned)b_ix[src] << 32) | (unsigned long long)pos;
+        vals[pos] = s_aval[lo] * b_d[src];
+      }
+    }
+    n_prod += total;
+    __syncthreads();
+  }
+  const long long n = n_prod + acc_n;
+  if (n > cap) {   // the wrapper's count was wrong: report, leave the row empty
+    if (tid == 0) {
+      csr_accum::flag_overflow(p);
+      p.slab_cnt[g] = 0;
+    }
+    return;
+  }
+  for (int t = tid; t < acc_n; t += kGlobalThreads) {
+    const long long pos = n_prod + t;
+    keys[pos] = ((unsigned long long)(unsigned)acc_c[t] << 32) | (unsigned long long)pos;
+    vals[pos] = acc_v[t];
+  }
+  const int n2 = csr_accum::next_pow2((int)n);   // <= cap
+  for (int t = (int)n + tid; t < n2; t += kGlobalThreads) keys[t] = ~0ull;
+  __syncthreads();
+
+  // bitonic sort of the n2 slots, pair i of a stage at (t, t | jj)
+  for (int k = 2; k <= n2; k <<= 1) {
+    for (int jj = k >> 1; jj > 0; jj >>= 1) {
+      for (int i = tid; i < n2 / 2; i += kGlobalThreads) {
+        const int t = ((i & ~(jj - 1)) << 1) | (i & (jj - 1));
+        const int u = t | jj;
+        const bool ascending = (t & k) == 0;
+        const unsigned long long x = keys[t], y = keys[u];
+        if ((x > y) == ascending) {
+          keys[t] = y;
+          keys[u] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // compress: one thread per run of equal columns, in sorted order from 0.0f
+  int out_n = 0;
+  bool over = false;
+  for (int tile = 0; tile < n; tile += kGlobalThreads) {
+    const int t = tile + tid;
+    bool head = false;
+    unsigned col = 0;
+    if (t < n) {
+      col = (unsigned)(keys[t] >> 32);
+      head = t == 0 || (unsigned)(keys[t - 1] >> 32) != col;
+    }
+    const int2 scan = block_excl_scan(head ? 1 : 0, s_scan);
+    const int seg = out_n + scan.x;
+    if (head) {
+      float sum = 0.f;
+      for (int u = t; u < n; ++u) {
+        const unsigned long long ku = keys[u];
+        if ((unsigned)(ku >> 32) != col) break;
+        sum += vals[(unsigned)ku];
+      }
+      if (seg < p.row_cap) {
+        out_c[seg] = (int)col;
+        out_v[seg] = sum;
+      } else {
+        over = true;
+      }
+    }
+    out_n += scan.y;
+  }
+  if (over) csr_accum::flag_overflow(p);
+  if (tid == 0) p.slab_cnt[g] = min(out_n, p.row_cap);
+}
+
+// A call without global steps (host_plan null) is the skeleton's launch.
+// Otherwise chunk by chunk: the shared merge where the chunk has shared
+// steps, then the global merge over its global steps. host_plan is a host
+// array: the chunks' first items (n_b + 1), then whether each chunk has
+// shared steps (n_b).
+int esc_launch(Params p, int warps_per_block, int order, const GlobalSteps& w,
+               const int* host_plan, cudaStream_t stream) {
+  if (host_plan == nullptr) {
+    p.skip = nullptr;
+    return csr_accum::launch<EscMerge>(p, warps_per_block, order, stream);
+  }
+  const long long rows = (long long)p.batch * p.n_ac * p.strip_rows;
+  if (rows >= (1ll << 31) || rows == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)warps_per_block * p.smem_per_warp;
+  if (int err = csr_accum::allow_smem<EscMerge>(smem)) return err;
+  const unsigned blocks = (unsigned)((rows + warps_per_block - 1) / warps_per_block);
+  for (int j = 0; j < p.n_b; ++j) {
+    if (host_plan[p.n_b + 1 + j])
+      csr_accum::accum_rows_kernel<EscMerge>
+          <<<blocks, warps_per_block * kWarp, smem, stream>>>(p, j, j + 1);
+    const int items = host_plan[j + 1] - host_plan[j];
+    if (items > 0)
+      esc_global_kernel<<<items, kGlobalThreads, 0, stream>>>(p, w, host_plan[j], j);
+  }
+  csr_accum::finish(p, stream);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-CSR_ACCUM_ENTRY(sparse_accum_launch, EscMerge)
+// The skeleton's entry (CSR_ACCUM_ENTRY_FN) with the global route's
+// operands after the common pointers: skip [n_b, rows], the global steps'
+// rows and offsets, the workspace's keys and values, and host_plan (a host
+// array, see esc_launch); all null for a call without global steps.
+extern "C" int sparse_accum_launch(
+    const int* a_ip, const int* a_ix, const float* a_d, const int* b_ip, const int* b_ix,
+    const float* b_d, const int* c0_ip, const int* c0_ix, const float* c0_d, const int* r0s,
+    const int* r1s, int* slab_cols, float* slab_vals, int* slab_cnt, int* out_ip,
+    int* out_ix, float* out_d, int* overflow, const unsigned char* skip,
+    const int* g_rows, const long long* g_offsets, unsigned long long* ws_keys,
+    float* ws_vals, const int* host_plan, int batch, int n_ac, int n_b, int strip_rows,
+    int chunk_rows, int a_cap, int chunk_cap, int c_cap, int a_mrn, int b_mrn, int row_cap,
+    int work_cap, int smem_per_warp, int warps_per_block, int order, void* stream) {
+  csr_accum::Params p{a_ip,      a_ix,      a_d,      b_ip,       b_ix,       b_d,
+                      c0_ip,     c0_ix,     c0_d,     r0s,        r1s,        slab_cols,
+                      slab_vals, slab_cnt,  out_ip,   out_ix,     out_d,      overflow,
+                      batch,     n_ac,      n_b,      strip_rows, chunk_rows, a_cap,
+                      chunk_cap, c_cap,     a_mrn,    b_mrn,      row_cap,    work_cap,
+                      smem_per_warp, skip};
+  const GlobalSteps w{g_rows, g_offsets, ws_keys, ws_vals};
+  return esc_launch(p, warps_per_block, order, w, host_plan, (cudaStream_t)stream);
+}
+
+extern "C" const char* sparse_accum_launch_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.planner import hash_table_slots
+from repro_torch.kernels import copy_events
 from repro_torch.kernels._build import LaunchCounter, launch, require
 from repro_torch.kernels.sparse_accum_spgemm import (
     SMEM_PER_BLOCK, launch_csr_accum, sort_class, stack_geometry,
@@ -126,6 +127,9 @@ def hash_accum_plain(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *, order: str,
     g = stack_geometry(Ast, Bst, C0st, order)
     T = _check_table(table_size)
     batch, n_ac, strip_rows = g["batch"], g["n_ac"], g["strip_rows"]
+    # the kernel's tables of a strip: an int32 key and an f32 value a slot
+    copy_events.record_csr_stream("hash_accum_spgemm", Ast, Bst, C0st, order,
+                                  strip_rows * T * 8)
     n_strips, c_cap = batch * n_ac, g["c_cap"]
     dev = Ast.indptr.device
     r0s = [int(v) for v in torch.as_tensor(r0s).tolist()]
@@ -187,7 +191,13 @@ def hash_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *,
                                 table_size=T)
     return launch_csr_accum("hash_accum_spgemm", "hash_accum_launch", LAUNCHES,
                             Ast, Bst, C0st, r0s, r1s, order=order, row_cap=T,
-                            work_cap=0, smem_per_warp=-(-T * 8 // 16) * 16)
+                            work_cap=0, smem_per_warp=table_smem(T))
+
+
+def table_smem(table_size: int) -> int:
+    """Shared memory of one row's table: an int32 key and an f32 value a
+    slot, to 16 bytes."""
+    return -(-table_size * 8 // 16) * 16
 
 
 # ---------------------------------------------------------------------------

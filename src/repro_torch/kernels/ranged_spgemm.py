@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import copy_events
 from repro_torch.kernels._build import LaunchCounter, launch, require
 
 LAUNCHES = LaunchCounter()
@@ -46,6 +47,7 @@ def ranged_spgemm_plain(a_dense: torch.Tensor, b_slabs: torch.Tensor,
     """Plain version: ``c0 + sum_j a[..., r0_j:r0_j+span] @ slab_j`` in chunk
     order. Both orders give every strip the same sequence of additions."""
     _, _, _, k_pad, n_b, span, _ = _geometry(a_dense, b_slabs, c0, order)
+    copy_events.record_dense_stream(a_dense, b_slabs, c0, order)
     out = c0
     for j, r0 in enumerate(_chunk_starts(r0s, n_b, span, k_pad)):
         out = out + torch.matmul(a_dense[..., r0:r0 + span], b_slabs[:, j, None])

@@ -68,7 +68,9 @@ def test_kernels_line_keys_fma_rows_by_tiling(monkeypatch):
             ("grouped_matmul", "tile", "prefill"): "bfloat16",
             ("grouped_matmul", "small", "decode"): "bfloat16",
             ("grouped_matmul", "fma", "prefill"): "float32",
-            ("grouped_matmul", "fma", "decode"): "float32"}
+            ("grouped_matmul", "fma", "decode"): "float32",
+            ("sparse_accum_spgemm", "shared", "brick3d48_quickstart"): "float32",
+            ("sparse_accum_spgemm", "global", "rmat12_knl"): "float32"}
     tilings = {"prefill": "tile", "decode": "rows_few"}
     for (kernel, route, shape), dtype in rows.items():
         row = {"ms": 1.0, "dtype": dtype}
@@ -80,7 +82,9 @@ def test_kernels_line_keys_fma_rows_by_tiling(monkeypatch):
                         "grouped_matmul/small": ("serve", 1488),
                         "grouped_matmul/fma": ("f32", 1536),
                         "grouped_matmul/fma/tile": ("f32", 48),
-                        "grouped_matmul/fma/rows_few": ("f32", 1488)}
+                        "grouped_matmul/fma/rows_few": ("f32", 1488),
+                        "sparse_accum_spgemm/shared": ("brick3d48_sparse", 1),
+                        "sparse_accum_spgemm/global": ("rmat12_sparse", 1)}
     smoke.max_err = {**smoke.max_err,
                      key("flash_prefill", "tc", "bf16"): 4e-3,
                      key("flash_prefill", "fma", "f32"): 9e-7,
@@ -89,7 +93,11 @@ def test_kernels_line_keys_fma_rows_by_tiling(monkeypatch):
                      key("grouped_matmul", "fma", "float32", "tile"): 8.1e-6,
                      key("grouped_matmul", "fma", "float32", "rows_few"): 9.5e-7,
                      key("grouped_matmul", "fma", "bfloat16", "tile"): 1.6e-2,
-                     key("grouped_matmul", "fma", "bfloat16", "rows_few"): 7.8e-3}
+                     key("grouped_matmul", "fma", "bfloat16", "rows_few"): 7.8e-3,
+                     key("sparse_accum_spgemm", "shared", "float32"): 1.1e-5,
+                     key("sparse_accum_spgemm", "global", "float32"): 2.2e-5}
+    smoke.batched["sparse_accum_spgemm"] = {"width": 8, "max_abs_err": 1e-6}
+    smoke.batched_launches["sparse_accum_spgemm"] = 1
     lines = []
     monkeypatch.setattr(chip_smoke, "emit", lambda obj: lines.append(json.loads(json.dumps(obj))))
     smoke.kernels_line()
@@ -106,3 +114,10 @@ def test_kernels_line_keys_fma_rows_by_tiling(monkeypatch):
     assert got["flash_prefill", "fma", "serve_prefill"]["max_abs_err"] == 9e-7
     assert "bf16_operands_max_abs_err" not in got["flash_prefill", "fma", "serve_prefill"]
     assert got["bsr_spmm", None, None]["launches"] == 1
+    # the ESC kernel's rows by route: the shared route at the main path's
+    # staging, the global route at L x L of an RMAT scale-12 graph
+    esc_global = got["sparse_accum_spgemm", "global", "rmat12_knl"]
+    assert (esc_global["launches"], esc_global["launches_run"], esc_global["max_abs_err"]) \
+        == (1, "rmat12_sparse", 2.2e-5)
+    assert got["sparse_accum_spgemm", "shared", "brick3d48_quickstart"]["max_abs_err"] == 1.1e-5
+    assert esc_global["batched"]["launches"] == 1

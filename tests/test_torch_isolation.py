@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the JAX package."""
+"""The port stands alone: no module of ``repro_torch``, no port example
+(``examples/torch_*.py``) and not ``chip_smoke.py`` imports JAX or the JAX
+package."""
 
 import os
 import pkgutil
@@ -12,6 +13,7 @@ import repro_torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)", re.M)
 
 
@@ -37,6 +39,8 @@ def test_every_module_imports_without_jax_or_repro():
         f"for name in {mods!r}:",
         "    importlib.import_module(name)",
         "import chip_smoke",
+        f"for name in {[f'examples.{p.stem}' for p in EXAMPLES]!r}:",
+        "    importlib.import_module(name)",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')"
         " and sys.modules[m] is not None)",
         "assert not bad, bad",
@@ -50,7 +54,9 @@ def test_every_module_imports_without_jax_or_repro():
 
 
 def test_no_source_names_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert [p.stem for p in EXAMPLES] == ["torch_multigrid_spgemm", "torch_quickstart",
+                                          "torch_triangle_count"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
     assert len(files) > 10
     for path in files:
         text = path.read_text()
