@@ -15,8 +15,10 @@ on a small geometry whose dense output row fills its hash table (the dense
 slab on its aligned float4 path at the main-path shapes and on its masked
 scalar path at the four-chunk plan, its two orders equal bit for bit; the
 ESC kernel also where its sort leaves the register classes: shared memory
-and 64-bit keys, and on L x L of an RMAT scale-12 graph, whose largest merge
-steps pass a block's shared memory and take the kernel's global route; the
+and 64-bit keys, on L x L of an RMAT scale-12 graph, whose merge steps
+are counted and launched by step class (a warp, a block or, past a block's
+shared memory, the global class a step), and on rows whose steps land on
+each class edge; the
 hash kernel also where its extraction compacts a wide
 table before the register sort and where it sorts in shared memory; the CSR
 kernels also timed by the profiler, split by kernel), then runs
@@ -150,9 +152,20 @@ TRACE_NAMES = {"flash_prefill": ("flash_prefill_kernel", "flash_prefill_tc_kerne
                "hash_masked_accum_spgemm": ("masked_part_kernel", "masked_seed_kernel",
                                             "masked_gather_kernel"),
                # the CSR-output skeleton's three kernels (ESC and hash merges)
-               # and the ESC merge's global route
+               # and the ESC merge's class kernels
                "csr_accum": ("accum_rows_kernel", "scan_rows_kernel", "copy_rows_kernel",
-                             "esc_global_kernel")}
+                             "esc_warp_kernel", "esc_block_kernel", "esc_global_kernel")}
+# the routes of a routed kernel that have kernels-line rows (all of them
+# where a kernel is not named): the ESC merge's shared route (row 2) and its
+# classed call (row 2b, filed under the global class it needs)
+ROW_ROUTES = {"sparse_accum_spgemm": ("shared", "global")}
+# the ESC class-edge rows: a row's step holds W or W + 1 keys at each class
+# cut W, at the first chunk or at the second with an accumulator, beside
+# C_prev entries; and global steps of GLOBAL_EDGE_KEYS keys (more than two
+# tiles of slots, so more than one pass over global memory), over 2^20
+# columns: 32-bit keys in the block2048 class, 64-bit ones in the
+# block16384 and global classes
+CLASS_EDGE_SEED, GLOBAL_EDGE_KEYS, CLASS_EDGE_COLS = 116, 40_000, 1 << 20
 TRACE_TRIES = 3   # traces of one call taken until one holds every expected launch
 # sources whose kernels must build without register spills: those whose
 # register tiles or sorts were sized to fit (the dense slab's 8 x 8 FMA tile,
@@ -464,6 +477,58 @@ def launch_ms(torch, timer_cls, fn, reps: int = 5) -> float:
         times.append(timer.ms())
     check(min(times) > 0, "a timed call launched no kernel")
     return statistics.median(times)
+
+
+def class_edge_rows(cuts, global_keys: int, seed: int, n_cols: int | None = None):
+    """COO triples of A (rows x k), B (k x n_cols) and C_prev whose ESC merge
+    steps land on each class cut W of ``cuts``: per W a row whose first step
+    holds W keys and one of W + 1 (one A entry each, on a B row of that many
+    distinct columns), a row whose second step holds W and one W + 1 (an
+    entry in each chunk, on B rows of disjoint columns, the second step
+    adding the first's accumulator), and a row whose first step adds C_prev
+    entries to its products; then two global rows of ``global_keys`` keys
+    (one at the first chunk, one at the second) and a few small rows and
+    empty ones. Each A entry has its own B row: rows < k0 are chunk 0's,
+    and a row's B rows and C_prev entries have disjoint columns of
+    ``n_cols`` (at least enough for them). Returns the COO triples of A, B
+    and C_prev, the shape ``(n_rows, k, k0, n_cols)`` and each output row's
+    entries."""
+    rng = np.random.default_rng(seed)
+    n_cols = max(n_cols or 0, 2 * global_keys + 4 * max(cuts) + 64)
+    spec = []   # per A row: (keys from chunk 0's B row, from chunk 1's, C_prev entries)
+    for w in cuts:
+        spec += [(w, 0, 0), (w + 1, 0, 0), (w // 2, w - w // 2, 0),
+                 (w // 2, w + 1 - w // 2, 0), (w - w // 4, 0, w // 4)]
+    spec += [(global_keys, 0, 0), (global_keys // 2, global_keys - global_keys // 2, 0),
+             (5, 3, 2), (0, 7, 0), (0, 0, 0), (1, 0, 0), (0, 0, 3)]
+    rng.shuffle(spec)
+    firsts = [(i, n0) for i, (n0, _, _) in enumerate(spec) if n0]
+    seconds = [(i, n1) for i, (_, n1, _) in enumerate(spec) if n1]
+    k0 = len(firsts)
+    a_rows, a_cols, b_rows, b_cols, c_rows, c_cols = [], [], [], [], [], []
+    cols_of = {}
+    for t, (i, n) in enumerate(firsts + seconds):
+        # columns disjoint from the row's other B row and C_prev entries
+        taken = cols_of.setdefault(i, set())
+        pool = np.setdiff1d(rng.choice(n_cols, n + len(taken) + 8, replace=False),
+                            list(taken))[:n]
+        taken.update(int(c) for c in pool)
+        a_rows.append(i)
+        a_cols.append(t)
+        b_rows += [t] * n
+        b_cols += sorted(int(c) for c in pool)
+    for i, (_, _, nc) in enumerate(spec):
+        if nc:
+            taken = cols_of.setdefault(i, set())
+            pool = np.setdiff1d(rng.choice(n_cols, nc + len(taken) + 8, replace=False),
+                                list(taken))[:nc]
+            c_rows += [i] * nc
+            c_cols += sorted(int(c) for c in pool)
+    def coo(r, c):
+        return (np.asarray(r, np.int64), np.asarray(c, np.int64),
+                rng.standard_normal(len(r)).astype(np.float32))
+    return (coo(a_rows, a_cols), coo(b_rows, b_cols), coo(c_rows, c_cols),
+            (len(spec), len(firsts) + len(seconds), k0, n_cols), [sum(v) for v in spec])
 
 
 def nbytes(*tensors) -> int:
@@ -835,8 +900,8 @@ class Smoke:
     def note_err(self, key: str, err: float) -> None:
         """The largest error of a kernel (or of one route, dtype and tiling
         of it, ``err_key``) against its plain version so far. An ESC error
-        also counts for each route the ESC kernel launched since its last
-        note (a call whose steps take both routes counts for both)."""
+        also counts for each route and class the ESC kernel launched since
+        its last note (a classed call counts for each class it launched)."""
         self.max_err[key] = max(self.max_err.get(key, 0.0), err)
         if key == "sparse_accum_spgemm":
             for route, counter in self.kernels[key].ROUTE_LAUNCHES.items():
@@ -1115,31 +1180,57 @@ class Smoke:
         planner = self.m["planner"]
         return planner.plan_knl(L, L, float(planner.row_bytes_csr(L).sum()) / 3)
 
+    def esc_routes_run(self, label: str, run, launch) -> tuple:
+        """One call of an ESC runner and the launches of each route it
+        made, which must be the classed ``launch``'s own (no shared-route
+        launch)."""
+        esc = self.kernels["sparse_accum_spgemm"]
+        before = {r: c.count for r, c in esc.ROUTE_LAUNCHES.items()}
+        got = run()
+        routes = {r: c.count - before[r] for r, c in esc.ROUTE_LAUNCHES.items()}
+        want = {r: launch.launches.get(r, 0) for r in esc.ROUTES}
+        check(routes == want, f"sparse_accum_spgemm/{label}: launches by route {routes}, "
+              f"the launch plan's {want}")
+        return got, routes
+
+    def esc_class_ms(self, run, launch) -> dict | None:
+        """Device ms of a classed ESC call's merge launches summed by class,
+        from the first profiler trace that holds all of them (launches in
+        the plan's order; None when none does)."""
+        esc = self.kernels["sparse_accum_spgemm"]
+        order = launch.launch_order
+        times = device_launch_list(self.torch, run, tuple(esc.CLASS_KERNELS.values()),
+                                   len(order))
+        if times is None:
+            return None
+        out = dict.fromkeys(order, 0.0)
+        for name, ms in zip(order, times):
+            out[name] += ms
+        return out
+
     def esc_global_phase(self, label: str, L, plan) -> None:
         """The ESC kernel where its steps pass a block's shared memory: L x L
         of an RMAT scale-12 graph (densest row 1,311 entries; the launch-wide
         bound asks for 25 MB of shared memory a row). ``esc_launch_plan``
-        routes each step by its own keys: most stay on the shared route,
-        the largest take the global route. Both orders against the plain
-        version; the global route's kernels-line row (``ms``, ``device_ms``
-        by kernel, ``plain_ms``, the bound of the whole product, and
-        ``torch.sparse.mm`` of L x L)."""
+        counts each step's keys and launches each chunk's steps by class
+        (empty steps launch nothing; the largest take the global class).
+        Both orders against the plain version, the launches by class
+        checked; the classed call's kernels-line row (``ms``, ``device_ms``
+        by kernel and by class, ``plain_ms``, the bound of the whole
+        product, and ``torch.sparse.mm`` of L x L)."""
         torch, esc = self.torch, self.kernels["sparse_accum_spgemm"]
         Ast, Bst, C0, r0s, r1s, caps = self.stage_csr(L, L, plan)
         row_cap = caps.c_max_row_nnz
         launch = esc.esc_launch_plan(Ast, Bst, C0, r0s, r1s, row_cap=row_cap)
         check(launch.split and launch.routes["global"] > 0,
-              f"sparse_accum_spgemm/{label}: no step takes the global route ({launch.routes})")
+              f"sparse_accum_spgemm/{label}: no step takes the global class ({launch.routes})")
         run, plain = self.csr_runners("sparse_accum_spgemm", Ast, Bst, C0, r0s, r1s, row_cap)
         orders = {}
         for order in ORDERS:
-            before = {r: c.count for r, c in esc.ROUTE_LAUNCHES.items()}
-            got = run(order)
-            routes = {r: c.count - before[r] for r, c in esc.ROUTE_LAUNCHES.items()}
-            check(routes == {"shared": 1, "global": 1},
-                  f"sparse_accum_spgemm/{label}/{order}: routes launched {routes}")
+            got, routes = self.esc_routes_run(f"{label}/{order}", lambda: run(order), launch)
             orders[order] = self.hold_csr(f"sparse_accum_spgemm/{label}/{order}", got,
                                           plain(order))
+            orders[order]["launches_by_route"] = routes
             del got
             orders[order]["ms"] = self.launch_ms(lambda: run(order))
             orders[order]["wrapper_ms"] = cuda_ms(torch, lambda: run(order))
@@ -1147,6 +1238,7 @@ class Smoke:
              orders[order]["device_split_ms"], _) = kernel_device_split(
                 torch, lambda: run(order), TRACE_NAMES["csr_accum"],
                 esc.kernels_per_call(order, plan.n_b, launch))
+            orders[order]["device_class_ms"] = self.esc_class_ms(lambda: run(order), launch)
             orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order), reps=3)
         self.note_err("sparse_accum_spgemm", max(o["max_abs_err"] for o in orders.values()))
         out = run("chunk1")
@@ -1156,11 +1248,14 @@ class Smoke:
         library = self.library_spgemm(L, L)
         main = orders["chunk1"]
         self.route_row("sparse_accum_spgemm", "global", label, main, moved, flops,
-                       "f32_flops", library, dtype="float32")
+                       "f32_flops", library, dtype="float32",
+                       device_split_ms=main["device_split_ms"],
+                       device_class_ms=main["device_class_ms"],
+                       class_kernels={c.name: c.kernel for c in launch.classes})
         emit({"esc_global_phase": label, "shape": list(L.shape), "nnz_L": L.nnz(),
               "plan": {"algorithm": plan.algorithm, "n_b": plan.n_b},
-              "c_max_row_nnz": row_cap, "routes": launch.routes,
-              "work_cap": launch.work_cap, "shared_max_keys": launch.shared_max_keys,
+              "c_max_row_nnz": row_cap, "steps_by_class": launch.routes,
+              "launches_by_class": launch.launches, "classes": self.esc_classes(launch),
               "global_workspace_bytes": launch.workspace_bytes,
               "bound_row_smem_bytes": esc.esc_workspace(Ast.max_row_nnz, Bst.max_row_nnz,
                                                         row_cap)[1],
@@ -1171,11 +1266,77 @@ class Smoke:
         del out, Ast, Bst, C0
         torch.cuda.empty_cache()
 
+    @staticmethod
+    def esc_classes(launch) -> dict:
+        """Each class of a classed ESC call: its kernel, most keys, threads
+        and shared memory a block."""
+        return {c.name: {"kernel": c.kernel, "max_keys": c.max_keys, "threads": c.threads,
+                         "block_smem": c.block_smem,
+                         **({"key_bits": launch.key_layout(c)[0]} if c.kind != "warp"
+                            else {})} for c in launch.classes}
+
+    def class_edge_geometry(self, global_keys: int = GLOBAL_EDGE_KEYS,
+                            n_cols: int | None = CLASS_EDGE_COLS, device: str = "cuda"):
+        """Rows whose merge steps land on each ESC class edge
+        (``class_edge_rows`` at the module's class cuts), staged for two
+        strips and two chunks: (A, B, C_prev stacks, plan, c_max_row_nnz,
+        shape)."""
+        esc, csr, ch = self.kernels["sparse_accum_spgemm"], self.m["csr"], self.m["chunking"]
+        cuts = [keys for _, _, keys in esc.STEP_CLASSES]
+        a, b, c0, (rows, k, k0, n_cols), row_nnz = class_edge_rows(
+            cuts, global_keys, CLASS_EDGE_SEED, n_cols)
+        A = csr.csr_from_coo(*a, (rows, k), device=device)
+        B = csr.csr_from_coo(*b, (k, n_cols), device=device)
+        C0m = csr.csr_from_coo(*c0, (rows, n_cols), device=device)
+        plan = self.m["planner"].ChunkPlan("chunk1", (0, rows // 2, rows), (0, k0, k), 0.0, 0.0)
+        c_cap = -(-max(sum(row_nnz[s:e]) for s, e in zip(plan.p_ac[:-1], plan.p_ac[1:]))
+                  // 8) * 8
+        Ast, Bst, _, C0 = self.stage_edge(A, B, C0m, plan, c_cap)
+        return Ast, Bst, C0, plan, max(row_nnz), (rows, k, n_cols)
+
+    def esc_class_edge_phase(self) -> None:
+        """The ESC kernel's classed launch against its plain version in both
+        orders on rows whose steps hold exactly W and W + 1 keys at each
+        class cut W (at the first chunk, and at the second with an
+        accumulator from the first), rows whose step joins C_prev entries,
+        and global steps of ``GLOBAL_EDGE_KEYS`` keys (65,536 slots: three
+        passes over global memory), keys of both widths. Every class must
+        take steps, the launches by class must be the plan's."""
+        esc = self.kernels["sparse_accum_spgemm"]
+        Ast, Bst, C0, plan, row_cap, shape = self.class_edge_geometry()
+        r0s, r1s = plan.b_ranges()
+        launch = esc.esc_launch_plan(Ast, Bst, C0, r0s, r1s, row_cap=row_cap)
+        check(launch.split, "class_edge: the call is not classed")
+        keys = esc.step_keys(Ast, Bst, C0, r0s, r1s)
+        edges = {}
+        for c in launch.classes[:-1]:
+            edges[c.name] = {w: int((keys == w).sum()) for w in (c.max_keys, c.max_keys + 1)}
+            check(all(edges[c.name].values()), f"class_edge: no step of {c.max_keys} or "
+                  f"{c.max_keys + 1} keys ({edges[c.name]})")
+        check(all(launch.routes[c.name] for c in launch.classes),
+              f"class_edge: a class takes no step ({launch.routes})")
+        run, plain = self.csr_runners("sparse_accum_spgemm", Ast, Bst, C0, r0s, r1s, row_cap)
+        orders = {}
+        for order in ORDERS:
+            got, routes = self.esc_routes_run(f"class_edge/{order}", lambda: run(order), launch)
+            orders[order] = {**self.hold_csr(f"sparse_accum_spgemm/class_edge/{order}", got,
+                                             plain(order)), "launches_by_route": routes}
+        self.note_err("sparse_accum_spgemm", max(o["max_abs_err"] for o in orders.values()))
+        emit({"esc_class_edge_phase": "class_edges", "shape": list(shape),
+              "c_max_row_nnz": row_cap,
+              "nnz_c0": int(C0.indptr[..., -1].sum()), "steps_by_class": launch.routes,
+              "steps_at_edges": edges, "launches_by_class": launch.launches,
+              "key_bits": {c.name: launch.key_layout(c)[0] for c in launch.classes
+                           if c.kind != "warp"},
+              "global_slots": int(launch.offsets[-1]), "classes": self.esc_classes(launch),
+              "orders": orders})
+
     def rmat_run(self, label: str, L, plan) -> None:
         """The main path on L x L of an RMAT scale-12 graph through
         ``backend="sparse"`` (counters reset before, read after): the ESC
-        kernel computes it, its largest steps on the global route; C against
-        the port's plain ``spgemm`` on the card (structure exact) and scipy."""
+        kernel computes it by step class, every class launched, its largest
+        steps on the global class; C against the port's plain ``spgemm`` on
+        the card (structure exact) and scipy."""
         torch, chunking, kkmem = self.torch, self.m["chunking"], self.m["kkmem"]
         self.reset_counters()
         torch.cuda.synchronize()
@@ -1184,8 +1345,10 @@ class Smoke:
         torch.cuda.synchronize()
         exec_s = time.perf_counter() - t0
         launches = self.read_counters()
-        check(launches["sparse_accum_spgemm/global"] > 0,
-              f"{label}: the ESC kernel's global route was not launched")
+        esc = self.kernels["sparse_accum_spgemm"]
+        for route in esc.ROUTES[1:]:
+            check(launches[f"sparse_accum_spgemm/{route}"] > 0,
+                  f"{label}: the ESC kernel's {route} class was not launched")
         self.note_esc_routes(label, launches)
         plain = kkmem.spgemm(L, L, kkmem.spgemm_symbolic_host(L, L).c_pad)
         nnz = C.nnz()
@@ -1198,9 +1361,12 @@ class Smoke:
               f"{label}: values differ from the plain spgemm by {err}")
         scipy_err = self.scipy_check(L, L, C)
         check(scipy_err <= SCIPY_RTOL, f"{label}: relative error {scipy_err} vs scipy")
+        Ast, Bst, C0, r0s, r1s, caps = self.stage_csr(L, L, plan)
+        steps = esc.esc_launch_plan(Ast, Bst, C0, r0s, r1s, row_cap=caps.c_max_row_nnz).routes
+        del Ast, Bst, C0
         emit({"run": label, "A": list(L.shape), "nnz_A": L.nnz(), "backend": "sparse",
               "plan": {"algorithm": plan.algorithm, "n_ac": plan.n_ac, "n_b": plan.n_b},
-              "launches": launches, "nnz_C": nnz,
+              "launches": launches, "esc_steps_by_class": steps, "nnz_C": nnz,
               "stats": {"kernel_calls": stats.kernel_calls,
                         "copy_in_bytes": stats.copy_in_bytes},
               "wall_s": {"chunked_spgemm": exec_s},
@@ -2017,12 +2183,14 @@ class Smoke:
                 plain_of = "sparse_accum_spgemm"
             routes = None
             if kernel == "sparse_accum_spgemm":
-                # each step routed by its own keys: rows past a block's shared
-                # memory take the global route (the RMAT batch's)
+                # the steps counted and launched by class where the launch-wide
+                # bound passes shared memory (the RMAT batch's)
                 launch8 = esc.esc_launch_plan(Ast, Bst, C0, r0s, r1s, row_cap=row_cap)
                 launch1 = esc.esc_launch_plan(first(Ast), first(Bst), first(C0), r0s, r1s,
                                               row_cap=row_cap)
                 routes = {"width8": launch8.routes, "width1": launch1.routes,
+                          "launches_by_class": {"width8": launch8.launches,
+                                                "width1": launch1.launches},
                           "work_cap": launch8.work_cap,
                           "global_workspace_bytes": launch8.workspace_bytes,
                           "bound_row_smem_bytes": esc.esc_workspace(
@@ -2047,7 +2215,7 @@ class Smoke:
                 routes["global_launches"] = esc.ROUTE_LAUNCHES["global"].count - global_before
                 if label == "rmat12":
                     check(routes["global_launches"] > 0,
-                          f"{kernel}/batched/{label}: the global route launched no time")
+                          f"{kernel}/batched/{label}: the global class launched no time")
             err = max(o["max_abs_err"] for o in orders.values())
             self.note_batched(kernel, label, err, orders["chunk1" if plan.algorithm != "chunk2"
                                                         else "chunk2"])
@@ -3000,7 +3168,7 @@ class Smoke:
                 rows.append({**base, "launches": self.launches[kernel],
                              "max_abs_err": self.max_err[kernel], **numbers, **extra})
                 continue
-            for route in self.kernels[kernel].ROUTE_LAUNCHES:
+            for route in ROW_ROUTES.get(kernel, self.kernels[kernel].ROUTE_LAUNCHES):
                 shapes = [sh for (k, r, sh) in self.route_rows if (k, r) == (kernel, route)]
                 check(bool(shapes), f"{kernel}/{route}: no timed phase")
                 for shape in shapes:
@@ -3014,6 +3182,15 @@ class Smoke:
                     if tiling:   # bf16 operands through the same tiling: a field of its own
                         extra["bf16_operands_max_abs_err"] = self.max_err.get(
                             err_key(kernel, route, "bfloat16", tiling))
+                    if (kernel, route) == ("sparse_accum_spgemm", "global"):
+                        # the classed call: the launches of every class in
+                        # the main-path run of its global class
+                        extra["class_launches"] = {}
+                        for name in self.kernels[kernel].ROUTES[1:]:
+                            check(f"{kernel}/{name}" in self.route_runs,
+                                  f"{kernel}/{name}: launched no time on the main path")
+                            extra["class_launches"][name] = self.route_runs[
+                                f"{kernel}/{name}"][1]
                     if kernel in self.batched:   # the ESC kernel at width 8
                         check(self.batched_launches.get(kernel, 0) > 0,
                               f"{kernel}: launched no time in its batched run")
@@ -3075,11 +3252,12 @@ def main() -> int:
     smoke.edge_phase()
     smoke.esc_class_phase()
     smoke.hash_class_phase()
-    # the ESC kernel's global route: L x L of an RMAT scale-12 graph (these
-    # numbers go into the kernels line's global row)
+    # the ESC kernel's classed launch: L x L of an RMAT scale-12 graph (these
+    # numbers go into the kernels line's global row), then the class edges
     L12 = smoke.rmat_l(BATCH_RMAT_SEEDS[0])
     plan_l12 = smoke.rmat_plan(L12)
     smoke.esc_global_phase("rmat12_knl", L12, plan_l12)
+    smoke.esc_class_edge_phase()
 
     # the main path, counters reset before each run
     smoke.main_run("brick3d48_auto", "brick3d", 48, "auto", expect_backend="hash")

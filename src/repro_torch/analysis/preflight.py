@@ -13,7 +13,8 @@ severities:
   (:mod:`repro_torch.analysis.smem`);
 * **info**: the path each host-side chooser takes at the geometry —
   ``ranged_spgemm.choose_path`` (and why its 16-byte-aligned vector path
-  was not taken), the ESC merge's routes (``esc_launch_plan``), and
+  was not taken), the ESC merge's launch (``esc_launch_plan``: the shared
+  route, or the steps, launches and shared memory of each step class), and
   ``bsr_spmm.choose_path`` of the staged A blocks against a dense operand
   as wide as B (and why its group path was not taken).
 """
@@ -130,12 +131,14 @@ def _dense_path(target) -> LintDiagnostic:
 def _esc_route(target) -> LintDiagnostic:
     plan = sparse_accum_spgemm.esc_launch_plan(*target.args,
                                                row_cap=target.fn.keywords["row_cap"])
-    if plan.routes is None:
+    if not plan.split:
         msg = (f"every step on the shared route (the launch-wide bound, "
                f"{plan.work_cap} sort slots, fits shared memory)")
     else:
-        msg = (f"steps by route {plan.routes}, the shared route at {plan.work_cap} "
-               f"sort slots, the global workspace {plan.workspace_bytes} B")
+        msg = (f"steps by class {plan.routes}, launches by class {plan.launches}, "
+               f"shared memory a block by class "
+               f"{ {c.name: c.block_smem for c in plan.classes} }, "
+               f"the global workspace {plan.workspace_bytes} B")
     return LintDiagnostic("info", "chooser", "sparse_accum_spgemm.esc_launch_plan", msg)
 
 

@@ -96,9 +96,10 @@ def launch_requests(target, launches, build_log: dict | None = None) -> list:
         elif launch.kernel == "sparse_accum_spgemm":
             plan = sparse_accum_spgemm.esc_launch_plan(*target.args,
                                                        row_cap=statics["row_cap"])
-            kernels = [("accum_rows_kernel", block_smem(plan.smem_per_warp))]
-            if plan.split:
-                kernels.append(("esc_global_kernel", 0))
+            if plan.split:   # each class that launches, at its own shared memory
+                kernels = [(c.kernel, c.smem) for c in plan.classes if c.name in plan.launches]
+            else:
+                kernels = [("accum_rows_kernel", block_smem(plan.smem_per_warp))]
         elif launch.kernel == "hash_accum_spgemm":
             table = hash_accum_spgemm.table_smem(statics["table_size"])
             kernels = [("accum_rows_kernel", block_smem(table))]

@@ -63,10 +63,6 @@ struct Params {
   int row_cap;        // slots per row: accumulator (ESC) or table (hash)
   int work_cap;       // ESC sort workspace per warp (power of two); unused by hash
   int smem_per_warp;  // bytes
-  // [n_b, rows] or null: 1 where the step of (chunk, row) is not this
-  // merge's (the ESC merge's global route takes it); set only for
-  // launches of one chunk each
-  const unsigned char* skip;
 };
 
 __device__ __forceinline__ int warp_incl_scan(int v, int lane) {
@@ -251,7 +247,6 @@ __global__ void __launch_bounds__(kMaxAccumThreads, Merge::kMinBlocksPerSM)
   const int rows = p.batch * p.n_ac * p.strip_rows;   // < 2^31 (launch checks)
   const int g = blockIdx.x * (blockDim.x / kWarp) + warp;
   if (g >= rows) return;  // warp-uniform
-  if (p.skip != nullptr && p.skip[(long long)j_begin * rows + g]) return;  // warp-uniform
   const int strip = g / p.strip_rows;
   const int r = g - strip * p.strip_rows;
   const int b = strip / p.n_ac;
@@ -439,7 +434,7 @@ int launch(const Params& p, int warps_per_block, int order,
                         out_ix,    out_d,     overflow, batch,   n_ac,      \
                         n_b,       strip_rows, chunk_rows, a_cap, chunk_cap, \
                         c_cap,     a_mrn,     b_mrn,    row_cap, work_cap,  \
-                        smem_per_warp, nullptr};                             \
+                        smem_per_warp};                                      \
     return LAUNCH(p, warps_per_block, order, (cudaStream_t)stream);         \
   }                                                                          \
   extern "C" const char* NAME##_error_string(int e) {                       \

@@ -38,35 +38,45 @@
 //             whose products sum to zero stays an entry, as in the
 //             reference. After the register sort the runs are read from the
 //             registers (compress_regs), otherwise from shared memory.
-// The workspace per warp is work_cap 64-bit keys and f32 values:
-// next_pow2(a_max_row_nnz * b_max_row_nnz + row_cap) where that fits shared
-// memory (every step then takes this, the shared route), else the next
-// power of two of the largest step that fits (the wrapper's
-// esc_launch_plan, from each step's exact key count).
+// Where the launch-wide workspace, next_pow2(a_max_row_nnz * b_max_row_nnz
+// + row_cap) keys and the row's accumulator, fits a block's shared memory,
+// every step takes it (the shared route): one warp a row, the skeleton's
+// launch.
 //
-// The global route takes the steps whose keys do not fit a block's shared
-// memory (rows of thousands of products: L x L of an RMAT graph). One block
-// of kGlobalThreads threads merges one (row, chunk) step in a workspace in
-// global memory, its slots placed by the wrapper (an exclusive scan of the
-// global steps' sort slots, next_pow2 of each step's keys):
-//   expand:   the block scans the product counts of
-//             kGlobalThreads A entries at a time in shared memory and each
-//             thread takes products t, t + kGlobalThreads, ... of the tile,
-//             finding its A entry by a binary search of the scan; keys
-//             (column << 32) | position, values by position, the
-//             accumulator's entries (C_prev at the first chunk, else the
-//             row's slab) after the products;
-//   sort:     a bitonic network over the step's next_pow2(n) slots in
-//             global memory, one __syncthreads a stage (the slots stay in
-//             the 50 MB L2 at the sizes it takes);
-//   compress: the block scans the run heads tile by tile; a head's thread
-//             sums its run in sorted order from 0.0f (the shared route's,
-//             and the reference's, summation order) and writes the row's
-//             slab.
-// A call with global steps launches chunk by chunk: the shared merge over
-// the rows whose step fits (Params::skip marks the others), then the
-// global merge over that chunk's global steps; a row's accumulator passes
-// between them, and between chunks, in its slab.
+// Otherwise the wrapper has counted every step's keys (esc_launch_plan) and
+// the call is classed: each chunk launches, for each step class that has
+// steps there, one kernel over that class's rows only (a compacted list,
+// built on the card); an empty step launches nothing (slab_cnt is zeroed
+// once, which is its result). Shared memory comes from the class's own keys
+// W (a step's accumulator never holds more entries than its keys):
+//   warp classes (esc_warp_kernel): a warp a step, EscMerge at work_cap W
+//             with min(row_cap, W) accumulator slots, so up to 8 warps a
+//             block and several blocks an SM (the register sorts: a warp's
+//             shared-memory sort of a few hundred keys takes several times a
+//             block's, so the larger steps take block classes);
+//   block classes (esc_block_kernel): a block a step: the expand over tiles
+//             of blockDim A entries (a block scan of their product counts,
+//             a binary search of it per product), the accumulator read
+//             from C_prev or the slab straight into the sort slots, a
+//             bitonic sort of next_pow2(n) keys in shared memory by every
+//             thread (a barrier a sub-stage), and the compress: the block
+//             scans the run heads, a head's thread sums its run in sorted
+//             order from 0.0f and writes the slab. Keys are (column <<
+//             bits(W - 1)) | position in 32 bits where the call's columns
+//             fit beside the position (the wrapper's key_bits, as the warp
+//             classes pack them), which halves the sort's shared-memory
+//             traffic, else (column << 32) | position;
+//   global (esc_global_kernel): steps past the last class's keys, a block a
+//             step, in a workspace in global memory placed by the wrapper
+//             (an exclusive scan of the steps' next powers of two): the same
+//             expand (32-bit keys where the columns fit beside the call's
+//             largest global step's positions), then the bitonic sort in
+//             tiles of the last class's size: each tile sorted in shared
+//             memory, and for each wider
+//             stage only the sub-stages of stride at least a tile as passes
+//             over global memory, the rest on each tile in shared memory
+//             (load, sub-stages, store); then the same compress.
+// A row's accumulator passes between chunks in its slab.
 
 #include "csr_accum.cuh"
 
@@ -396,30 +406,69 @@ struct EscMerge {
   }
 };
 
-// -- the global route ------------------------------------------------------
+// -- the classed launch -----------------------------------------------------
 
-constexpr int kGlobalThreads = 512;
-constexpr int kGlobalWarps = kGlobalThreads / kWarp;
+// most threads of a block-class or global block (a power of two; the
+// wrapper's BLOCK_THREADS)
+constexpr int kBlockThreads = 1024;
 
-struct GlobalSteps {
-  const int* rows;              // [items] the step's global row, chunk-major
-  const long long* offsets;     // [items + 1] the step's sort slots in the workspace
-  unsigned long long* keys;     // workspace keys
-  float* vals;                  // workspace values, by position
+// One warp a step of a warp class: q is the call's Params with the class's
+// work_cap, accumulator slots (row_cap) and smem_per_warp; the slabs keep the
+// call's row_cap as their stride.
+__global__ void __launch_bounds__(csr_accum::kMaxAccumThreads, EscMerge::kMinBlocksPerSM)
+    esc_warp_kernel(Params q, const int* rows, int items, int j, int slab_stride) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int item = blockIdx.x * (blockDim.x / kWarp) + warp;
+  if (item >= items) return;   // warp-uniform
+  const int g = rows[item];
+  const int strip = g / q.strip_rows;
+  const int r = g - strip * q.strip_rows;
+  const int b = strip / q.n_ac;
+  int* slab_c = q.slab_cols + (long long)g * slab_stride;
+  float* slab_v = q.slab_vals + (long long)g * slab_stride;
+  EscMerge m(smem + (size_t)warp * q.smem_per_warp, q);
+  m.clear(lane);
+  if (j == 0) {
+    const int* ip = q.c0_ip + (long long)strip * (q.strip_rows + 1);
+    const int s = min(ip[r], q.c_cap), e = min(ip[r + 1], q.c_cap);
+    m.load(q, q.c0_ix + (long long)strip * q.c_cap + s,
+           q.c0_d + (long long)strip * q.c_cap + s, max(e - s, 0), lane);
+  } else {
+    m.load(q, slab_c, slab_v, q.slab_cnt[g], lane);
+  }
+  const int* a_ip = q.a_ip + (long long)strip * (q.strip_rows + 1);
+  const int a_start = min(a_ip[r], q.a_cap), a_end = min(a_ip[r + 1], q.a_cap);
+  const long long chunk = (long long)b * q.n_b + j;
+  m.merge(q, q.a_ix + (long long)strip * q.a_cap, q.a_d + (long long)strip * q.a_cap,
+          a_start, a_end, q.b_ip + chunk * (q.chunk_rows + 1), q.b_ix + chunk * q.chunk_cap,
+          q.b_d + chunk * q.chunk_cap, q.r0s[j], q.r1s[j], lane);
+  q.slab_cnt[g] = m.store(q, slab_c, slab_v, lane);
+}
+
+// The expand's scratch: a tile's product counts scanned, B row starts and A
+// values (the block and global kernels' static shared memory).
+struct ExpandScratch {
+  int excl[kBlockThreads];
+  int start[kBlockThreads];
+  float aval[kBlockThreads];
+  int scan[kWarp + 1];
 };
 
 // Exclusive scan of v over the block (x) and the block's sum (y). Every
 // thread calls it; it ends with a barrier, so scratch may be reused.
 __device__ __forceinline__ int2 block_excl_scan(int v, int* scratch) {
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
   const int incl = csr_accum::warp_incl_scan(v, lane);
   if (lane == kWarp - 1) scratch[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    const int w = lane < kGlobalWarps ? scratch[lane] : 0;
+    const int w = lane < warps ? scratch[lane] : 0;
     const int w_incl = csr_accum::warp_incl_scan(w, lane);
-    if (lane < kGlobalWarps) scratch[lane] = w_incl - w;
-    if (lane == kGlobalWarps - 1) scratch[kWarp] = w_incl;
+    if (lane < warps) scratch[lane] = w_incl - w;
+    if (lane == warps - 1) scratch[kWarp] = w_incl;
   }
   __syncthreads();
   const int2 out = make_int2(scratch[warp] + incl - v, scratch[kWarp]);
@@ -427,57 +476,63 @@ __device__ __forceinline__ int2 block_excl_scan(int v, int* scratch) {
   return out;
 }
 
-__global__ void __launch_bounds__(kGlobalThreads)
-    esc_global_kernel(Params p, GlobalSteps w, int item0, int j) {
-  __shared__ int s_excl[kGlobalThreads];
-  __shared__ int s_start[kGlobalThreads];
-  __shared__ float s_aval[kGlobalThreads];
-  __shared__ int s_scan[kWarp + 1];
-  const int tid = threadIdx.x;
-  const int item = item0 + blockIdx.x;
-  const int g = w.rows[item];
-  const long long base = w.offsets[item];
-  const long long cap = w.offsets[item + 1] - base;   // a power of two
-  unsigned long long* keys = w.keys + base;
-  float* vals = w.vals + base;
-  const int strip = g / p.strip_rows;
-  const int r = g - strip * p.strip_rows;
-  const int b = strip / p.n_ac;
-  int* out_c = p.slab_cols + (long long)g * p.row_cap;
-  float* out_v = p.slab_vals + (long long)g * p.row_cap;
-
-  // the accumulator: C_prev's row at the first chunk, else the row's slab
+// One step's row: its place, its accumulator (C_prev's row at the first
+// chunk, else the row's slab) and its slab.
+struct StepRow {
+  int g, strip, r, b;
   const int* acc_c;
   const float* acc_v;
   int acc_n;
-  if (j == 0) {
-    const int* ip = p.c0_ip + (long long)strip * (p.strip_rows + 1);
-    const int s = min(ip[r], p.c_cap), e = min(ip[r + 1], p.c_cap);
-    acc_c = p.c0_ix + (long long)strip * p.c_cap + s;
-    acc_v = p.c0_d + (long long)strip * p.c_cap + s;
-    acc_n = max(e - s, 0);
-  } else {
-    acc_c = out_c;
-    acc_v = out_v;
-    acc_n = p.slab_cnt[g];
-  }
-  if (acc_n > p.row_cap) {
-    if (tid == 0) csr_accum::flag_overflow(p);
-    acc_n = p.row_cap;
-  }
+  int* out_c;
+  float* out_v;
+};
 
-  // expand the row's in-range products of chunk j, in the reference's order
-  const int* a_ip = p.a_ip + (long long)strip * (p.strip_rows + 1);
-  const int* a_ix = p.a_ix + (long long)strip * p.a_cap;
-  const float* a_d = p.a_d + (long long)strip * p.a_cap;
-  const int a_start = min(a_ip[r], p.a_cap), a_end = min(a_ip[r + 1], p.a_cap);
-  const long long chunk = (long long)b * p.n_b + j;
+__device__ StepRow step_row(const Params& p, int g, int j) {
+  StepRow s;
+  s.g = g;
+  s.strip = g / p.strip_rows;
+  s.r = g - s.strip * p.strip_rows;
+  s.b = s.strip / p.n_ac;
+  s.out_c = p.slab_cols + (long long)g * p.row_cap;
+  s.out_v = p.slab_vals + (long long)g * p.row_cap;
+  if (j == 0) {
+    const int* ip = p.c0_ip + (long long)s.strip * (p.strip_rows + 1);
+    const int st = min(ip[s.r], p.c_cap), e = min(ip[s.r + 1], p.c_cap);
+    s.acc_c = p.c0_ix + (long long)s.strip * p.c_cap + st;
+    s.acc_v = p.c0_d + (long long)s.strip * p.c_cap + st;
+    s.acc_n = max(e - st, 0);
+  } else {
+    s.acc_c = s.out_c;
+    s.acc_v = s.out_v;
+    s.acc_n = p.slab_cnt[g];
+  }
+  if (s.acc_n > p.row_cap) {
+    if (threadIdx.x == 0) csr_accum::flag_overflow(p);
+    s.acc_n = p.row_cap;
+  }
+  return s;
+}
+
+// The step's in-range products of chunk j in the reference's order: keys
+// (column << shift) | position (Key: 32 or 64 bits, as the wrapper's
+// key_bits allows) and values by position, for the positions below cap
+// (shared or global memory). Returns the product count (<= the step's
+// keys, which the wrapper holds to 2^30).
+template <class Key>
+__device__ int block_expand(const Params& p, const StepRow& s, int j, Key* keys, float* vals,
+                            int cap, int shift, ExpandScratch& x) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int* a_ip = p.a_ip + (long long)s.strip * (p.strip_rows + 1);
+  const int* a_ix = p.a_ix + (long long)s.strip * p.a_cap;
+  const float* a_d = p.a_d + (long long)s.strip * p.a_cap;
+  const int a_start = min(a_ip[s.r], p.a_cap), a_end = min(a_ip[s.r + 1], p.a_cap);
+  const long long chunk = (long long)s.b * p.n_b + j;
   const int* b_ip = p.b_ip + chunk * (p.chunk_rows + 1);
   const int* b_ix = p.b_ix + chunk * p.chunk_cap;
   const float* b_d = p.b_d + chunk * p.chunk_cap;
   const int r0 = p.r0s[j], r1 = p.r1s[j];
-  int n_prod = 0;   // <= the step's keys (the wrapper holds them to 2^30)
-  for (int tile = a_start; tile < a_end; tile += kGlobalThreads) {
+  int n_prod = 0;
+  for (int tile = a_start; tile < a_end; tile += nt) {
     const int e = tile + tid;
     int cnt = 0, start = 0;
     float a = 0.f;
@@ -490,52 +545,58 @@ __global__ void __launch_bounds__(kGlobalThreads)
         a = a_d[e];
       }
     }
-    const int2 scan = block_excl_scan(cnt, s_scan);
+    const int2 scan = block_excl_scan(cnt, x.scan);
     const int total = scan.y;
-    s_excl[tid] = scan.x;
-    s_start[tid] = start;
-    s_aval[tid] = a;
+    x.excl[tid] = scan.x;
+    x.start[tid] = start;
+    x.aval[tid] = a;
     __syncthreads();
-    for (int q = tid; q < total; q += kGlobalThreads) {
+    for (int q = tid; q < total; q += nt) {
       // the entry of product q: the last whose exclusive scan is <= q
       int lo = 0;
-      for (int s = kGlobalThreads / 2; s > 0; s >>= 1)
-        if (s_excl[lo + s] <= q) lo += s;
-      const long long pos = n_prod + q;
+      for (int st = nt / 2; st > 0; st >>= 1)
+        if (x.excl[lo + st] <= q) lo += st;
+      const int pos = n_prod + q;
       if (pos < cap) {
-        const int src = min(s_start[lo] + q - s_excl[lo], p.chunk_cap - 1);
-        keys[pos] = ((unsigned long long)(unsigned)b_ix[src] << 32) | (unsigned long long)pos;
-        vals[pos] = s_aval[lo] * b_d[src];
+        const int src = min(x.start[lo] + q - x.excl[lo], p.chunk_cap - 1);
+        keys[pos] = ((Key)(unsigned)b_ix[src] << shift) | (Key)(unsigned)pos;
+        vals[pos] = x.aval[lo] * b_d[src];
       }
     }
     n_prod += total;
     __syncthreads();
   }
-  const long long n = n_prod + acc_n;
-  if (n > cap) {   // the wrapper's count was wrong: report, leave the row empty
-    if (tid == 0) {
-      csr_accum::flag_overflow(p);
-      p.slab_cnt[g] = 0;
-    }
-    return;
-  }
-  for (int t = tid; t < acc_n; t += kGlobalThreads) {
-    const long long pos = n_prod + t;
-    keys[pos] = ((unsigned long long)(unsigned)acc_c[t] << 32) | (unsigned long long)pos;
-    vals[pos] = acc_v[t];
-  }
-  const int n2 = csr_accum::next_pow2((int)n);   // <= cap
-  for (int t = (int)n + tid; t < n2; t += kGlobalThreads) keys[t] = ~0ull;
-  __syncthreads();
+  return n_prod;
+}
 
-  // bitonic sort of the n2 slots, pair i of a stage at (t, t | jj)
-  for (int k = 2; k <= n2; k <<= 1) {
-    for (int jj = k >> 1; jj > 0; jj >>= 1) {
-      for (int i = tid; i < n2 / 2; i += kGlobalThreads) {
+// The accumulator's entries after the n_prod products, then ~0 keys up to
+// n2 (the caller's barrier follows).
+template <class Key>
+__device__ void block_append(const StepRow& s, int n_prod, int n, int n2, int shift, Key* keys,
+                             float* vals) {
+  for (int t = threadIdx.x; t < s.acc_n; t += blockDim.x) {
+    const int pos = n_prod + t;
+    keys[pos] = ((Key)(unsigned)s.acc_c[t] << shift) | (Key)(unsigned)pos;
+    vals[pos] = s.acc_v[t];
+  }
+  for (int t = n + threadIdx.x; t < n2; t += blockDim.x) keys[t] = ~(Key)0;
+}
+
+// Stages k = k_first, 2 k_first, ..., k_last of an ascending bitonic sort
+// on the n keys (a power of two) at keys, which are slots base ... base + n
+// - 1 of the whole sort: of each stage the sub-stages of stride below n
+// (the wider ones run elsewhere). Pair i of a sub-stage is (t, t | jj).
+// Ends with a barrier.
+template <class Key>
+__device__ void block_bitonic(Key* keys, int n, unsigned base, unsigned k_first,
+                              unsigned k_last) {
+  for (unsigned k = k_first; k <= k_last; k <<= 1) {
+    for (int jj = (int)(min(k, (unsigned)n) >> 1); jj > 0; jj >>= 1) {
+      for (int i = threadIdx.x; i < n / 2; i += blockDim.x) {
         const int t = ((i & ~(jj - 1)) << 1) | (i & (jj - 1));
         const int u = t | jj;
-        const bool ascending = (t & k) == 0;
-        const unsigned long long x = keys[t], y = keys[u];
+        const bool ascending = ((base + (unsigned)t) & k) == 0;
+        const Key x = keys[t], y = keys[u];
         if ((x > y) == ascending) {
           keys[t] = y;
           keys[u] = x;
@@ -544,26 +605,33 @@ __global__ void __launch_bounds__(kGlobalThreads)
       __syncthreads();
     }
   }
+}
 
-  // compress: one thread per run of equal columns, in sorted order from 0.0f
+// Compress the n sorted keys (values by position): one thread per run of
+// equal columns sums it in sorted order from 0.0f and writes the row's
+// slab. Returns the row's entries.
+template <class Key>
+__device__ int block_compress(const Params& p, const Key* keys, const float* vals, int n,
+                              int shift, int* out_c, float* out_v, int* scratch) {
+  const Key pos_mask = ((Key)1 << shift) - 1;
   int out_n = 0;
   bool over = false;
-  for (int tile = 0; tile < n; tile += kGlobalThreads) {
-    const int t = tile + tid;
+  for (int tile = 0; tile < n; tile += blockDim.x) {
+    const int t = tile + threadIdx.x;
     bool head = false;
     unsigned col = 0;
     if (t < n) {
-      col = (unsigned)(keys[t] >> 32);
-      head = t == 0 || (unsigned)(keys[t - 1] >> 32) != col;
+      col = (unsigned)(keys[t] >> shift);
+      head = t == 0 || (unsigned)(keys[t - 1] >> shift) != col;
     }
-    const int2 scan = block_excl_scan(head ? 1 : 0, s_scan);
+    const int2 scan = block_excl_scan(head ? 1 : 0, scratch);
     const int seg = out_n + scan.x;
     if (head) {
       float sum = 0.f;
       for (int u = t; u < n; ++u) {
-        const unsigned long long ku = keys[u];
-        if ((unsigned)(ku >> 32) != col) break;
-        sum += vals[(unsigned)ku];
+        const Key ku = keys[u];
+        if ((unsigned)(ku >> shift) != col) break;
+        sum += vals[(unsigned)(ku & pos_mask)];
       }
       if (seg < p.row_cap) {
         out_c[seg] = (int)col;
@@ -575,32 +643,195 @@ __global__ void __launch_bounds__(kGlobalThreads)
     out_n += scan.y;
   }
   if (over) csr_accum::flag_overflow(p);
-  if (tid == 0) p.slab_cnt[g] = min(out_n, p.row_cap);
+  return min(out_n, p.row_cap);
 }
 
-// A call without global steps (host_plan null) is the skeleton's launch.
-// Otherwise chunk by chunk: the shared merge where the chunk has shared
-// steps, then the global merge over its global steps. host_plan is a host
-// array: the chunks' first items (n_b + 1), then whether each chunk has
-// shared steps (n_b).
-int esc_launch(Params p, int warps_per_block, int order, const GlobalSteps& w,
-               const int* host_plan, cudaStream_t stream) {
-  if (host_plan == nullptr) {
-    p.skip = nullptr;
-    return csr_accum::launch<EscMerge>(p, warps_per_block, order, stream);
+// One block a step of a block class: sort slots for cap keys (the class's
+// W) in dynamic shared memory, keys then values; keys (column << shift) |
+// position.
+template <class Key>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    esc_block_kernel(Params p, const int* rows, int j, int cap, int shift) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ ExpandScratch x;
+  Key* keys = reinterpret_cast<Key*>(smem);
+  float* vals = reinterpret_cast<float*>(keys + cap);
+  const StepRow s = step_row(p, rows[blockIdx.x], j);
+  const int n_prod = block_expand(p, s, j, keys, vals, cap, shift, x);
+  const int n = n_prod + s.acc_n;
+  if (n > cap) {   // the wrapper's count was wrong: report, leave the row empty
+    if (threadIdx.x == 0) {
+      csr_accum::flag_overflow(p);
+      p.slab_cnt[s.g] = 0;
+    }
+    return;
   }
+  const int n2 = csr_accum::next_pow2(n);
+  block_append(s, n_prod, n, n2, shift, keys, vals);
+  __syncthreads();
+  block_bitonic(keys, n2, 0, 2, n2);
+  const int out_n = block_compress(p, keys, vals, n, shift, s.out_c, s.out_v, x.scan);
+  if (threadIdx.x == 0) p.slab_cnt[s.g] = out_n;
+}
+
+// The global steps of one launch: their rows, and their sort slots in the
+// workspace (offsets[i]:offsets[i + 1], a power of two at least the keys,
+// in keys of the launch's width).
+struct GlobalSteps {
+  const int* rows;
+  const long long* offsets;
+  unsigned long long* keys;     // workspace keys
+  float* vals;                  // workspace values, by position
+};
+
+// Stages k_first ... k_last of the sort on the len slots at g (slots base
+// ... of the step's), through shared memory: load, sub-stages, store.
+template <class Key>
+__device__ void tile_pass(Key* g, Key* sh, int len, unsigned base, unsigned k_first,
+                          unsigned k_last) {
+  for (int t = threadIdx.x; t < len; t += blockDim.x) sh[t] = g[t];
+  __syncthreads();
+  block_bitonic(sh, len, base, k_first, k_last);
+  for (int t = threadIdx.x; t < len; t += blockDim.x) g[t] = sh[t];
+  __syncthreads();
+}
+
+// One block a global step: the tile (a power of two, the last class's keys)
+// in dynamic shared memory.
+template <class Key>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    esc_global_kernel(Params p, GlobalSteps w, int j, int tile, int shift) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ ExpandScratch x;
+  Key* sh = reinterpret_cast<Key*>(smem);
+  const long long base = w.offsets[blockIdx.x];
+  const int cap = (int)(w.offsets[blockIdx.x + 1] - base);   // <= 2^30
+  Key* keys = reinterpret_cast<Key*>(w.keys) + base;
+  float* vals = w.vals + base;
+  const StepRow s = step_row(p, w.rows[blockIdx.x], j);
+  const int n_prod = block_expand(p, s, j, keys, vals, cap, shift, x);
+  const long long n = (long long)n_prod + s.acc_n;
+  if (n > cap) {   // the wrapper's count was wrong: report, leave the row empty
+    if (threadIdx.x == 0) {
+      csr_accum::flag_overflow(p);
+      p.slab_cnt[s.g] = 0;
+    }
+    return;
+  }
+  const int n2 = csr_accum::next_pow2((int)n);   // <= cap
+  block_append(s, n_prod, (int)n, n2, shift, keys, vals);
+  __syncthreads();
+  const int len = min(tile, n2);
+  for (int t0 = 0; t0 < n2; t0 += len) tile_pass(keys + t0, sh, len, t0, 2, len);
+  for (unsigned k = 2u * len; k <= (unsigned)n2; k <<= 1) {
+    // the sub-stages of stride at least a tile, over global memory
+    for (unsigned jj = k >> 1; jj >= (unsigned)len; jj >>= 1) {
+      for (int i = threadIdx.x; i < n2 / 2; i += blockDim.x) {
+        const unsigned t = (((unsigned)i & ~(jj - 1)) << 1) | ((unsigned)i & (jj - 1));
+        const unsigned u = t | jj;
+        const bool ascending = (t & k) == 0;
+        const Key a = keys[t], b = keys[u];
+        if ((a > b) == ascending) {
+          keys[t] = b;
+          keys[u] = a;
+        }
+      }
+      __syncthreads();
+    }
+    for (int t0 = 0; t0 < n2; t0 += len) tile_pass(keys + t0, sh, len, t0, k, k);
+  }
+  const int out_n = block_compress(p, keys, vals, (int)n, shift, s.out_c, s.out_v, x.scan);
+  if (threadIdx.x == 0) p.slab_cnt[s.g] = out_n;
+}
+
+// A kernel's dynamic shared memory limit, raised only when a call needs
+// more than the largest earlier one (one setting per Tag).
+template <int Tag, class Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+  static size_t allowed = 48 * 1024;
+  if (smem > allowed) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed = smem;
+  }
+  return 0;
+}
+
+// A classed call's steps: the rows of every non-empty step (chunk-major,
+// then by class, then by row) and the global steps' workspace.
+struct ClassedSteps {
+  const int* items;
+  const long long* offsets;     // [global steps + 1], in the items' order
+  unsigned long long* keys;
+  float* vals;
+};
+
+enum { kWarpClass = 0, kBlockClass = 1, kGlobalClass = 2 };
+// kind, work_cap, acc slots, smem_per_warp, threads, dynamic smem, key bits
+// and shift (block and global classes)
+constexpr int kClassFields = 8;
+
+// One launch of a block or global class: 32-bit keys where the wrapper's
+// key bits allow, else 64-bit keys (column << 32 | position).
+int launch_block_class(const Params& p, const int* f, const int* rows, const GlobalSteps& gs,
+                       int items, int j, int tile, cudaStream_t stream) {
+  const bool narrow = f[6] == 32;
+  const int shift = narrow ? f[7] : 32;
+  int err;
+  if (f[0] == kBlockClass && narrow) {
+    if ((err = allow_smem<0>(esc_block_kernel<unsigned>, f[5]))) return err;
+    esc_block_kernel<unsigned><<<items, f[4], f[5], stream>>>(p, rows, j, f[1], shift);
+  } else if (f[0] == kBlockClass) {
+    if ((err = allow_smem<1>(esc_block_kernel<unsigned long long>, f[5]))) return err;
+    esc_block_kernel<unsigned long long><<<items, f[4], f[5], stream>>>(p, rows, j, f[1], shift);
+  } else if (narrow) {
+    if ((err = allow_smem<2>(esc_global_kernel<unsigned>, f[5]))) return err;
+    esc_global_kernel<unsigned><<<items, f[4], f[5], stream>>>(p, gs, j, tile, shift);
+  } else {
+    if ((err = allow_smem<3>(esc_global_kernel<unsigned long long>, f[5]))) return err;
+    esc_global_kernel<unsigned long long><<<items, f[4], f[5], stream>>>(p, gs, j, tile, shift);
+  }
+  return 0;
+}
+
+// host_plan (a host array): the number of classes, the global tile, per
+// class its kClassFields, then each (chunk, class)'s first item (chunk-major,
+// n_b * classes + 1 of them). Chunk by chunk, each class with steps there
+// launches once over its rows; then the scan and the copy.
+int esc_launch_classed(Params p, const ClassedSteps& w, const int* host_plan,
+                       cudaStream_t stream) {
   const long long rows = (long long)p.batch * p.n_ac * p.strip_rows;
   if (rows >= (1ll << 31) || rows == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)warps_per_block * p.smem_per_warp;
-  if (int err = csr_accum::allow_smem<EscMerge>(smem)) return err;
-  const unsigned blocks = (unsigned)((rows + warps_per_block - 1) / warps_per_block);
+  const int n_cls = host_plan[0], tile = host_plan[1];
+  const int* cls = host_plan + 2;
+  const int* starts = cls + n_cls * kClassFields;
+  // an empty step launches nothing: its row stays at zero entries
+  const cudaError_t zero = cudaMemsetAsync(p.slab_cnt, 0, (size_t)rows * sizeof(int), stream);
+  if (zero != cudaSuccess) return (int)zero;
+  int global_seen = 0;
   for (int j = 0; j < p.n_b; ++j) {
-    if (host_plan[p.n_b + 1 + j])
-      csr_accum::accum_rows_kernel<EscMerge>
-          <<<blocks, warps_per_block * kWarp, smem, stream>>>(p, j, j + 1);
-    const int items = host_plan[j + 1] - host_plan[j];
-    if (items > 0)
-      esc_global_kernel<<<items, kGlobalThreads, 0, stream>>>(p, w, host_plan[j], j);
+    for (int c = 0; c < n_cls; ++c) {
+      const int* f = cls + c * kClassFields;
+      const int first = starts[j * n_cls + c];
+      const int items = starts[j * n_cls + c + 1] - first;
+      if (items == 0) continue;
+      const int* rows_c = w.items + first;
+      if (f[0] == kWarpClass) {
+        if (int err = allow_smem<4>(esc_warp_kernel, f[5])) return err;
+        Params q = p;
+        q.work_cap = f[1];
+        q.row_cap = f[2];
+        q.smem_per_warp = f[3];
+        const int warps = f[4] / kWarp;
+        esc_warp_kernel<<<(items + warps - 1) / warps, f[4], f[5], stream>>>(q, rows_c, items, j,
+                                                                             p.row_cap);
+        continue;
+      }
+      const GlobalSteps gs{rows_c, w.offsets + global_seen, w.keys, w.vals};
+      if (int err = launch_block_class(p, f, rows_c, gs, items, j, tile, stream)) return err;
+      if (f[0] == kGlobalClass) global_seen += items;
+    }
   }
   csr_accum::finish(p, stream);
   return (int)cudaGetLastError();
@@ -608,27 +839,29 @@ int esc_launch(Params p, int warps_per_block, int order, const GlobalSteps& w,
 
 }  // namespace
 
-// The skeleton's entry (CSR_ACCUM_ENTRY_FN) with the global route's
-// operands after the common pointers: skip [n_b, rows], the global steps'
-// rows and offsets, the workspace's keys and values, and host_plan (a host
-// array, see esc_launch); all null for a call without global steps.
+// The skeleton's entry (CSR_ACCUM_ENTRY_FN) with the classed launch's
+// operands after the common pointers: the steps' rows, the global steps'
+// offsets, the workspace's keys and values, and host_plan (a host array,
+// see esc_launch_classed); all null for a call on the shared route.
 extern "C" int sparse_accum_launch(
     const int* a_ip, const int* a_ix, const float* a_d, const int* b_ip, const int* b_ix,
     const float* b_d, const int* c0_ip, const int* c0_ix, const float* c0_d, const int* r0s,
     const int* r1s, int* slab_cols, float* slab_vals, int* slab_cnt, int* out_ip,
-    int* out_ix, float* out_d, int* overflow, const unsigned char* skip,
-    const int* g_rows, const long long* g_offsets, unsigned long long* ws_keys,
-    float* ws_vals, const int* host_plan, int batch, int n_ac, int n_b, int strip_rows,
-    int chunk_rows, int a_cap, int chunk_cap, int c_cap, int a_mrn, int b_mrn, int row_cap,
-    int work_cap, int smem_per_warp, int warps_per_block, int order, void* stream) {
-  csr_accum::Params p{a_ip,      a_ix,      a_d,      b_ip,       b_ix,       b_d,
-                      c0_ip,     c0_ix,     c0_d,     r0s,        r1s,        slab_cols,
-                      slab_vals, slab_cnt,  out_ip,   out_ix,     out_d,      overflow,
-                      batch,     n_ac,      n_b,      strip_rows, chunk_rows, a_cap,
-                      chunk_cap, c_cap,     a_mrn,    b_mrn,      row_cap,    work_cap,
-                      smem_per_warp, skip};
-  const GlobalSteps w{g_rows, g_offsets, ws_keys, ws_vals};
-  return esc_launch(p, warps_per_block, order, w, host_plan, (cudaStream_t)stream);
+    int* out_ix, float* out_d, int* overflow, const int* items, const long long* offsets,
+    unsigned long long* ws_keys, float* ws_vals, const int* host_plan, int batch, int n_ac,
+    int n_b, int strip_rows, int chunk_rows, int a_cap, int chunk_cap, int c_cap, int a_mrn,
+    int b_mrn, int row_cap, int work_cap, int smem_per_warp, int warps_per_block, int order,
+    void* stream) {
+  const csr_accum::Params p{a_ip,      a_ix,      a_d,      b_ip,       b_ix,       b_d,
+                            c0_ip,     c0_ix,     c0_d,     r0s,        r1s,        slab_cols,
+                            slab_vals, slab_cnt,  out_ip,   out_ix,     out_d,      overflow,
+                            batch,     n_ac,      n_b,      strip_rows, chunk_rows, a_cap,
+                            chunk_cap, c_cap,     a_mrn,    b_mrn,      row_cap,    work_cap,
+                            smem_per_warp};
+  if (host_plan == nullptr)
+    return csr_accum::launch<EscMerge>(p, warps_per_block, order, (cudaStream_t)stream);
+  const ClassedSteps w{items, offsets, ws_keys, ws_vals};
+  return esc_launch_classed(p, w, host_plan, (cudaStream_t)stream);
 }
 
 extern "C" const char* sparse_accum_launch_error_string(int e) {

@@ -12,12 +12,14 @@ the wrapper runs :func:`sparse_accum_plain`. The skeleton's launch helper,
 :func:`launch_csr_accum`, also carries the hash merge
 (``repro_torch.kernels.hash_accum_spgemm``).
 
-The merge has two routes (:data:`ROUTES`). ``shared``: a warp merges a row's
-step in shared memory. ``global``: a block merges one step whose keys do not
-fit a block's shared memory, in a workspace in global memory. Where the
-launch-wide bound :func:`esc_workspace` fits shared memory every step takes
-the shared route; otherwise :func:`esc_launch_plan` counts each step's keys
-(:func:`step_keys`) and routes each step by its own count.
+Where the launch-wide bound :func:`esc_workspace` fits a block's shared
+memory every step takes the ``shared`` route: a warp merges a row's step in
+shared memory, one launch (chunk1) or one a chunk (chunk2). Otherwise
+:func:`esc_launch_plan` counts each step's keys (:func:`step_keys`) and the
+call is classed: chunk by chunk, each step class (:data:`STEP_CLASSES`, then
+``global``) launches once over its own rows, its shared memory sized by its
+own keys; an empty step launches nothing. :data:`ROUTES` names the shared
+route and the classes.
 """
 
 from __future__ import annotations
@@ -33,17 +35,34 @@ from repro_torch.kernels._build import LaunchCounter, launch, require
 from repro_torch.sparse.csr import CSR, csr_row_of_entry
 
 LAUNCHES = LaunchCounter()
-ROUTES = ("shared", "global")
-# calls that launched each route's kernel (a call may launch both)
-ROUTE_LAUNCHES = {r: LaunchCounter() for r in ROUTES}
 ORDERS = ("chunk1", "chunk2")
 SMEM_PER_BLOCK = 232_448        # bytes of shared memory one block may use (H100)
 SMEM_TARGET = 96 * 1024         # per-block target when choosing warps per block
 MAX_WARPS_PER_BLOCK = 8
-GLOBAL_THREADS = 512            # threads of the global route's block (one step each)
-# keys of one step the global route sorts at most: its block indexes a
+# The step classes of a counted call, (name, kind, most keys a step holds:
+# a power of two), in order: a step takes the first class its keys fit,
+# past the last one the ``global`` class. "warp": a warp a step, up to 8
+# warps a block (the merge's register sorts; one warp's shared-memory sort
+# of a few hundred keys is hundreds of dependent rounds, so larger steps
+# take a block); "block": a block a step, its threads sorting the step in
+# shared memory. ``global`` sorts its step in tiles of the last class's
+# keys.
+STEP_CLASSES = (("warp128", "warp", 128), ("block512", "block", 512),
+                ("block2048", "block", 2048), ("block16384", "block", 16384))
+CLASS_KINDS = ("warp", "block", "global")      # the kind codes of the C entry
+CLASS_KERNELS = {"warp": "esc_warp_kernel", "block": "esc_block_kernel",
+                 "global": "esc_global_kernel"}
+BLOCK_THREADS = 1024            # most threads of a block-class or global block
+# the block and global kernels' static shared memory, the expand's scratch
+# (ptxas's count for sm_90a)
+BLOCK_STATIC_SMEM = 12_432
+# keys of one step the global class sorts at most: its block indexes a
 # step's sort slots with 32-bit ints
 GLOBAL_MAX_KEYS = 1 << 30
+ROUTES = ("shared", *(name for name, _, _ in STEP_CLASSES), "global")
+# kernel launches of each route: "shared" a call on the shared route, a
+# class each (chunk, class) launch of a counted call
+ROUTE_LAUNCHES = {r: LaunchCounter() for r in ROUTES}
 # the ESC merge's sort by size class: a merge step of n keys (the row's
 # in-range products plus its accumulator) whose columns fit 32-bit keys sorts
 # in registers, holding 1, 2 or 4 keys a lane, when n fits the class; a
@@ -129,7 +148,7 @@ def launch_csr_accum(lib: str, fn: str, counter: LaunchCounter, Ast: CSR,
     and return the stacked ``(indptr, indices, data)``. ``row_cap`` is the
     per-row accumulator width, ``smem_per_warp`` the merge's shared memory
     for one row; ``extra`` are pointer operands the entry point takes after
-    the common ones (the ESC merge's routes). Raises when a row's workspace
+    the common ones (the ESC merge's classed launch). Raises when a row's workspace
     exceeds the shared memory of a block, and when the kernel reports a
     capacity overflow."""
     g = stack_geometry(Ast, Bst, C0st, order)
@@ -187,13 +206,10 @@ def block_smem(smem_per_warp: int) -> int:
 
 def kernels_per_call(order: str, n_b: int, plan: "EscLaunch | None" = None) -> int:
     """Kernels one call of the skeleton launches: the merge once (chunk1)
-    or once a chunk (chunk2), then the scan and the copy. An ESC call whose
-    ``plan`` routes steps to the global route launches, for each chunk, the
-    shared merge where the chunk has shared steps and the global merge where
-    it has global ones."""
+    or once a chunk (chunk2), then the scan and the copy. A classed ESC
+    ``plan`` launches, for each chunk, each class that has steps there."""
     if plan is not None and plan.split:
-        return sum(plan.shared_chunks) + sum(
-            int(a < b) for a, b in zip(plan.chunk_items[:-1], plan.chunk_items[1:])) + 2
+        return len(plan.launch_order) + 2
     return (n_b if order == "chunk2" else 1) + 2
 
 
@@ -215,8 +231,10 @@ def key_bits(n_cols: int, work_cap: int) -> int:
     """Width of a packed ESC sort key ``(column << pos_bits) | position``,
     ``pos_bits = bits(work_cap - 1)``: 32 where ``bits(n_cols - 1) + pos_bits
     <= 32``, else 64. The kernel applies the rule to each step of at most
-    128 keys with the step's largest column + 1 as ``n_cols``; its
-    shared-memory sorts pack 64-bit keys ``(column << 32) | position``."""
+    128 keys with the step's largest column + 1 as ``n_cols`` (a warp's
+    shared-memory sort packs 64-bit keys ``(column << 32) | position``), and
+    to a block or global class's launch with the call's width and the
+    class's most slots (:meth:`EscLaunch.key_layout`)."""
     bits = (max(n_cols, 1) - 1).bit_length() + (max(work_cap, 1) - 1).bit_length()
     return 32 if bits <= 32 else 64
 
@@ -266,22 +284,29 @@ def plain_steps(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s):
 
 def sort_steps(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *, row_cap: int) -> dict:
     """How the ESC kernel sorts: the number of (strip row, chunk) merge
-    steps of each ``"class/key bits"`` (``sort_class`` of the step's key
-    count and ``key_bits`` of its largest column at the shared route's
-    ``work_cap``; "none" has no key; "global/64" is a step that
-    :func:`esc_launch_plan` sends to the global route), counted from
-    :func:`plain_steps`."""
+    steps of each sort, counted from :func:`plain_steps`. On the shared
+    route a step's key is ``"sort/key bits"`` (``sort_class`` of its key
+    count and ``key_bits`` of its largest column at the route's
+    ``work_cap``); in a classed call a warp class's step is
+    ``"class/sort/key bits"`` at the class's ``work_cap``, a block or global
+    class's ``"class/key bits"`` (:meth:`EscLaunch.key_layout`). "none" is
+    an empty step."""
     plan = esc_launch_plan(Ast, Bst, C0st, r0s, r1s, row_cap=row_cap)
     steps = collections.Counter()
     for *_, n, top in plain_steps(Ast, Bst, C0st, r0s, r1s):
         steps.update(zip(n.tolist(), top.tolist()))
     counts = collections.Counter()
     for (n, top), k in steps.items():
-        if plan.split and n > plan.shared_max_keys:
-            counts["global/64"] += k
+        if n <= 0:
+            counts["none"] += k
             continue
-        cls = sort_class(n, key_bits(top + 1, plan.work_cap))
-        counts[cls if cls == "none" else f"{cls}/{32 if cls.startswith('reg') else 64}"] += k
+        cls = plan.class_of(n) if plan.split else None
+        if cls is not None and cls.kind != "warp":
+            counts[f"{cls.name}/{plan.key_layout(cls)[0]}"] += k
+            continue
+        sort = sort_class(n, key_bits(top + 1, plan.work_cap if cls is None else cls.work_cap))
+        label = f"{sort}/{32 if sort.startswith('reg') else 64}"
+        counts[label if cls is None else f"{cls.name}/{label}"] += k
     return dict(sorted(counts.items()))
 
 
@@ -293,15 +318,67 @@ def esc_workspace(a_max_row_nnz: int, b_max_row_nnz: int, row_cap: int) -> tuple
     return work_cap, _align16(work_cap * 12 + row_cap * 8)
 
 
-def shared_max_keys(row_cap: int) -> int:
-    """The most keys one step may hold on the shared route: the largest power
-    of two whose sort slots (12 bytes a key) fit a block's shared memory
-    beside the row's ``row_cap`` accumulator (8 bytes an entry); 0 when the
-    accumulator alone does not fit."""
-    w = 1 << 30
-    while w and _align16(w * 12 + row_cap * 8) > SMEM_PER_BLOCK:
-        w >>= 1
-    return w
+@dataclasses.dataclass(frozen=True)
+class StepClass:
+    """One step class of a counted call and its launch: a step of at most
+    ``max_keys`` keys (and more than the previous class's) takes it."""
+
+    name: str
+    kind: str            # "warp", "block" or "global"
+    max_keys: int        # GLOBAL_MAX_KEYS for the global class
+    work_cap: int        # sort slots a step: max_keys; the tile of the global class
+    acc_cap: int         # a warp's accumulator slots (warp classes), else 0
+    smem_per_warp: int   # warp classes, else 0
+    threads: int         # threads a block
+    smem: int            # dynamic shared memory a block
+
+    @property
+    def kernel(self) -> str:
+        return CLASS_KERNELS[self.kind]
+
+    @property
+    def block_smem(self) -> int:
+        """A block's shared memory, dynamic and the kernel's static."""
+        return self.smem + (0 if self.kind == "warp" else BLOCK_STATIC_SMEM)
+
+
+def block_threads(keys: int) -> int:
+    """Threads of a block class's block: a thread per pair of its sort
+    slots, 32 to ``BLOCK_THREADS``."""
+    return max(32, min(BLOCK_THREADS, keys // 2))
+
+
+def step_classes(row_cap: int) -> tuple:
+    """The step classes (:class:`StepClass`) of a counted call whose rows
+    hold at most ``row_cap`` entries, from :data:`STEP_CLASSES`, then the
+    global class. Shared memory follows each class's own keys ``W``: a warp
+    class ``W`` sort slots (a 64-bit key and an f32 value each, 12 bytes)
+    and ``min(row_cap, W)`` accumulator slots (8 bytes) a warp, as many
+    warps a block as fit ``SMEM_TARGET`` (``block_warps``); a block class
+    ``W`` sort slots, the accumulator read straight into them; the global
+    class one tile of the last class's keys (8 bytes a key). The sizes hold
+    64-bit keys; a launch whose keys fit 32 bits uses less
+    (:meth:`EscLaunch.key_layout`). Raises where a class's block does not
+    fit ``SMEM_PER_BLOCK``."""
+    out = []
+    for name, kind, keys in STEP_CLASSES:
+        if keys & (keys - 1) or kind not in ("warp", "block"):
+            raise ValueError(f"step class {name}: {kind} of {keys} keys")
+        if kind == "warp":
+            acc = min(max(int(row_cap), 1), keys)
+            spw = _align16(keys * 12 + acc * 8)
+            warps = block_warps(spw)
+            out.append(StepClass(name, kind, keys, keys, acc, spw, warps * 32, warps * spw))
+        else:
+            out.append(StepClass(name, kind, keys, keys, 0, 0, block_threads(keys), keys * 12))
+    tile = STEP_CLASSES[-1][2]
+    out.append(StepClass("global", "global", GLOBAL_MAX_KEYS, tile, 0, 0, BLOCK_THREADS,
+                         tile * 8))
+    for c in out:
+        if c.block_smem > SMEM_PER_BLOCK:
+            raise ValueError(f"step class {c.name}: a block asks for {c.block_smem} bytes of "
+                             f"shared memory, more than the {SMEM_PER_BLOCK} a block has")
+    return tuple(out)
 
 
 def _stack_entries(st: CSR, strips: int, cap: int):
@@ -371,80 +448,124 @@ def step_keys(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s) -> torch.Tensor:
 class EscLaunch:
     """How one ESC call launches (``esc_launch_plan``).
 
-    ``work_cap`` and ``smem_per_warp`` size the shared route; ``split``
-    marks a call with steps on the global route, launched chunk by chunk:
-    for chunk ``j`` the shared merge over the rows whose step fits
-    (``skip[j, row]`` marks the others) where ``shared_chunks[j]``, then the
-    global merge over items ``chunk_items[j]:chunk_items[j + 1]`` of
-    ``items`` (global row index) with sort slots ``offsets[k]:offsets[k +
-    1]`` (a power of two at least the step's keys) in a workspace of
-    ``offsets[-1]`` keys. ``routes`` counts the steps of each route where
-    the steps were counted (``None`` where the launch-wide bound fits)."""
+    On the shared route (``classes`` empty) ``work_cap`` and
+    ``smem_per_warp`` size every step's merge. A classed call (``split``)
+    launches chunk by chunk: for chunk ``j`` and class ``c`` (of
+    ``classes``) the items ``starts[j * len(classes) + c]`` up to the next
+    start of ``items`` (the step's global row), chunk-major, then by class,
+    then by row; the global class's items have sort slots ``offsets[k]:
+    offsets[k + 1]`` (a power of two at least the step's keys, in the
+    items' order) in a workspace of ``offsets[-1]`` keys. ``routes`` counts
+    the steps of each class and the empty ones where the steps were counted
+    (``None`` on the shared route); ``n_cols`` is the call's width, which
+    picks the block and global classes' key width (:meth:`key_layout`)."""
 
-    work_cap: int
-    smem_per_warp: int
-    shared_max_keys: int
-    split: bool = False
-    skip: torch.Tensor | None = None
+    work_cap: int = 0
+    smem_per_warp: int = 0
+    classes: tuple = ()
     items: torch.Tensor | None = None
+    starts: tuple = ()
     offsets: torch.Tensor | None = None
-    chunk_items: tuple = ()
-    shared_chunks: tuple = ()
     routes: dict | None = None
+    n_cols: int = 0
+
+    @property
+    def split(self) -> bool:
+        return bool(self.classes)
 
     @property
     def workspace_bytes(self) -> int:
-        """Bytes of the global route's workspace: a 64-bit key and an f32
+        """Bytes of the global class's workspace: a 64-bit key and an f32
         value per sort slot."""
         return 0 if self.offsets is None else int(self.offsets[-1]) * 12
 
+    def class_of(self, keys: int) -> StepClass:
+        """The class of a non-empty step of ``keys`` keys."""
+        return next(c for c in self.classes if keys <= c.max_keys)
+
+    @property
+    def launch_order(self) -> list:
+        """The class of each merge launch of a classed call, in launch
+        order (none on the shared route)."""
+        n = max(len(self.classes), 1)
+        return [c.name for j in range((len(self.starts) - 1) // n)
+                for i, c in enumerate(self.classes)
+                if self.starts[j * n + i + 1] > self.starts[j * n + i]]
+
+    @property
+    def launches(self) -> dict:
+        """Merge launches of each class in one call."""
+        return dict(collections.Counter(self.launch_order))
+
+    def key_layout(self, cls: StepClass) -> tuple:
+        """(key bits, position bits) of a block or global class's sort keys
+        ``(column << position bits) | position``: 32-bit keys where
+        ``key_bits`` of the call's columns and the class's most slots (a
+        block class's ``W``, the call's largest global step's) allows, else
+        64-bit keys with the column above bit 32."""
+        slots = cls.work_cap
+        if cls.kind == "global":
+            steps = self.offsets[1:] - self.offsets[:-1]
+            slots = int(steps.max()) if steps.numel() else 1
+        if key_bits(self.n_cols, slots) == 32:
+            return 32, (max(slots, 1) - 1).bit_length()
+        return 64, 32
+
+    def host_plan(self) -> torch.Tensor:
+        """The C entry's host array: the classes, the global tile, each
+        class's kind, work_cap, accumulator slots, smem_per_warp, threads,
+        dynamic shared memory and key layout (block and global classes),
+        then the (chunk, class) starts."""
+        fields = [v for c in self.classes
+                  for v in (CLASS_KINDS.index(c.kind), c.work_cap, c.acc_cap,
+                            c.smem_per_warp, c.threads, c.smem,
+                            *(self.key_layout(c) if c.kind != "warp" else (0, 0)))]
+        return torch.tensor([len(self.classes), self.classes[-1].work_cap, *fields,
+                             *self.starts], dtype=torch.int32)
+
 
 def esc_launch_plan(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *, row_cap: int) -> EscLaunch:
-    """Route every merge step of one ESC call. Where the launch-wide bound
+    """How one ESC call launches. Where the launch-wide bound
     (:func:`esc_workspace`) fits a block's shared memory, every step takes
-    the shared route at that bound, unsplit. Otherwise each step's exact key
-    count (:func:`step_keys`) decides: a step of at most
-    :func:`shared_max_keys` keys stays shared, and the shared route is sized
-    by the largest such step; a larger step (every step, where not even the
-    accumulator fits shared memory) takes the global route, its sort
-    slots the next power of two of its keys, placed by an exclusive scan
-    over the global steps in (chunk, row) order. Counting the steps reads
-    the operands' device twice (the products' total and the routes)."""
+    the shared route at that bound. Otherwise each step's exact key count
+    (:func:`step_keys`) picks its class (:func:`step_classes`: the first
+    whose ``max_keys`` holds it; an empty step none), and each chunk's
+    non-empty steps are listed by class on the card, with no loop over
+    rows; the global class's steps get sort slots the next power of two of
+    their keys, placed by an exclusive scan in (chunk, row) order. Counting
+    and listing the steps reads the operands' device a few times."""
     row_cap = max(int(row_cap), 1)
     work_cap, smem = esc_workspace(Ast.max_row_nnz, Bst.max_row_nnz, row_cap)
-    most = shared_max_keys(row_cap)
     if smem <= SMEM_PER_BLOCK:
-        return EscLaunch(work_cap, smem, most)
+        return EscLaunch(work_cap, smem)
+    classes = step_classes(row_cap)
+    n_cls = len(classes)
     keys = step_keys(Ast, Bst, C0st, r0s, r1s)
     n_b = keys.shape[2]
     per_chunk = keys.permute(2, 0, 1, 3).reshape(n_b, -1)     # [n_b, rows]
-    over = per_chunk > most if most else torch.ones_like(per_chunk, dtype=torch.bool)
-    fit = per_chunk.masked_fill(over, 0)
-    work_cap = _pow2(max(int(fit.max()) if fit.numel() else 1, 1))
-    smem = _align16(work_cap * 12 + row_cap * 8)
-    n_global = int(over.sum())
-    routes = {"shared": int(over.numel()) - n_global, "global": n_global}
-    if not n_global:
-        return EscLaunch(work_cap, smem, most, routes=routes)
-    chunk, row = over.nonzero(as_tuple=True)                  # chunk-major
+    dev = per_chunk.device
+    cuts = torch.tensor([c.max_keys for c in classes[:-1]], dtype=torch.int64, device=dev)
+    chunk, row = (per_chunk > 0).nonzero(as_tuple=True)       # chunk-major
     n = per_chunk[chunk, row]
-    if int(n.max()) > GLOBAL_MAX_KEYS:
+    code = chunk * n_cls + torch.bucketize(n, cuts)           # past the last cut: global
+    order = torch.argsort(code, stable=True)
+    code, n = code[order], n[order]
+    counts = torch.bincount(code, minlength=n_b * n_cls)
+    starts = torch.zeros(n_b * n_cls + 1, dtype=torch.int64, device=dev)
+    starts[1:] = torch.cumsum(counts, 0)
+    n = n[code % n_cls == n_cls - 1]
+    if n.numel() and int(n.max()) > GLOBAL_MAX_KEYS:
         raise ValueError(
             f"sparse_accum_launch: a merge step holds {int(n.max())} keys, more than "
-            f"the {GLOBAL_MAX_KEYS} the global route sorts in one block")
-    slots = 2 ** torch.ceil(torch.log2(n.clamp(min=1).double())).long()
-    offsets = torch.zeros(n.numel() + 1, dtype=torch.int64, device=n.device)
-    offsets[1:] = torch.cumsum(slots, 0)
-    starts = torch.searchsorted(chunk.contiguous(), torch.arange(n_b + 1, device=n.device))
-    shared = (~over).any(1)
-    if not routes["shared"]:
-        work_cap, smem = 1, 16
-    return EscLaunch(work_cap, smem, most, split=True,
-                     skip=over.to(torch.uint8).contiguous(),
-                     items=row.to(torch.int32).contiguous(), offsets=offsets,
-                     chunk_items=tuple(starts.tolist()),
-                     shared_chunks=tuple(bool(v) for v in shared.tolist()),
-                     routes=routes)
+            f"the {GLOBAL_MAX_KEYS} the global class sorts in one block")
+    offsets = torch.zeros(n.numel() + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(2 ** torch.ceil(torch.log2(n.double())).long(), 0)
+    by_class = counts.reshape(n_b, n_cls).sum(0).tolist()
+    routes = {"empty": int(per_chunk.numel() - chunk.numel()),
+              **{c.name: int(v) for c, v in zip(classes, by_class)}}
+    return EscLaunch(classes=classes, items=row[order].to(torch.int32).contiguous(),
+                     starts=tuple(starts.tolist()), offsets=offsets, routes=routes,
+                     n_cols=Bst.shape[1])
 
 
 def sparse_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *,
@@ -465,35 +586,31 @@ def sparse_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *,
         ``c_max_row_nnz``); sizes the kernel's per-row accumulator.
 
     Returns ``(indptr, indices, data)`` with leading ``[batch, n_ac]`` axes.
-    CPU tensors take the plain version; CUDA tensors launch the kernel, its
-    steps routed by :func:`esc_launch_plan`. Raises a ``ValueError`` only
-    where the global route's workspace would pass the card's free memory or
-    a step passes ``GLOBAL_MAX_KEYS``.
+    CPU tensors take the plain version; CUDA tensors launch the kernel as
+    :func:`esc_launch_plan` says. Raises a ``ValueError`` only where the
+    global class's workspace would pass the card's free memory or a step
+    passes ``GLOBAL_MAX_KEYS``.
     """
     if Ast.indptr.device.type == "cpu":
         return sparse_accum_plain(Ast, Bst, C0st, r0s, r1s, order=order)
     row_cap = max(int(row_cap), 1)
     plan = esc_launch_plan(Ast, Bst, C0st, r0s, r1s, row_cap=row_cap)
     dev = Ast.indptr.device
-    extra = [None] * 6
+    extra = [None] * 5
     if plan.split:
         free, _ = torch.cuda.mem_get_info(dev)
         if plan.workspace_bytes > free:
             raise ValueError(
-                f"sparse_accum_launch: the global route's workspace of "
+                f"sparse_accum_launch: the global class's workspace of "
                 f"{plan.workspace_bytes} bytes passes the card's {free} free bytes")
         total = int(plan.offsets[-1])
-        host_plan = torch.tensor(list(plan.chunk_items) + [int(v) for v in plan.shared_chunks],
-                                 dtype=torch.int32)
-        extra = [plan.skip.to(dev), plan.items.to(dev), plan.offsets.to(dev),
+        extra = [plan.items.to(dev), plan.offsets.to(dev),
                  torch.empty(total, dtype=torch.int64, device=dev),
-                 torch.empty(total, dtype=torch.float32, device=dev), host_plan]
+                 torch.empty(total, dtype=torch.float32, device=dev), plan.host_plan()]
     out = launch_csr_accum("sparse_accum_spgemm", "sparse_accum_launch",
                            LAUNCHES, Ast, Bst, C0st, r0s, r1s, order=order,
                            row_cap=row_cap, work_cap=plan.work_cap,
                            smem_per_warp=plan.smem_per_warp, extra=extra)
-    if not plan.split or any(plan.shared_chunks):
-        ROUTE_LAUNCHES["shared"].bump()
-    if plan.split:
-        ROUTE_LAUNCHES["global"].bump()
+    for route in plan.launch_order if plan.split else ("shared",):
+        ROUTE_LAUNCHES[route].bump()
     return out

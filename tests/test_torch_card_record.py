@@ -84,7 +84,11 @@ def test_kernels_line_keys_fma_rows_by_tiling(monkeypatch):
                         "grouped_matmul/fma/tile": ("f32", 48),
                         "grouped_matmul/fma/rows_few": ("f32", 1488),
                         "sparse_accum_spgemm/shared": ("brick3d48_sparse", 1),
-                        "sparse_accum_spgemm/global": ("rmat12_sparse", 1)}
+                        "sparse_accum_spgemm/warp128": ("rmat12_sparse", 4),
+                        "sparse_accum_spgemm/block512": ("rmat12_sparse", 4),
+                        "sparse_accum_spgemm/block2048": ("rmat12_sparse", 4),
+                        "sparse_accum_spgemm/block16384": ("rmat12_sparse", 4),
+                        "sparse_accum_spgemm/global": ("rmat12_sparse", 2)}
     smoke.max_err = {**smoke.max_err,
                      key("flash_prefill", "tc", "bf16"): 4e-3,
                      key("flash_prefill", "fma", "f32"): 9e-7,
@@ -115,9 +119,13 @@ def test_kernels_line_keys_fma_rows_by_tiling(monkeypatch):
     assert "bf16_operands_max_abs_err" not in got["flash_prefill", "fma", "serve_prefill"]
     assert got["bsr_spmm", None, None]["launches"] == 1
     # the ESC kernel's rows by route: the shared route at the main path's
-    # staging, the global route at L x L of an RMAT scale-12 graph
+    # staging, the classed call (under its global class) at L x L of an
+    # RMAT scale-12 graph, with every class's launches in that run
     esc_global = got["sparse_accum_spgemm", "global", "rmat12_knl"]
     assert (esc_global["launches"], esc_global["launches_run"], esc_global["max_abs_err"]) \
-        == (1, "rmat12_sparse", 2.2e-5)
+        == (2, "rmat12_sparse", 2.2e-5)
+    assert esc_global["class_launches"] == {"warp128": 4, "block512": 4, "block2048": 4,
+                                            "block16384": 4, "global": 2}
+    assert ("sparse_accum_spgemm", "warp128", "rmat12_knl") not in got
     assert got["sparse_accum_spgemm", "shared", "brick3d48_quickstart"]["max_abs_err"] == 1.1e-5
     assert esc_global["batched"]["launches"] == 1

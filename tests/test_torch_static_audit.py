@@ -262,15 +262,27 @@ def test_float64_operand_and_wide_table_are_flagged():
 
 
 def test_esc_routes_show_in_preflight(monkeypatch):
-    """At a small monkeypatched block the ESC route info names the split."""
+    """Where the launch-wide bound passes a block (monkeypatched) and the
+    class cuts are small, the ESC route info names the step classes, their
+    launches and shared memory, and the shared-memory audit lists each
+    class kernel that launches at its own dynamic bytes."""
+    from repro_torch.analysis.smem import launch_requests
     from repro_torch.kernels import sparse_accum_spgemm as esc
 
     _, *_, target = _staged("sparse", "chunk1", "dense_row")
-    # eight keys a shared step beside the row's accumulator
-    monkeypatch.setattr(esc, "SMEM_PER_BLOCK", 8 * 12 + target.meta["row_cap"] * 8 + 16)
+    bound = esc.esc_workspace
+    monkeypatch.setattr(esc, "esc_workspace",
+                        lambda *a: (bound(*a)[0], esc.SMEM_PER_BLOCK + 1))
+    monkeypatch.setattr(esc, "STEP_CLASSES", tuple(
+        (name, kind, w) for (name, kind, _), w in zip(esc.STEP_CLASSES, (1, 2, 4, 8))))
     _, info = check_preflight("sparse", target)
     (msg,) = [d["message"] for d in info["diagnostics"] if d["check"] == "chooser"]
-    assert "steps by route" in msg and "'global'" in msg
+    assert "steps by class" in msg and "'global'" in msg and "shared memory a block" in msg
+    plan = esc.esc_launch_plan(*target.args, row_cap=target.fn.keywords["row_cap"])
+    requests = launch_requests(target, [type("L", (), {"kernel": "sparse_accum_spgemm"})])
+    assert [(r["kernel"], r["dynamic"]) for r in requests] == [
+        (c.kernel, c.smem) for c in plan.classes if c.name in plan.launches]
+    assert "esc_global_kernel" in {r["kernel"] for r in requests}
 
 
 # -- registry validation --------------------------------------------------------
