@@ -43,6 +43,25 @@ the profiler) and BSR x dense kernels first held to their plain versions
 edge cases of both its paths in f32 and bf16: bs 4 and 16, nf 64 and 256,
 empty and sentinel-only block rows, shuffled tables, bs 5 and a 64-column
 tile on the generic path).
+Then operands in slow memory (``placement_phase``): brick3d n=48 with A,
+P and C placed as the paper's Table 3 says (a slow operand in pinned host
+memory), through ``chunked_spgemm``'s ``hash`` and ``sparse`` executors,
+whose slow pieces cross onto the card through the two-slot copy ring: each
+call's C equal bit for bit to the same plan's all-fast call (the main
+path's run), its ChunkStats equal, the bytes the ring moved equal to the
+slow operands' copy events, every ring's op log equal to its schedule's
+program (``analysis.dma.check_ring_structure``), every slow stack pinned,
+the launches one a step, the card's peak allocation within the ring's byte
+model plus 10% (below the slow operands' bytes on the chunk1 plans); copy
+and compute ms by CUDA events, GB/s each way, the share of copy time under
+compute, and a 256 MB pinned copy as the link's yardstick; a pinned stack
+handed to a CSR kernel's wrapper must raise. Its capacity run comes
+first in the script, right after the build, while the allocator holds
+nothing else: brick3d n=80, all slow, under an allocator cap whose
+headroom is below half of A's bytes, where placing A on the card must
+raise ``OutOfMemoryError`` and the all-slow call must equal the uncapped
+all-fast call. The spilled Galerkin runs stream T from pinned memory
+through the same ring and hold the same gates.
 Then the batched entry point and the SpGEMM service: the ESC, hash,
 dense-slab and BSR x BSR kernels on width-8 stacks (brick3d n=16 A x P, one
 structure with per-instance values; L x L of eight RMAT scale-12 graphs,
@@ -227,6 +246,25 @@ SPMM_EDGE_SEED = 21
 # whole size the intermediate stays resident between chunked hops; at half it
 # spills (the planner's choice at every brick3d size tried)
 PIPE_RESIDENT, PIPE_SPILL = 1.0, 0.5
+# the placement phase: operands in slow (pinned host) memory through the copy
+# ring. brick3d n=48 under the quickstart plan (chunk2 6 x 1) in all six of
+# Table 3's placements (hash) and HostPin and DP (ESC), the budget/3 plan
+# (chunk1 15 x 4, hash) in HostPin and DP, brick3d48_knl_hash's plan in
+# HostPin; then the capacity run: brick3d n=80, all slow, hash, at budget/12
+# (chunk1 60 x 15) under an allocator cap of what is reserved plus the
+# ring's byte model plus 25% plus one 20 MiB segment
+PLACED_RUNS = (("quickstart", "hash", ("HBM", "A_Pin", "B_Pin", "C_Pin", "HostPin", "DP")),
+               ("chunk1", "hash", ("HostPin", "DP")),
+               ("quickstart", "sparse", ("HostPin", "DP")),
+               ("knl", "hash", ("HostPin",)))
+CAPACITY_N, CAPACITY_DIV, CAPACITY_PLAN = 80, 12, ("chunk1", 60, 15)
+CAP_MARGIN, CAP_SEGMENT = 1.25, 20 << 20
+PEAK_MARGIN = 1.10          # a placed call's peak allocation over the ring's byte model
+# a placed call's peak of live tensor bytes (the allocator's trace) over the
+# model: the allocation's peak counts whole allocator blocks, which can pass
+# a request by up to 1 MB
+LIVE_MARGIN = 1.01
+LINK_YARDSTICK_BYTES = 256 << 20
 # the batched entry point: width-8 batches, (a) brick3d n=16 with values from
 # numpy seeds BATCH_SEED + instance, (b) L x L of eight RMAT graphs of scale 12
 BATCH_WIDTH, BATCH_SEED = 8, 300
@@ -542,11 +580,59 @@ def live_bytes(st) -> int:
     return nbytes(st.indptr) + nnz * (st.indices.element_size() + st.data.element_size())
 
 
+def trace_length(snapshot) -> int:
+    """Entries in an allocator snapshot's trace of device 0."""
+    return len(snapshot["device_traces"][0])
+
+
+def live_peak(snapshot, start: int) -> int:
+    """The most bytes the tensors allocated after the first ``start`` entries
+    of the allocator's trace (device 0) held at once: its ``alloc`` and
+    ``free_completed`` entries replayed in order (their sizes are the bytes
+    requested)."""
+    live, total, peak = {}, 0, 0
+    for entry in snapshot["device_traces"][0][start:]:
+        if entry["action"] == "alloc":
+            live[entry["addr"]] = entry["size"]
+            total += entry["size"]
+            peak = max(peak, total)
+        elif entry["action"] == "free_completed" and entry["addr"] in live:
+            total -= live.pop(entry["addr"])
+    return peak
+
+
+def placed_fast_bytes(plan, placement, *, a_stage: int, slab: int,
+                      c_stage: int, workspace: int, c_bytes: int) -> dict:
+    """The card's bytes a placed CSR call holds at its peak, by part: a
+    slow operand's two ring slots, or a fast one's staged stack and, while
+    it is built, its pieces; C's slots and carried steps (the chunk1
+    orders; chunk2 keeps the whole block and its next version), its kept
+    strips and the assembled C when C is fast; one launch's ``workspace``.
+    ``a_stage``, ``slab``, ``c_stage`` are the staged piece bytes of
+    ``chunk_stream.planned_events``, ``c_bytes`` those of the assembled C.
+    With every operand slow it is the sum of the bytes of the tensors live
+    at the peak (:func:`live_peak`); a fast operand's parts are upper bounds (its
+    stack is counted twice, and a fast C's block beside its assembly)."""
+    n_ac, n_b = plan.n_ac, plan.n_b
+    parts = {"A": 2 * a_stage * (1 if placement.A == "slow" else n_ac),
+             "B": 2 * slab * (1 if placement.B == "slow" else n_b)}
+    if plan.algorithm == "chunk2":
+        parts["C"] = 2 * n_ac * c_stage + (c_bytes if placement.C == "fast" else 0)
+    elif placement.C == "slow":
+        parts["C"] = 4 * c_stage               # two slots, the carried step and its next
+    else:
+        parts["C"] = (n_ac + 2) * c_stage + c_bytes
+    parts["workspace"] = workspace
+    parts["total"] = sum(parts.values())
+    return parts
+
+
 class Smoke:
     def __init__(self, torch):
         self.torch = torch
         from repro_torch.core import chunking, kkmem, memory_model, planner, symbolic
-        from repro_torch.core import chunk_stream, pipeline_spgemm, triangle
+        from repro_torch.analysis import dma
+        from repro_torch.core import chunk_stream, copy_ring, pipeline_spgemm, placement, triangle
         from repro_torch.kernels import (
             _build, bsr_spgemm, bsr_spmm, chunked_attention, flash_prefill, grouped_matmul,
             hash_accum_spgemm, ops, ranged_spgemm, sparse_accum_spgemm,
@@ -561,7 +647,8 @@ class Smoke:
                       build=_build, csr=csr, multigrid=multigrid, graphs=graphs,
                       bsr=bsr, triangle=triangle, pipeline=pipeline_spgemm, ops=ops,
                       serve=serve, transformer=transformer, moe=moe,
-                      service=spgemm_service)
+                      service=spgemm_service, placement=placement, copy_ring=copy_ring,
+                      dma=dma)
         self.kernels = {"ranged_spgemm": ranged_spgemm,
                         "sparse_accum_spgemm": sparse_accum_spgemm,
                         "hash_accum_spgemm": hash_accum_spgemm,
@@ -606,6 +693,9 @@ class Smoke:
         self.batch_envs = {}
         # the ESC kernel's route launches at the last note_err of its errors
         self.esc_routes_noted = {r: 0 for r in sparse_accum_spgemm.ROUTES}
+        # (problem, n, plan, backend) -> (C, stats, wall s) of a main-path
+        # run through a CSR accumulator: the placement phase's all-fast calls
+        self.fast_runs = {}
 
     # -- setup -------------------------------------------------------------
 
@@ -618,6 +708,7 @@ class Smoke:
         check(PEAK["smi_name"] in smi,
               f"nvidia-smi names {smi!r}; the bounds need the peaks of that card, "
               f"and only the {PEAK['part']}'s ({PEAK['smi_name']}) are known here")
+        self.smi = smi
         info = {"nvidia_smi": smi, "device_name": name,
                 "device_count": torch.cuda.device_count(),
                 "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1130,6 +1221,8 @@ class Smoke:
             self.launches.setdefault(kernel, launches[kernel])
         self.note_esc_routes(label, launches)
 
+        if chosen in ("hash", "sparse"):
+            self.fast_runs[(name, n, plan, chosen)] = (C, stats, exec_s)
         ws = kkmem.spgemm_symbolic_host(A, P)
         plain = kkmem.spgemm(A, P, ws.c_pad)
         nnz, plain_nnz = C.nnz(), plain.nnz()
@@ -1703,12 +1796,22 @@ class Smoke:
         self.reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        C, stats = pipe.pipeline_spgemm(A, P, R, plan, backend=backend, caps=caps)
+        with self.m["copy_ring"].RingLog(timed=True) as log:
+            C, stats = pipe.pipeline_spgemm(A, P, R, plan, backend=backend, caps=caps)
         torch.cuda.synchronize()
         exec_s = time.perf_counter() - t0
         launches = self.read_counters()
         kernel = self.backend_kernel[backend]
         check(launches[kernel] > 0, f"{label}: {kernel} was not launched")
+        ring = {}
+        if not resident:   # T stays in pinned memory and streams into hop 2 as B
+            check([r.operand for r in log.rings] == ["B"],
+                  f"{label}: rings {[r.operand for r in log.rings]}, expected T's alone")
+            ring = self.ring_gates(label, log, plan.plan2, stats.hop2,
+                                   self.m["placement"].Placement("fast", "slow", "fast"))
+            ring["times"] = log.times()
+        else:
+            check(not log.transfers, f"{label}: the resident path crossed the link")
         if not hasattr(self, "_rap_plain"):
             self._rap_plain = kkmem.spgemm_full(R, kkmem.spgemm_full(A, P))
         plain = self._rap_plain
@@ -1732,9 +1835,284 @@ class Smoke:
                         "copy_bytes": stats.copy_bytes,
                         "kernel_calls": [stats.hop1.kernel_calls, stats.hop2.kernel_calls]},
               "wall_s": {"problem": self.problems[("brick3d", 48)][2], "plan": plan_s,
-                         "pipeline_spgemm": exec_s},
+                         "pipeline_spgemm": exec_s}, "t_ring": ring,
               "check": {"plain_structure_equal": structure, "plain_max_abs_err": err,
                         "scipy_rel_err": scipy_err}})
+
+    # -- placement: operands in slow (pinned host) memory ---------------------
+
+    def link_yardstick(self) -> dict:
+        """The link's rate: one 256 MB pinned copy each way, CUDA events
+        around each (median of three, after a warm-up)."""
+        torch = self.torch
+        host = torch.empty(LINK_YARDSTICK_BYTES, dtype=torch.uint8, pin_memory=True)
+        dev = torch.empty(LINK_YARDSTICK_BYTES, dtype=torch.uint8, device="cuda")
+        out = {}
+        for direction, fn in (("h2d", lambda: dev.copy_(host, non_blocking=True)),
+                              ("d2h", lambda: host.copy_(dev, non_blocking=True))):
+            ms = cuda_ms(torch, fn, reps=3)
+            out[direction] = {"ms": ms, "gb_s": LINK_YARDSTICK_BYTES / ms / 1e6}
+        del host, dev
+        torch.cuda.empty_cache()
+        emit({"link_yardstick": out, "bytes": LINK_YARDSTICK_BYTES})
+        return out
+
+    @staticmethod
+    def stage_sizes(plan, stats) -> tuple:
+        """(slab, a_stage, c_stage): the staged piece bytes of a CSR call's
+        plan, read off its ChunkStats (``chunk_stream.planned_events``'
+        order)."""
+        ins = stats.per_copy_in
+        if plan.algorithm == "chunk2":
+            return int(ins[0]), int(ins[2]), int(ins[1]) // plan.n_ac
+        return int(ins[2]), int(ins[0]), int(ins[1])
+
+    def ring_gates(self, label: str, log, plan, stats, where) -> dict:
+        """The ring's gates on one call: the bytes it moved equal the slow
+        operands' events, operand for operand and event for event; every
+        ring's log is its schedule's program and the schedule replays clean;
+        every slow stack is pinned."""
+        cs, dma = self.m["chunk_stream"], self.m["dma"]
+        events = cs.planned_events(plan, *self.stage_sizes(plan, stats))
+        for operand in ("A", "B", "C"):
+            for direction in ("in", "out"):
+                want = ([b for o, d, b in events if o == operand and d == direction]
+                        if getattr(where, operand) == "slow" else [])
+                check(log.moved(operand, direction) == want,
+                      f"{label}: the ring moved {sum(log.moved(operand, direction))} "
+                      f"bytes of {operand} {direction}, the events {sum(want)}")
+        for ring in log.rings:
+            bad = (dma.check_ring_structure(ring.ops, ring.total, ring.n_fields)
+                   + dma.simulate_schedule(ring.total))
+            check(not bad, f"{label}: ring {ring.operand}: {bad[:2]}")
+            check(ring.source_pinned, f"{label}: ring {ring.operand}'s stack is not pinned")
+        return {"rings": [{"operand": r.operand, "role": r.role, "total": r.total,
+                           "ops": len(r.ops)} for r in log.rings],
+                "moved_in": sum(t.nbytes for t in log.transfers if t.direction == "in"),
+                "moved_out": sum(t.nbytes for t in log.transfers if t.direction == "out")}
+
+    def placed_model(self, plan, stats, where, backend: str, C) -> dict:
+        """:func:`placed_fast_bytes` of one call: the staged piece bytes
+        from its stats, one launch's workspace from the plan's strip rows
+        and C's densest row, C's assembled bytes."""
+        planner = self.m["planner"]
+        slab, a_stage, c_stage = self.stage_sizes(plan, stats)
+        rows = max(e - s for s, e in zip(plan.p_ac[:-1], plan.p_ac[1:]))
+        row_cap = (planner.hash_table_slots(C.max_row_nnz) if backend == "hash"
+                   else max(C.max_row_nnz, 1))
+        return placed_fast_bytes(plan, where, a_stage=a_stage, slab=slab, c_stage=c_stage,
+                                 workspace=rows * (row_cap * 8 + 4), c_bytes=C.nbytes())
+
+    def placed_call(self, label: str, A, B, plan, backend: str, where, fast) -> dict:
+        """One ``chunked_spgemm`` with operands placed as ``where`` says
+        (pinned host memory for a slow one), gated against the same plan's
+        all-fast call ``fast = (C, stats, wall_s)``: C equal bit for bit and
+        where ``where`` puts it, ChunkStats equal, the ring's gates, launches
+        by route equal to the steps, and the card's peak allocation within
+        the ring's byte model plus 10% (and, on the chunk1 plans, below the
+        slow operands' own bytes), and its tensors' live peak
+        (:func:`live_peak`) within the model plus 1%. Prints the copy and compute times, the
+        rates each way and the share of copy time under compute."""
+        torch = self.torch
+        chunking, csr, copy_ring = self.m["chunking"], self.m["csr"], self.m["copy_ring"]
+        C_fast, stats_fast, wall_fast = fast
+        kernel = self.backend_kernel[backend]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.memory._record_memory_history(context=None, max_entries=1 << 20)
+        start = trace_length(torch.cuda.memory._snapshot())
+        self.reset_counters()
+        t0 = time.perf_counter()
+        with copy_ring.RingLog(timed=True) as log:
+            C, stats = chunking.chunked_spgemm(A, B, plan, backend=backend, placement=where)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        live = live_peak(torch.cuda.memory._snapshot(), start)
+        torch.cuda.memory._record_memory_history(enabled=None)
+        launches = self.read_counters()
+        check(csr.csr_residence(C) == ("pinned" if where.C == "slow" else "card"),
+              f"{label}: C is in {csr.csr_residence(C)} memory, placed {where.C}")
+        for f in ("indptr", "indices", "data"):
+            check(torch.equal(getattr(C, f).cpu(), getattr(C_fast, f).cpu()),
+                  f"{label}: C.{f} differs from the all-fast call's")
+        check(stats == stats_fast, f"{label}: ChunkStats differ from the all-fast call's")
+        steps = plan.n_ac * plan.n_b
+        slow = bool(where.slow)
+        if slow:
+            check(launches[kernel] == steps,
+                  f"{label}: {launches[kernel]} {kernel} launches, {steps} steps")
+        else:
+            check(launches[kernel] == 1, f"{label}: {launches[kernel]} {kernel} launches")
+        if kernel == "sparse_accum_spgemm":   # the brick3d steps fit the shared route
+            routed = sum(launches[f"{kernel}/{r}"] for r in self.kernels[kernel].ROUTES)
+            check(routed == launches[f"{kernel}/shared"] == launches[kernel],
+                  f"{label}: ESC routes {routed} launches, {launches[kernel]} calls")
+        out = {"run": label, "placement": dict(zip("ABC", (where.A, where.B, where.C))),
+               "backend": backend, "plan": [plan.algorithm, plan.n_ac, plan.n_b],
+               "steps": steps, "launches": {k: v for k, v in launches.items() if v},
+               "wall_s": wall, "all_fast_wall_s": wall_fast, "bit_equal": True,
+               "peak_alloc_bytes": peak, "peak_live_bytes": live, "card": self.smi}
+        if slow:
+            out.update(self.ring_gates(label, log, plan, stats, where))
+            model = self.placed_model(plan, stats, where, backend, C_fast)
+            check(peak <= model["total"] * PEAK_MARGIN,
+                  f"{label}: peak allocation {peak} passes the ring's model "
+                  f"{model['total']} + 10%")
+            check(live <= model["total"] * LIVE_MARGIN,
+                  f"{label}: live tensors' peak {live} passes the ring's model "
+                  f"{model['total']} + 1%")
+            out["model_bytes"] = model
+            if plan.algorithm == "chunk1":
+                slow_bytes = sum(m.nbytes() for k, m in (("A", A), ("B", B))
+                                 if getattr(where, k) == "slow")
+                slow_bytes += C.nbytes() if where.C == "slow" else 0
+                check(peak < slow_bytes, f"{label}: peak allocation {peak} is not below "
+                      f"the slow operands' {slow_bytes} bytes")
+                out["slow_operand_bytes"] = slow_bytes
+            out["times"] = log.times()
+        emit({"placed_run": out})
+        return out
+
+    def placement_phase(self) -> None:
+        """Operands in slow (pinned host) memory on the main path: the
+        ``hash`` and ``sparse`` executors through the copy ring on brick3d
+        n=48 (PLACED_RUNS), each against its plan's all-fast call and the
+        all-fast calls against scipy once; a pinned operand handed straight
+        to a CSR kernel's wrapper must raise. The capacity run
+        (:meth:`capacity_run`) runs first in the script, where the allocator
+        holds nothing else."""
+        torch = self.torch
+        planner, chunking, placement = self.m["planner"], self.m["chunking"], self.m["placement"]
+        t_phase = time.perf_counter()
+        self.link_yardstick()
+        A, P = self.problem("brick3d", 48)
+        crb, budget = self.quickstart_inputs(A, P)
+        p100 = self.m["memory_model"].P100
+        plans = {"quickstart": planner.plan_chunks(A, P, crb, p100, fast_limit_bytes=budget),
+                 # main_run's budget_div=12 limit, so its run of this plan is found
+                 "chunk1": planner.plan_chunks(A, P, crb, p100, fast_limit_bytes=budget * 4 / 12),
+                 "knl": planner.plan_knl(A, P, fast_limit_bytes=float(
+                     planner.row_bytes_csr(P).sum()) / 3)}
+        shapes = {k: (p.algorithm, p.n_ac, p.n_b) for k, p in plans.items()}
+        check(shapes["quickstart"] == ("chunk2", 6, 1) and shapes["chunk1"] == ("chunk1", 15, 4)
+              and shapes["knl"][0] == "knl", f"placement plans {shapes}")
+        pinned = placement.place({"A": A, "B": P}, "slow")
+        self.refusal_check(A, P, plans["quickstart"], pinned)
+        scipy_done = False
+        for plan_name, backend, names in PLACED_RUNS:
+            plan = plans[plan_name]
+            # the main path's run of this plan and backend is the all-fast call
+            fast = self.fast_runs.get(("brick3d", 48, plan, backend))
+            if fast is None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fast = chunking.chunked_spgemm(A, P, plan, backend=backend)
+                torch.cuda.synchronize()
+                fast = (*fast, time.perf_counter() - t0)
+            if not scipy_done:
+                err = self.scipy_check(A, P, fast[0])
+                check(err <= SCIPY_RTOL, f"placement brick3d48: relative error {err} vs scipy")
+                emit({"placement_scipy": "brick3d48", "rel_err": err})
+                scipy_done = True
+            for name in names:
+                where = placement.TABLE3[name]
+                ops = [pinned[k] if getattr(where, k) == "slow" else m
+                       for k, m in (("A", A), ("B", P))]
+                self.placed_call(f"brick3d48_{plan_name}_{backend}_{name}", *ops, plan,
+                                 backend, where, fast)
+            del fast
+        del pinned
+        self.fast_runs.clear()
+        torch.cuda.empty_cache()
+        emit({"placement_phase_s": time.perf_counter() - t_phase})
+
+    def refusal_check(self, A, P, plan, pinned) -> None:
+        """A pinned stack handed straight to the ESC or hash wrapper raises:
+        the kernels read only the card."""
+        torch, cs = self.torch, self.m["chunk_stream"]
+        ch, csr = self.m["chunking"], self.m["csr"]
+        Ast = csr.csr_pin(csr.csr_stack([csr.csr_stack(ch.a_strips(pinned["A"], plan.p_ac))]))
+        Bst = csr.csr_pin(csr.csr_stack([csr.csr_stack(ch.b_chunks(pinned["B"], plan.p_b))]))
+        C0 = csr.csr_pin(cs._sparse_c0_stack(1, plan.n_ac, Ast.n_rows, P.n_cols, 16,
+                                             torch.float32, "cpu"))
+        r0s, r1s = plan.b_ranges()
+        refused = {}
+        for kernel, call in (
+                ("sparse_accum_spgemm", lambda: self.kernels["sparse_accum_spgemm"]
+                 .sparse_accum_spgemm_stream(Ast, Bst, C0, r0s, r1s, order="chunk2",
+                                             row_cap=16)),
+                ("hash_accum_spgemm", lambda: self.kernels["hash_accum_spgemm"]
+                 .hash_accum_spgemm_stream(Ast, Bst, C0, r0s, r1s, order="chunk2",
+                                           table_size=16))):
+            try:
+                call()
+            except ValueError as err:
+                refused[kernel] = str(err).split(";")[0]
+            check(kernel in refused, f"{kernel}: a pinned operand was not refused")
+        emit({"pinned_refused": refused})
+
+    def capacity_run(self) -> None:
+        """brick3d n=80 all slow through the hash ring at budget/12 under an
+        allocator cap whose headroom over what is reserved is the ring's
+        byte model plus 25% plus one 20 MiB segment, below half of A's
+        bytes: placing A on the card must raise OutOfMemoryError, and the
+        all-slow call must complete and equal the uncapped all-fast call.
+        It runs before every other phase: what the allocator reserves is
+        then what it holds, so the cap leaves no cached segment that A could
+        fit into. The all-fast C waits in pinned memory."""
+        torch = self.torch
+        planner, chunking, placement = self.m["planner"], self.m["chunking"], self.m["placement"]
+        t_run = t0 = time.perf_counter()
+        A, R, P = self.m["multigrid"].problem("brick3d", CAPACITY_N, device="cuda")
+        del R
+        problem_s = time.perf_counter() - t0
+        crb, budget = self.quickstart_inputs(A, P)
+        plan = planner.plan_chunks(A, P, crb, self.m["memory_model"].P100,
+                                   fast_limit_bytes=budget / CAPACITY_DIV)
+        check((plan.algorithm, plan.n_ac, plan.n_b) == CAPACITY_PLAN,
+              f"brick3d{CAPACITY_N} at budget/{CAPACITY_DIV} plans "
+              f"{(plan.algorithm, plan.n_ac, plan.n_b)}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C_fast, stats_fast = chunking.chunked_spgemm(A, P, plan, backend="hash")
+        torch.cuda.synchronize()
+        wall_fast = time.perf_counter() - t0
+        err = self.scipy_check(A, P, C_fast)
+        check(err <= SCIPY_RTOL, f"brick3d{CAPACITY_N}: relative error {err} vs scipy")
+        pinned = placement.place({"A": A, "B": P, "C": C_fast}, "slow")
+        a_bytes = A.nbytes()
+        model = self.placed_model(plan, stats_fast, placement.ALL_SLOW, "hash", C_fast)
+        del A, P, C_fast
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        headroom = model["total"] * CAP_MARGIN + CAP_SEGMENT
+        check(headroom < a_bytes / 2, f"capacity run: headroom {headroom} is not below "
+              f"half of A's {a_bytes} bytes")
+        total = torch.cuda.get_device_properties(0).total_memory
+        label = f"brick3d{CAPACITY_N}_capacity_hash_HostPin"
+        torch.cuda.set_per_process_memory_fraction((reserved + headroom) / total)
+        try:
+            oom = None
+            try:
+                placement.place(pinned["A"], "fast")
+            except torch.OutOfMemoryError as exc:
+                oom = str(exc).splitlines()[0]
+            check(oom is not None, "capacity run: A fits on the card under the cap")
+            out = self.placed_call(label, pinned["A"], pinned["B"], plan, "hash",
+                                   placement.ALL_SLOW, (pinned["C"], stats_fast, wall_fast))
+            peak_reserved = torch.cuda.max_memory_reserved()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        emit({"capacity_run": label, "A_bytes": a_bytes, "reserved_before": reserved,
+              "headroom_bytes": headroom, "cap_bytes": reserved + headroom,
+              "peak_reserved_bytes": peak_reserved, "oom_on_place_A_fast": oom,
+              "peak_alloc_bytes": out["peak_alloc_bytes"], "problem_s": problem_s,
+              "scipy_rel_err": err, "capacity_run_s": time.perf_counter() - t_run,
+              "card": self.smi})
+        del pinned
+        torch.cuda.empty_cache()
 
     def bsr_pairs(self, A, P, plan, block: int = BSR_BLOCK, first: bool = False):
         """The (strip, chunk) pairs the ``bsr`` executor stages at block size
@@ -3224,6 +3602,9 @@ def main() -> int:
     smoke.card()
     smoke.build()
     smoke.sass_phase()
+    # the placement phase's capacity run comes first, while the allocator
+    # holds nothing else (its cap is lifted before the next phase)
+    smoke.capacity_run()
 
     # kernel phases at the shapes the main path stages (quickstart budget,
     # chunk2 6x1: these numbers go into the kernels line), then at the chunk1
@@ -3314,6 +3695,9 @@ def main() -> int:
         smoke.galerkin_run(f"galerkin_brick3d48_{backend}_spill", backend, PIPE_SPILL, False)
     smoke.bsr_run("brick3d48_bsr")
     smoke.spmm_run("bsr_spmm_brick3d48")
+
+    # operands in slow (pinned host) memory through the copy ring
+    smoke.placement_phase()
 
     # the batched entry point and the SpGEMM service: the four sparse
     # kernels at width 8 against their plain versions (the dense slab on

@@ -67,7 +67,7 @@ def study(problem: str, n: int, backends=("scan",), device: str = "cuda"):
         for frac in (0.5, 0.25):
             plan = plan_chunks(L, Rt, crb, P100, fast_limit_bytes=total * frac)
             for backend in backends:
-                C2, stats = chunked_spgemm(L, Rt, plan, backend=backend)
+                C2, stats = chunked_spgemm(L, Rt, plan, backend=backend, device=device)
                 ok2 = bool(torch.allclose(csr_to_dense(C2), ref, atol=1e-4))
                 print(f"   chunked@{frac:.2f}/{backend:6s}: {plan.algorithm} "
                       f"[{plan.n_ac}x{plan.n_b}] correct={ok2} "

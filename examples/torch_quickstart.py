@@ -44,14 +44,14 @@ def main(device: str = "cuda"):
     plan = plan_chunks(A, P, crb, P100, fast_limit_bytes=budget)
     print(f"plan: {plan.algorithm} with {plan.n_ac} A/C strips x {plan.n_b} B "
           f"chunks, modeled copy = {plan.copy_bytes/1e3:.1f} KB")
-    C2, stats = chunked_spgemm(A, P, plan)
+    C2, stats = chunked_spgemm(A, P, plan, device=device)
     assert torch.allclose(csr_to_dense(C2), ref, atol=1e-4)
     print(f"chunked == unchunked == oracle; actual staged bytes = "
           f"{stats.copy_bytes/1e3:.1f} KB in {stats.kernel_calls} kernel calls")
 
     # 5. KNL-style single-level-B chunking (Algorithm 1)
     plan_k = plan_knl(A, P, fast_limit_bytes=float(row_bytes_csr(P).sum()) / 3)
-    C3, stats_k = chunked_spgemm(A, P, plan_k)
+    C3, stats_k = chunked_spgemm(A, P, plan_k, device=device)
     assert torch.allclose(csr_to_dense(C3), ref, atol=1e-4)
     print(f"Alg-1 chunking ok: {plan_k.n_b} B chunks, "
           f"{stats_k.kernel_calls} fused multiply-add calls")

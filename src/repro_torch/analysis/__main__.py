@@ -1,7 +1,8 @@
 """Command line of the static auditor.
 
     python -m repro_torch.analysis [--cases fast|all|NAME,...]
-        [--backends NAME,...] [--analyses smem,traffic,retrace,preflight]
+        [--backends NAME,...]
+        [--analyses smem,traffic,retrace,preflight,dma,interleave]
         [--json PATH] [--device cpu|cuda]
 
 Prints one line per violation and a summary; exits 0 only if every

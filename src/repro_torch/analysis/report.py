@@ -16,11 +16,18 @@ analyses read it:
   shared (union) envelope, give one static geometry and one compile
   (:mod:`repro_torch.analysis.retrace`);
 * ``preflight`` — dtypes, index-table widths and shared memory of the
-  staged launch, and the choosers' paths (:mod:`repro_torch.analysis.preflight`).
+  staged launch, and the choosers' paths (:mod:`repro_torch.analysis.preflight`);
+* ``dma`` — the backends with a copy ring (``sparse``, ``hash``) run the
+  case with every operand in slow memory, and each ring's recorded op log
+  must be the schedule's program, op for op, with the schedule's host
+  replay clean (:mod:`repro_torch.analysis.dma`);
+* ``interleave`` — every completion order of each such ring's copies and
+  reads is hazard-free (:mod:`repro_torch.analysis.interleave`).
 
-The JAX package's DMA-schedule and interleaving checks (``dma``,
-``interleave``, ``while``) have no counterpart yet: the port's N-stage
-``cp.async`` rings have no slot arithmetic to check them against.
+When ``dma`` or ``interleave`` is selected the schedule's host replay also
+runs once over the JAX package's sweep of stream lengths. The JAX package's
+``while`` pass has no counterpart, and the rings inside the CUDA kernels
+(their N-stage ``cp.async`` pipelines) have no slot model yet.
 
 The output is a JSON-able report dict; ``python -m repro_torch.analysis``
 is the command line.
@@ -31,6 +38,8 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.analysis import corpus
+from repro_torch.analysis.dma import check_ring_structure, simulate_schedule
+from repro_torch.analysis.interleave import check_interleave
 from repro_torch.analysis.preflight import check_preflight
 from repro_torch.analysis.retrace import check_retrace
 from repro_torch.analysis.smem import audit_smem, check_smem, launch_requests
@@ -38,7 +47,9 @@ from repro_torch.analysis.traffic import check_traffic, traced_flows
 from repro_torch.core import backend_registry
 
 # every per-case analysis audit_backend_case can run, in run order
-ANALYSES = ("smem", "traffic", "retrace", "preflight")
+ANALYSES = ("smem", "traffic", "retrace", "preflight", "dma", "interleave")
+# stream lengths the schedule's host replay sweeps (the JAX package's)
+SCHEDULE_SWEEP = tuple(range(1, 13))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +97,24 @@ def normalize_cases(cases) -> list:
     if unknown:
         raise ValueError(f"unknown cases {unknown}; available: {list(corpus.CASES)}")
     return names
+
+
+def _ring_records(spec, A, B, plan):
+    """The rings of one all-slow call of ``spec`` on the case, on the
+    operands' device (pinned host memory on the card, host memory on the
+    CPU); None for a backend without a ring."""
+    if not spec.supports_placement:
+        return None
+    from repro_torch.core.chunking import chunked_spgemm
+    from repro_torch.core.copy_ring import RingLog
+    from repro_torch.core.placement import ALL_SLOW, place
+
+    device = A.device
+    if device.type == "cuda":
+        A, B = place((A, B), "slow")
+    with RingLog() as log:
+        chunked_spgemm(A, B, plan, backend=spec.name, placement=ALL_SLOW, device=device)
+    return log.rings
 
 
 def audit_backend_case(spec, algorithm: str, case_name: str, A, B,
@@ -136,6 +165,30 @@ def audit_backend_case(spec, algorithm: str, case_name: str, A, B,
         flag("preflight", pv)
         record["preflight"] = pinfo
 
+    if {"dma", "interleave"} & set(analyses):
+        rings = _ring_records(spec, A, B, plan)
+        for analysis in ("dma", "interleave"):
+            if analysis not in analyses:
+                continue
+            if rings is None:
+                record[analysis] = {
+                    "checked": False,
+                    "reason": "no copy ring: the backend raises on an operand in "
+                              "slow memory"}
+                continue
+            infos = []
+            for ring in rings:
+                if analysis == "dma":
+                    flag("dma", check_ring_structure(ring.ops, ring.total, ring.n_fields)
+                         + simulate_schedule(ring.total))
+                    info = {"ops": len(ring.ops)}
+                else:
+                    iv, info = check_interleave(ring.total, ring.n_fields)
+                    flag("interleave", iv)
+                infos.append({"operand": ring.operand, "role": ring.role,
+                              "total": ring.total, **info})
+            record[analysis] = {"checked": True, "rings": infos}
+
     if retrace and "retrace" in analyses:
         A2, B2 = corpus.retrace_pair(A, B)
         plan2 = corpus.make_plan(algorithm, A2, B2)
@@ -166,6 +219,10 @@ def audit_all(backends=None, algorithms=None, cases=None, retrace: bool = True,
     build_log = _build.build() if str(device).startswith("cuda") else {}
 
     violations, records, skipped = [], [], []
+    if {"dma", "interleave"} & set(analyses):
+        for total in SCHEDULE_SWEEP:
+            violations.extend(Violation("schedule", "*", "*", f"total={total}", m)
+                              for m in simulate_schedule(total))
     for name in names:
         spec = backend_registry.get(name)
         if not spec.supports_audit:

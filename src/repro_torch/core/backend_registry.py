@@ -119,6 +119,9 @@ class BackendSpec:
     audit_trace: Callable | None = None         # (A, B, plan, c_pad, env) -> TraceTarget
     traffic_model: Callable | None = None       # (A, B, plan, c_pad, env, meta) -> ExpectedTraffic
     stats_exempt: str | None = None             # why the ChunkStats tie is not checked
+    # (A, B, plan, c_pad, caps, placement, device) -> (C, ChunkStats): the
+    # executor with operands in slow memory (the copy ring); None = raises
+    run_placed: Callable | None = None
 
     @property
     def supports_batched(self) -> bool:
@@ -135,6 +138,10 @@ class BackendSpec:
     @property
     def supports_mask(self) -> bool:
         return self.run_masked is not None
+
+    @property
+    def supports_placement(self) -> bool:
+        return self.run_placed is not None
 
 
 _REGISTRY: dict[str, BackendSpec] = {}

@@ -70,7 +70,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from repro_torch.core import backend_registry
+from repro_torch.core import backend_registry, copy_ring
 from repro_torch.core.chunking import (
     StatsLog, _assemble, _empty_like_c, a_strips, b_chunks, batch_envelope,
     chunk_gpu1, chunk_gpu2, chunk_knl, instance_envelope,
@@ -90,8 +90,8 @@ from repro_torch.kernels.ranged_spgemm import ranged_spgemm_stream
 from repro_torch.kernels.sparse_accum_spgemm import sparse_accum_spgemm_stream
 from repro_torch.sparse.bsr import BSR, bsr_blocks_with_sentinel
 from repro_torch.sparse.csr import (
-    CSR, GeometryEnvelope, _csr_from_tensors, csr_from_dense, csr_pad_to,
-    csr_stack, csr_unstack,
+    CSR, GeometryEnvelope, _csr_from_tensors, csr_from_dense, csr_pad_to, csr_pin,
+    csr_stack, csr_unstack, refuse_pinned,
 )
 
 # One count under a core's key each time the core meets a static geometry it
@@ -215,39 +215,49 @@ def _c_strip_nbytes(strip_rows: int, c_pad: int, dtype) -> int:
     return (strip_rows + 1) * 4 + c_pad * (4 + dtype.itemsize)
 
 
-def planned_stats_pallas(plan: ChunkPlan, slab_nbytes: int, a_stage_nbytes: int,
-                         c_stage_nbytes: int):
-    """Replay the streaming kernels' per-copy event sequence from the plan.
+def planned_events(plan: ChunkPlan, slab_nbytes: int, a_stage_nbytes: int,
+                   c_stage_nbytes: int) -> list:
+    """The streaming kernels' copy events from the plan, each tagged with
+    its operand: ``[(operand, "in" | "out", bytes), ...]`` in issue order.
 
-    It differs from :func:`planned_stats` in three ways: staged pieces are
-    the kernel's own (dense slabs for ``pallas``, padded CSR triples for the
-    CSR accumulators); the stationary operand is staged once per outer step
-    and the streamed one once per step; and in the Chunk2 order the
-    per-strip C partials stay resident, so the ``(n_b - 1)`` per-strip
-    out+in bounces collapse into one whole-block ``C_prev`` fetch and one
-    final writeback of ``n_ac * c_stage_nbytes`` each.
+    Staged pieces are the kernel's own (dense slabs for ``pallas``, padded
+    CSR triples for the CSR accumulators); the stationary operand is staged
+    once per outer step and the streamed one once per step; and in the
+    Chunk2 order the per-strip C partials stay resident, so the ``(n_b -
+    1)`` per-strip out+in bounces collapse into one whole-block ``C_prev``
+    fetch and one final writeback of ``n_ac * c_stage_nbytes`` each. A run
+    with slow operands moves exactly the events of those operands across
+    the link (``repro_torch.core.copy_ring``).
     """
-    stats = StatsLog(plan.algorithm, plan.n_ac, plan.n_b)
+    events = []
     if plan.algorithm in ("knl", "chunk1"):
         for _ in range(plan.n_ac):           # knl is the 1-strip special case
-            stats.add_in(a_stage_nbytes)     # stationary strip
-            stats.add_in(c_stage_nbytes)     # fused C_prev block
-            for _ in range(plan.n_b):
-                stats.add_in(slab_nbytes)    # streamed chunk
-                stats.kernel_calls += 1
-            stats.add_out(c_stage_nbytes)    # strip result writeback
-        return stats.freeze()
+            events.append(("A", "in", a_stage_nbytes))     # stationary strip
+            events.append(("C", "in", c_stage_nbytes))     # fused C_prev block
+            events.extend([("B", "in", slab_nbytes)] * plan.n_b)   # streamed chunks
+            events.append(("C", "out", c_stage_nbytes))    # strip result writeback
+        return events
     if plan.algorithm == "chunk2":
         for jb in range(plan.n_b):
-            stats.add_in(slab_nbytes)        # stationary chunk
+            events.append(("B", "in", slab_nbytes))        # stationary chunk
             if jb == 0:
-                stats.add_in(plan.n_ac * c_stage_nbytes)
-            for _ in range(plan.n_ac):
-                stats.add_in(a_stage_nbytes)       # streamed strip
-                stats.kernel_calls += 1
-        stats.add_out(plan.n_ac * c_stage_nbytes)
-        return stats.freeze()
+                events.append(("C", "in", plan.n_ac * c_stage_nbytes))
+            events.extend([("A", "in", a_stage_nbytes)] * plan.n_ac)   # streamed strips
+        events.append(("C", "out", plan.n_ac * c_stage_nbytes))
+        return events
     raise ValueError(f"unknown algorithm {plan.algorithm!r}")
+
+
+def planned_stats_pallas(plan: ChunkPlan, slab_nbytes: int, a_stage_nbytes: int,
+                         c_stage_nbytes: int):
+    """The :class:`ChunkStats` of :func:`planned_events`: the streaming
+    kernels' per-copy event sequence, replayed from the plan."""
+    stats = StatsLog(plan.algorithm, plan.n_ac, plan.n_b)
+    for _, direction, nbytes in planned_events(plan, slab_nbytes, a_stage_nbytes,
+                                               c_stage_nbytes):
+        (stats.add_in if direction == "in" else stats.add_out)(nbytes)
+    stats.kernel_calls = plan.n_ac * plan.n_b
+    return stats.freeze()
 
 
 def _pallas_stage_nbytes(strip_rows: int, k: int, span: int, n: int) -> tuple:
@@ -509,6 +519,16 @@ _HASH_CORES = _core_set("{alg}_hash", _HASH_RUNS)
 _HASH_CORES_BATCHED = _core_set("{alg}_hash_batched", _HASH_RUNS)
 
 
+def _checked_table(A: CSR, B: CSR, c_pad: int, backend: str, caps):
+    """The hash table's slots (None for ESC), after checking the realized
+    output structure against the capacities."""
+    table = (hash_table_slots(caps.c_max_row_nnz) if backend == "hash"
+             else None)
+    check_output_caps(caps.strip_nnz, caps.c_max_row_nnz, c_pad, table,
+                      backend=backend, a_shape=A.shape, b_shape=B.shape)
+    return table
+
+
 def _sparse_run(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, backend: str,
                 caps=None):
     """Shared body of the CSR-output executors (ESC and hash): stage CSR
@@ -520,10 +540,7 @@ def _sparse_run(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, backend: str,
     already ran the expansion; recomputed here only for direct calls."""
     if caps is None:
         caps = strip_output_caps(A, B, plan.p_ac)
-    table = (hash_table_slots(caps.c_max_row_nnz) if backend == "hash"
-             else None)
-    check_output_caps(caps.strip_nnz, caps.c_max_row_nnz, c_pad, table,
-                      backend=backend, a_shape=A.shape, b_shape=B.shape)
+    table = _checked_table(A, B, c_pad, backend, caps)
     strips = a_strips(A, plan.p_ac)
     chunks = b_chunks(B, plan.p_b)
     Ast = csr_stack([csr_stack(strips)])
@@ -554,6 +571,125 @@ def chunk_sparse(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps=None):
 def chunk_hash(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps=None):
     """Hash-probe executor for any plan algorithm."""
     return _sparse_run(A, B, plan, c_pad, "hash", caps=caps)
+
+
+# ---------------------------------------------------------------------------
+# CSR-output backends with operands in slow memory: the copy2Fast ring
+# ---------------------------------------------------------------------------
+
+
+def _one(m: CSR) -> CSR:
+    """A piece as a one-element stack (leading ``[1, 1]`` axes, views)."""
+    return CSR(m.indptr[None, None], m.indices[None, None], m.data[None, None],
+               m.shape, m.max_row_nnz)
+
+
+def _sparse_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
+                       placement, device: torch.device, *, backend: str):
+    """:func:`_sparse_run` with operands in slow memory.
+
+    The strips and chunks of each slow operand are built in slow memory
+    (pinned on the card), those of a fast one on ``device``. The stream
+    wrapper launches once per (strip, chunk) step on one-element stacks, a
+    slow operand's piece read from its ring's slot: the stationary operand
+    (A strips in the chunk1 orders, B chunks in chunk2) through a ring over
+    the outer steps, the streamed one through a ring over every step. Each
+    step's C is the next step's ``C_prev``. A slow C comes in as the events
+    list it (a strip's empty block per strip in the chunk1 orders, the whole
+    block once in chunk2) and goes back out to a stack in slow memory, where
+    the strips are assembled. Each launch is the step the one-launch kernel
+    takes, so C equals the all-fast call's; ``ChunkStats`` are the same
+    plan's. ``caps`` is the symbolic phase's :class:`StripOutputCaps`."""
+    table = _checked_table(A, B, c_pad, backend, caps)
+    card = device.type == "cuda"
+
+    def staged(pieces, space):
+        st = csr_stack(pieces)
+        if space == "fast":
+            return st
+        return csr_pin(st) if card else st
+
+    strips = a_strips(A, plan.p_ac)
+    chunks = b_chunks(B, plan.p_b)
+    a_stage, slab = strips[0].nbytes(), chunks[0].nbytes()
+    As, Bs = staged(strips, placement.A), staged(chunks, placement.B)
+    del strips, chunks
+    n_ac, n_b, n_cols = plan.n_ac, plan.n_b, B.n_cols
+    strip_rows = As.n_rows
+    r0s, r1s = plan.b_ranges()
+    if backend == "hash":
+        core, statics = _HASH_CORES[plan.algorithm], {"table_size": table}
+    else:
+        core, statics = _SPARSE_CORES[plan.algorithm], {"row_cap": caps.c_max_row_nnz}
+    c_slow = placement.C == "slow"
+    # the empty C_prev: one strip's block (the chunk1 orders) or all strips'
+    zeros = copy_ring.piece(_sparse_c0_stack(
+        1, n_ac if plan.algorithm == "chunk2" else 1, strip_rows, n_cols, c_pad,
+        A.dtype, "cpu" if c_slow else device), 0)
+    if c_slow and card:
+        zeros = csr_pin(zeros)
+    c_out = copy_ring.slow_stack(copy_ring.piece(zeros, 0), n_ac, card) if c_slow else None
+
+    link = copy_ring.Link(device)
+
+    def launch(Ai, Bj, Ci, j):
+        with link.step():
+            ip, ix, d = core(_one(Ai), _one(Bj), _one(Ci), r0s[j:j + 1], r1s[j:j + 1],
+                             **statics)
+        return CSR(ip[0, 0], ix[0, 0], d[0, 0], (strip_rows, n_cols), c_pad)
+
+    def source(operand, stack, space, role, elements):
+        """Step-indexed ``(get, put)`` of one operand's pieces: a ring's
+        slots when it is slow, views of the staged stack when fast."""
+        if space == "slow":
+            ring = link.ring(operand, role, stack, elements)
+            return ring.acquire, ring.release
+        return (lambda lin: copy_ring.piece(stack, elements[lin])), (lambda lin: None)
+
+    out = []
+    if plan.algorithm in ("knl", "chunk1"):
+        get_a, put_a = source("A", As, placement.A, "stationary", list(range(n_ac)))
+        get_b, put_b = source("B", Bs, placement.B, "streamed",
+                              [j for _ in range(n_ac) for j in range(n_b)])
+        get_c, put_c = source("C", zeros, placement.C, "stationary", [0] * n_ac)
+        for i in range(n_ac):
+            Ai, Ci = get_a(i), get_c(i)
+            for j in range(n_b):
+                lin = i * n_b + j
+                Ci = launch(Ai, get_b(lin), Ci, j)
+                put_b(lin)
+                if j == 0:
+                    put_c(i)
+            put_a(i)
+            if c_slow:
+                link.copy_out("C", [Ci], c_out, first=i)
+            else:
+                out.append(Ci)
+    else:
+        get_b, put_b = source("B", Bs, placement.B, "stationary", list(range(n_b)))
+        get_a, put_a = source("A", As, placement.A, "streamed",
+                              [i for _ in range(n_b) for i in range(n_ac)])
+        block = link.copy_in("C", zeros) if c_slow else zeros
+        out = [copy_ring.piece(block, i) for i in range(n_ac)]
+        del block
+        for jb in range(n_b):
+            Bj = get_b(jb)
+            for i in range(n_ac):
+                lin = jb * n_ac + i
+                out[i] = launch(get_a(lin), Bj, out[i], jb)
+                put_a(lin)
+            put_b(jb)
+        if c_slow:
+            link.copy_out("C", out, c_out)
+    link.finish()
+    if c_slow:
+        out = [copy_ring.piece(c_out, i) for i in range(n_ac)]
+    C = _assemble(out, plan.p_ac, n_cols)
+    if c_slow and card:
+        C = csr_pin(C)
+    stats = planned_stats_pallas(plan, slab, a_stage,
+                                 _c_strip_nbytes(strip_rows, c_pad, A.dtype))
+    return C, stats
 
 
 # ---------------------------------------------------------------------------
@@ -1037,6 +1173,7 @@ def chunked_spgemm_batched(As, Bs, plan: ChunkPlan, c_pad: int | None = None,
     As, Bs = list(As), list(Bs)
     if len(As) != len(Bs) or not As:
         raise ValueError("need equal, nonzero numbers of A and B instances")
+    refuse_pinned("chunked_spgemm_batched", *As, *Bs)
     if plan.algorithm not in backend_registry.ALGORITHMS:
         raise ValueError(f"unsupported algorithm {plan.algorithm!r}")
     spec = None if backend == "auto" else backend_registry.get(backend)
@@ -1327,6 +1464,7 @@ def _register_all() -> None:
         audit_trace=_make_audit_csr_accum("sparse"),
         traffic_model=_traffic_csr_accum,
         make_batched_cores=_batched_core_factory("{alg}_sparse_batched", _SPARSE_RUNS),
+        run_placed=partial(_sparse_run_placed, backend="sparse"),
     ))
     register(Spec(
         name="hash",
@@ -1341,6 +1479,7 @@ def _register_all() -> None:
         audit_trace=_make_audit_csr_accum("hash"),
         traffic_model=_traffic_csr_accum,
         make_batched_cores=_batched_core_factory("{alg}_hash_batched", _HASH_RUNS),
+        run_placed=partial(_sparse_run_placed, backend="hash"),
     ))
     register(Spec(
         name="bsr",

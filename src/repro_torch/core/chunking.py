@@ -285,8 +285,32 @@ def default_c_pad(A: CSR, B: CSR, plan: ChunkPlan) -> int:
     return strip_output_caps(A, B, plan.p_ac).c_pad
 
 
+def whole_fast(A: CSR, B: CSR, c_pad: int, placement, device,
+               c_max_row_nnz: int = 0):
+    """The ``whole_fast`` plan: one multiply of the whole operands, its one
+    in-event and one out-event. A slow operand (``placement``) crosses to
+    ``device`` whole, and a slow C goes back whole."""
+    from repro_torch.core import copy_ring
+
+    stats = StatsLog("whole_fast", 1, 1)
+    stats.add_in(A.nbytes() + B.nbytes())
+    link = copy_ring.Link(device)
+    fast = [link.copy_in(k, m) if getattr(placement, k) == "slow" else m
+            for k, m in (("A", A), ("B", B))]
+    C = spgemm(*fast, c_pad, c_max_row_nnz)
+    stats.add_out(C.nbytes())
+    if placement.C == "slow":
+        host = copy_ring.slow_stack(C, 1, device.type == "cuda")
+        link.copy_out("C", [C], host)
+        C = copy_ring.piece(host, 0)
+    link.finish()
+    stats.kernel_calls = 1
+    return C, stats.freeze()
+
+
 def chunked_spgemm(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int | None = None,
-                   backend: str = "scan", block_size: int | None = None):
+                   backend: str = "scan", block_size: int | None = None, *,
+                   placement=None, device=None):
     """Execute a ChunkPlan. ``c_pad`` defaults to the exact symbolic capacity of the
     largest row strip (whole C for 1-strip plans).
 
@@ -302,9 +326,23 @@ def chunked_spgemm(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int | None = None,
     ``block_size`` opts the block symbolic phase into the envelope: under
     ``backend="auto"`` the planner can then price (and select) ``bsr``;
     under an explicit block backend it overrides the default block edge.
+
+    ``placement`` (a :class:`repro_torch.core.placement.Placement`) and
+    ``device`` say where the operands live and where the call runs
+    (``placement.resolve_placement``): ``device=None`` is the card, and
+    ``device="cpu"`` runs the plain versions. On the card a pinned operand
+    is slow and one on the card fast, read from the operands when
+    ``placement`` is ``None``. With a slow operand the ``sparse`` and ``hash`` backends stage
+    every counted piece across the link through the copy ring, and the
+    result is in pinned host memory when C is slow; ``whole_fast`` copies
+    the slow operands whole. Any other backend raises on a slow operand, as
+    does an ``auto`` that resolves to one: nothing substitutes another
+    backend or runs on the host.
     """
     from repro_torch.core import backend_registry
+    from repro_torch.core.placement import ALL_FAST, resolve_placement
 
+    placement, run_device = resolve_placement({"A": A, "B": B}, placement, device)
     spec = None if backend == "auto" else backend_registry.get(backend)
     caps = None
     if c_pad is None or backend == "auto" or (spec is not None
@@ -313,18 +351,22 @@ def chunked_spgemm(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int | None = None,
     if c_pad is None:
         c_pad = caps.c_pad
     if plan.algorithm == "whole_fast":
-        stats = StatsLog("whole_fast", 1, 1)
-        stats.add_in(A.nbytes() + B.nbytes())
-        C = spgemm(A, B, c_pad)
-        stats.add_out(C.nbytes())
-        stats.kernel_calls = 1
-        return C, stats.freeze()
+        return whole_fast(A, B, c_pad, placement, run_device)
     if backend == "auto":
         from repro_torch.core.planner import select_accumulator_backend
 
         env = instance_envelope(A, B, plan, c_pad=c_pad, caps=caps,
                                 block_size=block_size)
         spec = backend_registry.get(select_accumulator_backend(plan, env))
+    if placement != ALL_FAST:
+        if not spec.supports_placement:
+            raise ValueError(
+                f"backend {spec.name!r} has no copy ring for operands in slow "
+                f"memory ({placement}; ROADMAP Queue 1): use backend 'sparse' or "
+                "'hash', or put the operands on the card with place(x, 'fast')")
+        if plan.algorithm not in spec.executors:
+            raise ValueError(f"unknown algorithm {plan.algorithm!r}")
+        return spec.run_placed(A, B, plan, c_pad, caps, placement, run_device)
     fn = spec.executors.get(plan.algorithm)
     if fn is None:
         raise ValueError(f"unknown algorithm {plan.algorithm!r}")

@@ -15,8 +15,10 @@ two-hop planner+executor:
   memory otherwise;
 * the **executor** (:func:`pipeline_spgemm`) runs both hops through any
   registered backend, with the pre-sized caps, so neither hop re-expands the
-  symbolic structure. On the spill path T round-trips through pinned host
-  memory before hop 2 stages it again;
+  symbolic structure. On the spill path T is written to pinned host memory
+  and stays there: hop 2 streams it as its B operand through the copy ring
+  (``repro_torch.core.copy_ring``), so only the backends with a ring
+  (``sparse``, ``hash``) take the spill path;
 * the composed byte model (:func:`pipeline_fast_model`) counts the resident
   intermediate exactly once (:func:`check_pipeline_model`).
 
@@ -29,11 +31,11 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core import backend_registry
-from repro_torch.core.chunking import ChunkStats, StatsLog, instance_envelope
-from repro_torch.core.kkmem import spgemm
+from repro_torch.core.chunking import ChunkStats, instance_envelope, whole_fast
+from repro_torch.core.placement import ALL_FAST, Placement
 from repro_torch.core.planner import BackendFastModel, PipelinePlan, plan_pipeline
 from repro_torch.core.symbolic import PipelineCaps, pipeline_output_caps
-from repro_torch.sparse.csr import CSR, GeometryEnvelope
+from repro_torch.sparse.csr import CSR, GeometryEnvelope, csr_pin, refuse_pinned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,36 +75,38 @@ class PipelineStats:
         return self.hop1.copy_bytes + self.hop2.copy_bytes + self.spill_bytes
 
 
-def _run_hop(X: CSR, Y: CSR, plan, caps, backend: str):
-    """One hop through a registered backend at pre-sized caps. A whole_fast
-    hop's output carries the exact densest-row bound (the reference's carries
-    ``c_pad``), which hop 2 reads as its streamed ``b_max_row_nnz``."""
+def _run_hop(X: CSR, Y: CSR, plan, caps, backend: str, placement=ALL_FAST,
+             device=None):
+    """One hop through a registered backend at pre-sized caps, on ``device``
+    (``X``'s by default). A whole_fast hop's output carries the exact
+    densest-row bound (the reference's carries ``c_pad``), which hop 2 reads
+    as its streamed ``b_max_row_nnz``. Operands that ``placement`` puts in
+    slow memory cross whole in a whole_fast hop and through the backend's
+    copy ring in a chunked one (a backend without one raises)."""
     if plan.algorithm == "whole_fast":
-        stats = StatsLog("whole_fast", 1, 1)
-        stats.add_in(X.nbytes() + Y.nbytes())
-        C = spgemm(X, Y, caps.c_pad, caps.c_max_row_nnz)
-        stats.add_out(C.nbytes())
-        stats.kernel_calls = 1
-        return C, stats.freeze()
+        return whole_fast(X, Y, caps.c_pad, placement, device or X.device,
+                          caps.c_max_row_nnz)
     spec = backend_registry.get(backend)
     fn = spec.executors.get(plan.algorithm)
     if fn is None:
         raise ValueError(f"unknown algorithm {plan.algorithm!r}")
+    if placement != ALL_FAST:
+        if not spec.supports_placement:
+            raise ValueError(
+                f"backend {backend!r} has no copy ring for the spilled intermediate "
+                "(ROADMAP Queue 1 item 7c): spill with backend 'sparse' or 'hash'")
+        return spec.run_placed(X, Y, plan, caps.c_pad, caps, placement, device)
     kwargs = {"caps": caps} if spec.needs_output_caps else {}
     return fn(X, Y, plan, caps.c_pad, **kwargs)
 
 
 def _spill_to_slow(T: CSR) -> CSR:
-    """Round-trip the intermediate through slow memory: on the card, copy
-    its triple into pinned host memory and back, so hop 2 restages T from
-    the host instead of consuming the device-resident triple; on the CPU the
-    host copy is the round trip."""
+    """The intermediate written to slow memory, where it stays: pinned host
+    memory on the card, a host copy on the CPU."""
     if T.device.type != "cuda":
         return CSR(T.indptr.clone(), T.indices.clone(), T.data.clone(),
                    T.shape, T.max_row_nnz)
-    host = [t.to("cpu").pin_memory() for t in (T.indptr, T.indices, T.data)]
-    back = [t.to(T.device, non_blocking=True) for t in host]
-    return CSR(*back, T.shape, T.max_row_nnz)
+    return csr_pin(T)
 
 
 def pipeline_spgemm(A: CSR, P: CSR, R: CSR, plan: PipelinePlan | None = None,
@@ -115,9 +119,12 @@ def pipeline_spgemm(A: CSR, P: CSR, R: CSR, plan: PipelinePlan | None = None,
     is then required); ``caps`` defaults to the composed symbolic phase at
     the plan's partitions. ``backend`` names any registered backend; both
     hops run through it. On the resident path the intermediate's device CSR
-    flows straight into hop 2; on the spill path it round-trips through
-    host memory and the stats carry the extra copy events.
+    flows straight into hop 2; on the spill path it is written to slow
+    memory and hop 2 streams it through the copy ring as its B operand (R
+    and C stay on the run device), and the stats carry the extra copy
+    events.
     """
+    refuse_pinned("pipeline_spgemm", A, P, R)
     if plan is None:
         if system is None:
             raise ValueError(
@@ -129,11 +136,14 @@ def pipeline_spgemm(A: CSR, P: CSR, R: CSR, plan: PipelinePlan | None = None,
     T, stats1 = _run_hop(A, P, plan.plan1, caps.hop1, backend)
     spilled = not plan.t_resident
     spill_bytes = 0.0
+    placement, device = ALL_FAST, None
     if spilled:
+        device = T.device
         T = _spill_to_slow(T)
         t_reads = plan.plan2.n_ac if plan.plan2.algorithm == "chunk1" else 1
         spill_bytes = float(T.nbytes()) * (1 + t_reads)
-    C, stats2 = _run_hop(R, T, plan.plan2, caps.hop2, backend)
+        placement = Placement("fast", "slow", "fast")
+    C, stats2 = _run_hop(R, T, plan.plan2, caps.hop2, backend, placement, device)
     return C, PipelineStats(plan=plan, hop1=stats1, hop2=stats2,
                             spilled=spilled, spill_bytes=spill_bytes)
 

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core.kkmem import spgemm, spgemm_symbolic_host
 from repro_torch.core.planner import ChunkPlan, plan_knl
-from repro_torch.sparse.csr import CSR, csr_row_of_entry, csr_to_dense
+from repro_torch.sparse.csr import CSR, csr_row_of_entry, csr_to_dense, refuse_pinned
 
 
 def count_triangles(L: CSR, plan: ChunkPlan | None = None,
@@ -42,6 +42,7 @@ def count_triangles(L: CSR, plan: ChunkPlan | None = None,
     from repro_torch.core import backend_registry
     from repro_torch.core.symbolic import masked_output_caps
 
+    refuse_pinned("count_triangles", L)
     if backend is None:
         names = backend_registry.masked_backends()
         if not names:

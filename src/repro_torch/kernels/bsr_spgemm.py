@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import copy_events
 from repro_torch.kernels._build import LaunchCounter, launch, require
 from repro_torch.sparse.bsr import BSR
-from repro_torch.sparse.csr import _np
+from repro_torch.sparse.csr import _np, refuse_pinned
 
 LAUNCHES = LaunchCounter()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -161,7 +161,8 @@ def bsr_spgemm_blocks(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
     """``out[e] = sum_u A_blk[a_slots[e, u]] @ B_blk[b_slots[e, u]]`` in f32,
     shape ``[nc_pad, bs, bs]``. ``a_blocks``/``b_blocks`` must already carry
     the appended zero block (shapes ``(nbl_pad + 1, bs, bs)``), f32 or bf16.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version (pinned ones raise); CUDA tensors
+    launch the kernel."""
     dev = a_blocks.device
     a_slots = torch.as_tensor(a_slots, dtype=torch.int32).to(dev).contiguous()
     b_slots = torch.as_tensor(b_slots, dtype=torch.int32).to(dev).contiguous()
@@ -172,6 +173,7 @@ def bsr_spgemm_blocks(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
         if t.dim() != 3 or t.shape[1:] != (bs, bs):
             raise ValueError(f"{what} shape {tuple(t.shape)} is not [n, {bs}, {bs}]")
     if dev.type == "cpu":
+        refuse_pinned("bsr_spgemm_blocks", a_blocks, b_blocks)
         return bsr_spgemm_plain(a_blocks, b_blocks, a_slots, b_slots, nc_pad,
                                 u_max, bs, skip_zero)
     if a_blocks.dtype not in _DTYPES or b_blocks.dtype != a_blocks.dtype:

@@ -37,7 +37,7 @@ from repro_torch.kernels._build import LaunchCounter, launch, require
 from repro_torch.kernels.sparse_accum_spgemm import (
     SMEM_PER_BLOCK, launch_csr_accum, sort_class, stack_geometry,
 )
-from repro_torch.sparse.csr import CSR
+from repro_torch.sparse.csr import CSR, refuse_pinned
 
 LAUNCHES = LaunchCounter()
 MASKED_LAUNCHES = LaunchCounter()
@@ -182,11 +182,12 @@ def hash_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *,
     Operand layout, streaming orders and the returned stacked CSR triple are
     those of ``sparse_accum_spgemm_stream``; ``table_size`` is the per-row
     hash-table slot count, ``planner.hash_table_slots`` of the symbolic
-    ``c_max_row_nnz``. CPU tensors take the plain version; CUDA tensors
-    launch the kernel.
+    ``c_max_row_nnz``. CPU tensors take the plain version (pinned ones
+    raise); CUDA tensors launch the kernel.
     """
     T = _check_table(table_size)
     if Ast.indptr.device.type == "cpu":
+        refuse_pinned("hash_accum_spgemm_stream", Ast, Bst, C0st)
         return hash_accum_plain(Ast, Bst, C0st, r0s, r1s, order=order,
                                 table_size=T)
     return launch_csr_accum("hash_accum_spgemm", "hash_accum_launch", LAUNCHES,
@@ -570,7 +571,7 @@ def hash_masked_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, Mst: CSR,
     row, as in the reference. On the card the rows are cut into parts by
     products (:func:`masked_work`) and each row's table is sized from its own
     mask nnz instead (:func:`masked_launches`). CPU tensors take the plain
-    version; CUDA tensors launch the kernel.
+    version (pinned ones raise); CUDA tensors launch the kernel.
     """
     g = stack_geometry(Ast, Bst, C0st, order)
     T = _check_table(table_size)
@@ -579,6 +580,7 @@ def hash_masked_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, Mst: CSR,
                          f"not match the output strips {tuple(C0st.indptr.shape)} "
                          f"{C0st.shape}")
     if Ast.indptr.device.type == "cpu":
+        refuse_pinned("hash_masked_accum_spgemm_stream", Ast, Bst, C0st, Mst)
         return hash_masked_plain(Ast, Bst, C0st, Mst, r0s, r1s, order=order,
                                  table_size=T)
     check_mask(Mst, g["c_cap"], T)

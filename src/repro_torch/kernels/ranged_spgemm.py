@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels import copy_events
 from repro_torch.kernels._build import LaunchCounter, launch, require
+from repro_torch.sparse.csr import refuse_pinned
 
 LAUNCHES = LaunchCounter()
 ORDERS = ("chunk1", "chunk2")
@@ -93,9 +94,10 @@ def ranged_spgemm_stream(a_dense: torch.Tensor, b_slabs: torch.Tensor,
                (chunks outer, A strips streamed).
 
     Returns f32[batch, n_ac, strip_rows, n]. CPU tensors take the plain
-    version; CUDA tensors launch the kernel.
+    version (pinned ones raise); CUDA tensors launch the kernel.
     """
     if a_dense.device.type == "cpu":
+        refuse_pinned("ranged_spgemm_stream", a_dense, b_slabs, c0)
         return ranged_spgemm_plain(a_dense, b_slabs, c0, r0s, order=order)
     batch, n_ac, strip_rows, k_pad, n_b, span, n = _geometry(a_dense, b_slabs, c0, order)
     dev = a_dense.device

@@ -32,7 +32,7 @@ import torch
 from repro_torch.core.kkmem import spgemm_ranged_impl
 from repro_torch.kernels import copy_events
 from repro_torch.kernels._build import LaunchCounter, launch, require
-from repro_torch.sparse.csr import CSR, csr_row_of_entry
+from repro_torch.sparse.csr import CSR, csr_row_of_entry, refuse_pinned
 
 LAUNCHES = LaunchCounter()
 ORDERS = ("chunk1", "chunk2")
@@ -586,12 +586,14 @@ def sparse_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *,
         ``c_max_row_nnz``); sizes the kernel's per-row accumulator.
 
     Returns ``(indptr, indices, data)`` with leading ``[batch, n_ac]`` axes.
-    CPU tensors take the plain version; CUDA tensors launch the kernel as
-    :func:`esc_launch_plan` says. Raises a ``ValueError`` only where the
+    CPU tensors take the plain version (pinned ones raise: a slow operand
+    reaches the card through the copy ring); CUDA tensors launch the kernel
+    as :func:`esc_launch_plan` says. Raises a ``ValueError`` only where the
     global class's workspace would pass the card's free memory or a step
     passes ``GLOBAL_MAX_KEYS``.
     """
     if Ast.indptr.device.type == "cpu":
+        refuse_pinned("sparse_accum_spgemm_stream", Ast, Bst, C0st)
         return sparse_accum_plain(Ast, Bst, C0st, r0s, r1s, order=order)
     row_cap = max(int(row_cap), 1)
     plan = esc_launch_plan(Ast, Bst, C0st, r0s, r1s, row_cap=row_cap)

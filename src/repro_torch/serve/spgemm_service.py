@@ -67,7 +67,7 @@ from repro_torch.core.planner import (
     ChunkPlan, plan_knl, replan_for_latency, select_accumulator_backend,
 )
 from repro_torch.sparse.csr import (
-    CSR, GeometryEnvelope, _NP_DTYPES, csr_from_scipy_like,
+    CSR, GeometryEnvelope, _NP_DTYPES, csr_from_scipy_like, refuse_pinned,
 )
 
 
@@ -465,7 +465,10 @@ class SpGEMMService:
     def submit(self, A: CSR, B: CSR) -> SpGEMMFuture:
         """Queue one C = A x B request; returns its future (an ``int``
         subclass carrying the request id). Raises :class:`AdmissionError`
-        when over ``max_pending`` with ``admission="shed"``."""
+        when over ``max_pending`` with ``admission="shed"``, and
+        ``ValueError`` for an operand in pinned host memory (the service has
+        no copy ring)."""
+        refuse_pinned("SpGEMMService.submit", A, B)
         self._admit()
         plan = self._plan_for(A, B)
         raw = self._instance_env(A, B, plan)

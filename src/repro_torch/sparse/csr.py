@@ -451,6 +451,56 @@ def csr_unstack(stacked: CSR) -> list:
     ]
 
 
+def tensor_residence(t: torch.Tensor) -> str:
+    """Where one tensor lives: ``"card"`` (a CUDA device), ``"pinned"``
+    (page-locked host memory: the slow level of a run on the card) or
+    ``"host"`` (pageable host memory)."""
+    if t.device.type == "cuda":
+        return "card"
+    return "pinned" if t.is_pinned() else "host"
+
+
+def csr_residence(m: CSR) -> str:
+    """:func:`tensor_residence` of a CSR (one matrix or a stack); fields in
+    different places raise."""
+    places = {tensor_residence(t) for t in (m.indptr, m.indices, m.data)}
+    if len(places) != 1:
+        raise ValueError(f"CSR fields live in different places: {sorted(places)}")
+    return places.pop()
+
+
+def refuse_pinned(entry: str, *operands) -> None:
+    """Raise on an operand in pinned host memory: a slow operand of a run on
+    the card. Only the ``sparse`` and ``hash`` executors of
+    ``chunked_spgemm`` take one, through the copy ring; every other entry
+    point, and every kernel wrapper (whose host branch serves pageable
+    tensors with its plain version), refuses it rather than run it on the
+    host. ``operands`` are tensors or CSRs (one matrix or a stack)."""
+    tensors = [t for op in operands
+               for t in ((op.indptr, op.indices, op.data) if isinstance(op, CSR) else (op,))]
+    if any(t.is_pinned() for t in tensors):
+        raise ValueError(
+            f"{entry}: an operand is in pinned host memory (a slow operand), and "
+            "this path has no copy ring (ROADMAP Queue 1): put it on the card "
+            "with place(x, 'fast'), or run chunked_spgemm with backend 'sparse' "
+            "or 'hash', whose copy ring streams slow operands to the card")
+
+
+def tensor_pin(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in pinned host memory: kept if it is there, else copied once."""
+    if t.device.type == "cpu" and t.is_pinned():
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
+def csr_pin(m: CSR) -> CSR:
+    """``m`` (one matrix or a stack) in pinned host memory. The ring's copies
+    from a pageable source would run synchronously, so every slow stack it
+    reads is made here."""
+    return CSR(tensor_pin(m.indptr), tensor_pin(m.indices), tensor_pin(m.data),
+               m.shape, m.max_row_nnz)
+
+
 def csr_transpose_host(m: CSR, pad_to: int | None = None) -> CSR:
     """Host-side transpose (multigrid P = R^T), returned on ``m``'s device."""
     indptr = _np(m.indptr)

@@ -148,7 +148,8 @@ def test_scan_batched_equals_unbatched_bitwise(algorithm):
     plan = _port_plan(_plan(algorithm, As[0], Bs[0]))
     got, stats = chunk_stream.chunked_spgemm_batched(As, Bs, plan, backend="scan")
     for A, B, C in zip(As, Bs, got):
-        want, want_stats = chunking.chunked_spgemm(A, B, plan, backend="scan")
+        want, want_stats = chunking.chunked_spgemm(A, B, plan, backend="scan",
+                                                   device="cpu")
         for f in ("indptr", "indices", "data"):
             assert torch.equal(getattr(C, f), getattr(want, f)), f
         assert stats == want_stats

@@ -124,7 +124,8 @@ def test_trace_counts_unbatched_match_reference(backend):
                     plan, ch.instance_envelope(A, B, plan, c_pad=c_pad))
             key = reg.get(name).trace_key.format(alg="chunk2")
             before = cs.TRACE_COUNTS[key]
-            ch.chunked_spgemm(A, B, plan, c_pad, backend=backend)
+            ch.chunked_spgemm(A, B, plan, c_pad, backend=backend,
+                              **({"device": "cpu"} if cs is chunk_stream else {}))
             deltas.append(cs.TRACE_COUNTS[key] - before)
             keys.append(key)
         results.append((keys, deltas))

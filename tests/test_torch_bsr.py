@@ -179,7 +179,8 @@ def test_chunk_bsr_matches_reference(case, algorithm, bs):
             == dataclasses.astuple(ref_planner.planned_stats_bsr(ref_plan, ref_env)))
     want, want_stats = ref_chunking.chunked_spgemm(rA, rB, ref_plan, backend="bsr",
                                                    block_size=bs)
-    got, stats = chunking.chunked_spgemm(A, B, plan, backend="bsr", block_size=bs)
+    got, stats = chunking.chunked_spgemm(A, B, plan, backend="bsr", block_size=bs,
+                                         device="cpu")
     nnz = int(np.asarray(want.indptr)[-1])
     np.testing.assert_array_equal(got.indptr.numpy(), np.asarray(want.indptr))
     np.testing.assert_array_equal(got.indices.numpy()[:nnz], np.asarray(want.indices)[:nnz])
@@ -219,7 +220,7 @@ def test_auto_selects_bsr_where_the_reference_does():
         assert got == want
     assert planner.select_accumulator_backend(
         plan, chunking.instance_envelope(A, A, plan, block_size=8)) == "bsr"
-    C, _ = chunking.chunked_spgemm(A, A, plan, backend="auto", block_size=8)
+    C, _ = chunking.chunked_spgemm(A, A, plan, backend="auto", block_size=8, device="cpu")
     want, _ = ref_chunking.chunked_spgemm(rA, rA, ref_plan, backend="auto", block_size=8)
     np.testing.assert_array_equal(C.indptr.numpy(), np.asarray(want.indptr))
     np.testing.assert_allclose(C.data.numpy()[: C.nnz()],

@@ -99,7 +99,7 @@ def test_chunked_matches_reference_loop(problem, algorithm, backend):
     A, P, ref_plan, C_ref, stats_ref = _reference(problem, algorithm)
     plan = plan_from_fields(*dataclasses.astuple(ref_plan))
     pA, pP = _port(A), _port(P)
-    C, stats = chunked_spgemm(pA, pP, plan, backend=backend)
+    C, stats = chunked_spgemm(pA, pP, plan, backend=backend, device="cpu")
     np.testing.assert_allclose(port_to_dense(C).numpy(), np.asarray(csr_to_dense(C_ref)),
                                atol=ATOL, rtol=0)
     resolved = backend
