@@ -45,23 +45,27 @@ empty and sentinel-only block rows, shuffled tables, bs 5 and a 64-column
 tile on the generic path).
 Then operands in slow memory (``placement_phase``): brick3d n=48 with A,
 P and C placed as the paper's Table 3 says (a slow operand in pinned host
-memory), through ``chunked_spgemm``'s ``hash`` and ``sparse`` executors,
-whose slow pieces cross onto the card through the two-slot copy ring: each
-call's C equal bit for bit to the same plan's all-fast call (the main
-path's run), its ChunkStats equal, the bytes the ring moved equal to the
-slow operands' copy events, every ring's op log equal to its schedule's
-program (``analysis.dma.check_ring_structure``), every slow stack pinned,
-the launches one a step, the card's peak allocation within the ring's byte
-model plus 10% (below the slow operands' bytes on the chunk1 plans); copy
-and compute ms by CUDA events, GB/s each way, the share of copy time under
-compute, and a 256 MB pinned copy as the link's yardstick; a pinned stack
-handed to a CSR kernel's wrapper must raise. Its capacity run comes
-first in the script, right after the build, while the allocator holds
-nothing else: brick3d n=80, all slow, under an allocator cap whose
-headroom is below half of A's bytes, where placing A on the card must
-raise ``OutOfMemoryError`` and the all-slow call must equal the uncapped
-all-fast call. The spilled Galerkin runs stream T from pinned memory
-through the same ring and hold the same gates.
+memory), through ``chunked_spgemm``'s ``hash``, ``sparse``, ``scan``,
+``loop`` and ``bsr`` executors, the dense slab (``pallas``) on brick3d n=32,
+and ``count_triangles`` with L slow, whose slow pieces cross onto the card
+through the two-slot copy ring: each call's C (or count) equal bit for bit
+to the same plan's all-fast call (the main path's run), its ChunkStats
+equal, the bytes the ring moved equal to the slow operands' copy events,
+every ring's op log equal to its schedule's program
+(``analysis.dma.check_ring_structure``), every slow stack pinned, the
+launches one a step, the card's peak allocation within the ring's byte
+model plus 10% (below the slow operands' bytes on the chunk1 plans) and
+its live tensors' peak within the model plus 1%; copy and compute ms by
+CUDA events, GB/s each way, the share of copy time under compute, and a
+256 MB pinned copy as the link's yardstick; a pinned stack handed to any
+SpGEMM kernel's wrapper must raise. Its capacity run comes first in the
+script, right after the build, while the allocator holds nothing else:
+brick3d n=80, all slow, under an allocator cap whose headroom is below half
+of A's bytes, where placing A on the card must raise ``OutOfMemoryError``
+and the all-slow call must equal the uncapped all-fast call. The spilled
+Galerkin runs (hash and ESC with the main path's, then ``scan``, ``loop``
+and ``bsr`` at n=48 and ``pallas`` at n=32 in the placement phase) stream
+T from pinned memory through the same ring and hold the same gates.
 Then the batched entry point and the SpGEMM service: the ESC, hash,
 dense-slab and BSR x BSR kernels on width-8 stacks (brick3d n=16 A x P, one
 structure with per-instance values; L x L of eight RMAT scale-12 graphs,
@@ -105,7 +109,11 @@ tile at prefill, rows-few at decode) and its logits held to the plain
 path's, the kernel path's prefill and decode steps timed in a second run.
 The f32 rows of both kernels (the prefill kernel also at that model's
 shape) are timed by the profiler and by back-to-back CUDA events; a phase
-timed by the profiler records what its incomplete traces held.
+timed by the profiler records what its incomplete traces held. A port
+kernel's trace is complete when each of its kernels holds its own count
+of launches, a library call's when it holds the call's full count of
+device activities (the most any of its traces held); only complete traces
+are timed, and the library's kept traces are recorded beside its time.
 Every line of output is one JSON object; the last one is
 ``{"ok": true, "device": ...}``. Any failed check raises, so the exit code
 is not 0. Without a CUDA card, or without the package beside this file, it
@@ -248,15 +256,29 @@ SPMM_EDGE_SEED = 21
 PIPE_RESIDENT, PIPE_SPILL = 1.0, 0.5
 # the placement phase: operands in slow (pinned host) memory through the copy
 # ring. brick3d n=48 under the quickstart plan (chunk2 6 x 1) in all six of
-# Table 3's placements (hash) and HostPin and DP (ESC), the budget/3 plan
-# (chunk1 15 x 4, hash) in HostPin and DP, brick3d48_knl_hash's plan in
-# HostPin; then the capacity run: brick3d n=80, all slow, hash, at budget/12
+# Table 3's placements (hash), HostPin and DP (ESC, scan, bsr) and HostPin
+# (loop), the budget/3 plan (chunk1 15 x 4) in HostPin and DP (hash) and
+# HostPin (bsr: a strip's pairs summed on the card across 4 chunks),
+# brick3d48_knl_hash's plan in HostPin; then the capacity run: brick3d n=80, all slow, hash, at budget/12
 # (chunk1 60 x 15) under an allocator cap of what is reserved plus the
 # ring's byte model plus 25% plus one 20 MiB segment
 PLACED_RUNS = (("quickstart", "hash", ("HBM", "A_Pin", "B_Pin", "C_Pin", "HostPin", "DP")),
                ("chunk1", "hash", ("HostPin", "DP")),
                ("quickstart", "sparse", ("HostPin", "DP")),
-               ("knl", "hash", ("HostPin",)))
+               ("knl", "hash", ("HostPin",)),
+               ("quickstart", "scan", ("HostPin", "DP")),
+               ("quickstart", "loop", ("HostPin",)),
+               ("quickstart", "bsr", ("HostPin", "DP")),
+               ("chunk1", "bsr", ("HostPin",)))
+# the dense slab with slow operands: brick3d n=32 under the brick3d32_pallas
+# plan (chunk2 6 x 1), both calls on one set of pinned operands
+PLACED_DENSE_N, PLACED_DENSE = 32, ("HostPin", "DP")
+# triangle counting with L slow: (label, the chunk2 plan, placement)
+PLACED_TRIANGLES = (("tc_rmat18_fused_HostPin", False, "HostPin"),
+                    ("tc_rmat18_chunk2_DP", True, "DP"))
+# the spilled Galerkin product under the scan, loop, bsr and pallas backends
+# (brick3d n, by backend: the dense slabs of n=48 would need about 50 GB)
+SPILL_BACKENDS = (("scan", 48), ("loop", 48), ("bsr", 48), ("pallas", 32))
 CAPACITY_N, CAPACITY_DIV, CAPACITY_PLAN = 80, 12, ("chunk1", 60, 15)
 CAP_MARGIN, CAP_SEGMENT = 1.25, 20 << 20
 PEAK_MARGIN = 1.10          # a placed call's peak allocation over the ring's byte model
@@ -409,35 +431,46 @@ def err_key(kernel: str, route: str, dtype, tiling: str | None = None) -> str:
 
 
 def library_fields(library, bound_ms: float) -> dict:
-    """A phase's library yardstick (wall ms, device ms, empty traces, error
-    text) for the kernels line. A time under the phase's bound comes from a
-    partial measurement (no complete run of the same work can take less),
-    so it is recorded as lost, with the reason, as a device time is when
-    every trace came back empty."""
-    wall, device, empty, error = library
+    """A phase's library yardstick (wall ms, device ms, the traces behind
+    the device ms, error text) for the kernels line. The device ms comes
+    from the traces that held the call's full kernel count
+    (:func:`device_ms`); where none did it is recorded as lost. A time under
+    the phase's bound comes from a partial measurement (no complete run of
+    the same work can take less), so it is recorded as lost, with the
+    reason, too."""
+    wall, device, traces, error = library
     lost = {}
-    if wall is not None and device is None and empty:
-        lost["device"] = f"{empty} of {empty} profiler traces held no device activity"
+    if wall is not None and device is None and traces:
+        lost["device"] = (f"none of {traces['traces']} profiler traces held a "
+                          "device activity")
     for key, value in (("wall", wall), ("device", device)):
         if value is not None and value < bound_ms:
             lost[key] = (f"{value} ms is under the {bound_ms} ms bound: the measurement "
                          "saw only part of the work")
     return {"library_ms": None if "wall" in lost else wall,
             "library_device_ms": None if "device" in lost else device,
+            "library_device_traces": traces,
             "library_lost": lost or None, "library_error": error}
 
 
 def device_ms(torch, fn, reps: int = 5) -> tuple:
     """Median device milliseconds of one call of a PyTorch function, one
-    profiler trace per call, after a warm-up call, and the number of traces
-    that saw no device activity at all: the profiler loses some calls whose
-    kernel runs for hundreds of milliseconds, and those are left out (None
-    when all are)."""
+    profiler trace per call, after a warm-up call, over the complete traces
+    only. The profiler loses whole calls and parts of calls, and a part
+    never holds more activities than the whole, so a trace is complete when
+    it holds the call's full count of device activities: the most that any
+    of the ``reps`` traces held. Returns the median (None when every trace
+    was empty) and ``{"kept": complete traces, "traces": reps, "activities":
+    the full count}``."""
     fn()
     torch.cuda.synchronize()
-    times = [device_busy_ms(profiled(torch, fn)) for _ in range(reps)]
-    seen = [t for t in times if t > 0]
-    return (statistics.median(seen) if seen else None), reps - len(seen)
+    traces = [device_by_name(profiled(torch, fn)) for _ in range(reps)]
+    counts = [sum(n for _, n in t.values()) for t in traces]
+    full = max(counts)
+    kept = [sum(ms for ms, _ in t.values())
+            for t, n in zip(traces, counts) if full and n == full]
+    return ((statistics.median(kept) if kept else None),
+            {"kept": len(kept), "traces": reps, "activities": full})
 
 
 def trace_summary(by_name: dict, names) -> dict:
@@ -453,23 +486,29 @@ def trace_summary(by_name: dict, names) -> dict:
             "top": {name: [ms, n] for name, (ms, n) in top}}
 
 
-def kernel_device_split(torch, fn, names, launches: int, reps: int = 5,
+def kernel_device_split(torch, fn, names, launches, reps: int = 5,
                         tries: int = 20) -> tuple:
     """Median device milliseconds of the port kernels (activities whose
     name holds one of ``names``) that one call of ``fn`` launches, over
     ``reps`` profiler traces that hold all ``launches`` of them, after a
     warm-up call; the profiler loses activities of some calls, so up to
-    ``tries`` calls are traced. Returns the median (None when no trace was
-    complete), the number of incomplete traces, per name the median of its
-    share over the complete traces, and ``trace_summary`` of every
-    incomplete trace (what it held instead)."""
+    ``tries`` calls are traced. ``launches`` is each name's own count a call
+    (a dict: a trace is complete only when every name holds its count), or,
+    where a call's split by name is not known before it runs, their total
+    (an int). Returns the median (None when no trace was complete), the
+    number of incomplete traces, per name the median of its share over the
+    complete traces, and ``trace_summary`` of every incomplete trace (what
+    it held instead)."""
     fn()
     torch.cuda.synchronize()
     times, split, incomplete, held = [], {n: [] for n in names}, 0, []
     while len(times) < reps and len(times) + incomplete < tries:
         by_name = device_by_name(profiled(torch, fn))
         hits = {n: [v for name, v in by_name.items() if n in name] for n in names}
-        if sum(c for vs in hits.values() for _, c in vs) == launches:
+        counts = {n: sum(c for _, c in vs) for n, vs in hits.items()}
+        complete = (all(counts[n] == launches.get(n, 0) for n in names)
+                    if isinstance(launches, dict) else sum(counts.values()) == launches)
+        if complete:
             times.append(sum(ms for vs in hits.values() for ms, _ in vs))
             for n, vs in hits.items():
                 split[n].append(sum(ms for ms, _ in vs))
@@ -494,13 +533,6 @@ def device_launch_list(torch, fn, names, launches: int, tries: int = 10) -> list
             events.sort(key=lambda e: e.time_range.start)
             return [e.time_range.elapsed_us() / 1e3 for e in events]
     return None
-
-
-def kernel_device_ms(torch, fn, names, launches: int, reps: int = 5,
-                     tries: int = 20) -> tuple:
-    """``kernel_device_split`` without the split and the incomplete
-    traces' summaries: (median, incomplete)."""
-    return kernel_device_split(torch, fn, names, launches, reps, tries)[:2]
 
 
 def launch_ms(torch, timer_cls, fn, reps: int = 5) -> float:
@@ -569,6 +601,17 @@ def class_edge_rows(cuts, global_keys: int, seed: int, n_cols: int | None = None
             (len(spec), len(firsts) + len(seconds), k0, n_cols), [sum(v) for v in spec])
 
 
+def host_meminfo() -> dict:
+    """The host's ``/proc/meminfo`` in bytes (read only)."""
+    out = {}
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        key, _, value = line.partition(":")
+        parts = value.split()
+        if parts and parts[0].isdigit():
+            out[key] = int(parts[0]) * (1024 if parts[1:] == ["kB"] else 1)
+    return out
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -602,7 +645,8 @@ def live_peak(snapshot, start: int) -> int:
 
 
 def placed_fast_bytes(plan, placement, *, a_stage: int, slab: int,
-                      c_stage: int, workspace: int, c_bytes: int) -> dict:
+                      c_stage: int, workspace: int, c_bytes: int,
+                      fast_parts: dict | None = None) -> dict:
     """The card's bytes a placed CSR call holds at its peak, by part: a
     slow operand's two ring slots, or a fast one's staged stack and, while
     it is built, its pieces; C's slots and carried steps (the chunk1
@@ -612,16 +656,23 @@ def placed_fast_bytes(plan, placement, *, a_stage: int, slab: int,
     ``chunk_stream.planned_events``, ``c_bytes`` those of the assembled C.
     With every operand slow it is the sum of the bytes of the tensors live
     at the peak (:func:`live_peak`); a fast operand's parts are upper bounds (its
-    stack is counted twice, and a fast C's block beside its assembly)."""
+    stack is counted twice, and a fast C's block beside its assembly), or
+    the live peak of building it where ``fast_parts`` gives one (operand ->
+    bytes; C's where its pieces are not the CSR accumulators', as the BSR
+    pipeline's summed blocks and strip CSRs). The same pieces serve the
+    dense slab (strips, slabs, C blocks) and the BSR pipeline's operands (a
+    pair's pieces)."""
     n_ac, n_b = plan.n_ac, plan.n_b
     parts = {"A": 2 * a_stage * (1 if placement.A == "slow" else n_ac),
-             "B": 2 * slab * (1 if placement.B == "slow" else n_b)}
+             "B": 2 * slab * (1 if placement.B == "slow" else n_b),
+             **(fast_parts or {})}
     if plan.algorithm == "chunk2":
-        parts["C"] = 2 * n_ac * c_stage + (c_bytes if placement.C == "fast" else 0)
+        c = 2 * n_ac * c_stage + (c_bytes if placement.C == "fast" else 0)
     elif placement.C == "slow":
-        parts["C"] = 4 * c_stage               # two slots, the carried step and its next
+        c = 4 * c_stage               # two slots, the carried step and its next
     else:
-        parts["C"] = (n_ac + 2) * c_stage + c_bytes
+        c = (n_ac + 2) * c_stage + c_bytes
+    parts.setdefault("C", c)
     parts["workspace"] = workspace
     parts["total"] = sum(parts.values())
     return parts
@@ -693,9 +744,15 @@ class Smoke:
         self.batch_envs = {}
         # the ESC kernel's route launches at the last note_err of its errors
         self.esc_routes_noted = {r: 0 for r in sparse_accum_spgemm.ROUTES}
-        # (problem, n, plan, backend) -> (C, stats, wall s) of a main-path
-        # run through a CSR accumulator: the placement phase's all-fast calls
+        # (problem, n, plan, backend) -> (C, stats, wall s, peak allocation) of
+        # a main-path run: the placement phase's all-fast calls; chunk2 ->
+        # (plan, caps, wall s) of the triangle runs
         self.fast_runs = {}
+        self.tc_runs = {}
+        # the pipeline runs' plans by brick3d size and the plain R (A P); the
+        # placed calls' envelope and step workspace by (step kind, plan)
+        self._pipe_plans, self._rap_plain, self._probes = {}, {}, {}
+        self._bsr_c_sizes = {}   # plan -> (a strip's summed blocks, its CSR) bytes
 
     # -- setup -------------------------------------------------------------
 
@@ -801,7 +858,7 @@ class Smoke:
 
     def library_spgemm(self, A, P):
         """One torch.sparse CSR x CSR product on the card (a yardstick only):
-        (wall ms, device ms, empty traces, error text if torch refuses)."""
+        (wall ms, device ms, its traces, error text if torch refuses)."""
         torch = self.torch
 
         def as_torch(m):
@@ -976,16 +1033,17 @@ class Smoke:
         if record:
             main = orders[main_order]
             self.phase[kernel] = {"ms": main["ms"], "wrapper_ms": main["wrapper_ms"],
-                                  **({"device_ms": main["device_ms"]}
-                                     if "device_ms" in main else {}),
+                                  **{k: main[k] for k in ("device_ms", "device_split_ms")
+                                     if k in main},
                                   "plain_ms": main["plain_ms"], **bound,
                                   "library_ms": lib["library_ms"],
                                   "library_device_ms": lib["library_device_ms"],
+                                  "library_device_traces": lib["library_device_traces"],
                                   "library_lost": lib["library_lost"]}
         emit({"kernel_phase": kernel, "label": label, "main_order": main_order,
               "orders": orders, "shapes": shapes, "bytes": moved, "flops": flops, **bound,
               "launches_per_call": launches_per_call, **lib,
-              "library_empty_traces": library[2], "peaks_of": PEAK["part"],
+              "peaks_of": PEAK["part"],
               "flop_rate": flop_rate, "ops_ms_at_f32": flops / PEAK["f32_flops"] * 1e3})
 
     def note_err(self, key: str, err: float) -> None:
@@ -1210,10 +1268,13 @@ class Smoke:
 
         self.reset_counters()
         torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         C, stats = chunking.chunked_spgemm(A, P, plan, backend=backend)
         torch.cuda.synchronize()
         exec_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
         launches = self.read_counters()
         kernel = self.backend_kernel.get(chosen)   # scan runs no kernel of its own
         if kernel is not None:
@@ -1221,8 +1282,7 @@ class Smoke:
             self.launches.setdefault(kernel, launches[kernel])
         self.note_esc_routes(label, launches)
 
-        if chosen in ("hash", "sparse"):
-            self.fast_runs[(name, n, plan, chosen)] = (C, stats, exec_s)
+        self.fast_runs[(name, n, plan, chosen)] = (C, stats, exec_s, peak)
         ws = kkmem.spgemm_symbolic_host(A, P)
         plain = kkmem.spgemm(A, P, ws.c_pad)
         nnz, plain_nnz = C.nnz(), plain.nnz()
@@ -1253,7 +1313,7 @@ class Smoke:
                         "copy_out_bytes": stats.copy_out_bytes,
                         "copy_events": len(stats.per_copy_in) + len(stats.per_copy_out)},
               "wall_s": {"problem": self.problems[(name, n)][2], "plan": plan_s,
-                         "chunked_spgemm": exec_s},
+                         "chunked_spgemm": exec_s}, "peak_alloc_bytes": peak,
               "check": {"plain_structure_equal": structure, "plain_max_abs_err": err,
                         "scipy_rel_err": scipy_err}})
         del C, plain
@@ -1758,6 +1818,7 @@ class Smoke:
               f"{label}: {float(got)} triangles, scipy counts {want}")
         if not chunk2:
             self.launches["hash_masked_accum_spgemm"] = launches["hash_masked_accum_spgemm"]
+        self.tc_runs[chunk2] = (plan, caps, exec_s)
         emit({"run": label, "graph": f"rmat({RMAT_SCALE}, {RMAT_EDGE_FACTOR}, "
               f"seed={RMAT_SEED}) -> lower_triangular_degree_sorted",
               "L": list(L.shape), "nnz_L": L.nnz(), "densest_row": L.max_row_nnz,
@@ -1769,26 +1830,29 @@ class Smoke:
                          "scipy_count": scipy_s},
               "check": {"scipy_float64_triangles": want, "equal": float(got) == want}})
 
-    def galerkin_run(self, label: str, backend: str, frac: float, resident: bool) -> None:
-        """``pipeline_spgemm`` of brick3d n=48 through ``backend`` at a fast
+    def galerkin_run(self, label: str, backend: str, frac: float, resident: bool,
+                     n: int = 48) -> None:
+        """``pipeline_spgemm`` of brick3d ``n`` through ``backend`` at a fast
         limit of ``frac`` x size(A, P, R): structure equal to the port's
-        plain two-hop ``spgemm``, values to scipy's R (A P) in float64."""
+        plain two-hop ``spgemm``, values to scipy's R (A P) in float64. On
+        the spill path T streams from pinned memory into hop 2 through the
+        backend's ring, its bytes hop 2's B events."""
         torch, planner, symbolic = self.torch, self.m["planner"], self.m["symbolic"]
         pipe, kkmem = self.m["pipeline"], self.m["kkmem"]
-        A, P = self.problem("brick3d", 48)
-        R = self.restrictions[("brick3d", 48)]
+        A, P = self.problem("brick3d", n)
+        R = self.restrictions[("brick3d", n)]
         t0 = time.perf_counter()
-        if not hasattr(self, "_pipe_plans"):
-            self._pipe_plans = {"t_pattern": symbolic.spgemm_pattern_host(A, P)}
-        tp = self._pipe_plans["t_pattern"]
+        plans = self._pipe_plans.setdefault(
+            n, {"t_pattern": symbolic.spgemm_pattern_host(A, P)})
+        tp = plans["t_pattern"]
         limit = frac * float(A.nbytes() + P.nbytes() + R.nbytes())
-        if frac not in self._pipe_plans:   # one plan per limit, shared by backends
+        if frac not in plans:   # one plan per size and limit, shared by backends
             plan = planner.plan_pipeline(A, P, R, self.m["memory_model"].P100,
                                          fast_limit_bytes=limit, t_pattern=tp)
             caps = symbolic.pipeline_output_caps(A, P, R, plan.plan1.p_ac,
                                                  plan.plan2.p_ac, t_pattern=tp)
-            self._pipe_plans[frac] = (plan, caps)
-        plan, caps = self._pipe_plans[frac]
+            plans[frac] = (plan, caps)
+        plan, caps = plans[frac]
         check(plan.t_resident == resident, f"{label}: t_resident={plan.t_resident}")
         check("whole_fast" not in (plan.plan1.algorithm, plan.plan2.algorithm),
               f"{label}: a whole_fast hop bypasses the kernels")
@@ -1801,31 +1865,38 @@ class Smoke:
         torch.cuda.synchronize()
         exec_s = time.perf_counter() - t0
         launches = self.read_counters()
-        kernel = self.backend_kernel[backend]
-        check(launches[kernel] > 0, f"{label}: {kernel} was not launched")
+        kernel = self.backend_kernel.get(backend)   # scan and loop launch no kernel
+        if kernel is not None:
+            check(launches[kernel] > 0, f"{label}: {kernel} was not launched")
         ring = {}
         if not resident:   # T stays in pinned memory and streams into hop 2 as B
             check([r.operand for r in log.rings] == ["B"],
                   f"{label}: rings {[r.operand for r in log.rings]}, expected T's alone")
             ring = self.ring_gates(label, log, plan.plan2, stats.hop2,
-                                   self.m["placement"].Placement("fast", "slow", "fast"))
+                                   self.m["placement"].Placement("fast", "slow", "fast"),
+                                   backend)
             ring["times"] = log.times()
         else:
             check(not log.transfers, f"{label}: the resident path crossed the link")
-        if not hasattr(self, "_rap_plain"):
-            self._rap_plain = kkmem.spgemm_full(R, kkmem.spgemm_full(A, P))
-        plain = self._rap_plain
+        if n not in self._rap_plain:
+            self._rap_plain[n] = kkmem.spgemm_full(R, kkmem.spgemm_full(A, P))
+        plain = self._rap_plain[n]
         nnz = C.nnz()
         structure = (torch.equal(C.indptr, plain.indptr)
                      and torch.equal(C.indices[:nnz], plain.indices[:nnz]))
+        if backend == "pallas":   # the dense backend keeps only nonzero sums
+            csr = self.m["csr"]
+            err = float((csr.csr_to_dense(C) - csr.csr_to_dense(plain)).abs().max())
+            structure = nnz <= plain.nnz()
+        else:
+            err = float((C.data[:nnz] - plain.data[:nnz]).abs().max()) if nnz else 0.0
         check(structure, f"{label}: structure differs from the plain two-hop spgemm")
-        err = float((C.data[:nnz] - plain.data[:nnz]).abs().max()) if nnz else 0.0
-        scale = float(plain.data[:nnz].abs().max()) if nnz else 0.0
+        scale = float(plain.data[:plain.nnz()].abs().max()) if plain.nnz() else 0.0
         check(err <= KERNEL_ATOL + KERNEL_RTOL * scale,
               f"{label}: values differ from the plain two-hop spgemm by {err}")
         scipy_err = self.scipy_check(A, P, C, R=R)
         check(scipy_err <= SCIPY_RTOL, f"{label}: relative error {scipy_err} vs scipy")
-        emit({"run": label, "problem": "brick3d", "n": 48, "backend": backend,
+        emit({"run": label, "problem": "brick3d", "n": n, "backend": backend,
               "plan": {"hop1": [plan.plan1.algorithm, plan.plan1.n_ac, plan.plan1.n_b],
                        "hop2": [plan.plan2.algorithm, plan.plan2.n_ac, plan.plan2.n_b],
                        "t_resident": plan.t_resident, "t_bytes": plan.t_bytes,
@@ -1834,10 +1905,11 @@ class Smoke:
               "stats": {"spilled": stats.spilled, "spill_bytes": stats.spill_bytes,
                         "copy_bytes": stats.copy_bytes,
                         "kernel_calls": [stats.hop1.kernel_calls, stats.hop2.kernel_calls]},
-              "wall_s": {"problem": self.problems[("brick3d", 48)][2], "plan": plan_s,
-                         "pipeline_spgemm": exec_s}, "t_ring": ring,
+              "wall_s": {"problem": self.problems[("brick3d", n)][2], "plan": plan_s,
+                         "pipeline_spgemm": exec_s}, "t_ring": ring, "card": self.smi,
               "check": {"plain_structure_equal": structure, "plain_max_abs_err": err,
                         "scipy_rel_err": scipy_err}})
+        del C
 
     # -- placement: operands in slow (pinned host) memory ---------------------
 
@@ -1859,25 +1931,55 @@ class Smoke:
 
     @staticmethod
     def stage_sizes(plan, stats) -> tuple:
-        """(slab, a_stage, c_stage): the staged piece bytes of a CSR call's
-        plan, read off its ChunkStats (``chunk_stream.planned_events``'
-        order)."""
+        """(slab, a_stage, c_stage): the staged piece bytes of a call's plan
+        under ``chunk_stream.planned_events`` (the CSR accumulators, the
+        dense slab, and the masked and BSR pipelines' ChunkStats), read off
+        its ChunkStats."""
         ins = stats.per_copy_in
         if plan.algorithm == "chunk2":
             return int(ins[0]), int(ins[2]), int(ins[1]) // plan.n_ac
         return int(ins[2]), int(ins[0]), int(ins[1])
 
-    def ring_gates(self, label: str, log, plan, stats, where) -> dict:
+    def placed_events(self, backend: str, plan, stats) -> list:
+        """The tagged copy events of one call with slow operands under
+        ``backend``, at the piece sizes its ChunkStats give: the loop
+        executors' own (``planned_events_ranged``) for ``scan`` and
+        ``loop``, a pair's pieces and a strip's summed blocks and CSR
+        (``planned_events_bsr``, at the sizes :meth:`step_workspace` read
+        off the plan's staging; C's are 0 where no probe ran) for ``bsr``,
+        and ``planned_events`` otherwise."""
+        cs = self.m["chunk_stream"]
+        ins, outs = stats.per_copy_in, stats.per_copy_out
+        if backend in ("scan", "loop"):
+            ranged = self.m["chunking"].planned_events_ranged
+            if plan.algorithm == "knl":
+                return ranged(plan, int(ins[0]), 0, 0)
+            chunk, strip = ((ins[2], ins[0]) if plan.algorithm == "chunk1"
+                            else (ins[0], ins[1]))
+            return ranged(plan, int(chunk), int(strip), int(outs[-1]))
+        slab, a_stage, c_stage = self.stage_sizes(plan, stats)
+        if backend == "bsr":
+            c_part, c_strip = self._bsr_c_sizes.get(plan, (0, 0))
+            return cs.planned_events_bsr(plan, slab, a_stage, c_part, c_strip)
+        return cs.planned_events(plan, slab, a_stage, c_stage)
+
+    def ring_gates(self, label: str, log, plan, stats, where, backend: str,
+                   events: list | None = None, roles: dict | None = None) -> dict:
         """The ring's gates on one call: the bytes it moved equal the slow
-        operands' events, operand for operand and event for event; every
-        ring's log is its schedule's program and the schedule replays clean;
-        every slow stack is pinned."""
-        cs, dma = self.m["chunk_stream"], self.m["dma"]
-        events = cs.planned_events(plan, *self.stage_sizes(plan, stats))
-        for operand in ("A", "B", "C"):
+        operands' tagged events (``placed_events``, or ``events``),
+        operand for operand and event for event, with nothing crossing
+        outside them; every ring's log is its schedule's program and the
+        schedule replays clean; every slow stack is pinned. ``roles`` maps
+        an operand of the events to the placement's operand it follows (the
+        mask follows C)."""
+        dma = self.m["dma"]
+        if events is None:
+            events = self.placed_events(backend, plan, stats)
+        roles = {"A": "A", "B": "B", "C": "C", **(roles or {})}
+        for operand, role in roles.items():
             for direction in ("in", "out"):
                 want = ([b for o, d, b in events if o == operand and d == direction]
-                        if getattr(where, operand) == "slow" else [])
+                        if getattr(where, role) == "slow" else [])
                 check(log.moved(operand, direction) == want,
                       f"{label}: the ring moved {sum(log.moved(operand, direction))} "
                       f"bytes of {operand} {direction}, the events {sum(want)}")
@@ -1887,36 +1989,188 @@ class Smoke:
             check(not bad, f"{label}: ring {ring.operand}: {bad[:2]}")
             check(ring.source_pinned, f"{label}: ring {ring.operand}'s stack is not pinned")
         return {"rings": [{"operand": r.operand, "role": r.role, "total": r.total,
-                           "ops": len(r.ops)} for r in log.rings],
+                           "fields": r.n_fields, "ops": len(r.ops)} for r in log.rings],
                 "moved_in": sum(t.nbytes for t in log.transfers if t.direction == "in"),
-                "moved_out": sum(t.nbytes for t in log.transfers if t.direction == "out")}
+                "moved_out": sum(t.nbytes for t in log.transfers if t.direction == "out"),
+                "whole": [dataclasses.asdict(t) for t in log.transfers if t.apart]}
 
-    def placed_model(self, plan, stats, where, backend: str, C) -> dict:
+    def live_of(self, fn) -> int:
+        """The most bytes the tensors ``fn`` allocates hold at once (the
+        allocator's trace, :func:`live_peak`), its result included."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        torch.cuda.memory._record_memory_history(context=None, max_entries=1 << 20)
+        start = trace_length(torch.cuda.memory._snapshot())
+        out = fn()
+        torch.cuda.synchronize()
+        live = live_peak(torch.cuda.memory._snapshot(), start)
+        torch.cuda.memory._record_memory_history(enabled=None)
+        del out
+        return live
+
+    def step_workspace(self, A, B, plan, backend: str, env) -> int:
+        """One step's workspace on the card, its output included, where no
+        formula gives it: the largest live peak of the plan's ranged
+        multiply-adds on card pieces (``scan``, ``loop``), or
+        :meth:`bsr_workspace` (``bsr``). ``env`` is the call's block-capped
+        envelope."""
+        ch, kkmem = self.m["chunking"], self.m["kkmem"]
+        c_pad = env.c_pad
+        if backend == "bsr":
+            return self.bsr_workspace(A, B, plan, env)
+        strips = ch.a_strips(A, plan.p_ac) if plan.algorithm != "knl" else [A]
+        chunks = ch.b_chunks(B, plan.p_b)
+        r0s, r1s = plan.b_ranges()
+        most = 0
+        for Ai in strips:
+            C0 = ch._empty_like_c(Ai.n_rows, B.n_cols, c_pad, A.dtype, A.device)
+            for j, Bj in enumerate(chunks):
+                most = max(most, self.live_of(lambda: kkmem.spgemm_ranged_impl(
+                    Ai, Bj, int(r0s[j]), int(r1s[j]), C0, c_pad)))
+        return most
+
+    def bsr_workspace(self, A, B, plan, env) -> int:
+        """The ``bsr`` executor's workspace on card operands: the largest
+        live peak of one pair's launch and its add into its strip's summed
+        blocks (the output blocks, the slot tables, the rows), and of
+        turning the strip with the most blocks into its CSR at ``c_pad``
+        (``_bsr_strip_csr``), past the summed blocks themselves. Records
+        the plan's C sizes (a strip's summed blocks, its CSR) in
+        ``_bsr_c_sizes``."""
+        torch, cs = self.torch, self.m["chunk_stream"]
+        mod, with_sentinel = self.kernels["bsr_spgemm"], self.m["bsr"].bsr_blocks_with_sentinel
+        bs, _, _, _, u_cap = env.bsr_caps
+        n = B.n_cols
+        pairs, a_bsr, b_bsr, metas, layouts = cs._bsr_stage_placed(A, B, plan, env)
+        part = cs._bsr_part_nbytes(layouts, bs)
+        self._bsr_c_sizes[plan] = (part, self.m["chunking"]._c_strip_nbytes(
+            env.strip_rows, env.c_pad, A.dtype))
+        ia = max(range(len(layouts)), key=lambda i: layouts[i][0].size)
+        acc = torch.zeros(part // (bs * bs * 4), bs, bs, device=A.device)
+        most, k = 0, 0
+        for p, (i, jb) in enumerate(pairs):
+            if i != ia:
+                continue
+            a, b, meta, pos = (with_sentinel(a_bsr[p]), with_sentinel(b_bsr[jb]), metas[p],
+                               layouts[ia][1][k])
+            k += 1
+
+            def launch():
+                a_slots = torch.from_numpy(meta.a_slots).to(A.device)
+                b_slots = torch.from_numpy(meta.b_slots).to(A.device)
+                out = mod.bsr_spgemm_blocks(a, b, a_slots, b_slots, a_slots.shape[0],
+                                            u_cap, bs)
+                cs._bsr_add(acc, pos, out[:meta.n_c_blocks])
+
+            most = max(most, self.live_of(launch))
+        s, e = list(zip(plan.p_ac[:-1], plan.p_ac[1:]))[ia]
+        most = max(most, self.live_of(lambda: cs._bsr_strip_csr(
+            acc, layouts[ia][0], e - s, env.strip_rows, n, bs, -(-n // bs), A.dtype,
+            env.c_pad)))
+        return most
+
+    def bsr_c_bytes(self, plan, where, c_bytes: int) -> int:
+        """C's bytes on the card under ``bsr`` past the workspace: the
+        strips' summed blocks (every strip's at once in Chunk2 with C fast;
+        with C slow in Chunk2 the partial coming in beside the two going
+        out; one strip's otherwise) and the strips' CSRs (two in flight to
+        slow memory when C is slow, else the kept strips and the assembled
+        C, ``c_bytes`` each)."""
+        part, strip = self._bsr_c_sizes[plan]
+        chunk2 = plan.algorithm == "chunk2"
+        if where.C == "fast":
+            return (plan.n_ac if chunk2 else 1) * part + 2 * c_bytes
+        return (3 if chunk2 and plan.n_b > 1 else 1) * part + 2 * strip
+
+    def bsr_fast_staging(self, A, B, plan, where, env) -> dict:
+        """The live peak of building a fast operand's BSR pieces on the
+        card as the placed ``bsr`` executor builds them (the staged stack
+        and, while it is built, its blocks, sentinel copies and the
+        staging's index arrays), by operand."""
+        cs, copy_ring = self.m["chunk_stream"], self.m["copy_ring"]
+        bs, nbl_a_cap, nbl_b_cap, _, _ = env.bsr_caps
+        k, n = B.shape
+        kpad, npad = -(-k // bs) * bs, -(-n // bs) * bs
+        srpad = -(-env.strip_rows // bs) * bs
+        strips = list(zip(plan.p_ac[:-1], plan.p_ac[1:]))
+        chunks = list(zip(plan.p_b[:-1], plan.p_b[1:]))
+
+        def piece(m):
+            return cs.BsrPiece(m.block_indptr, m.block_indices,
+                               self.m["bsr"].bsr_blocks_with_sentinel(m))
+
+        out = {}
+        if where.B == "fast":
+            out["B"] = self.live_of(lambda: copy_ring.staged(
+                [piece(cs._stage_bsr(B, r0, r1, 0, n, 0, (kpad, npad), bs, nbl_b_cap))
+                 for r0, r1 in chunks], "fast", True))
+        if where.A == "fast":
+            out["A"] = self.live_of(lambda: copy_ring.staged(
+                [piece(cs._stage_bsr(A, s, e, r0, r1, s, (srpad, kpad), bs, nbl_a_cap))
+                 for s, e in strips for r0, r1 in chunks], "fast", True))
+        return out
+
+    def placed_model(self, plan, stats, where, backend: str, C, *, A=None, B=None) -> dict:
         """:func:`placed_fast_bytes` of one call: the staged piece bytes
-        from its stats, one launch's workspace from the plan's strip rows
-        and C's densest row, C's assembled bytes."""
+        from its events, one launch's workspace (the CSR accumulators' from
+        the plan's strip rows and C's densest row; none for the dense slab;
+        :meth:`step_workspace` for ``scan``, ``loop`` and ``bsr``, on the
+        card operands ``A`` and ``B``), C's assembled bytes, and under
+        ``bsr`` a fast operand's measured staging (:meth:`bsr_fast_staging`)
+        in place of its stack."""
         planner = self.m["planner"]
-        slab, a_stage, c_stage = self.stage_sizes(plan, stats)
-        rows = max(e - s for s, e in zip(plan.p_ac[:-1], plan.p_ac[1:]))
-        row_cap = (planner.hash_table_slots(C.max_row_nnz) if backend == "hash"
-                   else max(C.max_row_nnz, 1))
+        events = self.placed_events(backend, plan, stats)
+        first = {}
+        for o, d, b in events:
+            first.setdefault((o, d), b)
+        a_stage, slab = first[("A", "in")], first[("B", "in")]
+        c_stage = first.get(("C", "out"), 0)
+        if backend in ("hash", "sparse", "pallas"):
+            slab, a_stage, c_stage = self.stage_sizes(plan, stats)
+        fast_parts = {}
+        if backend in ("hash", "sparse"):
+            rows = max(e - s for s, e in zip(plan.p_ac[:-1], plan.p_ac[1:]))
+            row_cap = (planner.hash_table_slots(C.max_row_nnz) if backend == "hash"
+                       else max(C.max_row_nnz, 1))
+            workspace = rows * (row_cap * 8 + 4)
+        elif backend == "pallas":
+            workspace = 0
+        else:   # measured once a plan (scan and loop share their steps)
+            kind = "bsr" if backend == "bsr" else "ranged"
+            if (kind, plan) not in self._probes:
+                env = self.m["chunking"].instance_envelope(
+                    A, B, plan, block_size=BSR_BLOCK if kind == "bsr" else None)
+                self._probes[kind, plan] = (env, self.step_workspace(A, B, plan, backend, env))
+            env, workspace = self._probes[kind, plan]
+            if backend == "bsr":
+                fast_parts = {**self.bsr_fast_staging(A, B, plan, where, env),
+                              "C": self.bsr_c_bytes(plan, where, C.nbytes())}
         return placed_fast_bytes(plan, where, a_stage=a_stage, slab=slab, c_stage=c_stage,
-                                 workspace=rows * (row_cap * 8 + 4), c_bytes=C.nbytes())
+                                 workspace=workspace, c_bytes=C.nbytes(),
+                                 fast_parts=fast_parts)
 
-    def placed_call(self, label: str, A, B, plan, backend: str, where, fast) -> dict:
+    def placed_call(self, label: str, A, B, plan, backend: str, where, fast,
+                    card_ops=None) -> dict:
         """One ``chunked_spgemm`` with operands placed as ``where`` says
         (pinned host memory for a slow one), gated against the same plan's
-        all-fast call ``fast = (C, stats, wall_s)``: C equal bit for bit and
-        where ``where`` puts it, ChunkStats equal, the ring's gates, launches
-        by route equal to the steps, and the card's peak allocation within
-        the ring's byte model plus 10% (and, on the chunk1 plans, below the
-        slow operands' own bytes), and its tensors' live peak
-        (:func:`live_peak`) within the model plus 1%. Prints the copy and compute times, the
-        rates each way and the share of copy time under compute."""
+        all-fast call ``fast = (C, stats, wall_s[, peak])``: C equal bit
+        for bit and where ``where`` puts it, ChunkStats equal, the ring's
+        gates, one launch a step (a kernel's launches by route), and the
+        card's peak allocation within the ring's byte model plus 10% (and,
+        on the chunk1 plans, below the slow operands' own bytes), and its
+        tensors' live peak (:func:`live_peak`) within the model plus 1%.
+        ``card_ops`` are the operands on the card, for the workspace probes.
+        Prints the copy and compute times, the rates each way and the share
+        of copy time under compute."""
         torch = self.torch
         chunking, csr, copy_ring = self.m["chunking"], self.m["csr"], self.m["copy_ring"]
-        C_fast, stats_fast, wall_fast = fast
-        kernel = self.backend_kernel[backend]
+        C_fast, stats_fast, wall_fast = fast[:3]
+        kernel = self.backend_kernel.get(backend)   # scan and loop launch no kernel
+        slow = bool(where.slow)
+        model = None
+        if slow:   # the workspace probes run before the measured call
+            model = self.placed_model(plan, stats_fast, where, backend, C_fast,
+                                      **dict(zip("AB", card_ops or ())))
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1939,12 +2193,10 @@ class Smoke:
                   f"{label}: C.{f} differs from the all-fast call's")
         check(stats == stats_fast, f"{label}: ChunkStats differ from the all-fast call's")
         steps = plan.n_ac * plan.n_b
-        slow = bool(where.slow)
-        if slow:
-            check(launches[kernel] == steps,
-                  f"{label}: {launches[kernel]} {kernel} launches, {steps} steps")
-        else:
-            check(launches[kernel] == 1, f"{label}: {launches[kernel]} {kernel} launches")
+        if kernel is not None:
+            want = steps if slow or backend == "bsr" else 1
+            check(launches[kernel] == want,
+                  f"{label}: {launches[kernel]} {kernel} launches, {want} expected")
         if kernel == "sparse_accum_spgemm":   # the brick3d steps fit the shared route
             routed = sum(launches[f"{kernel}/{r}"] for r in self.kernels[kernel].ROUTES)
             check(routed == launches[f"{kernel}/shared"] == launches[kernel],
@@ -1954,9 +2206,10 @@ class Smoke:
                "steps": steps, "launches": {k: v for k, v in launches.items() if v},
                "wall_s": wall, "all_fast_wall_s": wall_fast, "bit_equal": True,
                "peak_alloc_bytes": peak, "peak_live_bytes": live, "card": self.smi}
+        if len(fast) > 3:
+            out["all_fast_peak_alloc_bytes"] = fast[3]
         if slow:
-            out.update(self.ring_gates(label, log, plan, stats, where))
-            model = self.placed_model(plan, stats, where, backend, C_fast)
+            out.update(self.ring_gates(label, log, plan, stats, where, backend))
             check(peak <= model["total"] * PEAK_MARGIN,
                   f"{label}: peak allocation {peak} passes the ring's model "
                   f"{model['total']} + 10%")
@@ -1976,11 +2229,14 @@ class Smoke:
         return out
 
     def placement_phase(self) -> None:
-        """Operands in slow (pinned host) memory on the main path: the
-        ``hash`` and ``sparse`` executors through the copy ring on brick3d
-        n=48 (PLACED_RUNS), each against its plan's all-fast call and the
-        all-fast calls against scipy once; a pinned operand handed straight
-        to a CSR kernel's wrapper must raise. The capacity run
+        """Operands in slow (pinned host) memory on the main path: every
+        backend's executor through the copy ring on brick3d n=48
+        (PLACED_RUNS), each against its plan's all-fast call and the
+        all-fast calls against scipy once; then the dense slab on brick3d
+        n=32 (:meth:`dense_placement`), the triangle counts with L slow
+        (:meth:`triangle_placement`) and the spilled Galerkin runs under
+        scan, loop, bsr and pallas (SPILL_BACKENDS); a pinned operand
+        handed straight to a kernel's wrapper must raise. The capacity run
         (:meth:`capacity_run`) runs first in the script, where the allocator
         holds nothing else."""
         torch = self.torch
@@ -2005,32 +2261,173 @@ class Smoke:
             plan = plans[plan_name]
             # the main path's run of this plan and backend is the all-fast call
             fast = self.fast_runs.get(("brick3d", 48, plan, backend))
-            if fast is None:
+            computed = fast is None
+            if computed:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 fast = chunking.chunked_spgemm(A, P, plan, backend=backend)
                 torch.cuda.synchronize()
                 fast = (*fast, time.perf_counter() - t0)
-            if not scipy_done:
+            if not scipy_done or computed:
                 err = self.scipy_check(A, P, fast[0])
-                check(err <= SCIPY_RTOL, f"placement brick3d48: relative error {err} vs scipy")
-                emit({"placement_scipy": "brick3d48", "rel_err": err})
+                check(err <= SCIPY_RTOL, f"placement brick3d48 {backend}: relative "
+                      f"error {err} vs scipy")
+                emit({"placement_scipy": f"brick3d48_{backend}", "rel_err": err})
                 scipy_done = True
             for name in names:
                 where = placement.TABLE3[name]
                 ops = [pinned[k] if getattr(where, k) == "slow" else m
                        for k, m in (("A", A), ("B", P))]
                 self.placed_call(f"brick3d48_{plan_name}_{backend}_{name}", *ops, plan,
-                                 backend, where, fast)
+                                 backend, where, fast, card_ops=(A, P))
             del fast
         del pinned
-        self.fast_runs.clear()
+        self.fast_runs = {k: v for k, v in self.fast_runs.items() if k[1] != 48}
+        torch.cuda.empty_cache()
+        self.dense_placement()
+        self.triangle_placement()
+        for backend, n in SPILL_BACKENDS:
+            self.galerkin_run(f"galerkin_brick3d{n}_{backend}_spill", backend, PIPE_SPILL,
+                              False, n=n)
         torch.cuda.empty_cache()
         emit({"placement_phase_s": time.perf_counter() - t_phase})
 
+    def dense_placement(self) -> None:
+        """The dense slab with slow operands: brick3d n=32 under the
+        brick3d32_pallas plan (chunk2 6 x 1) in HostPin and DP, each
+        against that plan's all-fast call (the main path's run). Both calls
+        read one set of pinned operands, and each builds its dense pieces
+        where its placement puts them. The host's free memory is printed
+        before the pinned stacks are made."""
+        torch = self.torch
+        planner, placement = self.m["planner"], self.m["placement"]
+        n = PLACED_DENSE_N
+        A, P = self.problem("brick3d", n)
+        crb, budget = self.quickstart_inputs(A, P)
+        plan = planner.plan_chunks(A, P, crb, self.m["memory_model"].P100,
+                                   fast_limit_bytes=budget)
+        check((plan.algorithm, plan.n_ac, plan.n_b) == ("chunk2", 6, 1),
+              f"brick3d{n} dense plan {(plan.algorithm, plan.n_ac, plan.n_b)}")
+        fast = self.fast_runs.pop(("brick3d", n, plan, "pallas"))   # brick3d32_pallas
+        emit({"host_memory": {k: v for k, v in host_meminfo().items()
+                              if k in ("MemTotal", "MemAvailable")}})
+        pinned = placement.place({"A": A, "B": P}, "slow")
+        for name in PLACED_DENSE:
+            where = placement.TABLE3[name]
+            ops = [pinned[k] if getattr(where, k) == "slow" else m
+                   for k, m in (("A", A), ("B", P))]
+            self.placed_call(f"brick3d{n}_chunk2_pallas_{name}", *ops, plan, "pallas",
+                             where, fast, card_ops=(A, P))
+        del pinned, fast
+        torch.cuda.empty_cache()
+        # hand the pinned stacks' host memory back (the host allocator keeps
+        # freed pinned blocks cached)
+        getattr(torch._C, "_host_emptyCache", lambda: None)()
+
+    def triangle_placement(self) -> None:
+        """``count_triangles`` with L slow (PLACED_TRIANGLES): each role
+        that the placement puts slow streams from pinned memory through the
+        ring, the fast ones share one whole copy of L on the card; the count
+        equal to scipy's, the bytes equal to the masked events, one masked
+        launch a step, and the peaks within the ring's model."""
+        for label, chunk2, name in PLACED_TRIANGLES:
+            self.triangle_placed(label, chunk2, name)
+
+    def masked_workspace(self, L, plan, caps) -> int:
+        """The largest live peak of one masked launch of the plan on card
+        pieces (its outputs and the kernel's tables and work lists)."""
+        cs, hmod = self.m["chunk_stream"], self.kernels["hash_masked_accum_spgemm"]
+        (Ast, Bst, C0, Mst, r0s, r1s), table, _ = cs.stage_hash_masked(
+            L, L, L, plan, caps.c_pad, caps)
+        order = "chunk2" if plan.algorithm == "chunk2" else "chunk1"
+        csr = self.m["csr"]
+
+        def one(st, k):   # element k of a [1, n] stack, as a [1, 1] stack
+            return csr.CSR(st.indptr[:, k:k + 1], st.indices[:, k:k + 1],
+                           st.data[:, k:k + 1], st.shape, st.max_row_nnz)
+
+        most = 0
+        for i in range(plan.n_ac):
+            for j in range(plan.n_b):
+                most = max(most, self.live_of(lambda: hmod.hash_masked_accum_spgemm_stream(
+                    one(Ast, i), one(Bst, j), one(C0, i), one(Mst, i),
+                    r0s[j:j + 1], r1s[j:j + 1], order=order, table_size=table)))
+        del Ast, Bst, C0, Mst
+        return most
+
+    def triangle_placed(self, label: str, chunk2: bool, name: str) -> None:
+        torch, tri, ch = self.torch, self.m["triangle"], self.m["chunking"]
+        cs, placement, csr = self.m["chunk_stream"], self.m["placement"], self.m["csr"]
+        L, _, want, _ = self.triangle_graph()
+        plan, caps, wall_fast = self.tc_runs[chunk2]   # the second path's run
+        where = placement.TABLE3[name]
+        strips, chunks = ch.a_strips(L, plan.p_ac), ch.b_chunks(L, plan.p_b)
+        strip_rows = strips[0].n_rows
+        a_stage, slab = strips[0].nbytes(), chunks[0].nbytes()
+        m_struct = (strip_rows + 1) * 4 + strips[0].indices.shape[-1] * 4
+        c_stage = cs._c_strip_nbytes(strip_rows, caps.c_pad, L.dtype)
+        del strips, chunks
+        events = cs.planned_events_masked(plan, slab, a_stage, c_stage, m_struct)
+        workspace = self.masked_workspace(L, plan, caps)
+        m_data = m_struct - (strip_rows + 1) * 4   # the mask's values' placeholder
+        Lp = csr.csr_pin(L)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.memory._record_memory_history(context=None, max_entries=1 << 20)
+        start = trace_length(torch.cuda.memory._snapshot())
+        self.reset_counters()
+        t0 = time.perf_counter()
+        with self.m["copy_ring"].RingLog(timed=True) as log:
+            got = tri.count_triangles(Lp, plan=plan, caps=caps, placement=where)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        live = live_peak(torch.cuda.memory._snapshot(), start)
+        torch.cuda.memory._record_memory_history(enabled=None)
+        launches = self.read_counters()
+        steps = plan.n_ac * plan.n_b
+        check(got.dtype == torch.float64 and got.device.type == "cuda" and float(got) == want,
+              f"{label}: {float(got)} triangles on {got.device}, scipy counts {want}")
+        check(launches["hash_masked_accum_spgemm"] == steps,
+              f"{label}: {launches['hash_masked_accum_spgemm']} masked launches, "
+              f"{steps} steps")
+        mixed = 0 < len(where.slow) < 3
+        check(log.moved("L", "in", apart=True) == ([L.nbytes()] if mixed else []),
+              f"{label}: L's whole copies {log.moved('L', 'in', apart=True)}")
+        ring = self.ring_gates(label, log, plan, None, where, "hash", events=events,
+                               roles={"M": "C"})
+        # the card's bytes at the peak: two slots a slow role, a fast role's
+        # stack and its pieces beside the whole copy of L, C's slots and
+        # steps (chunk2: its block and the strips' results), the mask's
+        # slots (chunk2: its block) and its values' placeholder, one step's
+        # workspace (its output included)
+        n_ac, n_b = plan.n_ac, plan.n_b
+        parts = {"A": 2 * a_stage * (1 if where.A == "slow" else n_ac),
+                 "B": 2 * slab * (1 if where.B == "slow" else n_b),
+                 "C": (2 * n_ac if chunk2 else 4) * c_stage,
+                 "M": (n_ac if chunk2 else 2) * m_struct + m_data,
+                 "L": L.nbytes() if mixed else 0, "workspace": workspace}
+        parts["total"] = sum(parts.values())
+        check(peak <= parts["total"] * PEAK_MARGIN,
+              f"{label}: peak allocation {peak} passes the ring's model {parts['total']} + 10%")
+        check(live <= parts["total"] * LIVE_MARGIN,
+              f"{label}: live tensors' peak {live} passes the ring's model "
+              f"{parts['total']} + 1%")
+        emit({"placed_run": {
+            "run": label, "placement": dict(zip("ABC", (where.A, where.B, where.C))),
+            "backend": "hash (masked)", "plan": [plan.algorithm, n_ac, n_b], "steps": steps,
+            "launches": {k: v for k, v in launches.items() if v}, "triangles": float(got),
+            "wall_s": wall, "all_fast_wall_s": wall_fast, "equal_to_scipy": True,
+            "peak_alloc_bytes": peak, "peak_live_bytes": live, "model_bytes": parts,
+            "card": self.smi, **ring, "times": log.times()}})
+        del Lp
+        torch.cuda.empty_cache()
+
     def refusal_check(self, A, P, plan, pinned) -> None:
-        """A pinned stack handed straight to the ESC or hash wrapper raises:
-        the kernels read only the card."""
+        """A pinned stack handed straight to any of the five SpGEMM kernels'
+        wrappers raises: the kernels read only the card, and only the
+        executors stage a slow operand."""
         torch, cs = self.torch, self.m["chunk_stream"]
         ch, csr = self.m["chunking"], self.m["csr"]
         Ast = csr.csr_pin(csr.csr_stack([csr.csr_stack(ch.a_strips(pinned["A"], plan.p_ac))]))
@@ -2045,7 +2442,18 @@ class Smoke:
                                              row_cap=16)),
                 ("hash_accum_spgemm", lambda: self.kernels["hash_accum_spgemm"]
                  .hash_accum_spgemm_stream(Ast, Bst, C0, r0s, r1s, order="chunk2",
-                                           table_size=16))):
+                                           table_size=16)),
+                ("hash_masked_accum_spgemm", lambda: self.kernels["hash_accum_spgemm"]
+                 .hash_masked_accum_spgemm_stream(Ast, Bst, C0, C0, r0s, r1s,
+                                                  order="chunk2", table_size=16)),
+                ("ranged_spgemm", lambda: self.kernels["ranged_spgemm"].ranged_spgemm_stream(
+                    *(torch.zeros(*shape, pin_memory=True) for shape in
+                      ((1, 1, 4, 8), (1, 2, 4, 4), (1, 1, 4, 4))),
+                    np.array([0, 4], np.int32), order="chunk1")),
+                ("bsr_spgemm", lambda: self.kernels["bsr_spgemm"].bsr_spgemm_blocks(
+                    torch.zeros(2, 4, 4, pin_memory=True), torch.zeros(2, 4, 4, pin_memory=True),
+                    np.zeros((1, 1), np.int32), np.zeros((1, 1), np.int32), nc_pad=1,
+                    u_max=1, bs=4))):
             try:
                 call()
             except ValueError as err:
@@ -2300,7 +2708,7 @@ class Smoke:
                 library_csr_lost=csr["library_lost"])
 
     def library_call(self, fn) -> tuple:
-        """One library yardstick: (wall ms, device ms, empty traces, error
+        """One library yardstick: (wall ms, device ms, its traces, error
         text if torch refuses)."""
         try:
             return (cuda_ms(self.torch, fn), *device_ms(self.torch, fn), None)
@@ -2374,10 +2782,14 @@ class Smoke:
         plan_s = time.perf_counter() - t0
         self.reset_counters()
         torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         C, stats = self.m["chunking"].chunked_spgemm(A, P, plan, backend="bsr")
         torch.cuda.synchronize()
         exec_s = time.perf_counter() - t0
+        self.fast_runs[("brick3d", 48, plan, "bsr")] = (
+            C, stats, exec_s, torch.cuda.max_memory_allocated() - before)
         launches = self.read_counters()
         check(launches["bsr_spgemm"] > 0, f"{label}: bsr_spgemm was not launched")
         self.launches["bsr_spgemm"] = launches["bsr_spgemm"]
@@ -2964,9 +3376,11 @@ class Smoke:
                                                       run(), plain(), ATTN_F32_ATOL,
                                                       ATTN_BF16_ULPS),
                        "ms": self.launch_ms(run), "wrapper_ms": cuda_ms(torch, run)}
-            if timed:
-                numbers["device_ms"], numbers["device_incomplete_traces"] = kernel_device_ms(
-                    torch, run, TRACE_NAMES["decode_attention"], mod.KERNELS_PER_CALL)
+            if timed:   # one split and one combine kernel a call
+                (numbers["device_ms"], numbers["device_incomplete_traces"],
+                 numbers["device_split_ms"], _) = kernel_device_split(
+                    torch, run, TRACE_NAMES["decode_attention"],
+                    dict.fromkeys(TRACE_NAMES["decode_attention"], 1))
             if timed and name == "bf16":
                 numbers["plain_ms"] = cuda_ms(torch, plain)
                 mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None]
@@ -3280,7 +3694,7 @@ class Smoke:
         ``torch._grouped_mm`` where this torch has it and takes them, else
         ``torch.bmm`` over the reference's [E, cap, K] capacity buffer, cap
         the largest group (at the prefill shape at most 2,432 rows: about
-        1.3 GB in f32). (name, wall ms, device ms, empty traces, error
+        1.3 GB in f32). (name, wall ms, device ms, its traces, error
         text)."""
         torch = self.torch
         error = None

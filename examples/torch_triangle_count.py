@@ -48,7 +48,8 @@ def main(argv=None):
           f"L nnz={int(L.nnz())}")
     tri = None
     for backend in backend_registry.masked_backends():
-        tri, ms = _timed(lambda b=backend: count_triangles(L, backend=b), args.device)
+        tri, ms = _timed(lambda b=backend: count_triangles(L, backend=b, device=args.device),
+                          args.device)
         print(f"[tc] fused/{backend:6s}: triangles = {tri:.0f} in "
               f"{ms:.0f} ms (mask inside the kernel, no unmasked C)")
     base, ms = _timed(lambda: count_triangles_kkmem(L), args.device)

@@ -34,7 +34,12 @@ Contracts a spec must honor:
   and must register a default ``block_size``.
 * ``run_masked(A, B, mask, plan, c_pad, caps=...) -> (C, ChunkStats)``
   computes ``(A x B) ∘ mask`` with the mask applied inside the kernel; the
-  fused triangle count (``repro_torch.core.triangle``) resolves through it.
+  fused triangle count (``repro_torch.core.triangle``) resolves through it,
+  and through ``run_masked_placed(A, B, mask, plan, c_pad, caps, placement,
+  device, on_strip=None)`` with operands in slow memory.
+* ``run_placed(A, B, plan, c_pad, caps, placement, device)`` is the
+  executor with operands in slow memory (the copy ring); every registered
+  backend has one, and ``chunked_spgemm`` raises for a spec without.
 * ``audit_trace(A, B, plan, c_pad, envelope) -> TraceTarget`` stages one
   instance at an envelope exactly as the executors do, for the static
   auditor (``repro_torch.analysis``); ``traffic_model(A, B, plan, c_pad,
@@ -115,12 +120,13 @@ class BackendSpec:
     is_accumulator: bool = False                # participates in backend="auto"
     block_size: int | None = None               # default block edge (block backends)
     run_masked: Callable | None = None          # fused-mask executor, or None
+    run_masked_placed: Callable | None = None   # the same with operands in slow memory
     make_batched_cores: Callable | None = None  # (donate=False) -> fresh batched cores
     audit_trace: Callable | None = None         # (A, B, plan, c_pad, env) -> TraceTarget
     traffic_model: Callable | None = None       # (A, B, plan, c_pad, env, meta) -> ExpectedTraffic
     stats_exempt: str | None = None             # why the ChunkStats tie is not checked
     # (A, B, plan, c_pad, caps, placement, device) -> (C, ChunkStats): the
-    # executor with operands in slow memory (the copy ring); None = raises
+    # executor with operands in slow memory (the copy ring)
     run_placed: Callable | None = None
 
     @property

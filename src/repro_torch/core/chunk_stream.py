@@ -25,7 +25,8 @@ The registered backends, in registry (= auto tie-break) order:
 * ``hash`` — the same with per-row linear-probing hash tables sized by the
   symbolic ``c_max_row_nnz`` (``repro_torch.kernels.hash_accum_spgemm``).
   It also registers ``run_masked`` (:func:`chunk_hash_masked`): the
-  mask-fused product ``(A x B) ∘ M`` of triangle counting.
+  mask-fused product ``(A x B) ∘ M`` of triangle counting, and its placed
+  entry ``run_masked_placed``.
 * ``bsr`` — blocked tiles: every (strip, chunk) pair staged as BSR straight
   from the CSR operands and multiplied by the CUDA kernel
   ``repro_torch.kernels.bsr_spgemm``; opt-in under ``auto`` through
@@ -33,6 +34,12 @@ The registered backends, in registry (= auto tie-break) order:
 
 ``backend="auto"`` argmins the accumulators' ``BackendFastModel`` byte
 models (``planner.select_accumulator_backend``).
+
+Every backend also registers ``run_placed``: its executor with operands in
+slow memory (pinned host memory on the card), each slow piece crossing onto
+the card through the copy ring (``repro_torch.core.copy_ring``) before a
+launch reads it, one launch a (strip, chunk) step, C equal bit for bit to
+the all-fast call's.
 
 Every backend but ``loop`` runs its kernel calls through *cores*
 (:class:`_Core`), and its compile accounting is observable through
@@ -72,8 +79,9 @@ import torch
 
 from repro_torch.core import backend_registry, copy_ring
 from repro_torch.core.chunking import (
-    StatsLog, _assemble, _empty_like_c, a_strips, b_chunks, batch_envelope,
-    chunk_gpu1, chunk_gpu2, chunk_knl, instance_envelope,
+    _assemble, _c_strip_nbytes, _empty_like_c, _stats_of, _step_elements,
+    a_strips, b_chunks, batch_envelope, chunk_loop, instance_envelope, planned_stats,
+    run_ranged,
 )
 from repro_torch.core.kkmem import spgemm_ranged_impl
 from repro_torch.core.planner import (
@@ -171,50 +179,6 @@ def _batched_core_factory(template: str, runs: dict):
 # ---------------------------------------------------------------------------
 
 
-def planned_stats(plan: ChunkPlan, chunk_nbytes: int, strip_nbytes: int,
-                  c_strip_nbytes: int):
-    """Replay the loop executors' per-copy event sequence from the plan.
-
-    Uniform padding makes every B chunk / A strip / C partial the same size,
-    so the event stream is fully determined by (algorithm, n_ac, n_b) plus the
-    three footprints.
-    """
-    stats = StatsLog(plan.algorithm, plan.n_ac, plan.n_b)
-    if plan.algorithm == "knl":
-        for _ in range(plan.n_b):
-            stats.add_in(chunk_nbytes)
-        stats.kernel_calls = plan.n_b
-        return stats.freeze()
-    if plan.algorithm == "chunk1":
-        for a0, a1 in zip(plan.p_ac[:-1], plan.p_ac[1:]):
-            stats.add_in(strip_nbytes)
-            stats.add_in((a1 - a0 + 1) * 4)
-            for _ in range(plan.n_b):
-                stats.add_in(chunk_nbytes)
-                stats.kernel_calls += 1
-            stats.add_out(c_strip_nbytes)
-        return stats.freeze()
-    if plan.algorithm == "chunk2":
-        for jb in range(plan.n_b):
-            stats.add_in(chunk_nbytes)
-            for _ in range(plan.n_ac):
-                stats.add_in(strip_nbytes)
-                if jb > 0:
-                    stats.add_in(c_strip_nbytes)
-                stats.kernel_calls += 1
-                if jb < plan.n_b - 1:
-                    stats.add_out(c_strip_nbytes)
-            if jb == plan.n_b - 1:
-                for _ in range(plan.n_ac):
-                    stats.add_out(c_strip_nbytes)
-        return stats.freeze()
-    raise ValueError(f"unknown algorithm {plan.algorithm!r}")
-
-
-def _c_strip_nbytes(strip_rows: int, c_pad: int, dtype) -> int:
-    return (strip_rows + 1) * 4 + c_pad * (4 + dtype.itemsize)
-
-
 def planned_events(plan: ChunkPlan, slab_nbytes: int, a_stage_nbytes: int,
                    c_stage_nbytes: int) -> list:
     """The streaming kernels' copy events from the plan, each tagged with
@@ -252,12 +216,54 @@ def planned_stats_pallas(plan: ChunkPlan, slab_nbytes: int, a_stage_nbytes: int,
                          c_stage_nbytes: int):
     """The :class:`ChunkStats` of :func:`planned_events`: the streaming
     kernels' per-copy event sequence, replayed from the plan."""
-    stats = StatsLog(plan.algorithm, plan.n_ac, plan.n_b)
-    for _, direction, nbytes in planned_events(plan, slab_nbytes, a_stage_nbytes,
-                                               c_stage_nbytes):
-        (stats.add_in if direction == "in" else stats.add_out)(nbytes)
-    stats.kernel_calls = plan.n_ac * plan.n_b
-    return stats.freeze()
+    return _stats_of(plan, planned_events(plan, slab_nbytes, a_stage_nbytes,
+                                          c_stage_nbytes))
+
+
+def planned_events_masked(plan: ChunkPlan, slab_nbytes: int, a_stage_nbytes: int,
+                          c_stage_nbytes: int, m_struct_nbytes: int) -> list:
+    """The masked kernel's copy events, each tagged with its operand:
+    :func:`planned_events`, with the mask's structure (operand ``"M"``: a
+    strip's indptr and indices, ``m_struct_nbytes``) coming in beside every
+    C_prev block: one a strip in the chunk1 orders, the whole block in
+    Chunk2. These are the events :func:`stage_hash_masked` adds to the
+    ChunkStats (there appended after the kernel's own)."""
+    whole = plan.n_ac if plan.algorithm == "chunk2" else 1
+    events = []
+    for event in planned_events(plan, slab_nbytes, a_stage_nbytes, c_stage_nbytes):
+        events.append(event)
+        if event[:2] == ("C", "in"):
+            events.append(("M", "in", whole * m_struct_nbytes))
+    return events
+
+
+def planned_events_bsr(plan: ChunkPlan, slab_nbytes: int, a_stage_nbytes: int,
+                       c_part_nbytes: int, c_strip_nbytes: int) -> list:
+    """The ``bsr`` executor's copy events with operands in slow memory, each
+    tagged with its operand. It launches once a (strip, chunk) pair, and a
+    pair's A piece is its own (the strip's rows at the chunk's columns), so
+    A crosses once a pair in every order; B's chunk is stationary in Chunk2
+    and crosses once a pair otherwise. A strip's C is its summed blocks
+    (``c_part_nbytes``) while its pairs run and its CSR at ``c_pad``
+    (``c_strip_nbytes``) once they end: in the chunk1 orders the strip's
+    pairs are summed on the card and its CSR goes out once; in Chunk2 every
+    strip's partial goes out after its step and comes back before the next
+    chunk's, and its CSR goes out after its last. Its ChunkStats stay the
+    idealized pipeline's (:func:`planned_stats_pallas`;
+    ``_BSR_STATS_EXEMPT``)."""
+    n_b = plan.n_b
+    if plan.algorithm == "chunk2":
+        events = []
+        for jb in range(n_b):
+            events.append(("B", "in", slab_nbytes))
+            for _ in range(plan.n_ac):
+                events.append(("A", "in", a_stage_nbytes))
+                if jb > 0:
+                    events.append(("C", "in", c_part_nbytes))
+                events.append(("C", "out", c_part_nbytes if jb < n_b - 1 else c_strip_nbytes))
+        return events
+    return ([("A", "in", a_stage_nbytes), ("B", "in", slab_nbytes)] * n_b
+            + [("C", "out", c_strip_nbytes)]) * plan.n_ac
 
 
 def _pallas_stage_nbytes(strip_rows: int, k: int, span: int, n: int) -> tuple:
@@ -375,18 +381,21 @@ def chunk_gpu2_scan(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int):
 # ---------------------------------------------------------------------------
 
 
-def _dense_stack(stacked: CSR, levels: int = 1, pad_cols: int = 0) -> torch.Tensor:
+def _dense_stack(stacked: CSR, levels: int = 1, pad_cols: int = 0,
+                 pin_memory: bool = False) -> torch.Tensor:
     """Densify a CSR with ``levels`` leading stack axes into f32
     ``[..., rows, n_cols + pad_cols]``. The zero ``pad_cols`` columns are the
     reference's ``_pad_cols``, allocated here in the same buffer so the
-    ranged column slice of the last chunk stays in bounds without a copy."""
+    ranged column slice of the last chunk stays in bounds without a copy.
+    ``pin_memory`` builds a host stack in pinned memory (a slow operand's
+    pieces, straight where the copy ring reads them)."""
     lead = tuple(stacked.indptr.shape[:levels])
     n_rows, n_cols = stacked.shape
     ip = stacked.indptr.reshape(-1, n_rows + 1)
     ix = stacked.indices.reshape(ip.shape[0], -1).long()
     d = stacked.data.reshape(ip.shape[0], -1).to(torch.float32)
     dense = torch.zeros(ip.shape[0], n_rows, n_cols + pad_cols,
-                        dtype=torch.float32, device=ip.device)
+                        dtype=torch.float32, device=ip.device, pin_memory=pin_memory)
     if n_rows and ip.shape[0]:
         entry = torch.arange(ix.shape[1], dtype=torch.int32,
                              device=ip.device).expand(ip.shape[0], -1).contiguous()
@@ -396,14 +405,14 @@ def _dense_stack(stacked: CSR, levels: int = 1, pad_cols: int = 0) -> torch.Tens
     return dense.reshape(*lead, n_rows, n_cols + pad_cols)
 
 
-def _pallas_assemble(dense: torch.Tensor, p_ac: tuple) -> CSR:
-    """Crop per-strip dense results to their true rows, concatenate, and
+def _pallas_assemble(dense, p_ac: tuple) -> CSR:
+    """Crop per-strip dense results (a ``[n_ac, rows, n]`` stack or a list) to their true rows, concatenate, and
     sparsify. The dense backend's CSR keeps exactly the nonzeros of the dense
     result, so comparisons against the loop oracle are allclose on densified
     values rather than exact on structure."""
     whole = torch.cat([dense[i][: e - s]
                        for i, (s, e) in enumerate(zip(p_ac[:-1], p_ac[1:]))])
-    return csr_from_dense(whole, device=dense.device)
+    return csr_from_dense(whole, device=whole.device)
 
 
 def _make_pallas_run(order: str, *, batched: bool, strips: bool):
@@ -584,6 +593,74 @@ def _one(m: CSR) -> CSR:
                m.shape, m.max_row_nnz)
 
 
+def _one_stack(m: CSR) -> CSR:
+    """A piece as a one-element stack (one leading axis, views)."""
+    return CSR(m.indptr[None], m.indices[None], m.data[None], m.shape, m.max_row_nnz)
+
+
+def _drive_placed(link, plan: ChunkPlan, placement, As, Bs, zeros, launch,
+                  card: bool, Ms=None, on_strip=None) -> list:
+    """The step loop of the placed executors that carry C as ``C_prev``
+    (the CSR accumulators, the masked kernel, the dense slab): one
+    ``launch(A_i, B_j, C_i, M_i, j)`` a step, each operand's piece from its
+    ring when it is slow (A strips stationary and B chunks streamed in the
+    chunk1 orders, the other way in Chunk2). ``zeros`` is the empty C_prev
+    in C's space: one strip's block, a ring element once a strip, in the
+    chunk1 orders; all strips' block, one transfer, in Chunk2. ``Ms`` (the
+    mask's pieces, in C's space) cross beside it. ``on_strip(i, C_i)`` sees
+    each strip's final C on the card. A slow C goes out to a stack in slow
+    memory as each strip ends (Chunk2: once, whole). Returns each strip's
+    C, on the card when C is fast, else views of that stack."""
+    n_ac, n_b = plan.n_ac, plan.n_b
+    c_slow = placement.C == "slow"
+    c_out = copy_ring.slow_stack(copy_ring.piece(zeros, 0), n_ac, card) if c_slow else None
+    stationary, streamed = _step_elements(plan)
+    out = []
+    if plan.algorithm != "chunk2":
+        get_a, put_a = copy_ring.source(link, "A", As, placement.A, "stationary", stationary)
+        get_b, put_b = copy_ring.source(link, "B", Bs, placement.B, "streamed", streamed)
+        get_c, put_c = copy_ring.source(link, "C", zeros, placement.C, "stationary", [0] * n_ac)
+        get_m, put_m = ((lambda i: None), (lambda i: None)) if Ms is None else copy_ring.source(
+            link, "M", Ms, placement.C, "stationary", range(n_ac))
+        for i in range(n_ac):
+            Ai, Ci, Mi = get_a(i), get_c(i), get_m(i)
+            for j in range(n_b):
+                lin = i * n_b + j
+                Ci = launch(Ai, get_b(lin), Ci, Mi, j)
+                put_b(lin)
+                if j == 0:
+                    put_c(i)
+            put_a(i)
+            put_m(i)
+            if on_strip is not None:
+                on_strip(i, Ci)
+            if c_slow:
+                link.copy_out("C", [Ci], c_out, first=i)
+            else:
+                out.append(Ci)
+    else:
+        get_b, put_b = copy_ring.source(link, "B", Bs, placement.B, "stationary", stationary)
+        get_a, put_a = copy_ring.source(link, "A", As, placement.A, "streamed", streamed)
+        block = link.copy_in("C", zeros) if c_slow else zeros
+        m_block = None if Ms is None else (link.copy_in("M", Ms) if c_slow else Ms)
+        out = [copy_ring.piece(block, i) for i in range(n_ac)]
+        del block
+        for jb in range(n_b):
+            Bj = get_b(jb)
+            for i in range(n_ac):
+                lin = jb * n_ac + i
+                Mi = None if m_block is None else copy_ring.piece(m_block, i)
+                out[i] = launch(get_a(lin), Bj, out[i], Mi, jb)
+                put_a(lin)
+            put_b(jb)
+        for i, Ci in enumerate(out if on_strip is not None else ()):
+            on_strip(i, Ci)
+        if c_slow:
+            link.copy_out("C", out, c_out)
+    link.finish()
+    return [copy_ring.piece(c_out, i) for i in range(n_ac)] if c_slow else out
+
+
 def _sparse_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
                        placement, device: torch.device, *, backend: str):
     """:func:`_sparse_run` with operands in slow memory.
@@ -602,19 +679,13 @@ def _sparse_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
     plan's. ``caps`` is the symbolic phase's :class:`StripOutputCaps`."""
     table = _checked_table(A, B, c_pad, backend, caps)
     card = device.type == "cuda"
-
-    def staged(pieces, space):
-        st = csr_stack(pieces)
-        if space == "fast":
-            return st
-        return csr_pin(st) if card else st
-
     strips = a_strips(A, plan.p_ac)
     chunks = b_chunks(B, plan.p_b)
     a_stage, slab = strips[0].nbytes(), chunks[0].nbytes()
-    As, Bs = staged(strips, placement.A), staged(chunks, placement.B)
+    As = copy_ring.staged(strips, placement.A, card)
+    Bs = copy_ring.staged(chunks, placement.B, card)
     del strips, chunks
-    n_ac, n_b, n_cols = plan.n_ac, plan.n_b, B.n_cols
+    n_ac, n_cols = plan.n_ac, B.n_cols
     strip_rows = As.n_rows
     r0s, r1s = plan.b_ranges()
     if backend == "hash":
@@ -628,68 +699,93 @@ def _sparse_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
         A.dtype, "cpu" if c_slow else device), 0)
     if c_slow and card:
         zeros = csr_pin(zeros)
-    c_out = copy_ring.slow_stack(copy_ring.piece(zeros, 0), n_ac, card) if c_slow else None
-
     link = copy_ring.Link(device)
 
-    def launch(Ai, Bj, Ci, j):
+    def launch(Ai, Bj, Ci, _, j):
         with link.step():
             ip, ix, d = core(_one(Ai), _one(Bj), _one(Ci), r0s[j:j + 1], r1s[j:j + 1],
                              **statics)
         return CSR(ip[0, 0], ix[0, 0], d[0, 0], (strip_rows, n_cols), c_pad)
 
-    def source(operand, stack, space, role, elements):
-        """Step-indexed ``(get, put)`` of one operand's pieces: a ring's
-        slots when it is slow, views of the staged stack when fast."""
-        if space == "slow":
-            ring = link.ring(operand, role, stack, elements)
-            return ring.acquire, ring.release
-        return (lambda lin: copy_ring.piece(stack, elements[lin])), (lambda lin: None)
-
-    out = []
-    if plan.algorithm in ("knl", "chunk1"):
-        get_a, put_a = source("A", As, placement.A, "stationary", list(range(n_ac)))
-        get_b, put_b = source("B", Bs, placement.B, "streamed",
-                              [j for _ in range(n_ac) for j in range(n_b)])
-        get_c, put_c = source("C", zeros, placement.C, "stationary", [0] * n_ac)
-        for i in range(n_ac):
-            Ai, Ci = get_a(i), get_c(i)
-            for j in range(n_b):
-                lin = i * n_b + j
-                Ci = launch(Ai, get_b(lin), Ci, j)
-                put_b(lin)
-                if j == 0:
-                    put_c(i)
-            put_a(i)
-            if c_slow:
-                link.copy_out("C", [Ci], c_out, first=i)
-            else:
-                out.append(Ci)
-    else:
-        get_b, put_b = source("B", Bs, placement.B, "stationary", list(range(n_b)))
-        get_a, put_a = source("A", As, placement.A, "streamed",
-                              [i for _ in range(n_b) for i in range(n_ac)])
-        block = link.copy_in("C", zeros) if c_slow else zeros
-        out = [copy_ring.piece(block, i) for i in range(n_ac)]
-        del block
-        for jb in range(n_b):
-            Bj = get_b(jb)
-            for i in range(n_ac):
-                lin = jb * n_ac + i
-                out[i] = launch(get_a(lin), Bj, out[i], jb)
-                put_a(lin)
-            put_b(jb)
-        if c_slow:
-            link.copy_out("C", out, c_out)
-    link.finish()
-    if c_slow:
-        out = [copy_ring.piece(c_out, i) for i in range(n_ac)]
+    out = _drive_placed(link, plan, placement, As, Bs, zeros, launch, card)
     C = _assemble(out, plan.p_ac, n_cols)
     if c_slow and card:
         C = csr_pin(C)
     stats = planned_stats_pallas(plan, slab, a_stage,
                                  _c_strip_nbytes(strip_rows, c_pad, A.dtype))
     return C, stats
+
+
+def _scan_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
+                     placement, device: torch.device):
+    """The ``scan`` executor with operands in slow memory: the paper's steps
+    and crossings (``chunking.run_ranged``), each step the plan's scan core
+    on one-element stacks of card pieces. C equals the all-fast call's bit
+    for bit, and the ChunkStats are :func:`planned_stats` of the plan."""
+    del caps   # the ranged merge cannot overflow c_pad
+    core = _SCAN_CORES[plan.algorithm]
+    r0s, r1s = plan.b_ranges()
+
+    def step(Ai, Bj, j, Ci):
+        if plan.algorithm == "knl":
+            return core(Ai, _one_stack(Bj), r0s[j:j + 1], r1s[j:j + 1], Ci, c_pad=c_pad)
+        C0 = _one_stack(Ci) if plan.algorithm == "chunk2" else Ci
+        return core(_one_stack(Ai), _one_stack(Bj), r0s[j:j + 1], r1s[j:j + 1], C0,
+                    c_pad=c_pad)[0]
+
+    return run_ranged(A, B, plan, c_pad, placement, device, step)
+
+
+def _pallas_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
+                       placement, device: torch.device):
+    """The dense-slab executor with operands in slow memory.
+
+    A slow operand's dense pieces are built in slow memory (pinned on the
+    card): the A strips with their ``span`` zero columns, the B slabs, and
+    the empty C block; a fast one's on ``device``. ``ranged_spgemm_stream``
+    launches once a (strip, chunk) step on one-element stacks, a slow
+    operand's piece read from its ring's slot, each step's output the next
+    step's ``c0``. The kernel writes C as base plus partial, chunk by chunk,
+    in both orders, so the steps equal the one-launch call bit for bit. The
+    bytes are :func:`planned_events` at the dense sizes
+    (:func:`_pallas_stage_nbytes`). A slow C goes out to pinned memory as
+    dense strips and is sparsified there; the result stays pinned."""
+    del c_pad, caps   # capacity is implicit in the dense accumulator
+    card = device.type == "cuda"
+    n_ac, n_cols = plan.n_ac, B.n_cols
+    order = "chunk2" if plan.algorithm == "chunk2" else "chunk1"
+    r0s, _ = plan.b_ranges()
+
+    def dense(pieces, pad_cols, space):
+        return _dense_stack(csr_stack(pieces), pad_cols=pad_cols,
+                            pin_memory=card and space == "slow")
+
+    chunks = b_chunks(B, plan.p_b)
+    span = chunks[0].n_rows
+    slabs = dense(chunks, 0, placement.B)
+    del chunks
+    strips = a_strips(A, plan.p_ac)
+    strip_rows = strips[0].n_rows
+    a = dense(strips, span, placement.A)
+    del strips
+    c_slow = placement.C == "slow"
+    zeros = torch.zeros(n_ac if order == "chunk2" else 1, strip_rows, n_cols,
+                        dtype=torch.float32, device="cpu" if c_slow else device,
+                        pin_memory=card and c_slow)
+    link = copy_ring.Link(device)
+
+    def launch(a_i, slab_j, c_i, _, j):
+        with link.step():
+            return ranged_spgemm_stream(a_i[None, None], slab_j[None, None],
+                                        c_i[None, None], r0s[j:j + 1], order=order)[0, 0]
+
+    out = _drive_placed(link, plan, placement, a, slabs, zeros, launch, card)
+    del a, slabs
+    C = _pallas_assemble(out, plan.p_ac)
+    if c_slow and card:
+        C = csr_pin(C)
+    return C, planned_stats_pallas(
+        plan, *_pallas_stage_nbytes(strip_rows, A.n_cols, span, n_cols))
 
 
 # ---------------------------------------------------------------------------
@@ -761,6 +857,70 @@ def chunk_hash_masked(A: CSR, B: CSR, mask: CSR, plan: ChunkPlan,
     out = [CSR(ip[0, i], ix[0, i], d[0, i], (strip_rows, B.n_cols), c_pad)
            for i in range(plan.n_ac)]
     return _assemble(out, plan.p_ac, B.n_cols), stats
+
+
+def _masked_run_placed(A: CSR, B: CSR, mask: CSR, plan: ChunkPlan, c_pad: int,
+                       caps, placement, device: torch.device, on_strip=None):
+    """:func:`chunk_hash_masked` with operands in slow memory: the hash
+    backend's ``run_masked_placed``.
+
+    As :func:`_sparse_run_placed`, with the mask beside C: ``placement.C``
+    puts C and the mask in their space. A slow mask's strips cross as their
+    structure (indptr and indices: the kernel reads no mask value), with C's
+    empty block: a strip's in the chunk1 orders through a ring, the whole
+    block in Chunk2 (:func:`planned_events_masked`). The masked kernel
+    launches once a step, C carried as ``C_prev``. ``on_strip(i, C_i)``, when
+    given, sees each strip's final C on ``device`` before a slow C goes out
+    (the triangle count sums it there). ChunkStats are
+    :func:`stage_hash_masked`'s."""
+    if mask.shape != (A.n_rows, B.n_cols):
+        raise ValueError(
+            f"mask shape {mask.shape} != output shape {(A.n_rows, B.n_cols)}")
+    if caps is None:
+        caps = masked_output_caps(mask, plan.p_ac)
+    table = hash_table_slots(caps.c_max_row_nnz)
+    check_output_caps(caps.strip_nnz, caps.c_max_row_nnz, c_pad, table,
+                      backend="hash", a_shape=A.shape, b_shape=B.shape)
+    card = device.type == "cuda"
+    n_ac, n_cols = plan.n_ac, B.n_cols
+    order = _CSR_ACCUM_ORDERS[plan.algorithm]
+    strips = a_strips(A, plan.p_ac)
+    chunks = b_chunks(B, plan.p_b)
+    mstrips = a_strips(mask, plan.p_ac)
+    a_stage, slab = strips[0].nbytes(), chunks[0].nbytes()
+    strip_rows, m_like = strips[0].n_rows, mstrips[0]
+    As = copy_ring.staged(strips, placement.A, card)
+    Bs = copy_ring.staged(chunks, placement.B, card)
+    Ms = copy_ring.staged([(m.indptr, m.indices) for m in mstrips], placement.C, card)
+    del strips, chunks, mstrips
+    m_data = torch.zeros(m_like.indices.shape, dtype=m_like.dtype, device=device)
+    r0s, r1s = plan.b_ranges()
+    c_slow = placement.C == "slow"
+    zeros = copy_ring.piece(_sparse_c0_stack(
+        1, n_ac if plan.algorithm == "chunk2" else 1, strip_rows, n_cols, c_pad,
+        A.dtype, "cpu" if c_slow else device), 0)
+    if c_slow and card:
+        zeros = csr_pin(zeros)
+    link = copy_ring.Link(device)
+
+    def launch(Ai, Bj, Ci, Mi, j):
+        Mi = CSR(*Mi, m_data, m_like.shape, m_like.max_row_nnz)
+        with link.step():
+            ip, ix, d = hash_masked_accum_spgemm_stream(
+                _one(Ai), _one(Bj), _one(Ci), _one(Mi), r0s[j:j + 1], r1s[j:j + 1],
+                order=order, table_size=table)
+        return CSR(ip[0, 0], ix[0, 0], d[0, 0], (strip_rows, n_cols), c_pad)
+
+    out = _drive_placed(link, plan, placement, As, Bs, zeros, launch, card, Ms=Ms,
+                        on_strip=on_strip)
+    C = _assemble(out, plan.p_ac, n_cols)
+    if c_slow and card:
+        C = csr_pin(C)
+    stats = planned_stats_pallas(plan, slab, a_stage,
+                                 _c_strip_nbytes(strip_rows, c_pad, A.dtype))
+    m_struct = float((strip_rows + 1) * 4 + m_like.indices.shape[-1] * 4)
+    extra = ((n_ac * m_struct,) if plan.algorithm == "chunk2" else (m_struct,) * n_ac)
+    return C, dataclasses.replace(stats, per_copy_in=stats.per_copy_in + extra)
 
 
 # ---------------------------------------------------------------------------
@@ -890,38 +1050,52 @@ _BSR_CORES = _core_set("{alg}_bsr", _BSR_RUNS)
 _BSR_CORES_BATCHED = _core_set("{alg}_bsr_batched", _BSR_RUNS)
 
 
-def _bsr_strip_csr(parts: list, strips: list, n_rows: int, n: int, bs: int,
-                   nbp: int, dtype, dev) -> CSR:
-    """One instance's C from its pairs' output blocks: the blocks summed per
-    (block row, block column) of each strip, in pair order, and the nonzero
-    entries ``csr_from_dense`` would keep, inside the strip's real rows."""
-    rows_all, cols_all, vals_all = [], [], []
+def _bsr_pair_keys(meta, mbs: int, nbp: int) -> np.ndarray:
+    """A pair's C block keys (block row x ``nbp`` + block column), cropped
+    to its real blocks: padded rows carry ``c_indices == 0`` and would alias
+    block column 0 if kept."""
+    n_c = meta.n_c_blocks
+    brows = np.repeat(np.arange(mbs, dtype=np.int64), np.diff(meta.c_indptr))
+    return brows[:n_c] * nbp + meta.c_indices[:n_c].astype(np.int64)
+
+
+def _bsr_layout(pair_keys: list) -> tuple:
+    """One strip's C blocks from its pairs' block keys: the sorted union
+    (the strip's block keys) and each pair's rows in it (host arrays)."""
+    keys = (np.unique(np.concatenate(pair_keys)) if pair_keys
+            else np.zeros(0, dtype=np.int64))
+    return keys, [np.searchsorted(keys, k) for k in pair_keys]
+
+
+def _bsr_add(acc: torch.Tensor, pos, tiles: torch.Tensor) -> None:
+    """Add one pair's output blocks into its strip's accumulator at the
+    pair's rows of the strip's blocks (``pos``, host). A pair holds each
+    block once, so every sum is ``acc + tile`` on the accumulator's device,
+    the same bits whatever the order of the adds."""
+    if len(pos):
+        acc.index_add_(0, torch.from_numpy(pos).to(acc.device), tiles)
+
+
+def _bsr_strip_csr(acc: torch.Tensor, keys, real_rows: int, strip_rows: int,
+                   n: int, bs: int, nbp: int, dtype, pad_to: int | None) -> CSR:
+    """One strip's C from its summed blocks ``acc`` (block keys ``keys``,
+    host) on ``acc``'s device: the nonzero entries ``csr_from_dense`` would
+    keep, inside the strip's ``real_rows`` and C's ``n`` columns, in row
+    order, over ``strip_rows`` rows padded to ``pad_to`` entries."""
+    dev = acc.device
+    keys = torch.from_numpy(np.asarray(keys, dtype=np.int64)).to(dev)
+    acc = acc[:keys.numel()]
     r = torch.arange(bs, device=dev)
-    for (s, e), part in zip(strips, parts):
-        if not part:
-            continue
-        keys = torch.cat([p[0] for p in part])
-        tiles = torch.cat([p[1] for p in part])
-        uniq, inv = torch.unique(keys, return_inverse=True)
-        acc = torch.zeros(uniq.numel(), bs, bs, dtype=torch.float32, device=dev)
-        acc.index_add_(0, inv, tiles)
-        row = (uniq // nbp)[:, None, None] * bs + r[None, :, None]
-        col = (uniq % nbp)[:, None, None] * bs + r[None, None, :]
-        row, col = row.expand_as(acc), col.expand_as(acc)
-        keep = (acc != 0) & (row < e - s) & (col < n)
-        rows_all.append(row[keep] + s)
-        cols_all.append(col[keep])
-        vals_all.append(acc[keep])
-    if rows_all:
-        rows, cols, vals = torch.cat(rows_all), torch.cat(cols_all), torch.cat(vals_all)
-    else:
-        rows = cols = torch.zeros(0, dtype=torch.int64, device=dev)
-        vals = torch.zeros(0, dtype=torch.float32, device=dev)
+    row = ((keys // nbp)[:, None, None] * bs + r[None, :, None]).expand_as(acc)
+    col = ((keys % nbp)[:, None, None] * bs + r[None, None, :]).expand_as(acc)
+    keep = (acc != 0) & (row < real_rows) & (col < n)
+    rows, cols, vals = row[keep], col[keep], acc[keep]
     order = torch.argsort(rows * n + cols)
     rows, cols, vals = rows[order], cols[order], vals[order].to(dtype)
-    indptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
-    indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=n_rows), 0)
-    return _csr_from_tensors(indptr, cols, vals, (n_rows, n), int(rows.numel()), None)
+    indptr = torch.zeros(strip_rows + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=strip_rows), 0)
+    return _csr_from_tensors(indptr, cols, vals, (strip_rows, n), int(rows.numel()),
+                             pad_to)
 
 
 def _bsr_execute(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope, cores: dict):
@@ -933,11 +1107,10 @@ def _bsr_execute(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope, cores: dic
     The reference densified whole operands and the whole product to get
     there, and launched once per pair and instance; here the pieces come
     straight from the CSR and C from the output blocks: the same blocks, the
-    same block sums in the same pair order, and the nonzero entries
-    ``csr_from_dense`` would keep."""
-    bs, nbl_a_cap, nbl_b_cap, nc_cap, _ = envelope.bsr_caps
-    k, n = Bs[0].shape
-    kpad = -(-k // bs) * bs
+    same block sums in the same pair order (:func:`_bsr_add`), and the
+    nonzero entries ``csr_from_dense`` would keep (:func:`_bsr_strip_csr`)."""
+    bs, _, _, nc_cap, _ = envelope.bsr_caps
+    n = Bs[0].n_cols
     npad = -(-n // bs) * bs
     srpad = -(-envelope.strip_rows // bs) * bs
     mbs, nbp = srpad // bs, npad // bs
@@ -948,24 +1121,36 @@ def _bsr_execute(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope, cores: dic
     for ia, operands, metas in stage_bsr_pairs_batched(As, Bs, plan, envelope):
         out = core(*operands, envelope=envelope).view(len(As), nc_cap, bs, bs)
         for w, meta in enumerate(metas):
-            n_c = meta.n_c_blocks
-            if not n_c:
-                continue
-            # crop to the real blocks: padded rows carry c_indices == 0 and
-            # would alias block column 0 if kept
-            brows = torch.repeat_interleave(
-                torch.arange(mbs, device=dev),
-                torch.from_numpy(meta.c_indptr[1:] - meta.c_indptr[:-1]).to(dev).long())
-            cols = torch.from_numpy(meta.c_indices[:n_c]).to(dev).long()
-            parts[w][ia].append((brows * nbp + cols, out[w, :n_c]))
+            if meta.n_c_blocks:
+                parts[w][ia].append((_bsr_pair_keys(meta, mbs, nbp),
+                                     out[w, :meta.n_c_blocks]))
+    stats = planned_stats_pallas(plan, *_bsr_stage_nbytes(envelope))
+    Cs = []
+    for part, A in zip(parts, As):
+        out = []
+        for (s, e), pairs in zip(strips, part):
+            keys, pos = _bsr_layout([k for k, _ in pairs])
+            acc = torch.zeros(keys.size, bs, bs, dtype=torch.float32, device=dev)
+            for p, (_, tiles) in zip(pos, pairs):
+                _bsr_add(acc, p, tiles)
+            out.append(_bsr_strip_csr(acc, keys, e - s, envelope.strip_rows, n, bs, nbp,
+                                      A.dtype, None))
+        Cs.append(_assemble(out, plan.p_ac, n))
+    return Cs, stats
+
+
+def _bsr_stage_nbytes(envelope: GeometryEnvelope) -> tuple:
+    """(slab, a_stage, c_stage): the staged bytes of a B chunk, an A pair
+    piece (each ``(indptr, indices, blocks)`` with the zero sentinel) and a
+    C piece with its structure."""
+    bs, nbl_a_cap, nbl_b_cap, nc_cap, _ = envelope.bsr_caps
+    kpad = -(-envelope.b_shape[0] // bs) * bs
+    mbs = -(-envelope.strip_rows // bs)
     block_bytes = bs * bs * 4
     slab = (kpad // bs + 1) * 4 + nbl_b_cap * (4 + block_bytes) + block_bytes
     a_stage = (mbs + 1) * 4 + nbl_a_cap * (4 + block_bytes) + block_bytes
     c_stage = (mbs + 1) * 4 + nc_cap * (4 + block_bytes)
-    stats = planned_stats_pallas(plan, slab, a_stage, c_stage)
-    Cs = [_bsr_strip_csr(p, strips, A.n_rows, n, bs, nbp, A.dtype, dev)
-          for p, A in zip(parts, As)]
-    return Cs, stats
+    return slab, a_stage, c_stage
 
 
 def chunk_bsr(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps=None,
@@ -978,6 +1163,130 @@ def chunk_bsr(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps=None,
                             block_size=block_size or _BSR_DEFAULT_BLOCK)
     Cs, stats = _bsr_execute([A], [B], plan, env, _BSR_CORES)
     return Cs[0], stats
+
+
+BsrPiece = collections.namedtuple("BsrPiece", "indptr indices blocks")
+
+
+def _bsr_stage_placed(A: CSR, B: CSR, plan: ChunkPlan, env: GeometryEnvelope) -> tuple:
+    """The placed ``bsr`` executor's pieces on the operands' own device
+    (:func:`_stage_bsr` of the CSR, no densify step): ``(pairs, a_bsr,
+    b_bsr, metas, layouts)``, the (strip, chunk) pairs in launch order (B's
+    chunks stationary in Chunk2), a pair's A piece and each chunk's B
+    piece, a pair's symbolic phase, and each strip's :func:`_bsr_layout`."""
+    bs, nbl_a_cap, nbl_b_cap, nc_cap, u_cap = env.bsr_caps
+    k, n = B.shape
+    kpad, npad = -(-k // bs) * bs, -(-n // bs) * bs
+    srpad = -(-env.strip_rows // bs) * bs
+    strips = list(zip(plan.p_ac[:-1], plan.p_ac[1:]))
+    chunks = list(zip(plan.p_b[:-1], plan.p_b[1:]))
+    pairs = ([(ia, jb) for jb in range(len(chunks)) for ia in range(len(strips))]
+             if plan.algorithm == "chunk2" else
+             [(ia, jb) for ia in range(len(strips)) for jb in range(len(chunks))])
+    b_bsr = [_stage_bsr(B, r0, r1, 0, n, 0, (kpad, npad), bs, nbl_b_cap)
+             for r0, r1 in chunks]
+    a_bsr = [_stage_bsr(A, *strips[ia], *chunks[jb], strips[ia][0], (srpad, kpad), bs,
+                        nbl_a_cap) for ia, jb in pairs]
+    metas = [bsr_spgemm_symbolic(a_bsr[p], b_bsr[jb], nc_pad=nc_cap, u_max=u_cap)
+             for p, (_, jb) in enumerate(pairs)]
+    keys = [[] for _ in strips]
+    for meta, (ia, _) in zip(metas, pairs):
+        keys[ia].append(_bsr_pair_keys(meta, srpad // bs, npad // bs))
+    return pairs, a_bsr, b_bsr, metas, [_bsr_layout(k) for k in keys]
+
+
+def _bsr_part_nbytes(layouts: list, bs: int) -> int:
+    """A strip's summed blocks as they cross: the most blocks of a strip."""
+    return max([1] + [keys.size for keys, _ in layouts]) * bs * bs * 4
+
+
+def _bsr_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
+                    placement, device: torch.device):
+    """:func:`chunk_bsr` with operands in slow memory.
+
+    A slow operand's BSR pieces are built by :func:`_stage_bsr` from its
+    pinned CSR on the host (no densify step) and stacked, blocks with their
+    zero sentinel, in pinned memory; a fast one's on ``device``. They stream
+    through the ring as 3-field pieces ``(indptr, indices, blocks)``, one
+    launch of ``bsr_spgemm_blocks`` a pair; the slot tables are plain kernel
+    arguments. Each pair's output blocks are summed into its strip's blocks
+    on the card (:func:`_bsr_add`), and a strip whose pairs have all run
+    becomes its CSR there (:func:`_bsr_strip_csr`). A slow C crosses as
+    :func:`planned_events_bsr` lists: in the chunk1 orders each strip's CSR
+    once; in Chunk2 each strip's summed blocks out and back between chunks,
+    then its CSR. C equals the all-fast call's bit for bit, in pinned host
+    memory when C is slow; the ChunkStats are :func:`chunk_bsr`'s."""
+    env = instance_envelope(A, B, plan, c_pad=c_pad, caps=caps,
+                            block_size=_BSR_DEFAULT_BLOCK)
+    bs = env.bsr_caps[0]
+    card = device.type == "cuda"
+    n = B.n_cols
+    nbp = -(-n // bs)
+    strips = list(zip(plan.p_ac[:-1], plan.p_ac[1:]))
+    n_ac, n_b = len(strips), plan.n_b
+    chunk2 = plan.algorithm == "chunk2"
+    pairs, a_bsr, b_bsr, metas, layouts = _bsr_stage_placed(A, B, plan, env)
+    n_part = _bsr_part_nbytes(layouts, bs) // (bs * bs * 4)
+
+    def piece(m):
+        return BsrPiece(m.block_indptr, m.block_indices, bsr_blocks_with_sentinel(m))
+
+    Bst = copy_ring.staged([piece(m) for m in b_bsr], placement.B, card)
+    Ast = copy_ring.staged([piece(m) for m in a_bsr], placement.A, card)
+    del a_bsr, b_bsr
+    c_slow = placement.C == "slow"
+    c_out = (copy_ring.slow_stack(_empty_like_c(env.strip_rows, n, c_pad, A.dtype, "cpu"),
+                                  n_ac, card) if c_slow else None)
+    c_parts = (copy_ring.slow_stack(torch.empty(n_part, bs, bs), n_ac, card)
+               if c_slow and chunk2 and n_b > 1 else None)
+    link = copy_ring.Link(device)
+    get_a, put_a = copy_ring.source(link, "A", Ast, placement.A, "streamed",
+                                    range(len(pairs)))
+    get_b, put_b = copy_ring.source(link, "B", Bst, placement.B,
+                                    "stationary" if chunk2 else "streamed",
+                                    range(n_b) if chunk2 else [jb for _, jb in pairs])
+    core = _BSR_CORES[plan.algorithm]
+    acc, out = [None] * n_ac, [None] * n_ac
+    seen = [0] * n_ac          # a strip's pairs run so far
+    for p, (ia, jb) in enumerate(pairs):
+        b_lin = jb if chunk2 else p
+        if not chunk2 or ia == 0:
+            b_piece = get_b(b_lin)
+        if acc[ia] is None:
+            acc[ia] = (link.copy_in("C", copy_ring.piece(c_parts, ia))   # partial back in
+                       if c_slow and jb > 0 else
+                       torch.zeros(n_part, bs, bs, dtype=torch.float32, device=device))
+        meta = metas[p]
+        with link.step():   # the slot tables and output blocks live for the step
+            blocks = core(get_a(p).blocks, b_piece.blocks,
+                          torch.from_numpy(meta.a_slots).to(device),
+                          torch.from_numpy(meta.b_slots).to(device), envelope=env)
+            _bsr_add(acc[ia], layouts[ia][1][seen[ia]], blocks[:meta.n_c_blocks])
+            del blocks
+        seen[ia] += 1
+        put_a(p)
+        if not chunk2 or ia == n_ac - 1:
+            put_b(b_lin)
+        if jb == n_b - 1:                  # the strip's last pair: its CSR
+            s, e = strips[ia]
+            with link.step():
+                Ci = _bsr_strip_csr(acc[ia], layouts[ia][0], e - s, env.strip_rows, n, bs,
+                                    nbp, A.dtype, c_pad if c_slow else None)
+            acc[ia] = None
+            if c_slow:
+                link.copy_out("C", [Ci], c_out, first=ia)
+            else:
+                out[ia] = Ci
+        elif c_slow and chunk2:            # the strip's partial out
+            link.copy_out("C", [acc[ia]], c_parts, first=ia)
+            acc[ia] = None
+    link.finish()
+    if c_slow:
+        out = [copy_ring.piece(c_out, i) for i in range(n_ac)]
+    C = _assemble(out, plan.p_ac, n)
+    if c_slow and card:
+        C = csr_pin(C)
+    return C, planned_stats_pallas(plan, *_bsr_stage_nbytes(env))
 
 
 # ---------------------------------------------------------------------------
@@ -1426,7 +1735,8 @@ def _register_all() -> None:
     algs = backend_registry.ALGORITHMS
     register(Spec(
         name="loop",
-        executors={"knl": chunk_knl, "chunk1": chunk_gpu1, "chunk2": chunk_gpu2},
+        executors=dict.fromkeys(algs, chunk_loop),
+        run_placed=chunk_loop,
     ))
     register(Spec(
         name="scan",
@@ -1437,6 +1747,7 @@ def _register_all() -> None:
         trace_key_batched="{alg}_batched",
         audit_trace=_audit_scan,
         make_batched_cores=_batched_core_factory("{alg}_batched", _SCAN_RUNS_BATCHED),
+        run_placed=_scan_run_placed,
     ))
     register(Spec(
         name="pallas",
@@ -1451,6 +1762,7 @@ def _register_all() -> None:
         traffic_model=_traffic_pallas,
         make_batched_cores=_batched_core_factory("{alg}_pallas_batched",
                                                  _PALLAS_RUNS_BATCHED),
+        run_placed=_pallas_run_placed,
     ))
     register(Spec(
         name="sparse",
@@ -1476,6 +1788,7 @@ def _register_all() -> None:
         needs_output_caps=True,
         is_accumulator=True,
         run_masked=chunk_hash_masked,
+        run_masked_placed=_masked_run_placed,
         audit_trace=_make_audit_csr_accum("hash"),
         traffic_model=_traffic_csr_accum,
         make_batched_cores=_batched_core_factory("{alg}_hash_batched", _HASH_RUNS),
@@ -1496,6 +1809,7 @@ def _register_all() -> None:
         traffic_model=_traffic_bsr,
         stats_exempt=_BSR_STATS_EXEMPT,
         make_batched_cores=_batched_core_factory("{alg}_bsr_batched", _BSR_RUNS),
+        run_placed=_bsr_run_placed,
     ))
 
 

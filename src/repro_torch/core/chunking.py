@@ -210,68 +210,212 @@ def _assemble(strips, p_ac: tuple, n_cols: int) -> CSR:
 
 
 # ---------------------------------------------------------------------------
-# Algorithm 1: KNL chunking — A, C in slow memory; stream B chunks through fast
+# Algorithms 1-3 and their copy events
 # ---------------------------------------------------------------------------
 
 
-def chunk_knl(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int):
-    stats = StatsLog("knl", 1, plan.n_b)
+def planned_events_ranged(plan: ChunkPlan, chunk_nbytes: int, strip_nbytes: int,
+                          c_strip_nbytes: int) -> list:
+    """The copy events of Algorithms 1-3 as written (their ``copy2Fast`` /
+    ``copy2Slow``), each tagged with its operand: ``[(operand, "in" |
+    "out", bytes), ...]`` in issue order.
+
+    Uniform padding makes every B chunk / A strip / C partial the same size,
+    so the event stream is fully determined by (algorithm, n_ac, n_b) plus the
+    three footprints. Algorithm 1 counts only the streamed B chunks; in
+    Chunk1 a strip's C comes in as its row pointers (``(a1 - a0 + 1) * 4``
+    bytes) and goes out whole; in Chunk2 every strip's partial goes out after
+    its step and comes back for the next chunk's.
+    """
+    if plan.algorithm == "knl":
+        return [("B", "in", chunk_nbytes)] * plan.n_b
+    events = []
+    if plan.algorithm == "chunk1":
+        for a0, a1 in zip(plan.p_ac[:-1], plan.p_ac[1:]):
+            events += [("A", "in", strip_nbytes), ("C", "in", (a1 - a0 + 1) * 4)]
+            events += [("B", "in", chunk_nbytes)] * plan.n_b
+            events.append(("C", "out", c_strip_nbytes))
+        return events
+    if plan.algorithm == "chunk2":
+        for jb in range(plan.n_b):
+            events.append(("B", "in", chunk_nbytes))
+            for _ in range(plan.n_ac):
+                events.append(("A", "in", strip_nbytes))
+                if jb > 0:
+                    events.append(("C", "in", c_strip_nbytes))      # partial back in
+                if jb < plan.n_b - 1:
+                    events.append(("C", "out", c_strip_nbytes))     # partial out
+        events += [("C", "out", c_strip_nbytes)] * plan.n_ac       # final copy2Slow
+        return events
+    raise ValueError(f"unknown algorithm {plan.algorithm!r}")
+
+
+def _stats_of(plan: ChunkPlan, events: list) -> ChunkStats:
+    """The :class:`ChunkStats` of tagged ``events``, one kernel call a
+    (strip, chunk) step."""
+    stats = StatsLog(plan.algorithm, plan.n_ac, plan.n_b)
+    for _, direction, nbytes in events:
+        (stats.add_in if direction == "in" else stats.add_out)(nbytes)
+    stats.kernel_calls = plan.n_ac * plan.n_b
+    return stats.freeze()
+
+
+def planned_stats(plan: ChunkPlan, chunk_nbytes: int, strip_nbytes: int,
+                  c_strip_nbytes: int) -> ChunkStats:
+    """The ChunkStats of Algorithms 1-3 (:func:`planned_events_ranged`)."""
+    return _stats_of(plan, planned_events_ranged(plan, chunk_nbytes, strip_nbytes,
+                                                 c_strip_nbytes))
+
+
+def _c_strip_nbytes(strip_rows: int, c_pad: int, dtype) -> int:
+    return (strip_rows + 1) * 4 + c_pad * (4 + dtype.itemsize)
+
+
+def _step_elements(plan: ChunkPlan) -> tuple:
+    """(stationary, streamed) element of every step: A strips stationary and
+    B chunks streamed in the chunk1 orders, the other way in Chunk2."""
+    n_ac, n_b = plan.n_ac, plan.n_b
+    if plan.algorithm == "chunk2":
+        return list(range(n_b)), [i for _ in range(n_b) for i in range(n_ac)]
+    return list(range(n_ac)), [j for _ in range(n_ac) for j in range(n_b)]
+
+
+def run_ranged(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, placement, device,
+               step):
+    """Algorithms 1 (KNL), 2 (Chunk1) and 3 (Chunk2): one ranged
+    multiply-add ``step(A_i, B_j, j, C_i) -> C_i`` a (strip, chunk) step.
+
+    Each operand's pieces are read through the copy ring when ``placement``
+    puts it slow (``copy_ring.source``; built in slow memory, pinned on the
+    card) and straight from the pieces when it is fast, so an all-fast call
+    opens no ring. The crossings are the paper's own
+    (:func:`planned_events_ranged`): A strips stationary and B chunks
+    streamed in Chunk1, the other way in Chunk2; a slow C comes in as a
+    strip's row pointers and goes out whole in Chunk1, and in Chunk2 every
+    partial goes out after its step and comes back before the next chunk's.
+    Algorithm 1 counts only B's chunks, so a slow A crosses whole before the
+    first step and a slow C whole after the last, each one transfer logged
+    apart from the events (``Transfer.apart``), as :func:`whole_fast` moves
+    its operands. Returns C (in pinned host memory on the card when C is
+    slow) and :func:`planned_stats` of the plan."""
+    from repro_torch.core import copy_ring
+    from repro_torch.sparse.csr import csr_pin
+
+    card = device.type == "cuda"
+    n_ac, n_b, n_cols = plan.n_ac, plan.n_b, B.n_cols
+    c_slow = placement.C == "slow"
+    link = copy_ring.Link(device)
+
+    def pieces(parts, space):
+        return copy_ring.staged(parts, space, card) if space == "slow" else parts
+
+    def launch(Ai, Bj, j, Ci):
+        with link.step():
+            return step(Ai, Bj, j, Ci)
+
     chunks = b_chunks(B, plan.p_b)
-    C = _empty_like_c(A.n_rows, B.n_cols, c_pad, A.dtype, A.device)
-    for (r0, r1), Bc in zip(zip(plan.p_b[:-1], plan.p_b[1:]), chunks):
-        stats.add_in(Bc.nbytes())                       # copy2Fast(B, B_rp)
-        C = spgemm_ranged(A, Bc, r0, r1, C, c_pad)      # kkmem(A, FastB, C, B_rp)
-        stats.kernel_calls += 1
-    return C, stats.freeze()
+    chunk_nbytes = chunks[0].nbytes()
+    Bs = pieces(chunks, placement.B)
+    del chunks
+    if plan.algorithm == "knl":
+        get_b, put_b = copy_ring.source(link, "B", Bs, placement.B, "streamed", range(n_b))
+        A_fast = link.copy_in("A", A, apart=True) if placement.A == "slow" else A
+        C = _empty_like_c(A.n_rows, n_cols, c_pad, A.dtype, device)
+        for j in range(n_b):
+            C = launch(A_fast, get_b(j), j, C)          # kkmem(A, copy2Fast(B, B_rp), C)
+            put_b(j)
+        del A_fast
+        if c_slow:
+            host = copy_ring.slow_stack(C, 1, card)
+            link.copy_out("C", [C], host, apart=True)
+            C = copy_ring.piece(host, 0)
+        link.finish()
+        return C, planned_stats(plan, chunk_nbytes, 0, 0)
 
-
-# ---------------------------------------------------------------------------
-# Algorithms 2 & 3: GPU chunking — 2-D partitions, two streaming orders
-# ---------------------------------------------------------------------------
-
-
-def chunk_gpu1(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int):
-    """Alg. 2 — A,C strips stationary in fast memory; B chunks streamed (inner)."""
-    stats = StatsLog("chunk1", plan.n_ac, plan.n_b)
     strips = a_strips(A, plan.p_ac)
-    chunks = b_chunks(B, plan.p_b)
-    out = []
-    for (a0, a1), Ai in zip(zip(plan.p_ac[:-1], plan.p_ac[1:]), strips):
-        stats.add_in(Ai.nbytes())                        # FA = copy2Fast(A)
-        stats.add_in((a1 - a0 + 1) * 4)                  # FC row pointers only
-        Ci = _empty_like_c(Ai.n_rows, B.n_cols, c_pad, A.dtype, A.device)
-        for (r0, r1), Bc in zip(zip(plan.p_b[:-1], plan.p_b[1:]), chunks):
-            stats.add_in(Bc.nbytes())                    # FB = copy2Fast(B)
-            Ci = spgemm_ranged(Ai, Bc, r0, r1, Ci, c_pad)
-            stats.kernel_calls += 1
-        stats.add_out(Ci.nbytes())                       # copy2Slow(FC)
-        out.append(Ci)
-    return _assemble(out, plan.p_ac, B.n_cols), stats.freeze()
+    strip_nbytes, strip_rows = strips[0].nbytes(), strips[0].n_rows
+    As = pieces(strips, placement.A)
+    del strips
+
+    def empty_c(where):
+        return _empty_like_c(strip_rows, n_cols, c_pad, A.dtype, where)
+
+    c_out = copy_ring.slow_stack(empty_c("cpu"), n_ac, card) if c_slow else None
+    stationary, streamed = _step_elements(plan)
+    if plan.algorithm == "chunk1":
+        get_a, put_a = copy_ring.source(link, "A", As, placement.A, "stationary", stationary)
+        get_b, put_b = copy_ring.source(link, "B", Bs, placement.B, "streamed", streamed)
+        if c_slow:
+            # a strip's C starts empty: its row pointers (zeros) come in
+            ptrs = torch.zeros(n_ac, strip_rows + 1, dtype=torch.int32, pin_memory=card)
+            rows = [a1 - a0 for a0, a1 in zip(plan.p_ac[:-1], plan.p_ac[1:])]
+            get_c, put_c = copy_ring.source(
+                link, "C", [ptrs[i, :r + 1] for i, r in enumerate(rows)], "slow",
+                "stationary", range(n_ac))
+        out = []
+        for i in range(n_ac):
+            Ai, Ci = get_a(i), empty_c(device)          # FA = copy2Fast(A)
+            if c_slow:                                  # FC row pointers only
+                ptr = get_c(i)
+                Ci.indptr[:ptr.numel()].copy_(ptr)
+                put_c(i)
+            for j in range(n_b):
+                lin = i * n_b + j
+                Ci = launch(Ai, get_b(lin), j, Ci)      # FB = copy2Fast(B)
+                put_b(lin)
+            put_a(i)
+            if c_slow:
+                link.copy_out("C", [Ci], c_out, first=i)   # copy2Slow(FC)
+            else:
+                out.append(Ci)
+    else:
+        get_b, put_b = copy_ring.source(link, "B", Bs, placement.B, "stationary", stationary)
+        get_a, put_a = copy_ring.source(link, "A", As, placement.A, "streamed", streamed)
+        out = [None] * n_ac
+        for jb in range(n_b):
+            Bj = get_b(jb)                              # FB = copy2Fast(B)
+            for i in range(n_ac):
+                lin = jb * n_ac + i
+                if jb == 0:
+                    out[i] = empty_c(device)
+                elif c_slow:
+                    out[i] = link.copy_in("C", copy_ring.piece(c_out, i))   # partial back in
+                out[i] = launch(get_a(lin), Bj, jb, out[i])             # FA = copy2Fast(A)
+                put_a(lin)
+                if c_slow and jb < n_b - 1:
+                    link.copy_out("C", [out[i]], c_out, first=i)           # partial out
+                    out[i] = None
+            put_b(jb)
+        if c_slow:
+            for i in range(n_ac):
+                link.copy_out("C", [out[i]], c_out, first=i)               # final copy2Slow
+    link.finish()
+    if c_slow:
+        out = [copy_ring.piece(c_out, i) for i in range(n_ac)]
+    C = _assemble(out, plan.p_ac, n_cols)
+    if c_slow and card:
+        C = csr_pin(C)
+    return C, planned_stats(plan, chunk_nbytes, strip_nbytes,
+                            _c_strip_nbytes(strip_rows, c_pad, A.dtype))
 
 
-def chunk_gpu2(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int):
-    """Alg. 3 — B chunk stationary in fast memory; A,C strips streamed (inner)."""
-    stats = StatsLog("chunk2", plan.n_ac, plan.n_b)
-    strips = a_strips(A, plan.p_ac)
-    chunks = b_chunks(B, plan.p_b)
-    partials = [
-        _empty_like_c(s.n_rows, B.n_cols, c_pad, A.dtype, A.device) for s in strips
-    ]
-    n_b = plan.n_b
-    for jb, ((r0, r1), Bc) in enumerate(zip(zip(plan.p_b[:-1], plan.p_b[1:]), chunks)):
-        stats.add_in(Bc.nbytes())                        # FB = copy2Fast(B)
-        for ia, Ai in enumerate(strips):
-            stats.add_in(Ai.nbytes())                    # FA = copy2Fast(A)
-            if jb > 0:
-                stats.add_in(partials[ia].nbytes())      # FC partial back in
-            partials[ia] = spgemm_ranged(Ai, Bc, r0, r1, partials[ia], c_pad)
-            stats.kernel_calls += 1
-            if jb < n_b - 1:
-                stats.add_out(partials[ia].nbytes())     # partial out
-        if jb == n_b - 1:
-            for ia in range(len(strips)):
-                stats.add_out(partials[ia].nbytes())     # final copy2Slow
-    return _assemble(partials, plan.p_ac, B.n_cols), stats.freeze()
+def chunk_loop(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps=None,
+               placement=None, device=None):
+    """The ``loop`` executor of every algorithm (the oracle path):
+    :func:`run_ranged` with ``spgemm_ranged`` a step, on ``device`` (A's
+    by default) with the operands where ``placement`` puts them (all fast
+    by default). ``caps`` is unused: the ranged merge cannot overflow
+    ``c_pad``."""
+    from repro_torch.core.placement import ALL_FAST
+
+    del caps
+    r0s, r1s = plan.b_ranges()
+
+    def step(Ai, Bj, j, Ci):
+        return spgemm_ranged(Ai, Bj, int(r0s[j]), int(r1s[j]), Ci, c_pad)
+
+    return run_ranged(A, B, plan, c_pad, placement or ALL_FAST,
+                      A.device if device is None else device, step)
 
 
 # ---------------------------------------------------------------------------
@@ -332,12 +476,13 @@ def chunked_spgemm(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int | None = None,
     (``placement.resolve_placement``): ``device=None`` is the card, and
     ``device="cpu"`` runs the plain versions. On the card a pinned operand
     is slow and one on the card fast, read from the operands when
-    ``placement`` is ``None``. With a slow operand the ``sparse`` and ``hash`` backends stage
-    every counted piece across the link through the copy ring, and the
+    ``placement`` is ``None``. With a slow operand every backend (and the
+    one ``auto`` resolves to) streams its pieces across the link through
+    the copy ring (its spec's ``run_placed``), one launch a step, and the
     result is in pinned host memory when C is slow; ``whole_fast`` copies
-    the slow operands whole. Any other backend raises on a slow operand, as
-    does an ``auto`` that resolves to one: nothing substitutes another
-    backend or runs on the host.
+    the slow operands whole. Nothing substitutes another backend or runs a
+    slow operand's step on the host; a spec registered without
+    ``run_placed`` raises.
     """
     from repro_torch.core import backend_registry
     from repro_torch.core.placement import ALL_FAST, resolve_placement
@@ -361,9 +506,9 @@ def chunked_spgemm(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int | None = None,
     if placement != ALL_FAST:
         if not spec.supports_placement:
             raise ValueError(
-                f"backend {spec.name!r} has no copy ring for operands in slow "
-                f"memory ({placement}; ROADMAP Queue 1): use backend 'sparse' or "
-                "'hash', or put the operands on the card with place(x, 'fast')")
+                f"backend {spec.name!r} registers no copy ring (run_placed) for "
+                f"operands in slow memory ({placement}): put the operands on the "
+                "card with place(x, 'fast')")
         if plan.algorithm not in spec.executors:
             raise ValueError(f"unknown algorithm {plan.algorithm!r}")
         return spec.run_placed(A, B, plan, c_pad, caps, placement, run_device)

@@ -1,16 +1,22 @@
 """The copy2Fast ring: staged pieces of a slow operand crossing onto the card.
 
-A slow operand lives in pinned host memory (``placement.place``). The CSR
+A slow operand lives in pinned host memory (``placement.place``). The
 executors run one kernel launch per (strip, chunk) step on pieces staged in
 device slots, and each piece crosses the link through a two-slot ring that
 ``repro_torch.kernels.dma_schedule`` drives: step ``lin`` reads slot
 ``read_slot(lin)`` while the copy of element ``lin + 1`` lands in
 ``prefetch_slot(lin)``.
 
+A piece is a :class:`CSR` (its three fields), one dense tensor (a slab, a
+strip or a C block: one field), or a tuple of tensors such as a BSR piece
+``(indptr, indices, blocks)`` (:func:`fields`). A ring streams the elements
+of a stack (a piece whose fields carry a leading element axis) or of a list
+of pieces; a slot holds the largest element, field by field.
+
 On the card:
 
 * a side copy stream issues ``copy_(non_blocking=True)`` from the pinned
-  stack into the slot's device buffers, one per CSR field, then records the
+  piece into the slot's device buffers, one per field, then records the
   slot's "copied" event;
 * the compute stream waits on that event before the step's kernels read the
   slot;
@@ -26,8 +32,9 @@ Every ring records its ops in issue order, ``(kind, slot, field, elem)``
 with ``kind`` in ``start``, ``wait``, ``read``, ``release``, the program
 ``repro_torch.analysis.interleave.build_program(..., async_reads=True)``
 emits for the same schedule, and every transfer is logged with its operand,
-direction and bytes. :class:`RingLog` is the context manager that collects
-them, in the style of ``chunk_stream.TRACE_COUNTS`` and the kernels'
+direction and bytes; a whole operand that crosses once, outside the
+events its plan counts, is logged apart (``Transfer.apart``). :class:`RingLog`
+is the context manager that collects them, in the style of ``chunk_stream.TRACE_COUNTS`` and the kernels'
 ``LaunchCounter``; with ``timed=True`` it also keeps CUDA events around each
 copy and each step's kernels, for the copy and compute times and the share
 of copy time spent under compute.
@@ -43,8 +50,28 @@ import torch
 from repro_torch.kernels import dma_schedule
 from repro_torch.sparse.csr import CSR
 
-FIELDS = ("indptr", "indices", "data")
 _ACTIVE: list = []     # the RingLogs recording, innermost last
+
+
+def fields(piece) -> list:
+    """The tensors of a piece: a CSR's ``(indptr, indices, data)``, a dense
+    tensor alone, or a tuple's items (a BSR piece's ``(indptr, indices,
+    blocks)``)."""
+    if isinstance(piece, CSR):
+        return [piece.indptr, piece.indices, piece.data]
+    if isinstance(piece, torch.Tensor):
+        return [piece]
+    return list(piece)
+
+
+def rebuild(like, tensors):
+    """A piece of ``like``'s kind over ``tensors`` (a CSR keeps ``like``'s
+    shape and row bound)."""
+    if isinstance(like, CSR):
+        return CSR(*tensors, like.shape, like.max_row_nnz)
+    if isinstance(like, torch.Tensor):
+        return tensors[0]
+    return type(like)(*tensors) if hasattr(like, "_fields") else tuple(tensors)
 
 
 @dataclasses.dataclass
@@ -61,11 +88,13 @@ class RingRecord:
 
 @dataclasses.dataclass(frozen=True)
 class Transfer:
-    """One copy across the link: a ring element or a whole C block."""
+    """One copy across the link: a ring element, a whole block, or (with
+    ``apart``) a whole operand crossing outside its plan's events."""
 
     operand: str
     direction: str        # "in" (host to card) or "out" (card to host)
     nbytes: int
+    apart: bool = False
 
 
 class RingLog:
@@ -89,10 +118,13 @@ class RingLog:
     def __exit__(self, *exc) -> None:
         _ACTIVE.remove(self)
 
-    def moved(self, operand: str, direction: str) -> list:
-        """Bytes of each transfer of ``operand`` in ``direction``, in order."""
+    def moved(self, operand: str, direction: str, apart: bool = False) -> list:
+        """Bytes of each transfer of ``operand`` in ``direction``, in order:
+        the plan's events, or with ``apart`` the whole crossings outside
+        them."""
         return [t.nbytes for t in self.transfers
-                if t.operand == operand and t.direction == direction]
+                if t.operand == operand and t.direction == direction
+                and t.apart == apart]
 
     def times(self) -> dict:
         """Copy-stream and compute-stream ms (CUDA events), GB/s each way,
@@ -147,9 +179,10 @@ class Link:
     def _event(self):
         return torch.cuda.Event(enable_timing=self.timed)
 
-    def ring(self, operand: str, role: str, source: CSR, elements: list) -> "CopyRing":
-        """A ring streaming ``source``'s pieces (a stack in slow memory) in
-        the order ``elements`` (the source piece of each step)."""
+    def ring(self, operand: str, role: str, source, elements: list) -> "CopyRing":
+        """A ring streaming ``source``'s pieces (a stack or a list of pieces
+        in slow memory) in the order ``elements`` (the source piece of each
+        step)."""
         ring = CopyRing(self, operand, role, source, elements)
         self.rings.append(ring)
         return ring
@@ -185,42 +218,43 @@ class Link:
         end.record(self.compute_stream)
         self._steps.append((start, end))
 
-    def copy_in(self, operand: str, source: CSR) -> CSR:
-        """One whole block of ``operand`` onto the device (one transfer)."""
-        fields = [getattr(source, f) for f in FIELDS]
-        nbytes = _nbytes(fields)
-        out = [torch.empty(t.shape, dtype=t.dtype, device=self.device) for t in fields]
+    def copy_in(self, operand: str, source, apart: bool = False):
+        """One whole piece of ``operand`` onto the device (one transfer;
+        ``apart``: a whole operand crossing outside its plan's events)."""
+        src = fields(source)
+        nbytes = _nbytes(src)
+        out = [torch.empty(t.shape, dtype=t.dtype, device=self.device) for t in src]
         with self.copying("in", nbytes):
-            for o, t in zip(out, fields):
+            for o, t in zip(out, src):
                 o.copy_(t, non_blocking=self.card)
         if self.card:
             ready = self._event()
             ready.record(self.stream)
             self.compute_stream.wait_event(ready)
-        self.transfers.append(Transfer(operand, "in", nbytes))
-        return CSR(*out, source.shape, source.max_row_nnz)
+        self.transfers.append(Transfer(operand, "in", nbytes, apart))
+        return rebuild(source, out)
 
-    def copy_out(self, operand: str, pieces: list, dest: CSR, first: int = 0) -> None:
+    def copy_out(self, operand: str, pieces: list, dest, first: int = 0,
+                 apart: bool = False) -> None:
         """Device ``pieces`` of ``operand`` into ``dest[first:]`` (a stack in
         slow memory) as one transfer, after the kernels that wrote them."""
-        nbytes = sum(_nbytes([getattr(p, f) for f in FIELDS]) for p in pieces)
+        nbytes = sum(_nbytes(fields(p)) for p in pieces)
         done = None
         if self.card:
             done = self._event()
             done.record(self.compute_stream)
         with self.copying("out", nbytes, after=done):
             for k, p in enumerate(pieces):
-                for f in FIELDS:
-                    src = getattr(p, f)
-                    getattr(dest, f)[first + k].copy_(src, non_blocking=self.card)
+                for src, stack in zip(fields(p), fields(dest)):
+                    stack[first + k].copy_(src, non_blocking=self.card)
                     if self.card:
                         src.record_stream(self.stream)
-        self.transfers.append(Transfer(operand, "out", nbytes))
+        self.transfers.append(Transfer(operand, "out", nbytes, apart))
 
     def finish(self) -> None:
         """Wait for every copy; hand the records to the active logs and free
         the slots."""
-        if self.card:
+        if self.card and self.transfers:
             self.stream.synchronize()
             self.compute_stream.wait_stream(self.stream)
         records = [r.record for r in self.rings]
@@ -235,42 +269,51 @@ class Link:
 
 
 class CopyRing:
-    """Two device slots of one slow stack, driven by ``dma_schedule``. Call
-    :meth:`acquire` before a step's kernels (it starts the prime and the
-    prefetch copies and returns the step's piece, read from its slot) and
-    :meth:`release` after them."""
+    """Two device slots of one slow operand's pieces, driven by
+    ``dma_schedule``. Call :meth:`acquire` before a step's kernels (it
+    starts the prime and the prefetch copies and returns the step's piece,
+    read from its slot) and :meth:`release` after them."""
 
-    def __init__(self, link: Link, operand: str, role: str, source: CSR,
+    def __init__(self, link: Link, operand: str, role: str, source,
                  elements: list):
-        self.link, self.source, self.elements = link, source, list(elements)
+        self.link, self.elements = link, list(elements)
+        self.pieces = (list(source) if isinstance(source, list)
+                       else [piece(source, i) for i in range(fields(source)[0].shape[0])])
+        per = [fields(p) for p in self.pieces]
+        n_fields = len(per[0])
+        # a slot holds the largest element of each field
+        sizes = [max(f[k].numel() for f in per) for k in range(n_fields)]
         n = dma_schedule.N_SLOTS
-        self.bufs = [[torch.empty(getattr(source, f).shape[1:],
-                                  dtype=getattr(source, f).dtype, device=link.device)
-                      for f in FIELDS] for _ in range(n)]
+        self.bufs = [[torch.empty(size, dtype=t.dtype, device=link.device)
+                      for size, t in zip(sizes, per[0])] for _ in range(n)]
+        self.held = [None] * n      # the element each slot holds
         self.copied = [None] * n
         self.released = [None] * n
         self.record = RingRecord(
-            operand, role, len(self.elements), len(FIELDS),
-            source_pinned=(all(getattr(source, f).is_pinned() for f in FIELDS)
+            operand, role, len(self.elements), n_fields,
+            source_pinned=(all(t.is_pinned() for f in per for t in f)
                            if link.card else None))
 
     def _log(self, kind: str, slot: int, elem: int) -> None:
-        self.record.ops.extend((kind, slot, f, elem) for f in range(len(FIELDS)))
+        self.record.ops.extend((kind, slot, f, elem) for f in range(self.record.n_fields))
 
     def _start(self, slot: int, elem: int) -> None:
-        src = [getattr(self.source, f)[self.elements[elem]] for f in FIELDS]
+        src_piece = self.pieces[self.elements[elem]]
+        src = fields(src_piece)
         nbytes = _nbytes(src)
         link = self.link
+        views = [buf[:s.numel()].view(s.shape) for buf, s in zip(self.bufs[slot], src)]
         with link.copying("in", nbytes, after=self.released[slot]):
-            for buf, s in zip(self.bufs[slot], src):
-                buf.copy_(s, non_blocking=link.card)
+            for view, s in zip(views, src):
+                view.copy_(s, non_blocking=link.card)
         if link.card:
             self.copied[slot] = link._event()
             self.copied[slot].record(link.stream)
+        self.held[slot] = rebuild(src_piece, views)
         self._log("start", slot, elem)
         link.transfers.append(Transfer(self.record.operand, "in", nbytes))
 
-    def acquire(self, lin: int) -> CSR:
+    def acquire(self, lin: int):
         """Step ``lin``'s piece: the prime copy at step 0, the prefetch of
         element ``lin + 1``, the wait on ``lin``'s copy, its slot read."""
         if dma_schedule.is_prime_step(lin):
@@ -282,8 +325,7 @@ class CopyRing:
             self.link.compute_stream.wait_event(self.copied[slot])
         self._log("wait", slot, lin)
         self._log("read", slot, lin)
-        ip, ix, d = self.bufs[slot]
-        return CSR(ip, ix, d, self.source.shape, self.source.max_row_nnz)
+        return self.held[slot]
 
     def release(self, lin: int) -> None:
         """After step ``lin``'s kernels: its slot may be overwritten once
@@ -295,16 +337,38 @@ class CopyRing:
         self._log("release", slot, lin)
 
 
-def slow_stack(like: CSR, n: int, card: bool) -> CSR:
+def source(link: Link, operand: str, stack, space: str, role: str, elements):
+    """Step-indexed ``(get, put)`` of one operand's pieces (a stack or a
+    list): a ring's slots when ``space`` is slow, the pieces themselves
+    when it is fast."""
+    elements = list(elements)
+    if space == "slow":
+        ring = link.ring(operand, role, stack, elements)
+        return ring.acquire, ring.release
+    if isinstance(stack, list):
+        return (lambda lin: stack[elements[lin]]), (lambda lin: None)
+    return (lambda lin: piece(stack, elements[lin])), (lambda lin: None)
+
+
+def slow_stack(like, n: int, card: bool):
     """An uninitialized stack of ``n`` pieces shaped like ``like`` in slow
     memory: pinned on the card, pageable on the CPU."""
-    def empty(t):
-        return torch.empty((n, *t.shape), dtype=t.dtype, pin_memory=card)
-    return CSR(empty(like.indptr), empty(like.indices), empty(like.data),
-               like.shape, like.max_row_nnz)
+    return rebuild(like, [torch.empty((n, *t.shape), dtype=t.dtype, pin_memory=card)
+                          for t in fields(like)])
 
 
-def piece(stack: CSR, i: int) -> CSR:
+def piece(stack, i: int):
     """Piece ``i`` of a stack (a view, no copy)."""
-    return CSR(stack.indptr[i], stack.indices[i], stack.data[i], stack.shape,
-               stack.max_row_nnz)
+    return rebuild(stack, [t[i] for t in fields(stack)])
+
+
+def staged(pieces: list, space: str, card: bool):
+    """``pieces`` (CSRs, dense tensors or tuples of one geometry) as one
+    stack: pinned when ``space`` is slow on the card, else where the pieces
+    are."""
+    st = rebuild(pieces[0], [torch.stack(ts) for ts in zip(*(fields(p) for p in pieces))])
+    if space == "slow" and card:
+        st = rebuild(st, [t if t.is_pinned() else
+                          torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+                          for t in fields(st)])
+    return st

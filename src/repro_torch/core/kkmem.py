@@ -100,8 +100,12 @@ def _accumulate(rows, cols, vals, m: int, _n: int, c_pad: int):
     """Sort-based accumulator: coalesce duplicate (row, col) into CSR arrays.
 
     Two stable sorts == lexsort by (row, col). The boundary scan assigns each
-    distinct key a dense output slot; ``scatter_add_`` realizes the "hashmap"
-    accumulation, ``scatter_reduce_`` (amax/amin) places columns and rows.
+    distinct key a dense output slot; the slots run in order, so a segmented
+    sum over them (``segment_reduce``) realizes the "hashmap" accumulation
+    in a fixed order on the card too, where ``scatter_add_``'s atomics sum a
+    slot's values in whatever order they land (two calls on the same pieces
+    then differ in their last bits); ``scatter_reduce_`` (amax/amin) places
+    columns and rows.
     Slots past ``c_pad`` fall into a dropped bucket. Returns int32
     indptr[m+1], int32 indices[c_pad], data[c_pad].
     """
@@ -116,8 +120,8 @@ def _accumulate(rows, cols, vals, m: int, _n: int, c_pad: int):
     new_key &= valid
     slot = torch.cumsum(new_key, 0) - 1
     slot = torch.where(valid, slot.clamp(max=c_pad), c_pad)
-    data = torch.zeros(c_pad + 1, dtype=vals.dtype, device=dev)
-    data.scatter_add_(0, slot, vals_s)
+    lengths = torch.bincount(slot, minlength=c_pad + 1)
+    data = torch.segment_reduce(vals_s, "sum", lengths=lengths, unsafe=True, initial=0)
     indices = torch.zeros(c_pad + 1, dtype=torch.int64, device=dev)
     indices.scatter_reduce_(0, slot, torch.where(valid, cols_s, 0), "amax")
     out_rows = torch.full((c_pad + 1,), m, dtype=torch.int64, device=dev)

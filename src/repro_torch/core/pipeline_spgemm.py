@@ -15,10 +15,10 @@ two-hop planner+executor:
   memory otherwise;
 * the **executor** (:func:`pipeline_spgemm`) runs both hops through any
   registered backend, with the pre-sized caps, so neither hop re-expands the
-  symbolic structure. On the spill path T is written to pinned host memory
-  and stays there: hop 2 streams it as its B operand through the copy ring
-  (``repro_torch.core.copy_ring``), so only the backends with a ring
-  (``sparse``, ``hash``) take the spill path;
+  symbolic structure. On the spill path T is written to slow memory
+  (pinned host memory on the card, a host copy on the CPU) and stays
+  there: hop 2 streams it as its B operand through the backend's copy ring
+  (``repro_torch.core.copy_ring``), under every registered backend;
 * the composed byte model (:func:`pipeline_fast_model`) counts the resident
   intermediate exactly once (:func:`check_pipeline_model`).
 
@@ -82,7 +82,7 @@ def _run_hop(X: CSR, Y: CSR, plan, caps, backend: str, placement=ALL_FAST,
     densest-row bound (the reference's carries ``c_pad``), which hop 2 reads
     as its streamed ``b_max_row_nnz``. Operands that ``placement`` puts in
     slow memory cross whole in a whole_fast hop and through the backend's
-    copy ring in a chunked one (a backend without one raises)."""
+    copy ring (``run_placed``) in a chunked one."""
     if plan.algorithm == "whole_fast":
         return whole_fast(X, Y, caps.c_pad, placement, device or X.device,
                           caps.c_max_row_nnz)
@@ -91,10 +91,6 @@ def _run_hop(X: CSR, Y: CSR, plan, caps, backend: str, placement=ALL_FAST,
     if fn is None:
         raise ValueError(f"unknown algorithm {plan.algorithm!r}")
     if placement != ALL_FAST:
-        if not spec.supports_placement:
-            raise ValueError(
-                f"backend {backend!r} has no copy ring for the spilled intermediate "
-                "(ROADMAP Queue 1 item 7c): spill with backend 'sparse' or 'hash'")
         return spec.run_placed(X, Y, plan, caps.c_pad, caps, placement, device)
     kwargs = {"caps": caps} if spec.needs_output_caps else {}
     return fn(X, Y, plan, caps.c_pad, **kwargs)
@@ -122,7 +118,8 @@ def pipeline_spgemm(A: CSR, P: CSR, R: CSR, plan: PipelinePlan | None = None,
     flows straight into hop 2; on the spill path it is written to slow
     memory and hop 2 streams it through the copy ring as its B operand (R
     and C stay on the run device), and the stats carry the extra copy
-    events.
+    events. Its inputs must be on the run device: placed inputs are ROADMAP
+    Queue 1 item 7c.
     """
     refuse_pinned("pipeline_spgemm", A, P, R)
     if plan is None:

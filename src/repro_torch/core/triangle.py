@@ -9,7 +9,9 @@ Two paths:
 * :func:`count_triangles` — the fused path: the product routes through a
   mask-capable registered chunked backend (``BackendSpec.run_masked``, the
   hash accumulator by default), with the L-mask applied **inside** the
-  kernel's merge, so no unmasked C is materialized.
+  kernel's merge, so no unmasked C is materialized. L may be slow (pinned
+  host memory on the card): its roles then stream through the copy ring
+  (``run_masked_placed``).
 * :func:`count_triangles_kkmem` — the unfused baseline: the full C = L x L
   materialized at its symbolic capacity, then masked by matching C's and
   L's (row, col) keys.
@@ -25,24 +27,62 @@ import torch
 
 from repro_torch.core.kkmem import spgemm, spgemm_symbolic_host
 from repro_torch.core.planner import ChunkPlan, plan_knl
-from repro_torch.sparse.csr import CSR, csr_row_of_entry, csr_to_dense, refuse_pinned
+from repro_torch.sparse.csr import (
+    CSR, csr_residence, csr_row_of_entry, csr_to_dense, resolve_device,
+)
+
+
+def _resolve(L: CSR, placement, device):
+    """``(placement, run device)`` of a count: ``device``, the card by
+    default (``device="cpu"`` runs the plain versions). On the card a pinned
+    L is slow in every role and one on the card fast, unless ``placement``
+    is given; a role that ``placement`` puts slow needs L in pinned memory,
+    and an L in pageable host memory raises. On the CPU every role is fast
+    by default."""
+    from repro_torch.core.placement import ALL_FAST, ALL_SLOW
+
+    where = csr_residence(L)
+    if torch.device("cuda" if device is None else device).type == "cpu":
+        if where == "card":
+            raise ValueError("L is on the card in a CPU run")
+        return (ALL_FAST if placement is None else placement), resolve_device(device)
+    if where == "host":
+        raise ValueError(
+            "L is in pageable host memory in a run on the card: put it on the card "
+            "with place(L, 'fast') or in pinned host memory with place(L, 'slow')")
+    if placement is None:
+        placement = ALL_SLOW if where == "pinned" else ALL_FAST
+    if placement.slow and where != "pinned":
+        raise ValueError(f"placement puts {list(placement.slow)} in slow memory but L "
+                         "is on the card: move it with place(L, 'slow')")
+    return placement, resolve_device(device)
 
 
 def count_triangles(L: CSR, plan: ChunkPlan | None = None,
-                    backend: str | None = None, caps=None) -> torch.Tensor:
+                    backend: str | None = None, caps=None, *, placement=None,
+                    device=None) -> torch.Tensor:
     """Triangles = sum((L @ L) o L) with L strictly lower triangular, 0/1
     values, the mask fused into the chunked kernel. Returns a float64 scalar
-    on L's device.
+    on the run device, summed there.
 
     ``backend`` must be mask-capable (``supports_mask``); ``None`` resolves
     to the first registered one (``backend_registry.masked_backends()``).
     ``plan`` defaults to a single-chunk KNL plan (one kernel launch);
     ``caps`` to the masked symbolic phase at the plan's partitions — both
-    are host-only precomputations callers on a timing path hoist out."""
-    from repro_torch.core import backend_registry
+    are host-only precomputations callers on a timing path hoist out.
+
+    ``placement`` (a :class:`repro_torch.core.placement.Placement`) puts
+    L's three roles: A (its strips), B (its chunks) and C, with the mask
+    beside C. ``device=None`` runs on the card, where a pinned L is slow in
+    every role and one on the card fast unless ``placement`` says otherwise;
+    ``device="cpu"`` runs the plain versions. A slow role streams L's pieces
+    through the copy ring; the fast roles share one whole copy of L on the
+    run device, logged as one transfer apart from the events (the paper's
+    DP: L as B in fast memory)."""
+    from repro_torch.core import backend_registry, copy_ring
     from repro_torch.core.symbolic import masked_output_caps
 
-    refuse_pinned("count_triangles", L)
+    placement, run = _resolve(L, placement, device)
     if backend is None:
         names = backend_registry.masked_backends()
         if not names:
@@ -57,10 +97,27 @@ def count_triangles(L: CSR, plan: ChunkPlan | None = None,
         plan = plan_knl(L, L, float("inf"))
     if caps is None:
         caps = masked_output_caps(L, plan.p_ac)
-    C, _ = spec.run_masked(L, L, L, plan, caps.c_pad, caps=caps)
-    # C's structure is exactly L's (explicit zeros where the product has no
-    # contribution), so the masked sum is the sum of the stored values
-    return C.data.double().sum()
+    roles = ("A", "B", "C")
+    fast = L
+    if len(placement.slow) < 3 and (placement.slow or csr_residence(L) == "pinned"):
+        link = copy_ring.Link(run)
+        fast = link.copy_in("L", L, apart=True)
+        link.finish()
+    if not placement.slow:
+        C, _ = spec.run_masked(fast, fast, fast, plan, caps.c_pad, caps=caps)
+        # C's structure is exactly L's (explicit zeros where the product has
+        # no contribution), so the masked sum is the sum of the stored values
+        return C.data.double().sum()
+    total = torch.zeros((), dtype=torch.float64, device=run)
+
+    def on_strip(_, Ci):
+        live = torch.arange(Ci.nnz_pad, device=run) < Ci.indptr[-1]
+        total.add_(torch.where(live, Ci.data, 0).double().sum())
+
+    A, B, M = (L if getattr(placement, r) == "slow" else fast for r in roles)
+    spec.run_masked_placed(A, B, M, plan, caps.c_pad, caps, placement, run,
+                           on_strip=on_strip)
+    return total
 
 
 def count_triangles_kkmem(L: CSR, c_pad: int | None = None) -> torch.Tensor:

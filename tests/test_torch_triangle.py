@@ -61,7 +61,7 @@ def test_triangle_counts_equal_reference(name):
     ref_L, L = _lower(name)
     want = float(ref_tri.count_triangles_dense(ref_L))
     assert want > 0
-    fused = triangle.count_triangles(L)
+    fused = triangle.count_triangles(L, device="cpu")
     assert fused.dtype == torch.float64
     assert float(fused) == want
     assert float(triangle.count_triangles_kkmem(L)) == want
@@ -223,9 +223,10 @@ def test_masked_bins_cover_every_mask_row_once():
 def test_masked_backend_roster_matches_reference():
     assert backend_registry.masked_backends() == ref_registry.masked_backends() == ("hash",)
     with pytest.raises(ValueError, match="does not support a fused output mask"):
-        triangle.count_triangles(_lower("g500_s7")[1], backend="sparse")
+        triangle.count_triangles(_lower("g500_s7")[1], backend="sparse", device="cpu")
     L = _lower("g500_s7")[1]
     plan = plan_from_fields(*dataclasses.astuple(plan_knl(_lower("g500_s7")[0],
                                                           _lower("g500_s7")[0],
                                                           float("inf"))))
-    assert float(triangle.count_triangles(L, plan=plan)) == float(triangle.count_triangles(L))
+    assert float(triangle.count_triangles(L, plan=plan, device="cpu")) == float(
+        triangle.count_triangles(L, device="cpu"))
