@@ -65,7 +65,12 @@ of A's bytes, where placing A on the card must raise ``OutOfMemoryError``
 and the all-slow call must equal the uncapped all-fast call. The spilled
 Galerkin runs (hash and ESC with the main path's, then ``scan``, ``loop``
 and ``bsr`` at n=48 and ``pallas`` at n=32 in the placement phase) stream
-T from pinned memory through the same ring and hold the same gates.
+T from pinned memory through the same ring and hold the same gates; each
+is run again with A, P and R in pinned host memory (hash and ESC at both
+plans, HostPin and DP; the others HostPin), its C equal bit for bit to the
+all-fast pipeline call's and each hop's ring bytes equal to its slow
+operands' events, and under the capacity run's cap brick3d n=80's R (A P)
+runs with A, P, R, C and the spilled T all in pinned memory.
 Then the batched entry point and the SpGEMM service: the ESC, hash,
 dense-slab and BSR x BSR kernels on width-8 stacks (brick3d n=16 A x P, one
 structure with per-instance values; L x L of eight RMAT scale-12 graphs,
@@ -73,14 +78,20 @@ eight structures under their union envelope; the dense slab on the first
 only) against their plain versions, each call's launches and ms beside its
 width-1 call's; ``chunked_spgemm_batched`` through every batched backend
 and ``auto`` on both batches, each C held to scipy and to the unbatched
-``chunked_spgemm``; and ``SpGEMMService`` serving 96 requests of three
+``chunked_spgemm``, then again with the operands in pinned host memory
+(HostPin and DP: each C equal bit for bit to the all-fast batched call's,
+one launch a step for the whole batch); and ``SpGEMMService`` serving 96 requests of three
 families in a cold and a warm wave (every response held to scipy, the warm
 wave compiling nothing, the buckets within the retrace budget), beside a
-naive ``chunked_spgemm`` loop, then the same on 32 distinct RMAT graphs.
+naive ``chunked_spgemm`` loop over the first 32 of them, then the same with every operand in pinned
+host memory (each response equal bit for bit to the all-fast service's),
+then 48 requests over 8 distinct RMAT graphs.
 Then the port's examples (``examples/torch_*.py``) at their default sizes,
 their correctness lines checked, and the static auditor
 (``repro_torch.analysis.audit_all`` on the fast corpus, on the card, with
-the static shared memory of the build log), which must be clean.
+the static shared memory of the build log, and ``audit_pipeline`` of
+brick3d n=16's Galerkin product under every audited backend, both hops
+staged, hop 2 Chunk2 and chunk1 with several chunks), which must be clean.
 Then
 the third path, serving: the flash-prefill and decode-attention kernels
 held to their plain versions in f32 and bf16 (the prefill kernel's FMA and
@@ -254,6 +265,14 @@ SPMM_EDGE_SEED = 21
 # whole size the intermediate stays resident between chunked hops; at half it
 # spills (the planner's choice at every brick3d size tried)
 PIPE_RESIDENT, PIPE_SPILL = 1.0, 0.5
+# the Galerkin runs with operands in slow memory, under hash and ESC at both
+# plans, each in the two placements of PIPELINE_TABLE3 that put operands slow
+PIPE_PLACEMENTS = ("HostPin", "DP")
+# audit_pipeline's Galerkin product: its staged cores run on the CPU's plain
+# versions, where brick3d n=48's hash hop takes minutes. At n=16 the resident
+# plan's hop 2 is Chunk2 4 x 3 (n_b > 1, as n=48's 4 x 4) and the spill plan's
+# is chunk1 1 x 3 (n=48's: 1 x 4)
+PIPE_AUDIT_N = 16
 # the placement phase: operands in slow (pinned host) memory through the copy
 # ring. brick3d n=48 under the quickstart plan (chunk2 6 x 1) in all six of
 # Table 3's placements (hash), HostPin and DP (ESC, scan, bsr) and HostPin
@@ -280,6 +299,12 @@ PLACED_TRIANGLES = (("tc_rmat18_fused_HostPin", False, "HostPin"),
 # (brick3d n, by backend: the dense slabs of n=48 would need about 50 GB)
 SPILL_BACKENDS = (("scan", 48), ("loop", 48), ("bsr", 48), ("pallas", 32))
 CAPACITY_N, CAPACITY_DIV, CAPACITY_PLAN = 80, 12, ("chunk1", 60, 15)
+# the capacity Galerkin run's fast limit, budget / CAPACITY_GALERKIN_DIV: a
+# Chunk2 hop 2 keeps C's whole block (13 MB) on the card, and at budget/12
+# its 2.8 MB T chunks take a 20 MiB allocator segment beside it (36 MiB, past
+# the cap); at budget/40 every staged piece is under the allocator's 1 MiB
+# small-block size and the hop lives in 2 MiB pages
+CAPACITY_GALERKIN_DIV = 40
 CAP_MARGIN, CAP_SEGMENT = 1.25, 20 << 20
 PEAK_MARGIN = 1.10          # a placed call's peak allocation over the ring's byte model
 # a placed call's peak of live tensor bytes (the allocator's trace) over the
@@ -295,15 +320,26 @@ BATCHED_BACKENDS = ("scan", "pallas", "sparse", "hash", "bsr", "auto")
 # the SpGEMM service: three families of 32 requests (values from numpy seeds
 # SERVICE_SEED + request), F = the largest L's row bytes / SERVICE_CHUNK_DIV;
 # the gated run serves L x L of four RMAT graphs in turn, the churn run the
-# 32 graphs of seeds 200-231, one request each
+# 8 graphs of seeds 200-207, two requests each, 16 a family (cut from 32
+# graphs and 32 a family to pay for the placed runs and the pipeline audit:
+# with the two other families still more than the retrace budget's 8 buckets)
 SERVICE = {"backend": "auto", "max_batch": 8, "quantum": 32, "retrace_budget": 8,
            "eviction_hysteresis": 4, "slo_s": 0.002}
 SERVICE_PER_FAMILY, SERVICE_SEED, SERVICE_CHUNK_DIV = 32, 400, 5
+CHURN_PER_FAMILY = 16
 HASH_PLAIN_MAX = 1 << 28   # product entries the hash plain version may table at once
-SERVICE_RMAT_SEEDS, CHURN_RMAT_SEEDS = range(200, 204), range(200, 232)
+SERVICE_RMAT_SEEDS, CHURN_RMAT_SEEDS = range(200, 204), range(200, 208)
+
+
+_STARTED = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line, with ``t_s``, the script's seconds so far (the gaps
+    between lines say where the wall goes), on every line but the kernels
+    line and the last, which keep the contract's keys."""
+    if not {"kernels", "ok"} & obj.keys():
+        obj = {**obj, "t_s": round(time.perf_counter() - _STARTED, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -752,6 +788,15 @@ class Smoke:
         # the pipeline runs' plans by brick3d size and the plain R (A P); the
         # placed calls' envelope and step workspace by (step kind, plan)
         self._pipe_plans, self._rap_plain, self._probes = {}, {}, {}
+        # the plain spgemm and quickstart_inputs of a main-path problem
+        self._plain, self._quickstart = {}, {}
+        # (n, fraction, backend) -> (C, PipelineStats, wall s) of a pipeline
+        # run with every operand on the card: the placed runs' reference
+        self._pipe_fast = {}
+        # scipy's products by name (scipy_check's key); (batch, backend) ->
+        # (Cs, stats, wall s) of the all-fast batched calls; the gated
+        # service's responses' C by (wave, request)
+        self._scipy_refs, self._batched_fast, self._service_fast = {}, {}, {}
         self._bsr_c_sizes = {}   # plan -> (a strip's summed blocks, its CSR) bytes
 
     # -- setup -------------------------------------------------------------
@@ -827,12 +872,19 @@ class Smoke:
         return self.problems[key][:2]
 
     def quickstart_inputs(self, A, P):
-        """examples/quickstart.py's C row-byte estimate and budget."""
+        """examples/quickstart.py's C row-byte estimate and budget, once a
+        problem of :meth:`problem` (its runs share them; other operands,
+        the capacity run's, are not held)."""
+        key = next((k for k, v in self.problems.items() if v[0] is A and v[1] is P), None)
+        if key in self._quickstart:
+            return self._quickstart[key]
         planner = self.m["planner"]
         ws = self.m["kkmem"].spgemm_symbolic_host(A, P)
         crb = np.full(A.n_rows, max(ws.c_nnz / A.n_rows, 1) * 12.0)
         budget = (float(planner.row_bytes_csr(A).sum() + planner.row_bytes_csr(P).sum())
                   + float(crb.sum())) / 4
+        if key is not None:
+            self._quickstart[key] = (crb, budget)
         return crb, budget
 
     # -- kernel phases -----------------------------------------------------
@@ -1283,8 +1335,10 @@ class Smoke:
         self.note_esc_routes(label, launches)
 
         self.fast_runs[(name, n, plan, chosen)] = (C, stats, exec_s, peak)
-        ws = kkmem.spgemm_symbolic_host(A, P)
-        plain = kkmem.spgemm(A, P, ws.c_pad)
+        if (name, n) not in self._plain:   # the runs of one problem share it
+            ws = kkmem.spgemm_symbolic_host(A, P)
+            self._plain[name, n] = kkmem.spgemm(A, P, ws.c_pad)
+        plain = self._plain[name, n]
         nnz, plain_nnz = C.nnz(), plain.nnz()
         if chosen == "pallas":
             # the dense backend keeps only nonzero sums: compare densified
@@ -1300,7 +1354,7 @@ class Smoke:
         scale = float(plain.data[:plain_nnz].abs().max())
         check(err <= KERNEL_ATOL + KERNEL_RTOL * scale,
               f"{label}: values differ from the plain spgemm by {err}")
-        scipy_err = self.scipy_check(A, P, C)
+        scipy_err = self.scipy_check(A, P, C, key=("ap", name, n))
         check(scipy_err <= SCIPY_RTOL, f"{label}: relative error {scipy_err} vs scipy")
         emit({"run": label, "problem": name, "n": n, "A": list(A.shape),
               "P": list(P.shape), "nnz_A": A.nnz(), "backend": backend,
@@ -1576,12 +1630,15 @@ class Smoke:
     def audit_phase(self) -> None:
         """The static auditor on the card: ``audit_all(cases="fast",
         device="cuda")``, the corpus on the card, the shared-memory requests
-        with the static bytes of the build log. Must be clean."""
+        with the static bytes of the build log, then ``audit_pipeline`` of
+        the Galerkin product at the resident and spill plans
+        (:meth:`pipeline_audit`). Must be clean."""
         from repro_torch.analysis import audit_all
 
         t0 = time.perf_counter()
         rep = audit_all(cases="fast", device="cuda")
         seconds = time.perf_counter() - t0
+        self.pipeline_audit()
         requests = {}
         for r in rep["records"]:
             for q in r.get("smem", {}).get("requests", ()):
@@ -1592,6 +1649,50 @@ class Smoke:
               "records": len(rep["records"]), "skipped": rep["skipped"],
               "violations": rep["violations"], "largest_smem_requests": requests})
         check(rep["ok"], f"audit: {len(rep['violations'])} violations: {rep['violations'][:3]}")
+
+    def pipeline_audit(self) -> None:
+        """``audit_pipeline`` under every backend with an ``audit_trace``, on
+        brick3d ``PIPE_AUDIT_N``'s Galerkin product (built on the card) at
+        the ``PIPE_RESIDENT`` and ``PIPE_SPILL`` plans: no violation, each
+        chunked hop's staged step within its byte model and the composed
+        model covering the peak plus a resident T. Both hops must be staged,
+        and hop 2 must be Chunk2 with several chunks at one plan and chunk1
+        with several chunks at the other. The staged cores run on the CPU's
+        plain versions (the auditor records their copy events), so the size
+        is cut from the Galerkin runs' n=48 (PERF.md)."""
+        pipe, planner, symbolic = self.m["pipeline"], self.m["planner"], self.m["symbolic"]
+        registry = self.m["chunk_stream"].backend_registry
+        t0 = time.perf_counter()
+        A, R, P = self.m["multigrid"].problem("brick3d", PIPE_AUDIT_N, device="cuda")
+        size = float(A.nbytes() + P.nbytes() + R.nbytes())
+        records = []
+        for frac, resident in ((PIPE_RESIDENT, True), (PIPE_SPILL, False)):
+            plan = planner.plan_pipeline(A, P, R, self.m["memory_model"].P100,
+                                         fast_limit_bytes=frac * size)
+            check(plan.t_resident == resident, f"pipeline audit: t_resident at {frac}")
+            caps = symbolic.pipeline_output_caps(A, P, R, plan.plan1.p_ac, plan.plan2.p_ac)
+            for spec in registry.specs():
+                if not spec.supports_audit:
+                    continue
+                record, violations = pipe.audit_pipeline(A, P, R, plan, backend=spec.name,
+                                                         caps=caps)
+                check(not violations, f"pipeline audit {spec.name} at {frac}: {violations[:2]}")
+                check(sorted(record["hops"]) == ["hop1", "hop2"],
+                      f"pipeline audit {spec.name} at {frac}: staged hops {sorted(record['hops'])}")
+                records.append({"backend": spec.name, "fraction": frac,
+                                "plan": [[h.algorithm, h.n_ac, h.n_b]
+                                         for h in (plan.plan1, plan.plan2)],
+                                **{k: record[k] for k in ("t_resident", "t_bytes",
+                                                          "fast_bytes_needed",
+                                                          "traced_peak", "n_violations")},
+                                "hops": {h: {"step_bytes": v["step_bytes"],
+                                             "model_bytes": v["model_bytes"]}
+                                         for h, v in record["hops"].items()}})
+        hop2 = {(r["plan"][1][0], r["plan"][1][2] > 1) for r in records}
+        check(("chunk2", True) in hop2 and ("chunk1", True) in hop2,
+              f"pipeline audit: hop 2 plans {sorted(hop2)}, want Chunk2 and chunk1 with n_b > 1")
+        emit({"audit_phase": "pipeline", "n": PIPE_AUDIT_N,
+              "seconds": time.perf_counter() - t0, "records": records, "card": self.smi})
 
     def breakdown(self, label: str, name: str, n: int, backend: str) -> None:
         """Where one main-path call's time goes, on a repeat of that run:
@@ -1636,9 +1737,10 @@ class Smoke:
               "device_kernel_ms": device_ms if device_ms > 0 else None,
               "device_busy_share": device_ms / wall_ms if device_ms > 0 else None})
 
-    def scipy_check(self, A, P, C, R=None) -> float:
+    def scipy_check(self, A, P, C, R=None, key=None) -> float:
         """max |C - A @ P| / max |A @ P| (or of ``R @ (A @ P)``) against scipy
-        in float64, zeros eliminated on both sides."""
+        in float64, zeros eliminated on both sides. ``key`` names the
+        product, so later checks against it reuse scipy's."""
         import scipy.sparse as sp
 
         def host(m):
@@ -1648,10 +1750,14 @@ class Smoke:
                                  m.indptr.cpu().numpy()), shape=m.shape)
             out.eliminate_zeros()
             return out
-        ref = host(A) @ host(P)
-        if R is not None:
-            ref = host(R) @ ref
-        ref.eliminate_zeros()
+        ref = self._scipy_refs.get(key)
+        if ref is None:
+            ref = host(A) @ host(P)
+            if R is not None:
+                ref = host(R) @ ref
+            ref.eliminate_zeros()
+            if key is not None:
+                self._scipy_refs[key] = ref
         got = host(C)
         scale = abs(ref).max() if ref.nnz else 1.0
         diff = abs(got - ref)
@@ -1894,8 +2000,9 @@ class Smoke:
         scale = float(plain.data[:plain.nnz()].abs().max()) if plain.nnz() else 0.0
         check(err <= KERNEL_ATOL + KERNEL_RTOL * scale,
               f"{label}: values differ from the plain two-hop spgemm by {err}")
-        scipy_err = self.scipy_check(A, P, C, R=R)
+        scipy_err = self.scipy_check(A, P, C, R=R, key=("rap", n))
         check(scipy_err <= SCIPY_RTOL, f"{label}: relative error {scipy_err} vs scipy")
+        self._pipe_fast[n, frac, backend] = (C, stats, exec_s)
         emit({"run": label, "problem": "brick3d", "n": n, "backend": backend,
               "plan": {"hop1": [plan.plan1.algorithm, plan.plan1.n_ac, plan.plan1.n_b],
                        "hop2": [plan.plan2.algorithm, plan.plan2.n_ac, plan.plan2.n_b],
@@ -1909,7 +2016,88 @@ class Smoke:
                          "pipeline_spgemm": exec_s}, "t_ring": ring, "card": self.smi,
               "check": {"plain_structure_equal": structure, "plain_max_abs_err": err,
                         "scipy_rel_err": scipy_err}})
-        del C
+
+    def placed_hops(self, label: str, log, plan, caps, stats, where, backend: str) -> dict:
+        """The ring gates of each hop of one placed pipeline call: hop 1 under
+        (A, P, T), hop 2 under (R, T, C), T slow when the plan spills it; a
+        hop with a slow operand is one executor call of ``log.calls``, whose
+        bytes must equal its slow operands' tagged events
+        (:meth:`ring_gates`). Returns each such hop's rings, bytes, copy and
+        compute ms and share of copy time under compute."""
+        chunking = self.m["chunking"]
+        t = "fast" if plan.t_resident else "slow"
+        hops = [("hop1", plan.plan1, caps.hop1, stats.hop1,
+                 where.hop1(t) if where.hop1("fast").slow else None),
+                ("hop2", plan.plan2, caps.hop2, stats.hop2, where.hop2(t))]
+        placed = [h for h in hops if h[4] is not None and h[4].slow]
+        check(len(log.calls) == len(placed),
+              f"{label}: {len(log.calls)} ring calls, {len(placed)} placed hops")
+        out = {}
+        for (hop, hplan, hcaps, hstats, hwhere), call in zip(placed, log.calls):
+            if backend == "bsr":   # a strip's CSR at the hop's c_pad crosses once
+                check(not (hplan.algorithm == "chunk2" and hplan.n_b > 1),
+                      f"{label}/{hop}: Chunk2 partials are not sized here")
+                rows = max(e - s for s, e in zip(hplan.p_ac[:-1], hplan.p_ac[1:]))
+                self._bsr_c_sizes.setdefault(hplan, (0, chunking._c_strip_nbytes(
+                    rows, hcaps.c_pad, self.torch.float32)))
+            ring = self.ring_gates(f"{label}/{hop}", call, hplan, hstats, hwhere, backend)
+            out[hop] = {"placement": dict(zip("ABC", (hwhere.A, hwhere.B, hwhere.C))),
+                        "plan": [hplan.algorithm, hplan.n_ac, hplan.n_b],
+                        "steps": hplan.n_ac * hplan.n_b,
+                        **ring, "times": call.times()}
+        return out
+
+    def galerkin_placed(self, label: str, backend: str, frac: float, name: str,
+                        n: int = 48) -> None:
+        """``pipeline_spgemm`` of brick3d ``n`` with A, P and R where
+        ``PIPELINE_TABLE3[name]`` puts them (a slow operand in pinned host
+        memory; C in R's space), at :meth:`galerkin_run`'s plan at ``frac``
+        through ``backend``: C equal bit for bit to that plan's all-fast
+        call, the PipelineStats equal, one launch a step of each hop, each
+        hop's ring moving its slow operands' events (:meth:`placed_hops`),
+        and C within SCIPY_RTOL of scipy's R (A P)."""
+        torch, pipe, placement = self.torch, self.m["pipeline"], self.m["placement"]
+        csr = self.m["csr"]
+        A, P = self.problem("brick3d", n)
+        R = self.restrictions[("brick3d", n)]
+        plan, caps = self._pipe_plans[n][frac]
+        C_fast, stats_fast, wall_fast = self._pipe_fast[n, frac, backend]
+        where = placement.PIPELINE_TABLE3[name]
+        ops = [placement.place(m, getattr(where, k)) for k, m in (("A", A), ("P", P), ("R", R))]
+        self.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with self.m["copy_ring"].RingLog(timed=True) as log:
+            C, stats = pipe.pipeline_spgemm(*ops, plan, backend=backend, caps=caps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self.read_counters()
+        check(csr.csr_residence(C) == ("pinned" if where.C == "slow" else "card"),
+              f"{label}: C is in {csr.csr_residence(C)} memory, placed {where.C}")
+        for f in ("indptr", "indices", "data"):
+            check(torch.equal(getattr(C, f).cpu(), getattr(C_fast, f).cpu()),
+                  f"{label}: C.{f} differs from the all-fast pipeline call's")
+        check((stats.hop1, stats.hop2, stats.spilled, stats.spill_bytes)
+              == (stats_fast.hop1, stats_fast.hop2, stats_fast.spilled,
+                  stats_fast.spill_bytes), f"{label}: PipelineStats differ from the all-fast call's")
+        hops = self.placed_hops(label, log, plan, caps, stats, where, backend)
+        kernel = self.backend_kernel.get(backend)   # scan and loop launch no kernel
+        if kernel is not None:
+            steps = sum(h["steps"] for h in hops.values())
+            check(launches[kernel] == steps,
+                  f"{label}: {launches[kernel]} {kernel} launches, {steps} placed steps")
+        scipy_err = self.scipy_check(A, P, C, R=R, key=("rap", n))
+        check(scipy_err <= SCIPY_RTOL, f"{label}: relative error {scipy_err} vs scipy")
+        emit({"placed_run": {
+            "run": label, "problem": "brick3d", "n": n, "backend": backend,
+            "placement": dataclasses.asdict(where),
+            "plan": {"hop1": [plan.plan1.algorithm, plan.plan1.n_ac, plan.plan1.n_b],
+                     "hop2": [plan.plan2.algorithm, plan.plan2.n_ac, plan.plan2.n_b],
+                     "t_resident": plan.t_resident},
+            "launches": {k: v for k, v in launches.items() if v}, "hops": hops,
+            "wall_s": wall, "all_fast_wall_s": wall_fast, "bit_equal": True,
+            "scipy_rel_err": scipy_err, "card": self.smi}})
+        del C, ops
 
     # -- placement: operands in slow (pinned host) memory ---------------------
 
@@ -2269,7 +2457,7 @@ class Smoke:
                 torch.cuda.synchronize()
                 fast = (*fast, time.perf_counter() - t0)
             if not scipy_done or computed:
-                err = self.scipy_check(A, P, fast[0])
+                err = self.scipy_check(A, P, fast[0], key=("ap", "brick3d", 48))
                 check(err <= SCIPY_RTOL, f"placement brick3d48 {backend}: relative "
                       f"error {err} vs scipy")
                 emit({"placement_scipy": f"brick3d48_{backend}", "rel_err": err})
@@ -2289,6 +2477,9 @@ class Smoke:
         for backend, n in SPILL_BACKENDS:
             self.galerkin_run(f"galerkin_brick3d{n}_{backend}_spill", backend, PIPE_SPILL,
                               False, n=n)
+            self.galerkin_placed(f"galerkin_brick3d{n}_{backend}_HostPin_spill", backend,
+                                 PIPE_SPILL, "HostPin", n=n)
+        self._pipe_fast.clear()
         torch.cuda.empty_cache()
         emit({"placement_phase_s": time.perf_counter() - t_phase})
 
@@ -2474,7 +2665,6 @@ class Smoke:
         planner, chunking, placement = self.m["planner"], self.m["chunking"], self.m["placement"]
         t_run = t0 = time.perf_counter()
         A, R, P = self.m["multigrid"].problem("brick3d", CAPACITY_N, device="cuda")
-        del R
         problem_s = time.perf_counter() - t0
         crb, budget = self.quickstart_inputs(A, P)
         plan = planner.plan_chunks(A, P, crb, self.m["memory_model"].P100,
@@ -2489,12 +2679,16 @@ class Smoke:
         wall_fast = time.perf_counter() - t0
         err = self.scipy_check(A, P, C_fast)
         check(err <= SCIPY_RTOL, f"brick3d{CAPACITY_N}: relative error {err} vs scipy")
-        pinned = placement.place({"A": A, "B": P, "C": C_fast}, "slow")
+        pinned = placement.place({"A": A, "B": P, "C": C_fast, "R": R}, "slow")
         a_bytes = A.nbytes()
         model = self.placed_model(plan, stats_fast, placement.ALL_SLOW, "hash", C_fast)
-        del A, P, C_fast
+        galerkin = self.capacity_galerkin_plan(A, P, R, budget / CAPACITY_GALERKIN_DIV)
+        del A, P, R, C_fast
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
+        check(torch.cuda.memory_allocated() == 0,
+              f"capacity run: {torch.cuda.memory_allocated()} bytes stay allocated on "
+              "the card under the cap")
         headroom = model["total"] * CAP_MARGIN + CAP_SEGMENT
         check(headroom < a_bytes / 2, f"capacity run: headroom {headroom} is not below "
               f"half of A's {a_bytes} bytes")
@@ -2511,6 +2705,7 @@ class Smoke:
             out = self.placed_call(label, pinned["A"], pinned["B"], plan, "hash",
                                    placement.ALL_SLOW, (pinned["C"], stats_fast, wall_fast))
             peak_reserved = torch.cuda.max_memory_reserved()
+            self.capacity_galerkin(pinned, galerkin, reserved + headroom, oom)
         finally:
             torch.cuda.set_per_process_memory_fraction(1.0)
         emit({"capacity_run": label, "A_bytes": a_bytes, "reserved_before": reserved,
@@ -2521,6 +2716,97 @@ class Smoke:
               "card": self.smi})
         del pinned
         torch.cuda.empty_cache()
+
+    def capacity_galerkin_plan(self, A, P, R, limit: float) -> dict:
+        """The capacity Galerkin run's plan, caps and per-hop ring models,
+        made on the card operands before the cap: ``plan_pipeline`` at
+        ``limit`` (budget / ``CAPACITY_GALERKIN_DIV``), which must spill T and
+        chunk both hops, and each hop's :func:`placed_fast_bytes` with
+        every operand slow (hash: the strips' rows times the hop's table of
+        8-byte slots plus a row pointer), from its planned events."""
+        planner, symbolic, cs = self.m["planner"], self.m["symbolic"], self.m["chunk_stream"]
+        t0 = time.perf_counter()
+        tp = symbolic.spgemm_pattern_host(A, P)
+        plan = planner.plan_pipeline(A, P, R, self.m["memory_model"].P100,
+                                     fast_limit_bytes=limit, t_pattern=tp)
+        caps = symbolic.pipeline_output_caps(A, P, R, plan.plan1.p_ac, plan.plan2.p_ac,
+                                             t_pattern=tp)
+        plan_s = time.perf_counter() - t0
+        check(not plan.t_resident, "capacity Galerkin: the plan keeps T resident")
+        check("whole_fast" not in (plan.plan1.algorithm, plan.plan2.algorithm),
+              "capacity Galerkin: a whole_fast hop would need its operands whole")
+        models = {}
+        for hop, hplan, hcaps, (X, Y) in (("hop1", plan.plan1, caps.hop1, (A, P)),
+                                          ("hop2", plan.plan2, caps.hop2, (R, tp))):
+            env = self.m["chunking"].instance_envelope(X, Y, hplan, caps=hcaps)
+            strip = (env.strip_rows + 1) * 4 + env.strip_nnz_cap * 8
+            slab = (env.chunk_rows + 1) * 4 + env.chunk_nnz_cap * 8
+            c_stage = cs._c_strip_nbytes(env.strip_rows, hcaps.c_pad, A.dtype)
+            rows = max(e - s for s, e in zip(hplan.p_ac[:-1], hplan.p_ac[1:]))
+            table = planner.hash_table_slots(hcaps.c_max_row_nnz)
+            models[hop] = placed_fast_bytes(
+                hplan, self.m["placement"].ALL_SLOW, a_stage=strip, slab=slab,
+                c_stage=c_stage, workspace=rows * (table * 8 + 4), c_bytes=0)
+        # T's pattern (on A's device) leaves the card before the cap
+        caps = dataclasses.replace(caps, t_pattern=self.m["csr"].csr_pin(caps.t_pattern))
+        del tp
+        return {"plan": plan, "caps": caps, "plan_s": plan_s, "models": models,
+                "t_nnz": caps.t_nnz}
+
+    def capacity_galerkin(self, pinned: dict, galerkin: dict, cap_bytes: int, oom) -> None:
+        """``brick3d80_capacity_galerkin_hash_HostPin``: R (A P) of brick3d
+        n=80 with A, P, R and C in pinned host memory and T spilled there,
+        through the hash ring, under the capacity run's allocator cap (where
+        placing A on the card raised ``oom``): the plan chunks both hops, C
+        is within SCIPY_RTOL of scipy's R (A P), each hop's ring moves its
+        slow operands' events, and the peak allocation stays under the cap.
+        Prints the plan, the bytes each way, copy and compute ms, the share
+        of copy time under compute, the peak against each hop's
+        ``placed_fast_bytes`` and the wall."""
+        torch, pipe, placement = self.torch, self.m["pipeline"], self.m["placement"]
+        label = f"brick3d{CAPACITY_N}_capacity_galerkin_hash_HostPin"
+        plan, caps = galerkin["plan"], galerkin["caps"]
+        check(oom is not None, f"{label}: A fits on the card under the cap")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        self.reset_counters()
+        t0 = time.perf_counter()
+        with self.m["copy_ring"].RingLog(timed=True) as log:
+            C, stats = pipe.pipeline_spgemm(pinned["A"], pinned["B"], pinned["R"], plan,
+                                            backend="hash", caps=caps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        peak_reserved = torch.cuda.max_memory_reserved()
+        launches = self.read_counters()
+        check(self.m["csr"].csr_residence(C) == "pinned", f"{label}: C is not pinned")
+        check(peak_reserved <= cap_bytes and before + peak <= cap_bytes,
+              f"{label}: peak {before + peak} (reserved {peak_reserved}) passes the cap "
+              f"{cap_bytes}")
+        hops = self.placed_hops(label, log, plan, caps, stats, placement.PIPELINE_TABLE3[
+            "HostPin"], "hash")
+        steps = sum(h["steps"] for h in hops.values())
+        check(launches["hash_accum_spgemm"] == steps,
+              f"{label}: {launches['hash_accum_spgemm']} hash launches, {steps} steps")
+        t0 = time.perf_counter()
+        err = self.scipy_check(pinned["A"], pinned["B"], C, R=pinned["R"])
+        scipy_s = time.perf_counter() - t0
+        check(err <= SCIPY_RTOL, f"{label}: relative error {err} vs scipy")
+        emit({"placed_run": {
+            "run": label, "problem": "brick3d", "n": CAPACITY_N, "backend": "hash",
+            "placement": dataclasses.asdict(placement.PIPELINE_TABLE3["HostPin"]),
+            "plan": {"hop1": [plan.plan1.algorithm, plan.plan1.n_ac, plan.plan1.n_b],
+                     "hop2": [plan.plan2.algorithm, plan.plan2.n_ac, plan.plan2.n_b],
+                     "t_resident": plan.t_resident, "t_bytes": plan.t_bytes},
+            "nnz_T": galerkin["t_nnz"], "nnz_C": C.nnz(), "cap_bytes": cap_bytes,
+            "oom_on_place_A_fast": oom, "peak_alloc_bytes": peak,
+            "peak_reserved_bytes": peak_reserved,
+            "model_bytes": {h: m["total"] for h, m in galerkin["models"].items()},
+            "launches": {k: v for k, v in launches.items() if v}, "hops": hops,
+            "spill_bytes": stats.spill_bytes, "wall_s": wall, "plan_s": galerkin["plan_s"],
+            "scipy_s": scipy_s, "scipy_rel_err": err, "card": self.smi}})
+        del C
 
     def bsr_pairs(self, A, P, plan, block: int = BSR_BLOCK, first: bool = False):
         """The (strip, chunk) pairs the ``bsr`` executor stages at block size
@@ -2793,7 +3079,7 @@ class Smoke:
         launches = self.read_counters()
         check(launches["bsr_spgemm"] > 0, f"{label}: bsr_spgemm was not launched")
         self.launches["bsr_spgemm"] = launches["bsr_spgemm"]
-        scipy_err = self.scipy_check(A, P, C)
+        scipy_err = self.scipy_check(A, P, C, key=("ap", "brick3d", 48))
         check(scipy_err <= SCIPY_RTOL, f"{label}: relative error {scipy_err} vs scipy")
         emit({"run": label, "problem": "brick3d", "n": 48, "backend": "bsr",
               "block": BSR_BLOCK, "plan": {"algorithm": plan.algorithm, "n_ac": plan.n_ac,
@@ -3083,13 +3369,15 @@ class Smoke:
         Cs, stats = cs.chunked_spgemm_batched(As, Bs, plan, backend=backend)
         torch.cuda.synchronize()
         batched_s = time.perf_counter() - t0
+        self._batched_fast[label, backend] = (Cs, stats, batched_s)
         launches = self.read_counters()
         kernel = self.backend_kernel.get(chosen)
         if kernel is not None:
             check(launches[kernel] > 0, f"{name}/{label}: {kernel} was not launched")
             if label == "brick3d16":
                 self.batched_launches[kernel] = launches[kernel]
-        scipy_errs = [self.scipy_check(A, B, C) for A, B, C in zip(As, Bs, Cs)]
+        scipy_errs = [self.scipy_check(A, B, C, key=("batch", label, i))
+                      for i, (A, B, C) in enumerate(zip(As, Bs, Cs))]
         check(max(scipy_errs) <= SCIPY_RTOL,
               f"{name}/{label}: relative error {max(scipy_errs)} vs scipy")
         torch.cuda.synchronize()
@@ -3124,8 +3412,86 @@ class Smoke:
                         "unbatched_max_abs_err": max(errs)}})
         del Cs, singles
 
-    def service_requests(self, rmat_seeds) -> tuple:
-        """The service's 96 requests, interleaved over three families of 32:
+    def batched_placed(self, label: str, As, Bs, plan, backend: str, name: str) -> None:
+        """``chunked_spgemm_batched`` of one width-8 batch with its operands
+        where ``TABLE3[name]`` puts them (a slow one in pinned host memory),
+        through ``backend``: every C equal bit for bit to the all-fast
+        batched call's (:meth:`batched_run`) and in C's space, the ChunkStats
+        equal, one kernel launch a (strip, chunk) step for the whole batch
+        (not one an instance), and every ring's stack pinned and its log its
+        schedule's program. The call takes the batch's union envelope, as
+        the all-fast call built it, so its wall holds no symbolic phase
+        (the all-fast wall does)."""
+        torch, cs, placement = self.torch, self.m["chunk_stream"], self.m["placement"]
+        csr, dma = self.m["csr"], self.m["dma"]
+        where = placement.TABLE3[name]
+        Cs_fast, stats_fast, wall_fast = self._batched_fast[label, backend]
+        pinned = {}
+
+        def put(m, space):   # one pinned copy a matrix (the RMAT batch is L x L)
+            if space == "fast":
+                return m
+            if id(m) not in pinned:
+                pinned[id(m)] = placement.place(m, "slow")
+            return pinned[id(m)]
+
+        ops_a = [put(A, where.A) for A in As]
+        ops_b = [put(B, where.B) for B in Bs]
+        env = self.batch_envs[label]
+        chosen = (self.m["planner"].select_accumulator_backend(plan, env)
+                  if backend == "auto" else backend)
+        if backend == "bsr":   # the all-fast call's default: block-capped
+            if (label, BSR_BLOCK) not in self.batch_envs:
+                self.batch_envs[label, BSR_BLOCK] = self.m["chunking"].batch_envelope(
+                    As, Bs, plan, block_size=BSR_BLOCK)
+            env = self.batch_envs[label, BSR_BLOCK]
+        run = f"batched_placed_{label}_{backend}_{name}"
+        self.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with self.m["copy_ring"].RingLog(timed=True) as log:
+            # the all-fast call's union envelope, given as a service bucket
+            # gives its own, and validated there: no symbolic phase runs
+            Cs, stats = cs.chunked_spgemm_batched(ops_a, ops_b, plan, envelope=env,
+                                                  backend=backend, validate_caps=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self.read_counters()
+        check(stats == stats_fast, f"{run}: ChunkStats differ from the all-fast call's")
+        for i, (C, W) in enumerate(zip(Cs, Cs_fast)):
+            check(csr.csr_residence(C) == ("pinned" if where.C == "slow" else "card"),
+                  f"{run}/{i}: C is in {csr.csr_residence(C)} memory, placed {where.C}")
+            for f in ("indptr", "indices", "data"):
+                check(torch.equal(getattr(C, f).cpu(), getattr(W, f).cpu()),
+                      f"{run}/{i}: C.{f} differs from the all-fast batched call's")
+        steps = plan.n_ac * plan.n_b
+        kernel = self.backend_kernel.get(chosen)
+        if kernel is not None:
+            check(launches[kernel] == steps, f"{run}: {launches[kernel]} {kernel} launches "
+                  f"for {len(As)} instances, {steps} steps expected")
+        for ring in log.rings:
+            bad = (dma.check_ring_structure(ring.ops, ring.total, ring.n_fields)
+                   + dma.simulate_schedule(ring.total))
+            check(not bad, f"{run}: ring {ring.operand}: {bad[:2]}")
+            check(ring.source_pinned, f"{run}: ring {ring.operand}'s stack is not pinned")
+        check({r.operand for r in log.rings} <= set(where.slow),
+              f"{run}: rings {[r.operand for r in log.rings]} for slow {where.slow}")
+        emit({"placed_run": {
+            "run": run, "placement": dict(zip("ABC", (where.A, where.B, where.C))),
+            "backend": backend, "chosen": chosen, "width": len(As),
+            "plan": [plan.algorithm, plan.n_ac, plan.n_b], "steps": steps,
+            "launches": {k: v for k, v in launches.items() if v}, "bit_equal": True,
+            "moved_in": sum(t.nbytes for t in log.transfers if t.direction == "in"),
+            "moved_out": sum(t.nbytes for t in log.transfers if t.direction == "out"),
+            "rings": [{"operand": r.operand, "role": r.role, "total": r.total,
+                       "fields": r.n_fields} for r in log.rings],
+            "times": log.times(), "wall_s": wall, "all_fast_wall_s": wall_fast,
+            "card": self.smi}})
+        del Cs, ops_a, ops_b, pinned
+
+    def service_requests(self, rmat_seeds, per_family: int = SERVICE_PER_FAMILY) -> tuple:
+        """The service's requests, interleaved over three families of
+        ``per_family`` (96 requests at the default 32):
         brick3d n=16 A x P and laplace3d n=24 A x P with values rescaled per
         request (numpy seeds), and L x L of the RMAT graphs of
         ``rmat_seeds`` in turn (rescaled when a graph repeats). Returns the
@@ -3137,7 +3503,7 @@ class Smoke:
         limit = max(float(planner.row_bytes_csr(L).sum()) for L in Ls) / SERVICE_CHUNK_DIV
         chunks = {}
         reqs = []
-        for i in range(SERVICE_PER_FAMILY):
+        for i in range(per_family):
             rng = np.random.default_rng(SERVICE_SEED + i)
             for fam, (A, B) in zip(("brick3d16", "laplace3d24"), families):
                 reqs.append((fam, self.rescaled(A, rng), self.rescaled(B, rng)))
@@ -3152,20 +3518,33 @@ class Smoke:
                   f"service: plan_knl at F={limit} gives {fam} {sorted(n_b)} chunks, not 2-6")
         return reqs, limit, {k: sorted(v) for k, v in chunks.items()}
 
-    def service_run(self, label: str, rmat_seeds, gate: bool) -> None:
-        """``SpGEMMService`` on the card: the 96 requests of
-        ``service_requests`` submitted in a cold wave, then resubmitted (the
+    def service_run(self, label: str, rmat_seeds, gate: bool, placed: bool = False,
+                    per_family: int = SERVICE_PER_FAMILY) -> None:
+        """``SpGEMMService`` on the card: the requests of
+        ``service_requests`` (96 at the default ``per_family``) submitted in a cold wave, then resubmitted (the
         same CSR objects) in a warm wave, ``poll()`` after every 8 submits
         (each poll ``slo_s`` after the last submit, so a poll flushes every
         queued bucket in both waves), then ``drain()``. Every response is
         held to scipy; with ``gate`` the warm wave must compile nothing,
         ``n_buckets`` stay within ``retrace_budget`` and each bucket compile
         at most once a width it used. Counters reset before the cold wave
-        and read after the warm one."""
+        and read after the warm one. With ``placed`` every operand is
+        submitted from pinned host memory (one pinned copy a matrix, made
+        before the waves), and every response must equal the gated
+        all-fast run's response to the same request bit for bit and lie in
+        pinned memory (C takes A's space)."""
         torch, svc_mod = self.torch, self.m["service"]
-        cs = self.m["chunk_stream"]
+        cs, place = self.m["chunk_stream"], self.m["placement"].place
         t0 = time.perf_counter()
-        reqs, limit, chunks = self.service_requests(rmat_seeds)
+        reqs, limit, chunks = self.service_requests(rmat_seeds, per_family)
+        if placed:
+            pinned = {}
+            for _, A, B in reqs:
+                for m in (A, B):
+                    if id(m) not in pinned:
+                        pinned[id(m)] = place(m, "slow")
+            reqs = [(fam, pinned[id(A)], pinned[id(B)]) for fam, A, B in reqs]
+            del pinned
         setup_s = time.perf_counter() - t0
         svc = svc_mod.SpGEMMService(fast_limit_bytes=limit, **SERVICE)
         traces0 = sum(v for k, v in cs.TRACE_COUNTS.items() if k.endswith("_batched"))
@@ -3189,7 +3568,8 @@ class Smoke:
             families = collections.Counter()
             for r in out:
                 fam, A, B = reqs[r.req_id % len(reqs)]
-                err = self.scipy_check(A, B, r.C)
+                err = self.scipy_check(A, B, r.C, key=(
+                    "service", tuple(rmat_seeds), r.req_id % len(reqs)))
                 check(err <= SCIPY_RTOL, f"{label}/{wave}: request {r.req_id} ({fam}) "
                       f"relative error {err} vs scipy")
                 worst = max(worst, err)
@@ -3197,6 +3577,17 @@ class Smoke:
                 if bucket is not None:
                     backend_of[r.req_id % len(reqs)] = bucket.backend
                 families[fam, r.padded_batch] += 1
+                key = (wave, r.req_id % len(reqs))
+                if placed:
+                    want = self._service_fast[key]
+                    check(self.m["csr"].csr_residence(r.C) == "pinned",
+                          f"{label}/{wave}: request {r.req_id}'s C is not pinned")
+                    check(all(torch.equal(getattr(r.C, f).cpu(), getattr(want, f).cpu())
+                              for f in ("indptr", "indices", "data")),
+                          f"{label}/{wave}: request {r.req_id} differs from the all-fast "
+                          "service's response")
+                elif gate:
+                    self._service_fast[key] = r.C
             lat = np.array([r.latency_s for r in out])
             waves[wave] = {
                 "wall_s": wall, "exec_s": delta["exec_s"], "compile_s": delta["compile_s"],
@@ -3234,10 +3625,16 @@ class Smoke:
                   "plan_chunks": chunks, "requests": len(reqs), "setup_s": setup_s,
                   "waves": waves, "stats": dataclasses.asdict(svc.stats),
                   "n_buckets": svc.n_buckets, "buckets": buckets, "launches": launches,
-                  "check": {"scipy_rel_err": worst}}
-        if gate:
+                  "check": {"scipy_rel_err": worst}, "card": self.smi}
+        if placed:
+            result["bit_equal_to_all_fast"] = True
+        elif gate:
             result["traced_flush"] = self.traced_flush(svc, reqs)
-            result["naive_loop"] = self.naive_loop(reqs, limit, backend_of)
+            # a yardstick: the first third of the requests (the three
+            # families interleaved), cut from all 96 to pay for the placed
+            # runs, so its rate is not the service's over the same requests
+            result["naive_loop"] = self.naive_loop(reqs[:len(reqs) // 3], limit, backend_of)
+            result["naive_loop"]["of_requests"] = len(reqs)
         emit(result)
         del svc, reqs
         torch.cuda.empty_cache()
@@ -3267,7 +3664,7 @@ class Smoke:
             ch.chunked_spgemm(A, B, planner.plan_knl(A, B, limit), backend=backend_of[i])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        return {"wall_s": wall, "requests_per_s": len(reqs) / wall,
+        return {"requests": len(reqs), "wall_s": wall, "requests_per_s": len(reqs) / wall,
                 "backends": dict(collections.Counter(backend_of.values()))}
 
     # -- third path: serving the dense LM ----------------------------------
@@ -4013,12 +4410,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     smoke = Smoke(torch)
+    laps = {}
+
+    def lap(name: str) -> None:   # the seconds since the last lap
+        laps[name] = time.perf_counter() - started - sum(laps.values())
+
     smoke.card()
     smoke.build()
     smoke.sass_phase()
+    lap("build")
     # the placement phase's capacity run comes first, while the allocator
     # holds nothing else (its cap is lifted before the next phase)
     smoke.capacity_run()
+    lap("capacity")
 
     # kernel phases at the shapes the main path stages (quickstart budget,
     # chunk2 6x1: these numbers go into the kernels line), then at the chunk1
@@ -4053,6 +4457,7 @@ def main() -> int:
     plan_l12 = smoke.rmat_plan(L12)
     smoke.esc_global_phase("rmat12_knl", L12, plan_l12)
     smoke.esc_class_edge_phase()
+    lap("kernel_phases")
 
     # the main path, counters reset before each run
     smoke.main_run("brick3d48_auto", "brick3d", 48, "auto", expect_backend="hash")
@@ -4070,6 +4475,8 @@ def main() -> int:
     smoke.rmat_run("rmat12_sparse", L12, plan_l12)
     del L12
     smoke.breakdown("brick3d48_auto", "brick3d", 48, "auto")
+    smoke._plain.clear()
+    lap("main_path")
 
     # the second path: its kernels against their plain versions (main-run
     # shapes first: these numbers go into the kernels line), then its runs
@@ -4104,20 +4511,26 @@ def main() -> int:
     smoke.triangle_run("tc_rmat18_fused")
     smoke.triangle_run("tc_rmat18_chunk2", chunk2=True)
     for backend in ("hash", "sparse"):
-        smoke.galerkin_run(f"galerkin_brick3d48_{backend}_resident", backend,
-                           PIPE_RESIDENT, True)
-        smoke.galerkin_run(f"galerkin_brick3d48_{backend}_spill", backend, PIPE_SPILL, False)
+        for frac, kind in ((PIPE_RESIDENT, "resident"), (PIPE_SPILL, "spill")):
+            smoke.galerkin_run(f"galerkin_brick3d48_{backend}_{kind}", backend, frac,
+                               kind == "resident")
+            # A, P and R in slow memory, against this all-fast run
+            for name in PIPE_PLACEMENTS:
+                smoke.galerkin_placed(f"galerkin_brick3d48_{backend}_{name}_{kind}",
+                                      backend, frac, name)
     smoke.bsr_run("brick3d48_bsr")
     smoke.spmm_run("bsr_spmm_brick3d48")
+    lap("second_path")
 
     # operands in slow (pinned host) memory through the copy ring
     smoke.placement_phase()
+    lap("placement")
 
     # the batched entry point and the SpGEMM service: the four sparse
     # kernels at width 8 against their plain versions (the dense slab on
     # batch (a) only: 70 MB an instance), chunked_spgemm_batched through
     # every batched backend, then the service (gated), then the service on
-    # 32 distinct graphs (churn, reported)
+    # 8 distinct graphs (churn, reported)
     batches = smoke.batches()
     for label, (As, Bs, plan) in batches.items():
         smoke.batched_kernel_phase(label, As, Bs, plan, dense=label == "brick3d16")
@@ -4125,15 +4538,28 @@ def main() -> int:
         for backend in BATCHED_BACKENDS:
             if backend != "pallas" or label == "brick3d16":
                 smoke.batched_run(label, As, Bs, plan, backend)
+                # the same batch with its operands in slow memory (auto on
+                # the RMAT batch resolves to hash, whose placed runs it
+                # would repeat)
+                if backend != "auto" or label == "brick3d16":
+                    for name in PIPE_PLACEMENTS:
+                        smoke.batched_placed(label, As, Bs, plan, backend, name)
     del batches
+    smoke._batched_fast.clear()
+    lap("batched")
     smoke.service_run("spgemm_service_run", SERVICE_RMAT_SEEDS, gate=True)
-    smoke.service_run("spgemm_service_churn", CHURN_RMAT_SEEDS, gate=False)
+    smoke.service_run("spgemm_service_placed", SERVICE_RMAT_SEEDS, gate=True, placed=True)
+    smoke._service_fast.clear()
+    smoke.service_run("spgemm_service_churn", CHURN_RMAT_SEEDS, gate=False,
+                      per_family=CHURN_PER_FAMILY)
     torch.cuda.empty_cache()
+    lap("service")
 
     # the port's examples at their default sizes, then the static auditor
     smoke.examples_phase()
     smoke.audit_phase()
     torch.cuda.empty_cache()
+    lap("examples_audit")
 
     # the third path, serving: the attention kernels at the serve run's
     # shapes (these numbers go into the kernels line; decode at a mid-run
@@ -4179,6 +4605,7 @@ def main() -> int:
     smoke.serve_run("serve_llama3_2_1b", cfg, model, prompts, gate=True)
     del model
     torch.cuda.empty_cache()
+    lap("serving_llama")
 
     # the fourth path, MoE serving: the grouped GEMM at the shapes of layer
     # 0's first expert product in the serve batch (prefill: these numbers go
@@ -4202,6 +4629,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     smoke.f32_check("olmoe_1b_7b_f32_teacher_forced", cfg, prompts, outs)
     torch.cuda.empty_cache()
+    lap("serving_moe")
+    emit({"phase_seconds": laps, "card": smoke.smi})
     emit({"script_seconds": time.perf_counter() - started})
     smoke.kernels_line()
     emit({"ok": True, "device": {"platform": "gpu",

@@ -83,7 +83,7 @@ def study(problem: str, n: int, backends=("scan",), device: str = "cuda"):
         for backend in ("sparse", "hash"):
             C3, pstats = pipeline_spgemm(A, P, R, system=P100,
                                          fast_limit_bytes=total * frac,
-                                         backend=backend)
+                                         backend=backend, device=device)
             ok3 = bool(torch.allclose(csr_to_dense(C3), rap, atol=1e-4))
             pp = pstats.plan
             print(f"   pipeline@{frac:.2f}/{backend:6s}: "

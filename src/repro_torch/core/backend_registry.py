@@ -40,6 +40,9 @@ Contracts a spec must honor:
 * ``run_placed(A, B, plan, c_pad, caps, placement, device)`` is the
   executor with operands in slow memory (the copy ring); every registered
   backend has one, and ``chunked_spgemm`` raises for a spec without.
+  ``run_batched_placed`` is the batched entry's (``run_batched``'s
+  arguments plus ``placement`` and ``device``): the envelope-padded stacks
+  of a slow operand in slow memory, one ring for the whole batch.
 * ``audit_trace(A, B, plan, c_pad, envelope) -> TraceTarget`` stages one
   instance at an envelope exactly as the executors do, for the static
   auditor (``repro_torch.analysis``); ``traffic_model(A, B, plan, c_pad,
@@ -128,6 +131,9 @@ class BackendSpec:
     # (A, B, plan, c_pad, caps, placement, device) -> (C, ChunkStats): the
     # executor with operands in slow memory (the copy ring)
     run_placed: Callable | None = None
+    # run_batched's signature plus placement= and device=: the batched
+    # entry with operands in slow memory (one ring for the batch)
+    run_batched_placed: Callable | None = None
 
     @property
     def supports_batched(self) -> bool:

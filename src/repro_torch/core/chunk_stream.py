@@ -56,8 +56,11 @@ Batches may mix sparsity structures: every instance is repadded to a shared
 envelope) before stacking, and the whole batch goes through one kernel call
 with the width as its leading axis (``pallas``, ``sparse``, ``hash``) or
 folded into the blocks of one launch per (strip, chunk) pair (``bsr``).
-``repro_torch.serve.spgemm_service`` builds the request-bucketing service on
-top.
+With operands in slow memory (``run_batched_placed``) a slow operand's
+envelope-padded stacks are built in pinned memory and the copy ring moves
+one (strip, chunk) step's pieces of the whole batch at a time, one launch a
+step for every instance. ``repro_torch.serve.spgemm_service`` builds the
+request-bucketing service on top.
 
 ChunkStats for these backends is *computed from the plan*: the uniform
 padding makes every staged chunk/strip/partial the same size, so the
@@ -99,7 +102,7 @@ from repro_torch.kernels.sparse_accum_spgemm import sparse_accum_spgemm_stream
 from repro_torch.sparse.bsr import BSR, bsr_blocks_with_sentinel
 from repro_torch.sparse.csr import (
     CSR, GeometryEnvelope, _csr_from_tensors, csr_from_dense, csr_pad_to, csr_pin,
-    csr_stack, csr_unstack, refuse_pinned,
+    csr_stack, csr_unstack,
 )
 
 # One count under a core's key each time the core meets a static geometry it
@@ -276,12 +279,14 @@ def _pallas_stage_nbytes(strip_rows: int, k: int, span: int, n: int) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def _empty_c_stack(n: int, n_rows: int, n_cols: int, c_pad: int, dtype, device) -> CSR:
-    """Stacked empty partials ([n, ...] leading axis) for the Chunk2 carry."""
+def _empty_c_stack(n, n_rows: int, n_cols: int, c_pad: int, dtype, device) -> CSR:
+    """Stacked empty partials (leading axes ``n``: an int or a tuple) for
+    the Chunk2 carry."""
+    lead = (n,) if isinstance(n, int) else tuple(n)
     return CSR(
-        indptr=torch.zeros(n, n_rows + 1, dtype=torch.int32, device=device),
-        indices=torch.zeros(n, c_pad, dtype=torch.int32, device=device),
-        data=torch.zeros(n, c_pad, dtype=dtype, device=device),
+        indptr=torch.zeros(*lead, n_rows + 1, dtype=torch.int32, device=device),
+        indices=torch.zeros(*lead, c_pad, dtype=torch.int32, device=device),
+        data=torch.zeros(*lead, c_pad, dtype=dtype, device=device),
         shape=(n_rows, n_cols),
         max_row_nnz=0,
     )
@@ -641,10 +646,11 @@ def _drive_placed(link, plan: ChunkPlan, placement, As, Bs, zeros, launch,
     else:
         get_b, put_b = copy_ring.source(link, "B", Bs, placement.B, "stationary", stationary)
         get_a, put_a = copy_ring.source(link, "A", As, placement.A, "streamed", streamed)
-        block = link.copy_in("C", zeros) if c_slow else zeros
+        # a slow C's block comes in as one transfer, each strip in its own
+        # allocation: a strip's old partial is freed as its step replaces it
+        out = (link.copy_in_each("C", zeros) if c_slow else
+               [copy_ring.piece(zeros, i) for i in range(n_ac)])
         m_block = None if Ms is None else (link.copy_in("M", Ms) if c_slow else Ms)
-        out = [copy_ring.piece(block, i) for i in range(n_ac)]
-        del block
         for jb in range(n_b):
             Bj = get_b(jb)
             for i in range(n_ac):
@@ -663,7 +669,9 @@ def _drive_placed(link, plan: ChunkPlan, placement, As, Bs, zeros, launch,
 
 def _sparse_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
                        placement, device: torch.device, *, backend: str):
-    """:func:`_sparse_run` with operands in slow memory.
+    """:func:`_sparse_run` with operands in slow memory: the batched
+    executor (:func:`_csr_accum_run_batched_placed`) on the one instance at
+    its own envelope, through the module's unbatched cores.
 
     The strips and chunks of each slow operand are built in slow memory
     (pinned on the card), those of a fast one on ``device``. The stream
@@ -677,43 +685,11 @@ def _sparse_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
     the strips are assembled. Each launch is the step the one-launch kernel
     takes, so C equals the all-fast call's; ``ChunkStats`` are the same
     plan's. ``caps`` is the symbolic phase's :class:`StripOutputCaps`."""
-    table = _checked_table(A, B, c_pad, backend, caps)
-    card = device.type == "cuda"
-    strips = a_strips(A, plan.p_ac)
-    chunks = b_chunks(B, plan.p_b)
-    a_stage, slab = strips[0].nbytes(), chunks[0].nbytes()
-    As = copy_ring.staged(strips, placement.A, card)
-    Bs = copy_ring.staged(chunks, placement.B, card)
-    del strips, chunks
-    n_ac, n_cols = plan.n_ac, B.n_cols
-    strip_rows = As.n_rows
-    r0s, r1s = plan.b_ranges()
-    if backend == "hash":
-        core, statics = _HASH_CORES[plan.algorithm], {"table_size": table}
-    else:
-        core, statics = _SPARSE_CORES[plan.algorithm], {"row_cap": caps.c_max_row_nnz}
-    c_slow = placement.C == "slow"
-    # the empty C_prev: one strip's block (the chunk1 orders) or all strips'
-    zeros = copy_ring.piece(_sparse_c0_stack(
-        1, n_ac if plan.algorithm == "chunk2" else 1, strip_rows, n_cols, c_pad,
-        A.dtype, "cpu" if c_slow else device), 0)
-    if c_slow and card:
-        zeros = csr_pin(zeros)
-    link = copy_ring.Link(device)
-
-    def launch(Ai, Bj, Ci, _, j):
-        with link.step():
-            ip, ix, d = core(_one(Ai), _one(Bj), _one(Ci), r0s[j:j + 1], r1s[j:j + 1],
-                             **statics)
-        return CSR(ip[0, 0], ix[0, 0], d[0, 0], (strip_rows, n_cols), c_pad)
-
-    out = _drive_placed(link, plan, placement, As, Bs, zeros, launch, card)
-    C = _assemble(out, plan.p_ac, n_cols)
-    if c_slow and card:
-        C = csr_pin(C)
-    stats = planned_stats_pallas(plan, slab, a_stage,
-                                 _c_strip_nbytes(strip_rows, c_pad, A.dtype))
-    return C, stats
+    env = instance_envelope(A, B, plan, c_pad=c_pad, caps=caps)
+    cores = _HASH_CORES if backend == "hash" else _SPARSE_CORES
+    Cs, stats = _csr_accum_run_batched_placed([A], [B], plan, env, backend, caps_list=[caps],
+                                              cores=cores, placement=placement, device=device)
+    return Cs[0], stats
 
 
 def _scan_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
@@ -738,54 +714,16 @@ def _scan_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
 
 def _pallas_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
                        placement, device: torch.device):
-    """The dense-slab executor with operands in slow memory.
-
-    A slow operand's dense pieces are built in slow memory (pinned on the
-    card): the A strips with their ``span`` zero columns, the B slabs, and
-    the empty C block; a fast one's on ``device``. ``ranged_spgemm_stream``
-    launches once a (strip, chunk) step on one-element stacks, a slow
-    operand's piece read from its ring's slot, each step's output the next
-    step's ``c0``. The kernel writes C as base plus partial, chunk by chunk,
-    in both orders, so the steps equal the one-launch call bit for bit. The
-    bytes are :func:`planned_events` at the dense sizes
-    (:func:`_pallas_stage_nbytes`). A slow C goes out to pinned memory as
-    dense strips and is sparsified there; the result stays pinned."""
-    del c_pad, caps   # capacity is implicit in the dense accumulator
-    card = device.type == "cuda"
-    n_ac, n_cols = plan.n_ac, B.n_cols
-    order = "chunk2" if plan.algorithm == "chunk2" else "chunk1"
-    r0s, _ = plan.b_ranges()
-
-    def dense(pieces, pad_cols, space):
-        return _dense_stack(csr_stack(pieces), pad_cols=pad_cols,
-                            pin_memory=card and space == "slow")
-
-    chunks = b_chunks(B, plan.p_b)
-    span = chunks[0].n_rows
-    slabs = dense(chunks, 0, placement.B)
-    del chunks
-    strips = a_strips(A, plan.p_ac)
-    strip_rows = strips[0].n_rows
-    a = dense(strips, span, placement.A)
-    del strips
-    c_slow = placement.C == "slow"
-    zeros = torch.zeros(n_ac if order == "chunk2" else 1, strip_rows, n_cols,
-                        dtype=torch.float32, device="cpu" if c_slow else device,
-                        pin_memory=card and c_slow)
-    link = copy_ring.Link(device)
-
-    def launch(a_i, slab_j, c_i, _, j):
-        with link.step():
-            return ranged_spgemm_stream(a_i[None, None], slab_j[None, None],
-                                        c_i[None, None], r0s[j:j + 1], order=order)[0, 0]
-
-    out = _drive_placed(link, plan, placement, a, slabs, zeros, launch, card)
-    del a, slabs
-    C = _pallas_assemble(out, plan.p_ac)
-    if c_slow and card:
-        C = csr_pin(C)
-    return C, planned_stats_pallas(
-        plan, *_pallas_stage_nbytes(strip_rows, A.n_cols, span, n_cols))
+    """The dense-slab executor with operands in slow memory: the batched
+    executor (:func:`_pallas_run_batched_placed`) on the one instance at its
+    own envelope. ``ranged_spgemm_stream`` launches once a (strip, chunk)
+    step, a slow operand's dense piece read from its ring's slot, each
+    step's output the next step's ``c0``, so C equals the one-launch call
+    bit for bit; a slow C stays in pinned memory."""
+    env = instance_envelope(A, B, plan, c_pad=c_pad, caps=caps)
+    Cs, stats = _pallas_run_batched_placed([A], [B], plan, env, placement=placement,
+                                           device=device)
+    return Cs[0], stats
 
 
 # ---------------------------------------------------------------------------
@@ -1202,42 +1140,73 @@ def _bsr_part_nbytes(layouts: list, bs: int) -> int:
 
 def _bsr_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
                     placement, device: torch.device):
-    """:func:`chunk_bsr` with operands in slow memory.
-
-    A slow operand's BSR pieces are built by :func:`_stage_bsr` from its
-    pinned CSR on the host (no densify step) and stacked, blocks with their
-    zero sentinel, in pinned memory; a fast one's on ``device``. They stream
-    through the ring as 3-field pieces ``(indptr, indices, blocks)``, one
-    launch of ``bsr_spgemm_blocks`` a pair; the slot tables are plain kernel
-    arguments. Each pair's output blocks are summed into its strip's blocks
-    on the card (:func:`_bsr_add`), and a strip whose pairs have all run
-    becomes its CSR there (:func:`_bsr_strip_csr`). A slow C crosses as
-    :func:`planned_events_bsr` lists: in the chunk1 orders each strip's CSR
-    once; in Chunk2 each strip's summed blocks out and back between chunks,
-    then its CSR. C equals the all-fast call's bit for bit, in pinned host
-    memory when C is slow; the ChunkStats are :func:`chunk_bsr`'s."""
+    """:func:`chunk_bsr` with operands in slow memory: :func:`_bsr_placed`
+    of the one instance at its block-capped envelope, through the
+    module's cores."""
     env = instance_envelope(A, B, plan, c_pad=c_pad, caps=caps,
                             block_size=_BSR_DEFAULT_BLOCK)
-    bs = env.bsr_caps[0]
+    Cs, stats = _bsr_placed([A], [B], plan, env, _BSR_CORES, placement, device)
+    return Cs[0], stats
+
+
+def _unfolded_slots(slots: list, cap: int) -> np.ndarray:
+    """One launch's slot table over the instances' pieces side by side
+    (``cap + 1`` blocks each, its zero sentinel last): instance ``w``'s
+    slots moved past the pieces before it, and its sentinel slot sent to
+    the last block, the one the kernel skips. Width 1 is the instance's
+    own table."""
+    last = len(slots) * (cap + 1) - 1
+    return np.concatenate([np.where(t == cap, last, t + w * (cap + 1))
+                           for w, t in enumerate(slots)]).astype(np.int32)
+
+
+def _bsr_placed(As, Bs, plan: ChunkPlan, env: GeometryEnvelope, cores: dict, placement,
+                device: torch.device):
+    """The ``bsr`` executor with operands in slow memory, over a batch.
+
+    A slow operand's BSR pieces are built by :func:`_stage_bsr` from its
+    pinned CSR on the host (no densify step), each instance's pieces of one
+    pair (A) or chunk (B) stacked side by side with their zero sentinels,
+    in pinned memory; a fast one's on ``device``. They stream through the
+    ring as 3-field pieces ``(indptr, indices, blocks)``, one launch of
+    ``bsr_spgemm_blocks`` a pair for the whole batch, over slot tables that
+    reach every instance's blocks in place (:func:`_unfolded_slots`, the
+    fold of :func:`_fold_bsr` without its copy). Each instance's output
+    blocks are summed into its strip's blocks on the card (:func:`_bsr_add`),
+    and a strip whose pairs have all run becomes its CSR there
+    (:func:`_bsr_strip_csr`). A slow C crosses as :func:`planned_events_bsr`
+    lists, times the width: in the chunk1 orders each strip's CSR once; in
+    Chunk2 each strip's summed blocks out and back between chunks, then its
+    CSR. Every C equals the all-fast call's bit for bit, in pinned host
+    memory when C is slow; the ChunkStats are :func:`chunk_bsr`'s."""
+    bs, nbl_a, nbl_b, nc_cap, _ = env.bsr_caps
     card = device.type == "cuda"
-    n = B.n_cols
+    width, n = len(As), Bs[0].n_cols
     nbp = -(-n // bs)
     strips = list(zip(plan.p_ac[:-1], plan.p_ac[1:]))
     n_ac, n_b = len(strips), plan.n_b
     chunk2 = plan.algorithm == "chunk2"
-    pairs, a_bsr, b_bsr, metas, layouts = _bsr_stage_placed(A, B, plan, env)
-    n_part = _bsr_part_nbytes(layouts, bs) // (bs * bs * 4)
+    staged = [_bsr_stage_placed(A, B, plan, env) for A, B in zip(As, Bs)]
+    pairs = staged[0][0]
+    metas = [st[3] for st in staged]
+    layouts = [st[4] for st in staged]
+    n_part = max(_bsr_part_nbytes(lay, bs) for lay in layouts) // (bs * bs * 4)
 
-    def piece(m):
-        return BsrPiece(m.block_indptr, m.block_indices, bsr_blocks_with_sentinel(m))
+    def piece(ms):   # the instances' pieces of one element, side by side
+        return BsrPiece(torch.stack([m.block_indptr for m in ms]),
+                        torch.stack([m.block_indices for m in ms]),
+                        torch.stack([bsr_blocks_with_sentinel(m) for m in ms]))
 
-    Bst = copy_ring.staged([piece(m) for m in b_bsr], placement.B, card)
-    Ast = copy_ring.staged([piece(m) for m in a_bsr], placement.A, card)
-    del a_bsr, b_bsr
+    Bst = copy_ring.staged([piece([st[2][jb] for st in staged]) for jb in range(n_b)],
+                           placement.B, card)
+    Ast = copy_ring.staged([piece([st[1][p] for st in staged]) for p in range(len(pairs))],
+                           placement.A, card)
+    del staged
+    dtype = As[0].dtype
     c_slow = placement.C == "slow"
-    c_out = (copy_ring.slow_stack(_empty_like_c(env.strip_rows, n, c_pad, A.dtype, "cpu"),
-                                  n_ac, card) if c_slow else None)
-    c_parts = (copy_ring.slow_stack(torch.empty(n_part, bs, bs), n_ac, card)
+    c_out = (copy_ring.slow_stack(_empty_c_stack(width, env.strip_rows, n, env.c_pad, dtype,
+                                                 "cpu"), n_ac, card) if c_slow else None)
+    c_parts = (copy_ring.slow_stack(torch.empty(width, n_part, bs, bs), n_ac, card)
                if c_slow and chunk2 and n_b > 1 else None)
     link = copy_ring.Link(device)
     get_a, put_a = copy_ring.source(link, "A", Ast, placement.A, "streamed",
@@ -1245,7 +1214,7 @@ def _bsr_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
     get_b, put_b = copy_ring.source(link, "B", Bst, placement.B,
                                     "stationary" if chunk2 else "streamed",
                                     range(n_b) if chunk2 else [jb for _, jb in pairs])
-    core = _BSR_CORES[plan.algorithm]
+    core = cores[plan.algorithm]
     acc, out = [None] * n_ac, [None] * n_ac
     seen = [0] * n_ac          # a strip's pairs run so far
     for p, (ia, jb) in enumerate(pairs):
@@ -1255,26 +1224,31 @@ def _bsr_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
         if acc[ia] is None:
             acc[ia] = (link.copy_in("C", copy_ring.piece(c_parts, ia))   # partial back in
                        if c_slow and jb > 0 else
-                       torch.zeros(n_part, bs, bs, dtype=torch.float32, device=device))
-        meta = metas[p]
+                       torch.zeros(width, n_part, bs, bs, dtype=torch.float32, device=device))
         with link.step():   # the slot tables and output blocks live for the step
-            blocks = core(get_a(p).blocks, b_piece.blocks,
-                          torch.from_numpy(meta.a_slots).to(device),
-                          torch.from_numpy(meta.b_slots).to(device), envelope=env)
-            _bsr_add(acc[ia], layouts[ia][1][seen[ia]], blocks[:meta.n_c_blocks])
-            del blocks
+            slots = [torch.from_numpy(_unfolded_slots([m[p].a_slots for m in metas], nbl_a)),
+                     torch.from_numpy(_unfolded_slots([m[p].b_slots for m in metas], nbl_b))]
+            blocks = core(get_a(p).blocks.view(-1, bs, bs), b_piece.blocks.view(-1, bs, bs),
+                          *(t.to(device) for t in slots),
+                          envelope=env).view(width, nc_cap, bs, bs)
+            for w in range(width):
+                _bsr_add(acc[ia][w], layouts[w][ia][1][seen[ia]],
+                         blocks[w, :metas[w][p].n_c_blocks])
+            del blocks, slots
         seen[ia] += 1
         put_a(p)
         if not chunk2 or ia == n_ac - 1:
             put_b(b_lin)
-        if jb == n_b - 1:                  # the strip's last pair: its CSR
+        if jb == n_b - 1:                  # the strip's last pair: its CSRs
             s, e = strips[ia]
             with link.step():
-                Ci = _bsr_strip_csr(acc[ia], layouts[ia][0], e - s, env.strip_rows, n, bs,
-                                    nbp, A.dtype, c_pad if c_slow else None)
+                Ci = [_bsr_strip_csr(acc[ia][w], layouts[w][ia][0], e - s, env.strip_rows,
+                                     n, bs, nbp, dtype, env.c_pad if c_slow else None)
+                      for w in range(width)]
             acc[ia] = None
             if c_slow:
-                link.copy_out("C", [Ci], c_out, first=ia)
+                link.copy_out("C", [tuple(torch.stack(f) for f in zip(
+                    *(copy_ring.fields(c) for c in Ci)))], c_out, first=ia)
             else:
                 out[ia] = Ci
         elif c_slow and chunk2:            # the strip's partial out
@@ -1282,11 +1256,12 @@ def _bsr_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
             acc[ia] = None
     link.finish()
     if c_slow:
-        out = [copy_ring.piece(c_out, i) for i in range(n_ac)]
-    C = _assemble(out, plan.p_ac, n)
-    if c_slow and card:
-        C = csr_pin(C)
-    return C, planned_stats_pallas(plan, *_bsr_stage_nbytes(env))
+        out = [csr_unstack(copy_ring.piece(c_out, i)) for i in range(n_ac)]
+    Cs = []
+    for w in range(width):
+        C = _assemble([strip[w] for strip in out], plan.p_ac, n)
+        Cs.append(csr_pin(C) if c_slow and card else C)
+    return Cs, planned_stats_pallas(plan, *_bsr_stage_nbytes(env))
 
 
 # ---------------------------------------------------------------------------
@@ -1372,6 +1347,27 @@ def _pallas_run_batched(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope, *,
     return [_pallas_assemble(d, plan.p_ac) for d in dense], stats
 
 
+def _csr_accum_statics(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope, kind: str,
+                       caps_list, validate_caps: bool) -> dict:
+    """The batched CSR-accumulator core's static (``table_size`` or
+    ``row_cap``), after checking every instance's exact output structure
+    against the envelope's capacities when ``validate_caps``."""
+    # the row width is a static of the core, so it derives from the envelope
+    # alone: a zero c_max_row_nnz is exact when the symbolic phase ran (then
+    # c_nnz_cap is nonzero); only an envelope with neither falls back to the
+    # always-valid n_cols
+    row_cap = envelope.c_max_row_nnz if envelope.c_nnz_cap else Bs[0].n_cols
+    table = hash_table_slots(row_cap) if kind == "hash" else None
+    if validate_caps:
+        if caps_list is None:
+            caps_list = [strip_output_caps(A, B, plan.p_ac) for A, B in zip(As, Bs)]
+        for i, (A, B, caps) in enumerate(zip(As, Bs, caps_list)):
+            check_output_caps(caps.strip_nnz, caps.c_max_row_nnz, envelope.c_pad, table,
+                              backend=kind, a_shape=A.shape, b_shape=B.shape,
+                              instance=i)
+    return {"table_size": table} if kind == "hash" else {"row_cap": row_cap}
+
+
 def _csr_accum_run_batched(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope,
                            kind: str, *, caps_list=None, validate_caps: bool = True,
                            cores: dict | None = None):
@@ -1388,19 +1384,7 @@ def _csr_accum_run_batched(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope,
     c_pad = envelope.c_pad
     n_cols = Bs[0].n_cols
     dtype, dev = As[0].dtype, As[0].device
-    # the row width is a static of the core, so it derives from the envelope
-    # alone: a zero c_max_row_nnz is exact when the symbolic phase ran (then
-    # c_nnz_cap is nonzero); only an envelope with neither falls back to the
-    # always-valid n_cols
-    row_cap = envelope.c_max_row_nnz if envelope.c_nnz_cap else n_cols
-    table = hash_table_slots(row_cap) if kind == "hash" else None
-    if validate_caps:
-        if caps_list is None:
-            caps_list = [strip_output_caps(A, B, plan.p_ac) for A, B in zip(As, Bs)]
-        for i, (A, B, caps) in enumerate(zip(As, Bs, caps_list)):
-            check_output_caps(caps.strip_nnz, caps.c_max_row_nnz, c_pad, table,
-                              backend=kind, a_shape=A.shape, b_shape=B.shape,
-                              instance=i)
+    statics = _csr_accum_statics(As, Bs, plan, envelope, kind, caps_list, validate_caps)
     r0s, r1s = plan.b_ranges()
     Bst, chunk_nbytes = _stage_chunks_batched(Bs, plan, envelope)
     # knl is the 1-strip special case (p_ac == (0, n_rows)): every
@@ -1410,10 +1394,7 @@ def _csr_accum_run_batched(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope,
     C0 = _sparse_c0_stack(len(As), plan.n_ac, strip_rows, n_cols, c_pad, dtype, dev)
     if cores is None:
         cores = _HASH_CORES_BATCHED if kind == "hash" else _SPARSE_CORES_BATCHED
-    if kind == "hash":
-        ip, ix, d = cores[plan.algorithm](Ast, Bst, C0, r0s, r1s, table_size=table)
-    else:
-        ip, ix, d = cores[plan.algorithm](Ast, Bst, C0, r0s, r1s, row_cap=row_cap)
+    ip, ix, d = cores[plan.algorithm](Ast, Bst, C0, r0s, r1s, **statics)
     stats = planned_stats_pallas(plan, chunk_nbytes, strip_nbytes,
                                  _c_strip_nbytes(strip_rows, c_pad, dtype))
     return [_assemble([CSR(ip[b, i], ix[b, i], d[b, i], (strip_rows, n_cols), c_pad)
@@ -1451,13 +1432,199 @@ def _bsr_run_batched(As, Bs, plan, envelope, *, caps_list=None,
                         _BSR_CORES_BATCHED if cores is None else cores)
 
 
+# ---------------------------------------------------------------------------
+# the batched entry point with operands in slow memory: one ring for the batch
+# ---------------------------------------------------------------------------
+
+
+def _batch_pieces(lists: list, space: str, card: bool) -> CSR:
+    """The instances' pieces (a list each, all of one geometry) as one
+    stack of elements ``[n, width, ...]``, an element being the instances'
+    pieces of one strip or chunk side by side: pinned when ``space`` is
+    slow on the card, else where the pieces are."""
+    return copy_ring.staged([csr_stack(ps) for ps in zip(*lists)], space, card)
+
+
+def _col(m: CSR) -> CSR:
+    """A ``[width, ...]`` piece as a one-strip stack ``[width, 1, ...]``
+    (views)."""
+    return CSR(m.indptr[:, None], m.indices[:, None], m.data[:, None], m.shape,
+               m.max_row_nnz)
+
+
+def _unbatch(out: list, p_ac: tuple, n_cols: int, pin: bool) -> list:
+    """Each instance's C from the strips' ``[width, ...]`` results."""
+    Cs = []
+    for w in range(out[0].indptr.shape[0]):
+        C = _assemble([CSR(o.indptr[w], o.indices[w], o.data[w], o.shape, o.max_row_nnz)
+                       for o in out], p_ac, n_cols)
+        Cs.append(csr_pin(C) if pin else C)
+    return Cs
+
+
+def _staged_batch(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope, placement,
+                  card: bool) -> tuple:
+    """``(Ast, Bst, a_stage, slab)``: every instance's envelope-padded
+    strips and chunks as :func:`_batch_pieces` stacks, each in its
+    operand's space, and one instance's strip and chunk bytes."""
+    strips = [a_strips(A, plan.p_ac, envelope=envelope) for A in As]
+    chunks = [b_chunks(B, plan.p_b, envelope=envelope) for B in Bs]
+    a_stage, slab = strips[0][0].nbytes(), chunks[0][0].nbytes()
+    return (_batch_pieces(strips, placement.A, card),
+            _batch_pieces(chunks, placement.B, card), a_stage, slab)
+
+
+def _c0_block(plan: ChunkPlan, width: int, strip_rows: int, n_cols: int, c_pad: int,
+              dtype, c_slow: bool, device, card: bool, empty=_sparse_c0_stack) -> CSR:
+    """The empty C_prev of a batch in C's space: one strip's block a
+    ring element (the chunk1 orders), or all strips' block (Chunk2).
+    ``empty(k, width, ...)`` builds it (:func:`_sparse_c0_stack` at the CSR
+    scratch capacity, or the scan's :func:`_empty_c_stack`)."""
+    k = plan.n_ac if plan.algorithm == "chunk2" else 1
+    zeros = empty(k, width, strip_rows, n_cols, c_pad, dtype, "cpu" if c_slow else device)
+    return csr_pin(zeros) if c_slow and card else zeros
+
+
+def _csr_accum_run_batched_placed(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope,
+                                  kind: str, *, caps_list=None, validate_caps: bool = True,
+                                  cores: dict | None = None, placement, device):
+    """:func:`_csr_accum_run_batched` with operands in slow memory: each
+    slow operand's envelope-padded strips or chunks built in pinned memory
+    (a fast one's on ``device``), one element a (strip or chunk) of the
+    whole batch, and the step loop of :func:`_sparse_run_placed`
+    (:func:`_drive_placed`): one launch a (strip, chunk) step serves every
+    instance, the batch on the stacks' leading axis. The ring moves each
+    slow operand's :func:`planned_events` times the width. Every C equals
+    the all-fast batched call's bit for bit, in pinned host memory when C
+    is slow; the ChunkStats are the same."""
+    statics = _csr_accum_statics(As, Bs, plan, envelope, kind, caps_list, validate_caps)
+    card = device.type == "cuda"
+    c_pad, n_cols, dtype = envelope.c_pad, Bs[0].n_cols, As[0].dtype
+    strip_rows = envelope.strip_rows
+    Ast, Bst, a_stage, slab = _staged_batch(As, Bs, plan, envelope, placement, card)
+    if cores is None:
+        cores = _HASH_CORES_BATCHED if kind == "hash" else _SPARSE_CORES_BATCHED
+    core = cores[plan.algorithm]
+    r0s, r1s = plan.b_ranges()
+    c_slow = placement.C == "slow"
+    zeros = _c0_block(plan, len(As), strip_rows, n_cols, c_pad, dtype, c_slow, device, card)
+    link = copy_ring.Link(device)
+
+    def launch(Ai, Bj, Ci, _, j):
+        with link.step():
+            ip, ix, d = core(_col(Ai), _col(Bj), _col(Ci), r0s[j:j + 1], r1s[j:j + 1],
+                             **statics)
+        return CSR(ip[:, 0], ix[:, 0], d[:, 0], (strip_rows, n_cols), c_pad)
+
+    out = _drive_placed(link, plan, placement, Ast, Bst, zeros, launch, card)
+    stats = planned_stats_pallas(plan, slab, a_stage,
+                                 _c_strip_nbytes(strip_rows, c_pad, dtype))
+    return _unbatch(out, plan.p_ac, n_cols, c_slow and card), stats
+
+
+def _scan_run_batched_placed(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope, *,
+                             caps_list=None, validate_caps: bool = True,
+                             cores: dict | None = None, placement, device):
+    """:func:`_scan_run_batched` with operands in slow memory: the
+    envelope-padded strips and chunks streamed as the CSR accumulators
+    stream them (:func:`_drive_placed`, the pieces of the whole batch an
+    element), each step one call of the batched ``knl`` core (one ranged
+    multiply-add of every instance, from its own C_prev). Every C equals
+    the all-fast batched call's bit for bit (under Algorithm 1 each is the
+    one strip's C itself); the ChunkStats are the same."""
+    del caps_list, validate_caps   # the ranged merge cannot overflow c_pad
+    core = (_SCAN_CORES_BATCHED if cores is None else cores)["knl"]
+    card = device.type == "cuda"
+    c_pad, n_cols, dtype = envelope.c_pad, Bs[0].n_cols, As[0].dtype
+    strip_rows = envelope.strip_rows
+    Ast, Bst, a_stage, slab = _staged_batch(As, Bs, plan, envelope, placement, card)
+    r0s, r1s = plan.b_ranges()
+    c_slow = placement.C == "slow"
+    zeros = _c0_block(plan, len(As), strip_rows, n_cols, c_pad, dtype, c_slow, device, card,
+                      empty=lambda k, w, *rest: _empty_c_stack((k, w), *rest))
+    link = copy_ring.Link(device)
+
+    def launch(Ai, Bj, Ci, _, j):
+        with link.step():
+            return csr_stack(core(Ai, _col(Bj), r0s[j:j + 1], r1s[j:j + 1], Ci, c_pad=c_pad))
+
+    out = _drive_placed(link, plan, placement, Ast, Bst, zeros, launch, card)
+    if plan.algorithm == "knl":
+        return (csr_unstack(out[0]), planned_stats(plan, slab, 0, 0))
+    stats = planned_stats(plan, slab, a_stage, _c_strip_nbytes(strip_rows, c_pad, dtype))
+    return _unbatch(out, plan.p_ac, n_cols, c_slow and card), stats
+
+
+def _pallas_run_batched_placed(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope, *,
+                               caps_list=None, validate_caps: bool = True,
+                               cores: dict | None = None, placement, device):
+    """:func:`_pallas_run_batched` with operands in slow memory: each slow
+    operand's dense pieces built in pinned memory (a fast one's on
+    ``device``): the A strips with their ``span`` zero columns, the B slabs
+    and the empty C block, an element the pieces of the whole batch. The
+    step loop (:func:`_drive_placed`) launches ``ranged_spgemm_stream`` once
+    a (strip, chunk) step for every instance. The kernel writes C as base
+    plus partial, chunk by chunk, in both orders, so every C equals the
+    all-fast batched call's bit for bit; the bytes are
+    :func:`planned_events` at the dense sizes (:func:`_pallas_stage_nbytes`).
+    A slow C goes out to pinned memory as dense strips and is sparsified
+    there; the result stays pinned."""
+    del caps_list, validate_caps, cores   # dense accumulators cannot overflow
+    card = device.type == "cuda"
+    width, n_cols = len(As), Bs[0].n_cols
+    order = "chunk2" if plan.algorithm == "chunk2" else "chunk1"
+    r0s, _ = plan.b_ranges()
+
+    def dense(lists, pad_cols, space):
+        return _dense_stack(csr_stack([csr_stack(ps) for ps in zip(*lists)]), levels=2,
+                            pad_cols=pad_cols, pin_memory=card and space == "slow")
+
+    slabs = dense([b_chunks(B, plan.p_b, envelope=envelope) for B in Bs], 0, placement.B)
+    a = dense([a_strips(A, plan.p_ac, envelope=envelope) for A in As],
+              envelope.chunk_rows, placement.A)
+    strip_rows = envelope.strip_rows
+    c_slow = placement.C == "slow"
+    zeros = torch.zeros(plan.n_ac if order == "chunk2" else 1, width, strip_rows, n_cols,
+                        dtype=torch.float32, device="cpu" if c_slow else device,
+                        pin_memory=card and c_slow)
+    link = copy_ring.Link(device)
+
+    def launch(a_i, slab_j, c_i, _, j):
+        with link.step():
+            return ranged_spgemm_stream(a_i[:, None], slab_j[:, None], c_i[:, None],
+                                        r0s[j:j + 1], order=order)[:, 0]
+
+    out = _drive_placed(link, plan, placement, a, slabs, zeros, launch, card)
+    del a, slabs
+    Cs = []
+    for w in range(width):
+        C = _pallas_assemble([o[w] for o in out], plan.p_ac)
+        Cs.append(csr_pin(C) if c_slow and card else C)
+    return Cs, planned_stats_pallas(plan, *_pallas_stage_nbytes(
+        strip_rows, envelope.a_shape[1], envelope.chunk_rows, n_cols))
+
+
+def _bsr_run_batched_placed(As, Bs, plan, envelope, *, caps_list=None, validate_caps=True,
+                            cores=None, placement, device):
+    """:func:`_bsr_run_batched` with operands in slow memory
+    (:func:`_bsr_placed`): one launch a (strip, chunk) pair for the whole
+    batch."""
+    del caps_list, validate_caps
+    if not envelope.bsr_caps:
+        raise ValueError(
+            "backend 'bsr' needs a block-capped envelope; rebuild it with "
+            "batch_envelope(..., block_size=...)")
+    return _bsr_placed(As, Bs, plan, envelope, _BSR_CORES_BATCHED if cores is None else cores,
+                       placement, device)
+
+
 def chunked_spgemm_batched(As, Bs, plan: ChunkPlan, c_pad: int | None = None,
                            envelope: GeometryEnvelope | None = None,
                            backend: str = "scan", validate_caps: bool = True,
-                           cores: dict | None = None):
+                           cores: dict | None = None, *, placement=None, device=None):
     """Run a backend's batched entry over problem instances sharing one plan.
 
-    Instances must share shapes, dtype and device but may differ in sparsity
+    Instances must share shapes and dtype but may differ in sparsity
     *structure*: every instance's chunks and strips are repadded to a shared
     :class:`GeometryEnvelope` (by default the batch's union envelope, or a
     caller-provided one, e.g. a serving bucket's) before stacking, so one
@@ -1475,14 +1642,24 @@ def chunked_spgemm_batched(As, Bs, plan: ChunkPlan, c_pad: int | None = None,
     ``_csr_accum_run_batched``). ``cores`` substitutes a caller-owned core
     set (from the spec's ``make_batched_cores``) for the module-level one.
 
+    ``placement`` and ``device`` are ``chunked_spgemm``'s
+    (``placement.resolve_batch_placement``): ``device=None`` is the card,
+    ``device="cpu"`` runs the plain versions; the instances share one
+    placement, and a batch whose operands lie in different spaces raises.
+    With a slow operand the spec's ``run_batched_placed`` builds its
+    envelope-padded stacks in slow memory and the copy ring moves one
+    (strip, chunk) step's pieces of the whole batch at a time, one launch a
+    step for every instance; a slow C comes back in pinned host memory.
+
     Returns ``(list_of_C, stats)``; ``stats`` is one instance's modeled copy
     accounting at the envelope-padded staged sizes (the same for every
-    instance by construction). The results stay on the instances' device.
+    instance by construction).
     """
+    from repro_torch.core.placement import ALL_FAST, resolve_batch_placement
+
     As, Bs = list(As), list(Bs)
     if len(As) != len(Bs) or not As:
         raise ValueError("need equal, nonzero numbers of A and B instances")
-    refuse_pinned("chunked_spgemm_batched", *As, *Bs)
     if plan.algorithm not in backend_registry.ALGORITHMS:
         raise ValueError(f"unsupported algorithm {plan.algorithm!r}")
     spec = None if backend == "auto" else backend_registry.get(backend)
@@ -1493,9 +1670,11 @@ def chunked_spgemm_batched(As, Bs, plan: ChunkPlan, c_pad: int | None = None,
             raise ValueError(
                 "batched instances must share shapes: "
                 f"{A.shape}x{B.shape} vs {As[0].shape}x{Bs[0].shape}")
-    devices = sorted({str(m.device) for m in As + Bs})
-    if len(devices) > 1:
-        raise ValueError(f"batched instances must share a device, got {devices}")
+    for ms in (As, Bs):
+        devices = sorted({str(m.device) for m in ms})
+        if len(devices) > 1:
+            raise ValueError(f"batched instances must share a device, got {devices}")
+    placement, run_device = resolve_batch_placement(As, Bs, placement, device)
     caps_list = None
     if envelope is None:
         # the per-instance symbolic expansions feeding the union envelope are
@@ -1516,8 +1695,17 @@ def chunked_spgemm_batched(As, Bs, plan: ChunkPlan, c_pad: int | None = None,
         raise ValueError(
             f"backend {spec.name!r} needs a block-capped envelope; rebuild it "
             "with batch_envelope(..., block_size=...)")
-    return spec.run_batched(As, Bs, plan, envelope, caps_list=caps_list,
-                            validate_caps=validate_caps, cores=cores)
+    if placement == ALL_FAST:
+        return spec.run_batched(As, Bs, plan, envelope, caps_list=caps_list,
+                                validate_caps=validate_caps, cores=cores)
+    if spec.run_batched_placed is None:
+        raise ValueError(
+            f"backend {spec.name!r} registers no batched copy ring (run_batched_placed) "
+            f"for operands in slow memory ({placement}): put the operands on the card "
+            "with place(x, 'fast')")
+    return spec.run_batched_placed(As, Bs, plan, envelope, caps_list=caps_list,
+                                   validate_caps=validate_caps, cores=cores,
+                                   placement=placement, device=run_device)
 
 
 # ---------------------------------------------------------------------------
@@ -1748,6 +1936,7 @@ def _register_all() -> None:
         audit_trace=_audit_scan,
         make_batched_cores=_batched_core_factory("{alg}_batched", _SCAN_RUNS_BATCHED),
         run_placed=_scan_run_placed,
+        run_batched_placed=_scan_run_batched_placed,
     ))
     register(Spec(
         name="pallas",
@@ -1763,6 +1952,7 @@ def _register_all() -> None:
         make_batched_cores=_batched_core_factory("{alg}_pallas_batched",
                                                  _PALLAS_RUNS_BATCHED),
         run_placed=_pallas_run_placed,
+        run_batched_placed=_pallas_run_batched_placed,
     ))
     register(Spec(
         name="sparse",
@@ -1777,6 +1967,7 @@ def _register_all() -> None:
         traffic_model=_traffic_csr_accum,
         make_batched_cores=_batched_core_factory("{alg}_sparse_batched", _SPARSE_RUNS),
         run_placed=partial(_sparse_run_placed, backend="sparse"),
+        run_batched_placed=partial(_csr_accum_run_batched_placed, kind="sparse"),
     ))
     register(Spec(
         name="hash",
@@ -1793,6 +1984,7 @@ def _register_all() -> None:
         traffic_model=_traffic_csr_accum,
         make_batched_cores=_batched_core_factory("{alg}_hash_batched", _HASH_RUNS),
         run_placed=partial(_sparse_run_placed, backend="hash"),
+        run_batched_placed=partial(_csr_accum_run_batched_placed, kind="hash"),
     ))
     register(Spec(
         name="bsr",
@@ -1810,6 +2002,7 @@ def _register_all() -> None:
         stats_exempt=_BSR_STATS_EXEMPT,
         make_batched_cores=_batched_core_factory("{alg}_bsr_batched", _BSR_RUNS),
         run_placed=_bsr_run_placed,
+        run_batched_placed=_bsr_run_batched_placed,
     ))
 
 

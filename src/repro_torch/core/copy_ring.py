@@ -42,8 +42,10 @@ of copy time spent under compute.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
+import itertools
 
 import torch
 
@@ -99,14 +101,17 @@ class Transfer:
 
 class RingLog:
     """Records the rings and transfers of the executor calls made inside it
-    (``rings``, ``transfers``, in issue order). With ``timed`` (on the card)
-    it keeps CUDA events around every copy and every step's kernels;
-    :meth:`times` reads them."""
+    (``rings``, ``transfers``, in issue order), and each call's own apart
+    (``calls``: one RingLog a :class:`Link`, in the order the calls
+    finished; a two-hop pipeline's hops, each through its ring). With
+    ``timed`` (on the card) it keeps CUDA events around every copy and every
+    step's kernels; :meth:`times` reads them."""
 
     def __init__(self, timed: bool = False):
         self.timed = timed
         self.rings: list = []
         self.transfers: list = []
+        self.calls: list = []
         self._origin = None
         self._copies: list = []       # (direction, nbytes, start, end)
         self._steps: list = []        # (start, end)
@@ -134,7 +139,16 @@ class RingLog:
             return {}
         torch.cuda.synchronize()
         at = lambda e: self._origin.elapsed_time(e)  # noqa: E731
+        # the steps run one after another on the compute stream: disjoint,
+        # so the step time before t is a prefix sum up to the step holding t
         steps = sorted((at(s), at(e)) for s, e in self._steps)
+        starts = [s0 for s0, _ in steps]
+        before = list(itertools.accumulate((s1 - s0 for s0, s1 in steps), initial=0.0))
+
+        def covered(t: float) -> float:
+            k = bisect.bisect_right(starts, t)
+            return before[k - 1] + min(t, steps[k - 1][1]) - steps[k - 1][0] if k else 0.0
+
         copy_ms = {"in": 0.0, "out": 0.0}
         moved = {"in": 0, "out": 0}
         under = 0.0
@@ -142,7 +156,7 @@ class RingLog:
             c0, c1 = at(s), at(e)
             copy_ms[direction] += c1 - c0
             moved[direction] += nbytes
-            under += sum(max(0.0, min(c1, s1) - max(c0, s0)) for s0, s1 in steps)
+            under += covered(c1) - covered(c0)
         total = copy_ms["in"] + copy_ms["out"]
         rate = lambda d: moved[d] / copy_ms[d] / 1e6 if copy_ms[d] > 0 else None  # noqa: E731
         return {"copy_ms": total, "copy_in_ms": copy_ms["in"],
@@ -221,18 +235,30 @@ class Link:
     def copy_in(self, operand: str, source, apart: bool = False):
         """One whole piece of ``operand`` onto the device (one transfer;
         ``apart``: a whole operand crossing outside its plan's events)."""
-        src = fields(source)
-        nbytes = _nbytes(src)
-        out = [torch.empty(t.shape, dtype=t.dtype, device=self.device) for t in src]
+        return self._copy_in(operand, [source], apart)[0]
+
+    def copy_in_each(self, operand: str, stack) -> list:
+        """The elements of ``stack`` onto the device as one transfer, each
+        in an allocation of its own, so that each is freed when its last
+        user drops it (a Chunk2 C block whose strips are replaced one by
+        one)."""
+        return self._copy_in(operand, [piece(stack, i)
+                                       for i in range(fields(stack)[0].shape[0])])
+
+    def _copy_in(self, operand: str, sources: list, apart: bool = False) -> list:
+        nbytes = sum(_nbytes(fields(p)) for p in sources)
+        outs = [[torch.empty(t.shape, dtype=t.dtype, device=self.device) for t in fields(p)]
+                for p in sources]
         with self.copying("in", nbytes):
-            for o, t in zip(out, src):
-                o.copy_(t, non_blocking=self.card)
+            for out, p in zip(outs, sources):
+                for o, t in zip(out, fields(p)):
+                    o.copy_(t, non_blocking=self.card)
         if self.card:
             ready = self._event()
             ready.record(self.stream)
             self.compute_stream.wait_event(ready)
         self.transfers.append(Transfer(operand, "in", nbytes, apart))
-        return rebuild(source, out)
+        return [rebuild(p, out) for p, out in zip(sources, outs)]
 
     def copy_out(self, operand: str, pieces: list, dest, first: int = 0,
                  apart: bool = False) -> None:
@@ -260,12 +286,15 @@ class Link:
         records = [r.record for r in self.rings]
         self.rings = []      # the rings hold the link: free their slots now, not at a GC
         for log in self.logs:
-            log.rings.extend(records)
-            log.transfers.extend(self.transfers)
-            if self.timed and log.timed:
-                log._origin = log._origin or self._origin
-                log._copies.extend(self._copies)
-                log._steps.extend(self._steps)
+            call = RingLog(timed=log.timed)
+            for into in (log, call):
+                into.rings.extend(records)
+                into.transfers.extend(self.transfers)
+                if self.timed and log.timed:
+                    into._origin = into._origin or self._origin
+                    into._copies.extend(self._copies)
+                    into._steps.extend(self._steps)
+            log.calls.append(call)
 
 
 class CopyRing:

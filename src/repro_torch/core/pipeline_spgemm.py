@@ -14,16 +14,21 @@ two-hop planner+executor:
   between the hops when both hops' peaks fit with it, and spills to slow
   memory otherwise;
 * the **executor** (:func:`pipeline_spgemm`) runs both hops through any
-  registered backend, with the pre-sized caps, so neither hop re-expands the
-  symbolic structure. On the spill path T is written to slow memory
-  (pinned host memory on the card, a host copy on the CPU) and stays
-  there: hop 2 streams it as its B operand through the backend's copy ring
-  (``repro_torch.core.copy_ring``), under every registered backend;
+  registered backend (or ``auto``), with the pre-sized caps, so neither hop
+  re-expands the symbolic structure. It runs on the card by default and
+  takes A, P and R where they lie (a :class:`PipelinePlacement`): a slow
+  operand, in pinned host memory, streams through its hop's copy ring
+  (``repro_torch.core.copy_ring``), and C goes to R's space. On the spill
+  path T is slow (pinned host memory on the card, a host copy on the CPU)
+  and stays there: hop 2 streams it as its B operand through the ring,
+  under every registered backend;
 * the composed byte model (:func:`pipeline_fast_model`) counts the resident
-  intermediate exactly once (:func:`check_pipeline_model`).
-
-The JAX package's static-audit hooks (``pipeline_audit_traces``,
-``audit_pipeline``) need the static auditor and are not ported yet.
+  intermediate exactly once (:func:`check_pipeline_model`);
+* the static-audit hooks (:func:`pipeline_audit_traces`,
+  :func:`audit_pipeline`) stage both hops' cores as the executor would and
+  hold the per-hop and composed byte models to the staged steps, with the
+  port's auditor (``repro_torch.analysis``) in place of the reference's
+  jaxpr tracing.
 """
 
 from __future__ import annotations
@@ -32,10 +37,14 @@ import dataclasses
 
 from repro_torch.core import backend_registry
 from repro_torch.core.chunking import ChunkStats, instance_envelope, whole_fast
-from repro_torch.core.placement import ALL_FAST, Placement
-from repro_torch.core.planner import BackendFastModel, PipelinePlan, plan_pipeline
+from repro_torch.core.placement import (
+    ALL_FAST, PipelinePlacement, resolve_pipeline_placement,
+)
+from repro_torch.core.planner import (
+    BackendFastModel, PipelinePlan, plan_pipeline, select_accumulator_backend,
+)
 from repro_torch.core.symbolic import PipelineCaps, pipeline_output_caps
-from repro_torch.sparse.csr import CSR, GeometryEnvelope, csr_pin, refuse_pinned
+from repro_torch.sparse.csr import CSR, GeometryEnvelope, csr_pin
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,12 +57,15 @@ class PipelineEnvelope:
 
 
 def pipeline_envelope(A: CSR, P: CSR, R: CSR, plan: PipelinePlan,
-                      caps: PipelineCaps) -> PipelineEnvelope:
+                      caps: PipelineCaps, block_size: int | None = None) -> PipelineEnvelope:
     """Both hop envelopes from one composed symbolic pass; hop 2's is built
-    against the intermediate's exact *pattern*, before hop 1 runs."""
+    against the intermediate's exact *pattern*, before hop 1 runs.
+    ``block_size`` folds the block caps in (``instance_envelope``), as a
+    block backend's staging needs."""
     return PipelineEnvelope(
-        hop1=instance_envelope(A, P, plan.plan1, caps=caps.hop1),
-        hop2=instance_envelope(R, caps.t_pattern, plan.plan2, caps=caps.hop2),
+        hop1=instance_envelope(A, P, plan.plan1, caps=caps.hop1, block_size=block_size),
+        hop2=instance_envelope(R, caps.t_pattern, plan.plan2, caps=caps.hop2,
+                               block_size=block_size),
     )
 
 
@@ -75,17 +87,18 @@ class PipelineStats:
         return self.hop1.copy_bytes + self.hop2.copy_bytes + self.spill_bytes
 
 
-def _run_hop(X: CSR, Y: CSR, plan, caps, backend: str, placement=ALL_FAST,
-             device=None):
-    """One hop through a registered backend at pre-sized caps, on ``device``
-    (``X``'s by default). A whole_fast hop's output carries the exact
-    densest-row bound (the reference's carries ``c_pad``), which hop 2 reads
-    as its streamed ``b_max_row_nnz``. Operands that ``placement`` puts in
-    slow memory cross whole in a whole_fast hop and through the backend's
-    copy ring (``run_placed``) in a chunked one."""
+def _run_hop(X: CSR, Y: CSR, plan, caps, backend: str, placement, device):
+    """One hop through a registered backend (or ``auto``, resolved on the
+    hop's envelope) at pre-sized caps, on ``device``. A whole_fast hop's
+    output carries the exact densest-row bound (the reference's carries
+    ``c_pad``), which hop 2 reads as its streamed ``b_max_row_nnz``.
+    Operands that ``placement`` puts in slow memory cross whole in a
+    whole_fast hop and through the backend's copy ring (``run_placed``) in
+    a chunked one, where a slow output goes to slow memory."""
     if plan.algorithm == "whole_fast":
-        return whole_fast(X, Y, caps.c_pad, placement, device or X.device,
-                          caps.c_max_row_nnz)
+        return whole_fast(X, Y, caps.c_pad, placement, device, caps.c_max_row_nnz)
+    if backend == "auto":
+        backend = select_accumulator_backend(plan, instance_envelope(X, Y, plan, caps=caps))
     spec = backend_registry.get(backend)
     fn = spec.executors.get(plan.algorithm)
     if fn is None:
@@ -107,21 +120,32 @@ def _spill_to_slow(T: CSR) -> CSR:
 
 def pipeline_spgemm(A: CSR, P: CSR, R: CSR, plan: PipelinePlan | None = None,
                     *, system=None, fast_limit_bytes: float | None = None,
-                    backend: str = "sparse", caps: PipelineCaps | None = None):
+                    backend: str = "sparse", caps: PipelineCaps | None = None,
+                    placement: PipelinePlacement | None = None, device=None):
     """Execute ``C = R x (A x P)`` as a fused two-hop pipeline.
 
     Returns ``(C, PipelineStats)``. ``plan`` defaults to
     ``planner.plan_pipeline(A, P, R, system, fast_limit_bytes)`` (``system``
     is then required); ``caps`` defaults to the composed symbolic phase at
-    the plan's partitions. ``backend`` names any registered backend; both
-    hops run through it. On the resident path the intermediate's device CSR
-    flows straight into hop 2; on the spill path it is written to slow
-    memory and hop 2 streams it through the copy ring as its B operand (R
-    and C stay on the run device), and the stats carry the extra copy
-    events. Its inputs must be on the run device: placed inputs are ROADMAP
-    Queue 1 item 7c.
+    the plan's partitions. ``backend`` names any registered backend, or
+    ``auto`` (each hop's accumulator resolved on its own envelope); both
+    hops run through it.
+
+    ``placement`` (a :class:`repro_torch.core.placement.PipelinePlacement`)
+    and ``device`` say where A, P, R and C live and where the call runs
+    (``placement.resolve_pipeline_placement``): ``device=None`` is the
+    card, where a pinned operand is slow, one on the card fast, C takes R's
+    space, and a pageable host operand raises; ``device="cpu"`` runs the
+    plain versions with the spaces given (all fast by default). The
+    intermediate T is fast on the resident path and slow (pinned on the
+    card) on the spill path. Hop 1 runs ``A x P`` under (A, P, T) and hop 2
+    ``R x T`` under (R, T, C): a hop with a slow operand streams it through
+    its backend's copy ring, and a slow output goes to slow memory. With A
+    and P fast, hop 1 writes T on the run device and a spilled T is copied
+    to slow memory after it (the all-fast pipeline's path). The stats
+    carry each hop's events; ``spill_bytes`` counts T's extra round trip.
     """
-    refuse_pinned("pipeline_spgemm", A, P, R)
+    where, run = resolve_pipeline_placement({"A": A, "P": P, "R": R}, placement, device)
     if plan is None:
         if system is None:
             raise ValueError(
@@ -130,17 +154,19 @@ def pipeline_spgemm(A: CSR, P: CSR, R: CSR, plan: PipelinePlan | None = None,
         plan = plan_pipeline(A, P, R, system, fast_limit_bytes=fast_limit_bytes)
     if caps is None:
         caps = pipeline_output_caps(A, P, R, plan.plan1.p_ac, plan.plan2.p_ac)
-    T, stats1 = _run_hop(A, P, plan.plan1, caps.hop1, backend)
     spilled = not plan.t_resident
+    t_space = "slow" if spilled else "fast"
+    if where.hop1("fast") == ALL_FAST:
+        T, stats1 = _run_hop(A, P, plan.plan1, caps.hop1, backend, ALL_FAST, run)
+        if spilled:
+            T = _spill_to_slow(T)
+    else:
+        T, stats1 = _run_hop(A, P, plan.plan1, caps.hop1, backend, where.hop1(t_space), run)
     spill_bytes = 0.0
-    placement, device = ALL_FAST, None
     if spilled:
-        device = T.device
-        T = _spill_to_slow(T)
         t_reads = plan.plan2.n_ac if plan.plan2.algorithm == "chunk1" else 1
         spill_bytes = float(T.nbytes()) * (1 + t_reads)
-        placement = Placement("fast", "slow", "fast")
-    C, stats2 = _run_hop(R, T, plan.plan2, caps.hop2, backend, placement, device)
+    C, stats2 = _run_hop(R, T, plan.plan2, caps.hop2, backend, where.hop2(t_space), run)
     return C, PipelineStats(plan=plan, hop1=stats1, hop2=stats2,
                             spilled=spilled, spill_bytes=spill_bytes)
 
@@ -192,3 +218,79 @@ def check_pipeline_model(model: PipelineFastModel) -> list:
             f"{extra:.0f} = {want:.0f} B — the intermediate persists across "
             f"both hops and must be counted exactly once"]
     return []
+
+
+def pipeline_audit_traces(A: CSR, P: CSR, R: CSR, plan: PipelinePlan, backend: str,
+                          caps: PipelineCaps | None = None) -> list:
+    """Stage both hops' cores for the static auditor, exactly as the
+    executor would: ``[(hop_label, TraceTarget, hop_plan, hop_envelope),
+    ...]``, each hop through the backend's ``audit_trace`` at its
+    :func:`pipeline_envelope` (block-capped for a block backend). Hop 2 is
+    staged against the intermediate's exact pattern (``caps.t_pattern``:
+    the audit needs no values). ``whole_fast`` hops have no chunked core
+    and are left out."""
+    spec = backend_registry.get(backend)
+    if not spec.supports_audit:
+        raise ValueError(f"backend {backend!r} registers no audit_trace")
+    if caps is None:
+        caps = pipeline_output_caps(A, P, R, plan.plan1.p_ac, plan.plan2.p_ac)
+    penv = pipeline_envelope(A, P, R, plan, caps,
+                             spec.block_size if spec.needs_block_caps else None)
+    out = []
+    for label, X, Y, hplan, henv in (
+            ("hop1", A, P, plan.plan1, penv.hop1),
+            ("hop2", R, caps.t_pattern, plan.plan2, penv.hop2)):
+        if hplan.algorithm == "whole_fast":
+            continue
+        out.append((label, spec.audit_trace(X, Y, hplan, henv.c_pad, henv), hplan, henv))
+    return out
+
+
+def audit_pipeline(A: CSR, P: CSR, R: CSR, plan: PipelinePlan, backend: str = "sparse",
+                   caps: PipelineCaps | None = None):
+    """Static audit of one pipeline: each hop's staged core runs once under
+    the copy-event recorder (``analysis.traffic.traced_flows``), the
+    backend's per-hop byte model must dominate the hop's staged step
+    (``analysis.smem.audit_smem``: its ``step_bytes`` is the reference's
+    traced bytes), and the composed :class:`PipelineFastModel` must count
+    the resident intermediate exactly once (:func:`check_pipeline_model`)
+    and cover the two-hop peak plus the resident T. Returns ``(record,
+    violations)``; a hop's record is its ``SmemAudit``. A backend without a
+    byte model (``scan``) is staged and recorded with no model to hold
+    (``fast_bytes_needed`` None), where the reference raises."""
+    from repro_torch.analysis.smem import audit_smem
+    from repro_torch.analysis.traffic import traced_flows
+
+    spec = backend_registry.get(backend)
+    if caps is None:
+        caps = pipeline_output_caps(A, P, R, plan.plan1.p_ac, plan.plan2.p_ac)
+    model, violations = None, []
+    if spec.byte_model is not None:
+        penv = pipeline_envelope(A, P, R, plan, caps,
+                                 spec.block_size if spec.needs_block_caps else None)
+        model = pipeline_fast_model(plan, penv, backend)
+        violations = list(check_pipeline_model(model))
+    record = {"backend": backend, "t_resident": plan.t_resident,
+              "t_bytes": plan.t_bytes, "hops": {}}
+    traced_peak = 0.0
+    for label, target, hplan, henv in pipeline_audit_traces(A, P, R, plan, backend,
+                                                            caps=caps):
+        hmodel = spec.byte_model(hplan, henv) if spec.byte_model is not None else None
+        audit = audit_smem(target, traced_flows(target), hmodel)
+        if audit.dominated is False:
+            violations.append(
+                f"{label}: byte model undercounts the staged step (model "
+                f"{audit.model_bytes:.0f} B < staged {audit.step_bytes:.0f} B)")
+        traced_peak = max(traced_peak, audit.step_bytes)
+        record["hops"][label] = dataclasses.asdict(audit)
+    resident_extra = plan.t_bytes if plan.t_resident else 0.0
+    if (model is not None and traced_peak
+            and model.fast_bytes_needed < traced_peak + resident_extra):
+        violations.append(
+            f"composed model {model.fast_bytes_needed:.0f} B does not cover the "
+            f"staged two-hop peak {traced_peak:.0f} B plus the resident "
+            f"intermediate {resident_extra:.0f} B")
+    record["fast_bytes_needed"] = None if model is None else model.fast_bytes_needed
+    record["traced_peak"] = traced_peak
+    record["n_violations"] = len(violations)
+    return record, violations

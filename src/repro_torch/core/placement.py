@@ -7,11 +7,15 @@ fast-memory performance — *iff* B fits ("This method, DP, only works when B fi
 into HBM").
 
 On the card, :func:`place` realizes a placement: a ``"fast"`` operand lives
-on the card, a ``"slow"`` one in pinned host memory. ``chunked_spgemm``
-with a slow operand stages every piece its ``ChunkStats`` counts across the
-link through the two-slot copy ring (``repro_torch.core.copy_ring``); the
-kernels never read host memory in place. :func:`resolve_placement` decides
-a call's placement and run device. The cost model below prices a placement
+on the card, a ``"slow"`` one in pinned host memory. Every entry point
+(``chunked_spgemm``, ``count_triangles``, ``pipeline_spgemm``,
+``chunked_spgemm_batched``, ``SpGEMMService``) with a slow operand stages
+every piece its ``ChunkStats`` counts across the link through the two-slot
+copy ring (``repro_torch.core.copy_ring``); the kernels never read host
+memory in place. :func:`resolve_placement` decides a call's placement and
+run device, :func:`resolve_batch_placement` a batch's (one for all its
+instances) and :func:`resolve_pipeline_placement` a two-hop pipeline's
+(:class:`PipelinePlacement`). The cost model below prices a placement
 without running it.
 """
 
@@ -143,6 +147,38 @@ def place(operand, space: str, device=None):
     return operand.to(dev if space == "fast" else torch.device("cpu"))
 
 
+def _resolve_spaces(operands: dict, given: dict, device, c_from: str) -> dict:
+    """The space of each of ``operands`` and of their output ``"C"`` in one
+    call, from ``given`` (a space or ``None`` each; ``None`` reads the
+    operand, and an unnamed C takes ``c_from``'s space): on the CPU every
+    operand is host memory and ``None`` is fast; on the card a pinned
+    operand is slow and one on the card fast, a pageable host operand
+    raises, and a given space must agree with where the operand is."""
+    where = {k: csr_residence(m) for k, m in operands.items()}
+    if torch.device("cuda" if device is None else device).type == "cpu":
+        if "card" in where.values():
+            raise ValueError(f"operands on the card {where} in a CPU run")
+        spaces = {k: given.get(k) or "fast" for k in operands}
+        return {**spaces, "C": given.get("C") or spaces[c_from]}
+    host = [k for k, w in where.items() if w == "host"]
+    if host:
+        raise ValueError(
+            f"operand(s) {host} are in pageable host memory in a run on the card: "
+            "put each on the card with place(x, 'fast') or in pinned host memory "
+            "with place(x, 'slow')")
+    spaces = {k: given.get(k) or ("slow" if w == "pinned" else "fast")
+              for k, w in where.items()}
+    spaces["C"] = given.get("C") or spaces[c_from]
+    for k, w in where.items():
+        want = "pinned" if spaces[k] == "slow" else "card"
+        if w != want:
+            raise ValueError(
+                f"placement puts {k} in {spaces[k]} memory but it is "
+                f"{'on the card' if w == 'card' else 'in pinned host memory'}: "
+                f"move it with place({k}, {spaces[k]!r})")
+    return spaces
+
+
 def resolve_placement(operands: dict, placement: Placement | None, device):
     """``(placement, run device)`` of one call over ``operands`` (``{"A":
     A, "B": B}``; C is the output).
@@ -155,26 +191,65 @@ def resolve_placement(operands: dict, placement: Placement | None, device):
     agree with where the operands are. On the CPU every operand is host
     memory, and the placement is the one given (all fast by default).
     """
-    where = {k: csr_residence(m) for k, m in operands.items()}
-    if torch.device("cuda" if device is None else device).type == "cpu":
-        if "card" in where.values():
-            raise ValueError(f"operands on the card {where} in a CPU run")
-        return (ALL_FAST if placement is None else placement), resolve_device(device)
-    host = [k for k, w in where.items() if w == "host"]
-    if host:
-        raise ValueError(
-            f"operand(s) {host} are in pageable host memory in a run on the card: "
-            "put each on the card with place(x, 'fast') or in pinned host memory "
-            "with place(x, 'slow')")
-    if placement is None:
-        space = {k: "slow" if w == "pinned" else "fast" for k, w in where.items()}
-        placement = Placement(space["A"], space["B"], space["A"])
-    for k, w in where.items():
-        want = "pinned" if getattr(placement, k) == "slow" else "card"
-        if w != want:
-            raise ValueError(
-                f"placement puts {k} in {getattr(placement, k)} memory but it is "
-                f"{'on the card' if w == 'card' else 'in pinned host memory'}: "
-                f"move it with place({k}, {getattr(placement, k)!r})")
-    return placement, resolve_device(device)
+    given = {} if placement is None else dataclasses.asdict(placement)
+    spaces = _resolve_spaces(operands, given, device, "A")
+    return Placement(spaces["A"], spaces["B"], spaces["C"]), resolve_device(device)
 
+
+def resolve_batch_placement(As: list, Bs: list, placement: Placement | None, device):
+    """:func:`resolve_placement` of a batch, whose instances share one
+    placement: a batch that mixes spaces raises."""
+    given = {} if placement is None else dataclasses.asdict(placement)
+    found = {tuple(_resolve_spaces({"A": A, "B": B}, given, device, "A").values())
+             for A, B in zip(As, Bs)}
+    if len(found) > 1:
+        raise ValueError(
+            f"a batch shares one placement, but its instances' operands lie in "
+            f"{sorted(found)} (A, B, C): place every instance's operands alike")
+    return Placement(*found.pop()), resolve_device(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelinePlacement:
+    """Memory space per operand of the two-hop ``C = R x (A x P)``
+    (``pipeline_spgemm``); ``None`` reads the space from the operand (on
+    the card: pinned is slow, on the card fast, C takes R's space; on the
+    CPU: fast). The intermediate T is not placed: it is fast when the plan
+    keeps it resident and slow when it spills."""
+
+    A: str | None = None
+    P: str | None = None
+    R: str | None = None
+    C: str | None = None
+
+    def __post_init__(self):
+        for k in ("A", "P", "R", "C"):
+            if getattr(self, k) not in (*SPACES, None):
+                raise ValueError(f"{k} space must be one of {SPACES} or None")
+
+    def hop1(self, t: str) -> Placement:
+        """T = A x P with T in space ``t``."""
+        return Placement(self.A, self.P, t)
+
+    def hop2(self, t: str) -> Placement:
+        """C = R x T with T in space ``t``."""
+        return Placement(self.R, t, self.C)
+
+
+# Table 3's all-fast, all-slow and DP placements of the Galerkin product
+PIPELINE_TABLE3 = {
+    "HBM": PipelinePlacement("fast", "fast", "fast", "fast"),
+    "HostPin": PipelinePlacement("slow", "slow", "slow", "slow"),
+    "DP": PipelinePlacement("slow", "fast", "slow", "slow"),
+}
+
+
+def resolve_pipeline_placement(operands: dict, placement: PipelinePlacement | None,
+                               device):
+    """``(placement, run device)`` of one ``pipeline_spgemm`` over
+    ``{"A": A, "P": P, "R": R}``, every field resolved as
+    :func:`resolve_placement` resolves a call's, C taking R's space (its
+    strips follow R's)."""
+    given = {} if placement is None else dataclasses.asdict(placement)
+    spaces = _resolve_spaces(operands, given, device, "R")
+    return PipelinePlacement(**spaces), resolve_device(device)

@@ -6,7 +6,8 @@ multiplies from a small fast memory; the symmetric serving scenario — many
 *small* multiplies behind one endpoint — is instead dominated by per-multiply
 setup (Nagasaka & Azad, 1804.01698): replanning, repadding, and above all
 recompilation. ``SpGEMMService`` amortizes all three (the port of the JAX
-package's service; its requests run on the device their CSRs live on):
+package's service; it runs on the card unless it is built with
+``device="cpu"``, and takes operands in slow memory):
 
   * each request gets a per-instance :class:`GeometryEnvelope` for its plan,
     **quantized** (nnz caps rounded up to a quantum, row-nnz bounds to powers
@@ -42,9 +43,14 @@ package's service; its requests run on the device their CSRs live on):
     re-multiplying a live request;
   * every flush stages fresh C-accumulator stacks, so a response's C never
     shares memory with a later flush; ``donate_buffers`` is the reference's
-    flag for donating them to its jitted cores, kept for the same API.
+    flag for donating them to its jitted cores, kept for the same API;
+  * a request's operands may lie in slow memory (pinned host memory, on a
+    card service): the bucket key carries the request's placement, so a
+    flush never mixes spaces, and a bucket with slow operands flushes
+    through ``chunked_spgemm_batched``'s copy ring, its sentinel instances
+    in the same spaces.
 
-Every timed span ends in a synchronisation of the operands' device, so
+Every timed span ends in a synchronisation of the service's device, so
 ``exec_s``, ``compile_s`` and ``latency_s`` end when the card has finished,
 not when the launches were issued. ``docs/serving.md`` documents the bucket
 lifecycle (create -> dominate -> merge -> evict -> refault) and the knobs.
@@ -63,11 +69,12 @@ import torch
 from repro_torch.core import backend_registry
 from repro_torch.core.chunk_stream import TRACE_COUNTS, chunked_spgemm_batched
 from repro_torch.core.chunking import ChunkStats, instance_envelope
+from repro_torch.core.placement import ALL_FAST, Placement, place, resolve_placement
 from repro_torch.core.planner import (
     ChunkPlan, plan_knl, replan_for_latency, select_accumulator_backend,
 )
 from repro_torch.sparse.csr import (
-    CSR, GeometryEnvelope, _NP_DTYPES, csr_from_scipy_like, refuse_pinned,
+    CSR, GeometryEnvelope, _NP_DTYPES, csr_from_scipy_like, resolve_device,
 )
 
 
@@ -125,7 +132,7 @@ class SpGEMMResponse:
     latency_s: float         # submit -> bucket results materialized
     exec_s: float            # wall time of this request's bucket execution
     compile_s: float         # cold-core time paid by this microbatch (0 warm)
-    bucket_key: tuple        # (GeometryEnvelope, plan_key)
+    bucket_key: tuple        # (GeometryEnvelope, plan_key, Placement)
     batch_size: int          # true requests in the executed microbatch
     padded_batch: int        # ladder width the microbatch was padded to
     stats: ChunkStats        # modeled copy traffic at envelope-padded sizes
@@ -136,6 +143,7 @@ class _Bucket:
     envelope: GeometryEnvelope
     plan: ChunkPlan
     queue: list              # pending SpGEMMRequest
+    placement: Placement = ALL_FAST   # where its requests' A, B and C lie
     compiles: int = 0        # new core geometries (traces) while executing
     executions: int = 0      # microbatches run
     served: int = 0          # requests completed
@@ -145,12 +153,11 @@ class _Bucket:
     compiled_widths: set = dataclasses.field(default_factory=set)
     last_used: int = 0               # service tick of last submit/flush
     sentinel: tuple | None = None    # cached envelope-shaped empty (A, B)
-    sentinel_device: torch.device | None = None   # where ``sentinel`` lives
     exec_ewma: float | None = None   # per-request execution seconds, smoothed
 
     @property
     def key(self) -> tuple:
-        return (self.envelope, plan_key(self.plan))
+        return (self.envelope, plan_key(self.plan), self.placement)
 
     def invalidate_executables(self) -> None:
         """Drop everything keyed to the old envelope (after a merge or
@@ -199,6 +206,8 @@ class SpGEMMService:
     opts the block-level symbolic phase into every submit-time envelope
     (defaulted from the spec for block backends like ``"bsr"``; set it
     explicitly under ``"auto"`` to let buckets resolve to a block backend).
+    ``device`` is where every flush runs: ``None`` is the card, and a CPU
+    service (the kernels' plain versions) is asked for with ``"cpu"``.
 
     Serving knobs (all optional; defaults preserve the synchronous
     queue+flush behavior):
@@ -241,7 +250,7 @@ class SpGEMMService:
                  donate_buffers: bool = True,
                  learn_tail_widths: bool = False,
                  tail_learn_threshold: int = 3,
-                 adapt_quantum: bool = False):
+                 adapt_quantum: bool = False, device=None):
         if plan is None and fast_limit_bytes is None:
             raise ValueError("need a fixed plan or fast_limit_bytes to plan by")
         if max_batch < 1 or quantum < 1 or retrace_budget < 1:
@@ -258,6 +267,9 @@ class SpGEMMService:
                 f"backend {backend!r} does not support batched execution")
         if block_size is None and spec is not None and spec.needs_block_caps:
             block_size = spec.block_size
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self._plan = plan
         self._fast_limit = fast_limit_bytes
         self.quantum = quantum
@@ -355,8 +367,9 @@ class SpGEMMService:
         self._family_quanta[family] = q
         self._family_traffic[family] = [0, 0]
 
-    def _create_bucket(self, env: GeometryEnvelope, plan: ChunkPlan) -> _Bucket:
-        bucket = _Bucket(envelope=env, plan=plan, queue=[],
+    def _create_bucket(self, env: GeometryEnvelope, plan: ChunkPlan,
+                       placement: Placement) -> _Bucket:
+        bucket = _Bucket(envelope=env, plan=plan, queue=[], placement=placement,
                          last_used=self._tick)
         self._buckets[bucket.key] = bucket
         self.stats.buckets_created += 1
@@ -392,12 +405,13 @@ class SpGEMMService:
         self.stats.evictions += 1
         return True
 
-    def _resolve_bucket(self, env: GeometryEnvelope,
-                        plan: ChunkPlan) -> tuple:
-        """Find or make the bucket serving ``env``; returns
-        ``(bucket, outcome)`` with outcome in {"hit", "create", "merge",
-        "overflow"} (feeding quantum adaptation)."""
-        key = (env, plan_key(plan))
+    def _resolve_bucket(self, env: GeometryEnvelope, plan: ChunkPlan,
+                        placement: Placement) -> tuple:
+        """Find or make the bucket serving ``env`` with operands where
+        ``placement`` puts them (buckets of another placement never serve
+        it); returns ``(bucket, outcome)`` with outcome in {"hit", "create",
+        "merge", "overflow"} (feeding quantum adaptation)."""
+        key = (env, plan_key(plan), placement)
         bucket = self._buckets.get(key)
         if bucket is not None:
             return bucket, "hit"
@@ -406,7 +420,7 @@ class SpGEMMService:
         # first in dict order, and account the padding the hit still costs
         dominators = [
             b for b in self._buckets.values()
-            if plan_key(b.plan) == plan_key(plan) and b.envelope.dominates(env)
+            if b.key[1:] == key[1:] and b.envelope.dominates(env)
         ]
         if dominators:
             best = min(dominators, key=lambda b: b.envelope.staged_nbytes())
@@ -415,13 +429,13 @@ class SpGEMMService:
                 best.envelope.staged_nbytes() - env.staged_nbytes())
             return best, "hit"
         if len(self._buckets) < self.retrace_budget or self._try_evict():
-            return self._create_bucket(env, plan), "create"
+            return self._create_bucket(env, plan, placement), "create"
         # budget exhausted and nothing evictable: grow a compatible bucket's
         # envelope instead of compiling another program (its next flush
         # retraces once, then the merged geometry is stable)
         candidates = [
             b for b in self._buckets.values()
-            if plan_key(b.plan) == plan_key(plan)
+            if b.key[1:] == key[1:]
             and b.envelope.a_shape == env.a_shape
             and b.envelope.b_shape == env.b_shape
             and b.envelope.dtype == env.dtype
@@ -441,8 +455,9 @@ class SpGEMMService:
                 self._buckets[host.key] = host
             self.stats.budget_merges += 1
             return host, "merge"
-        # nothing compatible (different shapes/plan): must exceed the budget
-        bucket = self._create_bucket(env, plan)
+        # nothing compatible (different shapes/plan/placement): must exceed
+        # the budget
+        bucket = self._create_bucket(env, plan, placement)
         self.stats.budget_overflows += 1
         return bucket, "overflow"
 
@@ -462,19 +477,27 @@ class SpGEMMService:
         self._ready.extend(self._execute_bucket(oldest))
         self.stats.admission_flushes += 1
 
-    def submit(self, A: CSR, B: CSR) -> SpGEMMFuture:
+    def submit(self, A: CSR, B: CSR, placement: Placement | None = None) -> SpGEMMFuture:
         """Queue one C = A x B request; returns its future (an ``int``
         subclass carrying the request id). Raises :class:`AdmissionError`
-        when over ``max_pending`` with ``admission="shed"``, and
-        ``ValueError`` for an operand in pinned host memory (the service has
-        no copy ring)."""
-        refuse_pinned("SpGEMMService.submit", A, B)
+        when over ``max_pending`` with ``admission="shed"``.
+
+        The request's placement is read from its operands on a card service
+        (``placement.resolve_placement``: pinned is slow, on the card fast,
+        C in A's space) and is ``placement`` (all fast by default) on a CPU
+        one; an operand on neither the service's device nor, for a card
+        service, in pinned host memory raises ``ValueError``."""
+        where, _ = resolve_placement({"A": A, "B": B}, placement, self.device)
+        for m in (A, B):
+            if m.device.type == "cuda" and m.device != self.device:
+                raise ValueError(f"SpGEMMService.submit: an operand is on {m.device}, "
+                                 f"the service runs on {self.device}")
         self._admit()
         plan = self._plan_for(A, B)
         raw = self._instance_env(A, B, plan)
         family = (raw.a_shape, raw.b_shape, raw.dtype, plan_key(plan))
         env = raw.quantized(self._family_quantum(family))
-        bucket, outcome = self._resolve_bucket(env, plan)
+        bucket, outcome = self._resolve_bucket(env, plan, where)
         self._adapt_family(family, outcome)
         future = SpGEMMFuture(self._next_id, self)
         req = SpGEMMRequest(self._next_id, A, B, time.perf_counter(),
@@ -504,24 +527,25 @@ class SpGEMMService:
 
     # -- execution path -----------------------------------------------------
 
-    def _sentinel_pair(self, bucket: _Bucket, device: torch.device) -> tuple:
-        """Envelope-shaped empty (A, B) instances on ``device`` (the live
-        requests'): the padding filler for flush tails and the warmup batch
-        for cold cores. An empty instance is dominated by every envelope,
-        stages to the envelope's exact shapes, and multiplies to nothing — so
-        padded slots do no real multiply work."""
-        if bucket.sentinel is None or bucket.sentinel_device != device:
+    def _sentinel_pair(self, bucket: _Bucket) -> tuple:
+        """Envelope-shaped empty (A, B) instances where the bucket's
+        requests lie (``place`` on the service's device: the card or pinned
+        host memory): the padding filler for flush tails and the warmup
+        batch for cold cores. An empty instance is dominated by every
+        envelope, stages to the envelope's exact shapes, and multiplies to
+        nothing — so padded slots do no real multiply work."""
+        if bucket.sentinel is None:
             env = bucket.envelope
             dtype = getattr(torch, env.dtype)
 
-            def empty(shape: tuple) -> CSR:
-                return csr_from_scipy_like(
+            def empty(shape: tuple, space: str) -> CSR:
+                host = csr_from_scipy_like(
                     np.zeros(shape[0] + 1, np.int64), np.zeros(0, np.int64),
-                    np.zeros(0, _NP_DTYPES[dtype]), shape, dtype=dtype,
-                    device=device)
+                    np.zeros(0, _NP_DTYPES[dtype]), shape, dtype=dtype, device="cpu")
+                return place(host, space, self.device)
 
-            bucket.sentinel = (empty(env.a_shape), empty(env.b_shape))
-            bucket.sentinel_device = device
+            bucket.sentinel = (empty(env.a_shape, bucket.placement.A),
+                               empty(env.b_shape, bucket.placement.B))
         return bucket.sentinel
 
     def _resolve_backend(self, bucket: _Bucket) -> backend_registry.BackendSpec:
@@ -544,18 +568,22 @@ class SpGEMMService:
         Cs, stats = chunked_spgemm_batched(
             As, Bs, bucket.plan, envelope=bucket.envelope,
             backend=bucket.backend, validate_caps=False, cores=bucket.cores,
+            placement=bucket.placement, device=self.device,
         )
         # the card has finished when the timed span ends, not only issued
-        if As[0].device.type == "cuda":
-            torch.cuda.synchronize(As[0].device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         return Cs, stats
 
     def _execute_bucket(self, bucket: _Bucket) -> list:
         """Drain one bucket in ladder-width microbatches; returns responses."""
         spec = self._resolve_backend(bucket)
-        # the spec's trace-key template names the counter the compile
-        # accounting below watches — no per-backend suffix table to maintain
-        counter = spec.trace_key_batched.format(alg=bucket.plan.algorithm)
+        # the spec's trace-key template names the counters the compile
+        # accounting below watches — no per-backend suffix table to maintain.
+        # A flush moves only its own cores' counts: the plan's algorithm's,
+        # or under a placed scan bucket the knl core its steps run on
+        counters = {spec.trace_key_batched.format(alg=alg)
+                    for alg in backend_registry.ALGORITHMS}
         responses = []
         while bucket.queue:
             batch = bucket.queue[: self.max_batch]
@@ -572,16 +600,15 @@ class SpGEMMService:
             # shaped empty sentinel instances (padded slots multiply nothing
             # and their outputs are never materialized into responses)
             width = next(w for w in self.widths if w >= size)
-            device = batch[0].A.device
             if width > size:
-                A0, B0 = self._sentinel_pair(bucket, device)
+                A0, B0 = self._sentinel_pair(bucket)
                 As = [r.A for r in batch] + [A0] * (width - size)
                 Bs = [r.B for r in batch] + [B0] * (width - size)
             else:
                 As = [r.A for r in batch]
                 Bs = [r.B for r in batch]
             bucket.widths_used.add(width)
-            traces0 = TRACE_COUNTS[counter]
+            traces0 = sum(TRACE_COUNTS[c] for c in counters)
             # validate_caps=False throughout: every request's exact instance
             # envelope was computed at submit time and its bucket envelope
             # dominates it by construction (domination check, union growth,
@@ -593,7 +620,7 @@ class SpGEMMService:
                 # start (and one envelope-shaped execution — compile_s is an
                 # upper bound, not a pure-trace time) never pollutes the real
                 # batch's exec_s/latency_s
-                A0, B0 = self._sentinel_pair(bucket, device)
+                A0, B0 = self._sentinel_pair(bucket)
                 t0 = time.perf_counter()
                 self._run_batch(bucket, [A0] * width, [B0] * width)
                 compile_s = time.perf_counter() - t0
@@ -603,7 +630,7 @@ class SpGEMMService:
             Cs, stats = self._run_batch(bucket, As, Bs)
             t1 = time.perf_counter()
             exec_s = t1 - t0
-            new_traces = TRACE_COUNTS[counter] - traces0
+            new_traces = sum(TRACE_COUNTS[c] for c in counters) - traces0
             bucket.compiles += new_traces
             bucket.executions += 1
             self._tick += 1
@@ -703,6 +730,6 @@ class SpGEMMService:
                 family = (raw.a_shape, raw.b_shape, raw.dtype,
                           plan_key(new_plan))
                 env = raw.quantized(self._family_quantum(family))
-                target, _ = self._resolve_bucket(env, new_plan)
+                target, _ = self._resolve_bucket(env, new_plan, bucket.placement)
                 target.queue.append(req)
         return replanned

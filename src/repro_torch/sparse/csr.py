@@ -471,21 +471,21 @@ def csr_residence(m: CSR) -> str:
 
 def refuse_pinned(entry: str, *operands) -> None:
     """Raise on an operand in pinned host memory: a slow operand of a run on
-    the card. ``chunked_spgemm`` (every backend) and ``count_triangles``
-    take one, through the copy ring; the other entry points, and every
-    kernel wrapper (whose host branch serves pageable tensors with its plain
-    version), refuse it rather than run it on the host. ``operands`` are
-    tensors or CSRs (one matrix or a stack)."""
+    the card. The entry points (``chunked_spgemm``, ``count_triangles``,
+    ``pipeline_spgemm``, ``chunked_spgemm_batched``, ``SpGEMMService``) take
+    one, through the copy ring; every kernel wrapper (whose host branch
+    serves pageable tensors with its plain version) refuses it rather than
+    run it on the host. ``operands`` are tensors or CSRs (one matrix or a
+    stack)."""
     tensors = [t for op in operands
                for t in ((op.indptr, op.indices, op.data) if isinstance(op, CSR) else (op,))]
     if any(t.is_pinned() for t in tensors):
         raise ValueError(
             f"{entry}: an operand is in pinned host memory (a slow operand), and "
-            "this path takes none (a kernel wrapper reads only the card; slow "
-            "inputs to the batched entry point, the service and pipeline_spgemm are "
-            "ROADMAP Queue 1 item 7c): put it on the card with place(x, 'fast'), "
-            "or run chunked_spgemm or count_triangles, whose copy ring streams "
-            "slow operands to the card")
+            "a kernel wrapper reads only the card: put it on the card with "
+            "place(x, 'fast'), or call an entry point (chunked_spgemm, "
+            "chunked_spgemm_batched, pipeline_spgemm, count_triangles, "
+            "SpGEMMService), whose copy ring streams slow operands to the card")
 
 
 def tensor_pin(t: torch.Tensor) -> torch.Tensor:

@@ -115,7 +115,7 @@ def test_batched_hetero_matches_reference(algorithm, backend):
     plan = _plan(algorithm, ref_as[0], ref_bs[0])
     want, want_stats = ref_cs.chunked_spgemm_batched(ref_as, ref_bs, plan, backend=backend)
     got, got_stats = chunk_stream.chunked_spgemm_batched(port_as, port_bs, _port_plan(plan),
-                                                         backend=backend)
+                                                         backend=backend, device="cpu")
     assert len(got) == len(want) == 3
     env = ref_chunking.batch_envelope(ref_as, ref_bs, plan)
     resolved = (ref_planner.select_accumulator_backend(plan, env) if backend == "auto"
@@ -146,7 +146,8 @@ def test_scan_batched_equals_unbatched_bitwise(algorithm):
     As = [csr_from_dense(a * s, device="cpu") for s in scales]
     Bs = [csr_from_dense(b * (1 + s), device="cpu") for s in scales]
     plan = _port_plan(_plan(algorithm, As[0], Bs[0]))
-    got, stats = chunk_stream.chunked_spgemm_batched(As, Bs, plan, backend="scan")
+    got, stats = chunk_stream.chunked_spgemm_batched(As, Bs, plan, backend="scan",
+                                                     device="cpu")
     for A, B, C in zip(As, Bs, got):
         want, want_stats = chunking.chunked_spgemm(A, B, plan, backend="scan",
                                                    device="cpu")
@@ -199,7 +200,8 @@ def test_undercapped_batched_envelope_raises(backend):
     caps1 = strip_output_caps(As[1], Bs[1], plan.p_ac)
     bad = dataclasses.replace(env, c_pad=max(caps1.strip_nnz) - 1)
     with pytest.raises(ValueError, match="batch instance 1"):
-        chunk_stream.chunked_spgemm_batched(As, Bs, plan, envelope=bad, backend=backend)
+        chunk_stream.chunked_spgemm_batched(As, Bs, plan, envelope=bad, backend=backend,
+                                            device="cpu")
 
 
 def test_undercapped_hash_table_raises():
@@ -211,7 +213,8 @@ def test_undercapped_hash_table_raises():
     assert strip_output_caps(As[0], Bs[0], plan.p_ac).c_max_row_nnz > 2
     bad = dataclasses.replace(env, c_max_row_nnz=2)
     with pytest.raises(ValueError, match="hash-table capacity"):
-        chunk_stream.chunked_spgemm_batched(As, Bs, plan, envelope=bad, backend="hash")
+        chunk_stream.chunked_spgemm_batched(As, Bs, plan, envelope=bad, backend="hash",
+                                            device="cpu")
 
 
 def test_batched_refusals():
@@ -220,14 +223,15 @@ def test_batched_refusals():
     B = csr_from_dense(random_dense(rng, 10, 9, 0.3), device="cpu")
     plan = _port_plan(_plan("chunk1", A, B))
     with pytest.raises(ValueError, match="does not support batched"):
-        chunk_stream.chunked_spgemm_batched([A], [B], plan, backend="loop")
+        chunk_stream.chunked_spgemm_batched([A], [B], plan, backend="loop", device="cpu")
     with pytest.raises(ValueError, match="equal, nonzero"):
-        chunk_stream.chunked_spgemm_batched([A, A], [B], plan)
+        chunk_stream.chunked_spgemm_batched([A, A], [B], plan, device="cpu")
     env = chunking.batch_envelope([A], [B], plan)
     with pytest.raises(ValueError, match="block-capped"):
-        chunk_stream.chunked_spgemm_batched([A], [B], plan, envelope=env, backend="bsr")
+        chunk_stream.chunked_spgemm_batched([A], [B], plan, envelope=env, backend="bsr",
+                                            device="cpu")
     # instances on two devices ("meta" stands in for a second one here)
     M = dataclasses.replace(B, indptr=B.indptr.to("meta"), indices=B.indices.to("meta"),
                             data=B.data.to("meta"))
     with pytest.raises(ValueError, match="share a device"):
-        chunk_stream.chunked_spgemm_batched([A, A], [B, M], plan, envelope=env)
+        chunk_stream.chunked_spgemm_batched([A, A], [B, M], plan, envelope=env, device="cpu")

@@ -63,18 +63,19 @@ def _trace_sequence(pkg, backend, algorithm, dims, seed):
         name = pl.select_accumulator_backend(plan, e) if backend == "auto" else backend
         return reg.get(name).trace_key_batched.format(alg=algorithm)
 
+    run = {"device": "cpu"} if cs is chunk_stream else {}
     deltas = []
     k1 = key(env)
     for As_, Bs_, e in ((As, Bs, env), (As, Bs, env),
                         ([make(_subset(d)) for d in a], [make(_subset(d)) for d in b], env)):
         before = cs.TRACE_COUNTS[k1]
-        cs.chunked_spgemm_batched(As_, Bs_, plan, envelope=e, backend=backend)
+        cs.chunked_spgemm_batched(As_, Bs_, plan, envelope=e, backend=backend, **run)
         deltas.append(cs.TRACE_COUNTS[k1] - before)
     As3, Bs3 = [make(d) for d in a3], [make(d) for d in b3]
     env3 = env.union(ch.batch_envelope(As3, Bs3, plan, block_size=block))
     k3 = key(env3)
     before = cs.TRACE_COUNTS[k3]
-    cs.chunked_spgemm_batched(As3, Bs3, plan, envelope=env3, backend=backend)
+    cs.chunked_spgemm_batched(As3, Bs3, plan, envelope=env3, backend=backend, **run)
     deltas.append(cs.TRACE_COUNTS[k3] - before)
     return (k1, k3), deltas
 

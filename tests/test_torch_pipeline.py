@@ -75,7 +75,7 @@ def test_pipeline_matches_reference(name, backend):
     assert _plan_tuple(plan) == _plan_tuple(ref_plan)
     assert "whole_fast" not in (plan.plan1.algorithm, plan.plan2.algorithm)
     want, want_stats = ref_pipe.pipeline_spgemm(rA, rP, rR, ref_plan, backend=backend)
-    got, stats = pipe.pipeline_spgemm(A, P, R, plan, backend=backend)
+    got, stats = pipe.pipeline_spgemm(A, P, R, plan, backend=backend, device="cpu")
     assert_csr_match(got, want)
     assert stats.spilled == want_stats.spilled
     assert stats.spill_bytes == want_stats.spill_bytes
@@ -121,9 +121,11 @@ def test_pipeline_caps_envelope_and_fast_model_exact(name):
 
 def test_pipeline_resident_and_spill_same_structure():
     ref_ops, (A, R, P) = _problem("bigstar2d")
-    C_ample, s_ample = pipe.pipeline_spgemm(A, P, R, system=P100, backend="sparse")
+    C_ample, s_ample = pipe.pipeline_spgemm(A, P, R, system=P100, backend="sparse",
+                                            device="cpu")
     C_tight, s_tight = pipe.pipeline_spgemm(A, P, R, system=P100, backend="hash",
-                                            fast_limit_bytes=_limit(ref_ops, 0.25))
+                                            fast_limit_bytes=_limit(ref_ops, 0.25),
+                                            device="cpu")
     assert s_ample.plan.t_resident and not s_tight.plan.t_resident
     assert s_tight.spilled and s_tight.spill_bytes > 0
     assert s_tight.copy_bytes > s_tight.hop1.copy_bytes + s_tight.hop2.copy_bytes
@@ -137,4 +139,4 @@ def test_pipeline_resident_and_spill_same_structure():
 def test_pipeline_requires_plan_or_system():
     _, (A, R, P) = _problem("laplace3d")
     with pytest.raises(ValueError, match="PipelinePlan or"):
-        pipe.pipeline_spgemm(A, P, R)
+        pipe.pipeline_spgemm(A, P, R, device="cpu")

@@ -101,7 +101,7 @@ def test_spilled_pipeline_matches_reference(backend, monkeypatch):
     monkeypatch.setattr(pipeline_spgemm, "_spill_to_slow", spy)
     with copy_ring.RingLog() as log:
         C, stats = pipeline_spgemm.pipeline_spgemm(A, P, R, plan, backend=backend,
-                                                   caps=caps)
+                                                   caps=caps, device="cpu")
     nnz = int(np.asarray(want.indptr)[-1])
     np.testing.assert_array_equal(C.indptr.numpy(), np.asarray(want.indptr))
     np.testing.assert_array_equal(C.indices.numpy()[:nnz], np.asarray(want.indices)[:nnz])

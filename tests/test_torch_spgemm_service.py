@@ -50,6 +50,8 @@ class Pkg:
             self.fields = lambda C: (C.indptr.numpy(), C.indices.numpy())
 
     def service(self, *args, **kwargs):
+        if self.name != "ref":
+            kwargs["device"] = "cpu"
         return self.svc.SpGEMMService(*args, **kwargs)
 
     def plan(self, dim, p_b, algorithm="knl", p_ac=None):
@@ -78,7 +80,7 @@ class Recorder:
 
     def responses(self, tag, out, exact_structure=False):
         for r in out:
-            env, pk = r.bucket_key
+            env, pk = r.bucket_key[:2]   # the port's key also carries the placement
             self.events.append((tag, r.req_id, dataclasses.astuple(env), pk, r.batch_size,
                                 r.padded_batch, r.compile_s == 0.0, r.stats.kernel_calls,
                                 tuple(r.stats.per_copy_in), tuple(r.stats.per_copy_out)))

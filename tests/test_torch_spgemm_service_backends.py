@@ -43,7 +43,8 @@ def test_response_not_overwritten_by_later_flush():
     dim = 16
     plan = PortPlan("knl", (0, dim), (0, dim // 2, dim), 0.0, 0.0)
     for backend in ("scan", "sparse", "hash", "pallas", "bsr"):
-        svc = port_service.SpGEMMService(plan, quantum=32, max_batch=2, backend=backend)
+        svc = port_service.SpGEMMService(plan, quantum=32, max_batch=2, backend=backend,
+                                         device="cpu")
         a, b = random_dense(rng, dim, dim, 0.3), random_dense(rng, dim, dim, 0.3)
         mats = [(csr_from_dense(a * s, device="cpu"), csr_from_dense(b - s, device="cpu"))
                 for s in (1.0, 2.0, -3.0, 0.5)]
