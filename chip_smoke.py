@@ -58,7 +58,22 @@ model plus 10% (below the slow operands' bytes on the chunk1 plans) and
 its live tensors' peak within the model plus 1%; copy and compute ms by
 CUDA events, GB/s each way, the share of copy time under compute, and a
 256 MB pinned copy as the link's yardstick; a pinned stack handed to any
-SpGEMM kernel's wrapper must raise. Its capacity run comes first in the
+SpGEMM kernel's wrapper without a run device must raise, also beside an
+operand on the card. The same phase
+reads slow operands in place (``slow_reads="in_place"``): each of the four
+streaming wrappers, given pinned stacks and the card, launches once in
+place on brick3d n=8, equal bit for bit to the kernel on card stacks and
+within tolerance of its plain version; then brick3d n=48's quickstart plan
+under hash in five Table 3 placements and under ESC in HostPin, the chunk1
+plan under hash in HostPin, the ESC kernel's counted classes on L x L of
+RMAT scale 12, the dense slab on brick3d n=16 (HostPin, DP) and the fused
+triangle count on the scale-18 graph with L slow, each beside its ring
+twin where one runs: C (or the count) equal bit for bit to the all-fast
+call's, one wrapper launch and one in place (the ESC classes as the
+all-fast call's), no ring op, and the card's live peak within the in-place
+model (no byte of a slow operand) plus 1%; printed: the launch's kernel
+ms, the modelled bytes read in place (``kernels/link_reads.py``) and their
+rate, the wall and the twin's copy and compute ms. Its capacity run comes first in the
 script, right after the build, while the allocator holds nothing else:
 brick3d n=80, all slow, under an allocator cap whose headroom is below half
 of A's bytes, where placing A on the card must raise ``OutOfMemoryError``
@@ -79,8 +94,8 @@ only) against their plain versions, each call's launches and ms beside its
 width-1 call's; ``chunked_spgemm_batched`` through every batched backend
 and ``auto`` on both batches, each C held to scipy and to the unbatched
 ``chunked_spgemm``, then again with the operands in pinned host memory
-(HostPin and DP: each C equal bit for bit to the all-fast batched call's,
-one launch a step for the whole batch); and ``SpGEMMService`` serving 96 requests of three
+(HostPin, and DP under hash on brick3d n=16: each C equal bit for bit to
+the all-fast batched call's, one launch a step for the whole batch); and ``SpGEMMService`` serving 96 requests of three
 families in a cold and a warm wave (every response held to scipy, the warm
 wave compiling nothing, the buckets within the retrace budget), beside a
 naive ``chunked_spgemm`` loop over the first 32 of them, then the same with every operand in pinned
@@ -268,6 +283,16 @@ PIPE_RESIDENT, PIPE_SPILL = 1.0, 0.5
 # the Galerkin runs with operands in slow memory, under hash and ESC at both
 # plans, each in the two placements of PIPELINE_TABLE3 that put operands slow
 PIPE_PLACEMENTS = ("HostPin", "DP")
+# the batched entry point with its operands in slow memory: HostPin under
+# every batched backend, and DP (A slow, B on the card: the batched ring at
+# width 8 beside a fast operand) under hash on brick3d16 only; DP under the
+# others was cut to pay for the in-place phase (it streams the same slow A
+# strips through the same rings)
+BATCHED_PLACEMENTS = ("HostPin",)
+BATCHED_PLACED_DP = {("brick3d16", "hash")}
+# the batched placed calls left out, (batch, backend): auto on the RMAT batch
+# resolves to hash, whose placed run it would repeat
+BATCHED_PLACED_SKIP = {("rmat12", "auto")}
 # audit_pipeline's Galerkin product: its staged cores run on the CPU's plain
 # versions, where brick3d n=48's hash hop takes minutes. At n=16 the resident
 # plan's hop 2 is Chunk2 4 x 3 (n_b > 1, as n=48's 4 x 4) and the spill plan's
@@ -289,6 +314,22 @@ PLACED_RUNS = (("quickstart", "hash", ("HBM", "A_Pin", "B_Pin", "C_Pin", "HostPi
                ("quickstart", "loop", ("HostPin",)),
                ("quickstart", "bsr", ("HostPin", "DP")),
                ("chunk1", "bsr", ("HostPin",)))
+# slow operands read in place by the streaming kernels (slow_reads="in_place"),
+# beside the ring twins of PLACED_RUNS: (plan, backend) -> placements; then
+# the ESC kernel's counted classes on L x L of rmat(12, 16, seed 100) and the
+# dense slab on brick3d n=16 (at n=32 A's dense strips, about 10 GB, would
+# cross the link once a 128-column tile of C: minutes), and the fused
+# triangle count with L slow
+IN_PLACE_RUNS = {("quickstart", "hash"): ("A_Pin", "B_Pin", "C_Pin", "HostPin", "DP"),
+                 ("quickstart", "sparse"): ("HostPin",),
+                 ("chunk1", "hash"): ("HostPin",)}
+IN_PLACE_DENSE_N, IN_PLACE_DENSE = 16, ("HostPin", "DP")
+# the dense slab's load path read in place: its 16-byte cp.async of B from a
+# mapped host address (the staging at n=16 is 16-byte aligned)
+IN_PLACE_DENSE_PATH = "vec"
+# the small problem on which each streaming wrapper, handed pinned stacks and
+# the card, is held to the same kernel on card stacks and to its plain version
+IN_PLACE_CHECK_N = 8
 # the dense slab with slow operands: brick3d n=32 under the brick3d32_pallas
 # plan (chunk2 6 x 1), both calls on one set of pinned operands
 PLACED_DENSE_N, PLACED_DENSE = 32, ("HostPin", "DP")
@@ -680,40 +721,6 @@ def live_peak(snapshot, start: int) -> int:
     return peak
 
 
-def placed_fast_bytes(plan, placement, *, a_stage: int, slab: int,
-                      c_stage: int, workspace: int, c_bytes: int,
-                      fast_parts: dict | None = None) -> dict:
-    """The card's bytes a placed CSR call holds at its peak, by part: a
-    slow operand's two ring slots, or a fast one's staged stack and, while
-    it is built, its pieces; C's slots and carried steps (the chunk1
-    orders; chunk2 keeps the whole block and its next version), its kept
-    strips and the assembled C when C is fast; one launch's ``workspace``.
-    ``a_stage``, ``slab``, ``c_stage`` are the staged piece bytes of
-    ``chunk_stream.planned_events``, ``c_bytes`` those of the assembled C.
-    With every operand slow it is the sum of the bytes of the tensors live
-    at the peak (:func:`live_peak`); a fast operand's parts are upper bounds (its
-    stack is counted twice, and a fast C's block beside its assembly), or
-    the live peak of building it where ``fast_parts`` gives one (operand ->
-    bytes; C's where its pieces are not the CSR accumulators', as the BSR
-    pipeline's summed blocks and strip CSRs). The same pieces serve the
-    dense slab (strips, slabs, C blocks) and the BSR pipeline's operands (a
-    pair's pieces)."""
-    n_ac, n_b = plan.n_ac, plan.n_b
-    parts = {"A": 2 * a_stage * (1 if placement.A == "slow" else n_ac),
-             "B": 2 * slab * (1 if placement.B == "slow" else n_b),
-             **(fast_parts or {})}
-    if plan.algorithm == "chunk2":
-        c = 2 * n_ac * c_stage + (c_bytes if placement.C == "fast" else 0)
-    elif placement.C == "slow":
-        c = 4 * c_stage               # two slots, the carried step and its next
-    else:
-        c = (n_ac + 2) * c_stage + c_bytes
-    parts.setdefault("C", c)
-    parts["workspace"] = workspace
-    parts["total"] = sum(parts.values())
-    return parts
-
-
 class Smoke:
     def __init__(self, torch):
         self.torch = torch
@@ -722,7 +729,7 @@ class Smoke:
         from repro_torch.core import chunk_stream, copy_ring, pipeline_spgemm, placement, triangle
         from repro_torch.kernels import (
             _build, bsr_spgemm, bsr_spmm, chunked_attention, flash_prefill, grouped_matmul,
-            hash_accum_spgemm, ops, ranged_spgemm, sparse_accum_spgemm,
+            hash_accum_spgemm, link_reads, ops, ranged_spgemm, sparse_accum_spgemm,
         )
         from repro_torch.launch import serve
         from repro_torch.models import moe, transformer
@@ -735,7 +742,7 @@ class Smoke:
                       bsr=bsr, triangle=triangle, pipeline=pipeline_spgemm, ops=ops,
                       serve=serve, transformer=transformer, moe=moe,
                       service=spgemm_service, placement=placement, copy_ring=copy_ring,
-                      dma=dma)
+                      dma=dma, link_reads=link_reads)
         self.kernels = {"ranged_spgemm": ranged_spgemm,
                         "sparse_accum_spgemm": sparse_accum_spgemm,
                         "hash_accum_spgemm": hash_accum_spgemm,
@@ -758,6 +765,13 @@ class Smoke:
         # the BSR x dense kernel's launches by path, as "bsr_spmm/path"
         for path, counter in bsr_spmm.PATH_LAUNCHES.items():
             self.counters[f"bsr_spmm/{path}"] = counter
+        # the streaming kernels' calls that read an operand in place from
+        # pinned host memory, as "kernel/in_place"
+        for kernel, counter in (("ranged_spgemm", ranged_spgemm.IN_PLACE),
+                                ("sparse_accum_spgemm", sparse_accum_spgemm.IN_PLACE),
+                                ("hash_accum_spgemm", hash_accum_spgemm.IN_PLACE),
+                                ("hash_masked_accum_spgemm", hash_accum_spgemm.MASKED_IN_PLACE)):
+            self.counters[f"{kernel}/in_place"] = counter
         self.backend_kernel = {"pallas": "ranged_spgemm",
                                "sparse": "sparse_accum_spgemm",
                                "hash": "hash_accum_spgemm",
@@ -798,6 +812,12 @@ class Smoke:
         # service's responses' C by (wave, request)
         self._scipy_refs, self._batched_fast, self._service_fast = {}, {}, {}
         self._bsr_c_sizes = {}   # plan -> (a strip's summed blocks, its CSR) bytes
+        # the in-place route: kernel -> its first in-place call's numbers (the
+        # kernels line's "in_place" field) and the small wrapper checks';
+        # rmat12_sparse's L, plan and all-fast (C, stats, wall s, launches)
+        self.in_place = {}
+        self._rmat12 = None
+        self._in_place_models = {}   # (plan, backend, operands) -> (workspace, reads)
 
     # -- setup -------------------------------------------------------------
 
@@ -1323,7 +1343,7 @@ class Smoke:
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        C, stats = chunking.chunked_spgemm(A, P, plan, backend=backend)
+        C, stats = chunking.chunked_spgemm(A, P, plan, backend=backend, caps=caps)
         torch.cuda.synchronize()
         exec_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - before
@@ -1557,6 +1577,7 @@ class Smoke:
             check(launches[f"sparse_accum_spgemm/{route}"] > 0,
                   f"{label}: the ESC kernel's {route} class was not launched")
         self.note_esc_routes(label, launches)
+        self._rmat12 = (L, plan, (C, stats, exec_s, launches))
         plain = kkmem.spgemm(L, L, kkmem.spgemm_symbolic_host(L, L).c_pad)
         nnz = C.nnz()
         structure = (nnz == plain.nnz() and torch.equal(C.indptr, plain.indptr)
@@ -2196,6 +2217,25 @@ class Smoke:
         del out
         return live
 
+    def memory_traced(self, fn) -> tuple:
+        """``(fn(), wall s, peak allocation, live tensors' peak)`` of one
+        call, the counters reset before it and the card synchronized after."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.memory._record_memory_history(context=None, max_entries=1 << 20)
+        start = trace_length(torch.cuda.memory._snapshot())
+        self.reset_counters()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        live = live_peak(torch.cuda.memory._snapshot(), start)
+        torch.cuda.memory._record_memory_history(enabled=None)
+        return out, wall, peak, live
+
     def step_workspace(self, A, B, plan, backend: str, env) -> int:
         """One step's workspace on the card, its output included, where no
         formula gives it: the largest live peak of the plan's ranged
@@ -2299,7 +2339,7 @@ class Smoke:
         return out
 
     def placed_model(self, plan, stats, where, backend: str, C, *, A=None, B=None) -> dict:
-        """:func:`placed_fast_bytes` of one call: the staged piece bytes
+        """``placement.card_bytes`` of one call: the staged piece bytes
         from its events, one launch's workspace (the CSR accumulators' from
         the plan's strip rows and C's densest row; none for the dense slab;
         :meth:`step_workspace` for ``scan``, ``loop`` and ``bsr``, on the
@@ -2333,12 +2373,12 @@ class Smoke:
             if backend == "bsr":
                 fast_parts = {**self.bsr_fast_staging(A, B, plan, where, env),
                               "C": self.bsr_c_bytes(plan, where, C.nbytes())}
-        return placed_fast_bytes(plan, where, a_stage=a_stage, slab=slab, c_stage=c_stage,
-                                 workspace=workspace, c_bytes=C.nbytes(),
-                                 fast_parts=fast_parts)
+        return self.m["placement"].card_bytes(
+            plan, where, a_stage=a_stage, slab=slab, c_stage=c_stage, workspace=workspace,
+            c_bytes=C.nbytes(), fast_parts=fast_parts)
 
     def placed_call(self, label: str, A, B, plan, backend: str, where, fast,
-                    card_ops=None) -> dict:
+                    card_ops=None, caps=None) -> dict:
         """One ``chunked_spgemm`` with operands placed as ``where`` says
         (pinned host memory for a slow one), gated against the same plan's
         all-fast call ``fast = (C, stats, wall_s[, peak])``: C equal bit
@@ -2347,8 +2387,9 @@ class Smoke:
         card's peak allocation within the ring's byte model plus 10% (and,
         on the chunk1 plans, below the slow operands' own bytes), and its
         tensors' live peak (:func:`live_peak`) within the model plus 1%.
-        ``card_ops`` are the operands on the card, for the workspace probes.
-        Prints the copy and compute times, the rates each way and the share
+        ``card_ops`` are the operands on the card, for the workspace probes;
+        ``caps`` the plan's symbolic phase, hoisted out of the call. Prints
+        the copy and compute times, the rates each way and the share
         of copy time under compute."""
         torch = self.torch
         chunking, csr, copy_ring = self.m["chunking"], self.m["csr"], self.m["copy_ring"]
@@ -2367,7 +2408,8 @@ class Smoke:
         self.reset_counters()
         t0 = time.perf_counter()
         with copy_ring.RingLog(timed=True) as log:
-            C, stats = chunking.chunked_spgemm(A, B, plan, backend=backend, placement=where)
+            C, stats = chunking.chunked_spgemm(A, B, plan, backend=backend, placement=where,
+                                               caps=caps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - before
@@ -2442,6 +2484,8 @@ class Smoke:
         shapes = {k: (p.algorithm, p.n_ac, p.n_b) for k, p in plans.items()}
         check(shapes["quickstart"] == ("chunk2", 6, 1) and shapes["chunk1"] == ("chunk1", 15, 4)
               and shapes["knl"][0] == "knl", f"placement plans {shapes}")
+        # the symbolic phase of each plan, once: every call of the plan takes it
+        caps = {k: self.m["symbolic"].strip_output_caps(A, P, p.p_ac) for k, p in plans.items()}
         pinned = placement.place({"A": A, "B": P}, "slow")
         self.refusal_check(A, P, plans["quickstart"], pinned)
         scipy_done = False
@@ -2453,7 +2497,8 @@ class Smoke:
             if computed:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                fast = chunking.chunked_spgemm(A, P, plan, backend=backend)
+                fast = chunking.chunked_spgemm(A, P, plan, backend=backend,
+                                               caps=caps[plan_name])
                 torch.cuda.synchronize()
                 fast = (*fast, time.perf_counter() - t0)
             if not scipy_done or computed:
@@ -2462,18 +2507,31 @@ class Smoke:
                       f"error {err} vs scipy")
                 emit({"placement_scipy": f"brick3d48_{backend}", "rel_err": err})
                 scipy_done = True
+            twins = {}
             for name in names:
                 where = placement.TABLE3[name]
                 ops = [pinned[k] if getattr(where, k) == "slow" else m
                        for k, m in (("A", A), ("B", P))]
-                self.placed_call(f"brick3d48_{plan_name}_{backend}_{name}", *ops, plan,
-                                 backend, where, fast, card_ops=(A, P))
-            del fast
+                twins[name] = self.placed_call(f"brick3d48_{plan_name}_{backend}_{name}",
+                                               *ops, plan, backend, where, fast,
+                                               card_ops=(A, P), caps=caps[plan_name])
+            # the same placements read in place, beside their ring twins
+            for name in IN_PLACE_RUNS.get((plan_name, backend), ()):
+                where = placement.TABLE3[name]
+                ops = [pinned[k] if getattr(where, k) == "slow" else m
+                       for k, m in (("A", A), ("B", P))]
+                self.in_place_call(f"brick3d48_{plan_name}_{backend}_inplace_{name}", *ops,
+                                   plan, backend, where, fast, host=pinned, card_ops=(A, P),
+                                   twin=twins.get(name), caps=caps[plan_name])
+            del fast, twins
         del pinned
         self.fast_runs = {k: v for k, v in self.fast_runs.items() if k[1] != 48}
         torch.cuda.empty_cache()
+        self.in_place_rmat12()
         self.dense_placement()
+        self.in_place_dense()
         self.triangle_placement()
+        self.in_place_launched()
         for backend, n in SPILL_BACKENDS:
             self.galerkin_run(f"galerkin_brick3d{n}_{backend}_spill", backend, PIPE_SPILL,
                               False, n=n)
@@ -2503,12 +2561,13 @@ class Smoke:
         emit({"host_memory": {k: v for k, v in host_meminfo().items()
                               if k in ("MemTotal", "MemAvailable")}})
         pinned = placement.place({"A": A, "B": P}, "slow")
+        caps = self.m["symbolic"].strip_output_caps(A, P, plan.p_ac)
         for name in PLACED_DENSE:
             where = placement.TABLE3[name]
             ops = [pinned[k] if getattr(where, k) == "slow" else m
                    for k, m in (("A", A), ("B", P))]
             self.placed_call(f"brick3d{n}_chunk2_pallas_{name}", *ops, plan, "pallas",
-                             where, fast, card_ops=(A, P))
+                             where, fast, card_ops=(A, P), caps=caps)
         del pinned, fast
         torch.cuda.empty_cache()
         # hand the pinned stacks' host memory back (the host allocator keeps
@@ -2520,9 +2579,12 @@ class Smoke:
         that the placement puts slow streams from pinned memory through the
         ring, the fast ones share one whole copy of L on the card; the count
         equal to scipy's, the bytes equal to the masked events, one masked
-        launch a step, and the peaks within the ring's model."""
-        for label, chunk2, name in PLACED_TRIANGLES:
-            self.triangle_placed(label, chunk2, name)
+        launch a step, and the peaks within the ring's model. Then the fused
+        count with L read in place (:meth:`in_place_triangle`), beside its
+        ring twin."""
+        twins = {label: self.triangle_placed(label, chunk2, name)
+                 for label, chunk2, name in PLACED_TRIANGLES}
+        self.in_place_triangle(twins["tc_rmat18_fused_HostPin"])
 
     def masked_workspace(self, L, plan, caps) -> int:
         """The largest live peak of one masked launch of the plan on card
@@ -2605,52 +2667,400 @@ class Smoke:
         check(live <= parts["total"] * LIVE_MARGIN,
               f"{label}: live tensors' peak {live} passes the ring's model "
               f"{parts['total']} + 1%")
-        emit({"placed_run": {
-            "run": label, "placement": dict(zip("ABC", (where.A, where.B, where.C))),
-            "backend": "hash (masked)", "plan": [plan.algorithm, n_ac, n_b], "steps": steps,
-            "launches": {k: v for k, v in launches.items() if v}, "triangles": float(got),
-            "wall_s": wall, "all_fast_wall_s": wall_fast, "equal_to_scipy": True,
-            "peak_alloc_bytes": peak, "peak_live_bytes": live, "model_bytes": parts,
-            "card": self.smi, **ring, "times": log.times()}})
+        out = {"run": label, "placement": dict(zip("ABC", (where.A, where.B, where.C))),
+               "backend": "hash (masked)", "plan": [plan.algorithm, n_ac, n_b], "steps": steps,
+               "launches": {k: v for k, v in launches.items() if v}, "triangles": float(got),
+               "wall_s": wall, "all_fast_wall_s": wall_fast, "equal_to_scipy": True,
+               "peak_alloc_bytes": peak, "peak_live_bytes": live, "model_bytes": parts,
+               "card": self.smi, **ring, "times": log.times()}
+        emit({"placed_run": out})
         del Lp
         torch.cuda.empty_cache()
+        return out
 
     def refusal_check(self, A, P, plan, pinned) -> None:
         """A pinned stack handed straight to any of the five SpGEMM kernels'
-        wrappers raises: the kernels read only the card, and only the
-        executors stage a slow operand."""
+        wrappers without a run device raises, whether every operand is
+        pinned or the first lies on the card: without ``device=`` a wrapper
+        reads only the card. Given the card, the four streaming wrappers
+        read it in place (:meth:`in_place_wrappers`); the BSR x BSR wrapper
+        takes no run device and refuses it still."""
         torch, cs = self.torch, self.m["chunk_stream"]
         ch, csr = self.m["chunking"], self.m["csr"]
         Ast = csr.csr_pin(csr.csr_stack([csr.csr_stack(ch.a_strips(pinned["A"], plan.p_ac))]))
         Bst = csr.csr_pin(csr.csr_stack([csr.csr_stack(ch.b_chunks(pinned["B"], plan.p_b))]))
         C0 = csr.csr_pin(cs._sparse_c0_stack(1, plan.n_ac, Ast.n_rows, P.n_cols, 16,
                                              torch.float32, "cpu"))
+        pinned_first = {"A": Ast, "a_dense": torch.zeros(1, 1, 4, 8, pin_memory=True),
+                        "a_blocks": torch.zeros(2, 4, 4, pin_memory=True)}
+        card_first = {"A": csr.CSR(*(t.cuda() for t in (Ast.indptr, Ast.indices, Ast.data)),
+                                   Ast.shape, Ast.max_row_nnz),
+                      "a_dense": pinned_first["a_dense"].cuda(),
+                      "a_blocks": pinned_first["a_blocks"].cuda()}
         r0s, r1s = plan.b_ranges()
-        refused = {}
-        for kernel, call in (
-                ("sparse_accum_spgemm", lambda: self.kernels["sparse_accum_spgemm"]
-                 .sparse_accum_spgemm_stream(Ast, Bst, C0, r0s, r1s, order="chunk2",
-                                             row_cap=16)),
-                ("hash_accum_spgemm", lambda: self.kernels["hash_accum_spgemm"]
-                 .hash_accum_spgemm_stream(Ast, Bst, C0, r0s, r1s, order="chunk2",
-                                           table_size=16)),
-                ("hash_masked_accum_spgemm", lambda: self.kernels["hash_accum_spgemm"]
-                 .hash_masked_accum_spgemm_stream(Ast, Bst, C0, C0, r0s, r1s,
-                                                  order="chunk2", table_size=16)),
-                ("ranged_spgemm", lambda: self.kernels["ranged_spgemm"].ranged_spgemm_stream(
-                    *(torch.zeros(*shape, pin_memory=True) for shape in
-                      ((1, 1, 4, 8), (1, 2, 4, 4), (1, 1, 4, 4))),
-                    np.array([0, 4], np.int32), order="chunk1")),
-                ("bsr_spgemm", lambda: self.kernels["bsr_spgemm"].bsr_spgemm_blocks(
-                    torch.zeros(2, 4, 4, pin_memory=True), torch.zeros(2, 4, 4, pin_memory=True),
-                    np.zeros((1, 1), np.int32), np.zeros((1, 1), np.int32), nc_pad=1,
-                    u_max=1, bs=4))):
-            try:
-                call()
-            except ValueError as err:
-                refused[kernel] = str(err).split(";")[0]
-            check(kernel in refused, f"{kernel}: a pinned operand was not refused")
+        esc, hmod = self.kernels["sparse_accum_spgemm"], self.kernels["hash_accum_spgemm"]
+        calls = {
+            "sparse_accum_spgemm": lambda f: esc.sparse_accum_spgemm_stream(
+                f["A"], Bst, C0, r0s, r1s, order="chunk2", row_cap=16),
+            "hash_accum_spgemm": lambda f: hmod.hash_accum_spgemm_stream(
+                f["A"], Bst, C0, r0s, r1s, order="chunk2", table_size=16),
+            "hash_masked_accum_spgemm": lambda f: hmod.hash_masked_accum_spgemm_stream(
+                f["A"], Bst, C0, C0, r0s, r1s, order="chunk2", table_size=16),
+            "ranged_spgemm": lambda f: self.kernels["ranged_spgemm"].ranged_spgemm_stream(
+                f["a_dense"], *(torch.zeros(*shape, pin_memory=True) for shape in
+                                ((1, 2, 4, 4), (1, 1, 4, 4))),
+                np.array([0, 4], np.int32), order="chunk1"),
+            "bsr_spgemm": lambda f: self.kernels["bsr_spgemm"].bsr_spgemm_blocks(
+                f["a_blocks"], torch.zeros(2, 4, 4, pin_memory=True),
+                np.zeros((1, 1), np.int32), np.zeros((1, 1), np.int32), nc_pad=1,
+                u_max=1, bs=4),
+        }
+        refused = {"pinned": {}, "first_on_card": {}}
+        for kernel, call in calls.items():
+            for case, first in (("pinned", pinned_first), ("first_on_card", card_first)):
+                try:
+                    call(first)
+                except ValueError as err:
+                    refused[case][kernel] = str(err).split(";")[0]
+                # the BSR wrapper's card launch refuses any host operand
+                why = ("is on cpu" if (kernel, case) == ("bsr_spgemm", "first_on_card")
+                       else "an operand is in pinned host memory")
+                check(why in refused[case].get(kernel, ""),
+                      f"{kernel}: a pinned operand was not refused ({case})")
         emit({"pinned_refused": refused})
+        self.in_place_wrappers()
+
+    # -- slow operands read in place (slow_reads="in_place") ----------------
+
+    def in_place_wrappers(self) -> None:
+        """Each of the four streaming wrappers handed pinned stacks and the
+        card (``device=``) launches once in place: on brick3d n=8 A x P
+        (the masked kernel: A x A masked by A) under a chunk2 2 x 2 plan,
+        its result equal bit for bit to the same kernel on card stacks and
+        within the stated tolerance of its plain version on the host, its
+        launch and in-place counts one each. Pageable host memory has no
+        device address (raises); an address inside a pinned allocation
+        maps to the same offset in the card's view."""
+        torch, b = self.torch, self.m["build"]
+        cs, csr, planner = self.m["chunk_stream"], self.m["csr"], self.m["planner"]
+        A, _, P = self.m["multigrid"].problem("brick3d", IN_PLACE_CHECK_N, device="cuda")
+        half = lambda m: (0, m // 2, m)  # noqa: E731
+        plan = planner.ChunkPlan("chunk2", half(A.n_rows), half(A.n_cols), 0.0, 0.0)
+        host = lambda st: csr.CSR(*(t.cpu() for t in (st.indptr, st.indices, st.data)),  # noqa: E731
+                                  st.shape, st.max_row_nnz)
+        Ast, Bst, C0, r0s, r1s, caps = self.stage_csr(A, P, plan)
+        table = planner.hash_table_slots(caps.c_max_row_nnz)
+        esc, hmod = self.kernels["sparse_accum_spgemm"], self.kernels["hash_accum_spgemm"]
+        (mA, mB, mC0, mM, mr0, mr1), mtable, _ = cs.stage_hash_masked(
+            A, A, A, plan, self.m["symbolic"].masked_output_caps(A, plan.p_ac).c_pad)
+        a, slabs = self.dense_stage(A, P, plan)
+        c0 = torch.zeros(a.shape[:3] + (P.n_cols,), device="cuda")
+        calls = {
+            "sparse_accum_spgemm": (lambda ops, **kw: esc.sparse_accum_spgemm_stream(
+                *ops, r0s, r1s, order="chunk2", row_cap=caps.c_max_row_nnz, **kw),
+                (Ast, Bst, C0)),
+            "hash_accum_spgemm": (lambda ops, **kw: hmod.hash_accum_spgemm_stream(
+                *ops, r0s, r1s, order="chunk2", table_size=table, **kw), (Ast, Bst, C0)),
+            "hash_masked_accum_spgemm": (lambda ops, **kw: hmod.hash_masked_accum_spgemm_stream(
+                *ops, mr0, mr1, order="chunk2", table_size=mtable, **kw), (mA, mB, mC0, mM)),
+            "ranged_spgemm": (lambda ops, **kw: self.kernels["ranged_spgemm"].ranged_spgemm_stream(
+                *ops, r0s, order="chunk2", **kw), (a, slabs, c0)),
+        }
+        out = {}
+        for kernel, (call, ops) in calls.items():
+            dense = kernel == "ranged_spgemm"
+            pinned = [csr.tensor_pin(t.cpu()) if dense else csr.csr_pin(host(t)) for t in ops]
+            card = call(ops)
+            self.reset_counters()
+            got = call(pinned, device="cuda")
+            launches = self.read_counters()
+            check(launches[kernel] == 1 and launches[f"{kernel}/in_place"] == 1,
+                  f"{kernel}: in place launched {launches[kernel]} / "
+                  f"{launches[f'{kernel}/in_place']} times, once expected")
+            plain = call([t.cpu() for t in ops] if dense else [host(t) for t in ops],
+                         device="cpu")
+            got, card, plain = ([got], [card], [plain]) if dense else (got, card, plain)
+            check(all(g.device.type == "cpu" and g.is_pinned() for g in got),
+                  f"{kernel}: the in-place output is not in pinned host memory")
+            check(all(torch.equal(g, c.cpu()) for g, c in zip(got, card)),
+                  f"{kernel}: in place differs from the kernel on card stacks")
+            held = (self.hold_dense(f"{kernel}/in_place", got[0], plain[0]) if dense else
+                    self.hold_csr(f"{kernel}/in_place", got, plain))
+            out[kernel] = {"launches": launches[kernel], **held}
+            self.in_place.setdefault(kernel, {})["max_abs_err"] = held["max_abs_err"]
+        pinned = torch.zeros(1024, pin_memory=True)
+        check(b.device_address(pinned[256:]) == b.device_address(pinned) + 1024,
+              "an address inside a pinned allocation maps to another offset")
+        try:
+            b.device_address(torch.zeros(1024))
+            check(False, "pageable host memory was given a device address")
+        except ValueError as err:
+            out["pageable_refused"] = str(err).split(":")[0]
+        emit({"in_place_wrappers": out, "n": IN_PLACE_CHECK_N, "card": self.smi})
+
+    def in_place_models(self, plan, stats, where, backend: str, C, host) -> tuple:
+        """(card bytes, link reads) of one in-place call: the card's bytes
+        at its peak (``placement.card_bytes`` under ``slow_reads="in_place"``,
+        the one launch's workspace: the merge's slabs a row and, for a
+        counted ESC call, its work list and global workspace; the chunk
+        starts), and the bytes its kernel touches of each operand
+        (``link_reads``, on ``host``'s pinned operands staged as the
+        executor stages them)."""
+        key = (plan, backend, id(host["A"]), id(host["B"]))
+        if key in self._in_place_models:   # the placements of one plan share them
+            workspace, reads = self._in_place_models[key]
+            return self.in_place_card(plan, stats, where, C, workspace), reads
+        ch, cs, csr = self.m["chunking"], self.m["chunk_stream"], self.m["csr"]
+        planner, reads_mod = self.m["planner"], self.m["link_reads"]
+        slab, a_stage, c_stage = self.stage_sizes(plan, stats)
+        n_ac, n_b = plan.n_ac, plan.n_b
+        strips = ch.a_strips(host["A"], plan.p_ac)
+        chunks = ch.b_chunks(host["B"], plan.p_b)
+        strip_rows, span = strips[0].n_rows, chunks[0].n_rows
+        if backend == "pallas":
+            reads = reads_mod.dense_reads((1, n_ac, strip_rows, host["A"].n_cols + span),
+                                          (1, n_b, span, host["B"].n_cols))
+            workspace = 4 * n_b
+        else:
+            one = lambda pieces: (lambda st: csr.CSR(  # noqa: E731
+                st.indptr[None], st.indices[None], st.data[None], st.shape,
+                st.max_row_nnz))(csr.csr_stack(pieces))
+            Ast, Bst = one(strips), one(chunks)
+            c_pad = (c_stage - 4 * (strip_rows + 1)) // 8
+            C0 = cs._sparse_c0_stack(1, n_ac, strip_rows, host["B"].n_cols, c_pad,
+                                     C.dtype, "cpu")
+            r0s, r1s = plan.b_ranges()
+            order = "chunk2" if plan.algorithm == "chunk2" else "chunk1"
+            reads = reads_mod.csr_reads(Ast, Bst, C0, r0s, r1s, order=order)
+            row_cap = (planner.hash_table_slots(C.max_row_nnz) if backend == "hash"
+                       else max(C.max_row_nnz, 1))
+            workspace = n_ac * strip_rows * (row_cap * 8 + 4) + 4 + 8 * n_b
+            if backend == "sparse":
+                launch = self.kernels["sparse_accum_spgemm"].esc_launch_plan(
+                    Ast, Bst, C0, r0s, r1s, row_cap=row_cap)
+                if launch.split:
+                    workspace += (4 * launch.items.numel() + 8 * launch.offsets.numel()
+                                  + launch.workspace_bytes)
+        self._in_place_models[key] = (workspace, reads)
+        return self.in_place_card(plan, stats, where, C, workspace), reads
+
+    def in_place_card(self, plan, stats, where, C, workspace: int) -> dict:
+        """``placement.card_bytes`` of an in-place call."""
+        slab, a_stage, c_stage = self.stage_sizes(plan, stats)
+        return self.m["placement"].card_bytes(
+            plan, where, a_stage=a_stage, slab=slab, c_stage=c_stage, workspace=workspace,
+            c_bytes=C.nbytes(), slow_reads="in_place")
+
+    def in_place_call(self, label: str, A, B, plan, backend: str, where, fast, *, host,
+                      card_ops, twin=None, want_routes=None, caps=None) -> dict:
+        """One ``chunked_spgemm(..., slow_reads="in_place")`` with operands
+        placed as ``where`` says (pinned host memory for a slow one), gated
+        against the same plan's all-fast call ``fast = (C, stats, wall_s)``:
+        C equal bit for bit (so within the tolerance of the plain version
+        the all-fast call was held to) and where ``where`` puts it, the
+        ChunkStats equal, one wrapper launch and one in-place launch (the
+        ESC kernel's launches by route ``want_routes``, the all-fast call's,
+        or one on the shared route), no ring op and no transfer, and the
+        live tensors' peak on the card within the in-place card model plus
+        1% (for HostPin: less the workspace, below A's bytes); the dense
+        slab on its ``IN_PLACE_DENSE_PATH``. ``caps`` is the plan's symbolic
+        phase, hoisted out of the call. Prints the launch's kernel ms (CUDA
+        events) beside the same kernel's on the card operands ``card_ops``
+        (the all-fast call, again), the modelled bytes read in place and
+        their rate, the wall, and the ring twin's copy and compute ms."""
+        torch = self.torch
+        chunking, csr, copy_ring = self.m["chunking"], self.m["csr"], self.m["copy_ring"]
+        C_fast, stats_fast, wall_fast = fast[:3]
+        kernel = self.backend_kernel[backend]
+        model, reads = self.in_place_models(plan, stats_fast, where, backend, C_fast, host)
+        slow_bytes = self.m["link_reads"].slow_total(reads, where)
+        paths = self.kernels["ranged_spgemm"].PATH_LAUNCHES
+        path_before = {p: c.count for p, c in paths.items()}
+        with copy_ring.RingLog() as log, self.m["build"].LaunchTimer() as timer:
+            (C, stats), wall, peak, live = self.memory_traced(
+                lambda: chunking.chunked_spgemm(A, B, plan, backend=backend, placement=where,
+                                                slow_reads="in_place", caps=caps))
+        kernel_ms = timer.ms()
+        launches = self.read_counters()
+        check(csr.csr_residence(C) == ("pinned" if where.C == "slow" else "card"),
+              f"{label}: C is in {csr.csr_residence(C)} memory, placed {where.C}")
+        for f in ("indptr", "indices", "data"):
+            check(torch.equal(getattr(C, f).cpu(), getattr(C_fast, f).cpu()),
+                  f"{label}: C.{f} differs from the all-fast call's")
+        check(stats == stats_fast, f"{label}: ChunkStats differ from the all-fast call's")
+        check(launches[kernel] == 1 and launches[f"{kernel}/in_place"] == int(bool(where.slow)),
+              f"{label}: {launches[kernel]} {kernel} launches, "
+              f"{launches[f'{kernel}/in_place']} in place; one each expected")
+        if kernel == "sparse_accum_spgemm":
+            esc = self.kernels[kernel]
+            routes = {r: launches[f"{kernel}/{r}"] for r in esc.ROUTES}
+            want = want_routes or {r: int(r == "shared") for r in esc.ROUTES}
+            check(routes == want, f"{label}: ESC launches by route {routes}, the all-fast "
+                  f"call's {want}")
+        check(not log.rings and not log.transfers,
+              f"{label}: {len(log.rings)} rings, {len(log.transfers)} transfers in place")
+        check(live <= model["total"] * LIVE_MARGIN,
+              f"{label}: live tensors' peak {live} passes the in-place model "
+              f"{model['total']} + 1%")
+        if len(where.slow) == 3:
+            check(live - model["workspace"] < A.nbytes(),
+                  f"{label}: live peak {live} less the workspace {model['workspace']} is not "
+                  f"below A's {A.nbytes()} bytes")
+        path = None
+        if backend == "pallas":
+            path = [p for p, c in paths.items() if c.count > path_before[p]]
+            check(path == [IN_PLACE_DENSE_PATH],
+                  f"{label}: the dense slab took {path}, not {IN_PLACE_DENSE_PATH}")
+        with self.m["build"].LaunchTimer() as fast_timer:
+            chunking.chunked_spgemm(*card_ops, plan, backend=backend, caps=caps)
+        out = {"run": label, "placement": dict(zip("ABC", (where.A, where.B, where.C))),
+               "backend": backend, "plan": [plan.algorithm, plan.n_ac, plan.n_b],
+               "launches": {k: v for k, v in launches.items() if v}, "bit_equal": True,
+               "wall_s": wall, "all_fast_wall_s": wall_fast, "kernel_ms": kernel_ms,
+               "all_fast_kernel_ms": fast_timer.ms(), "dense_path": path,
+               "link_read_bytes_model": reads, "slow_read_bytes_model": slow_bytes,
+               "slow_read_gb_s": slow_bytes / kernel_ms / 1e6 if kernel_ms > 0 else None,
+               "peak_alloc_bytes": peak, "peak_live_bytes": live, "model_bytes": model,
+               "card": self.smi}
+        if twin is not None:
+            times = twin.get("times", {})
+            out["ring_twin"] = {"run": twin["run"], "wall_s": twin["wall_s"],
+                                "copy_ms": times.get("copy_ms"),
+                                "compute_ms": times.get("compute_ms")}
+        emit({"in_place_run": out})
+        row = self.in_place.setdefault(kernel, {})
+        if "run" not in row and len(where.slow) == 3:
+            row.update({"run": label, "launches": launches[f"{kernel}/in_place"],
+                        "ms": kernel_ms, "all_fast_ms": out["all_fast_kernel_ms"],
+                        "slow_read_bytes_model": slow_bytes,
+                        "slow_read_gb_s": out["slow_read_gb_s"]})
+        return out
+
+    def in_place_launched(self) -> None:
+        """Each of the four streaming kernels launched in place in an
+        in-place call of the placement phase."""
+        for kernel in ("ranged_spgemm", "sparse_accum_spgemm", "hash_accum_spgemm",
+                       "hash_masked_accum_spgemm"):
+            check(self.in_place.get(kernel, {}).get("launches", 0) > 0,
+                  f"{kernel}: launched no time in place in the placement phase")
+
+    def in_place_rmat12(self) -> None:
+        """The ESC kernel's counted classes read in place: rmat12_sparse's
+        L x L (knl, 4 chunks) with L slow in both roles, against that main
+        path run."""
+        L, plan, (C, stats, wall, launches) = self._rmat12
+        esc = self.kernels["sparse_accum_spgemm"]
+        routes = {r: launches[f"sparse_accum_spgemm/{r}"] for r in esc.ROUTES}
+        Lp = self.m["csr"].csr_pin(L)
+        self.in_place_call("rmat12_sparse_inplace_HostPin", Lp, Lp, plan, "sparse",
+                           self.m["placement"].TABLE3["HostPin"], (C, stats, wall),
+                           host={"A": Lp, "B": Lp}, card_ops=(L, L), want_routes=routes)
+        self._rmat12 = None
+        del Lp, C
+        self.torch.cuda.empty_cache()
+
+    def in_place_dense(self) -> None:
+        """The dense slab read in place: brick3d n=16 under its quickstart
+        plan (chunk2 6 x 1) in HostPin and DP, against that plan's all-fast
+        call, made here."""
+        torch = self.torch
+        planner, placement, chunking = self.m["planner"], self.m["placement"], self.m["chunking"]
+        A, P = self.problem("brick3d", IN_PLACE_DENSE_N)
+        crb, budget = self.quickstart_inputs(A, P)
+        plan = planner.plan_chunks(A, P, crb, self.m["memory_model"].P100,
+                                   fast_limit_bytes=budget)
+        check((plan.algorithm, plan.n_ac, plan.n_b) == ("chunk2", 6, 1),
+              f"brick3d{IN_PLACE_DENSE_N} dense plan {(plan.algorithm, plan.n_ac, plan.n_b)}")
+        caps = self.m["symbolic"].strip_output_caps(A, P, plan.p_ac)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fast = chunking.chunked_spgemm(A, P, plan, backend="pallas", caps=caps)
+        torch.cuda.synchronize()
+        fast = (*fast, time.perf_counter() - t0)
+        pinned = placement.place({"A": A, "B": P}, "slow")
+        for name in IN_PLACE_DENSE:
+            where = placement.TABLE3[name]
+            ops = [pinned[k] if getattr(where, k) == "slow" else m
+                   for k, m in (("A", A), ("B", P))]
+            self.in_place_call(f"brick3d{IN_PLACE_DENSE_N}_chunk2_pallas_inplace_{name}",
+                               *ops, plan, "pallas", where, fast, host=pinned, card_ops=(A, P),
+                               caps=caps)
+        del pinned, fast
+        torch.cuda.empty_cache()
+
+    def in_place_triangle(self, twin=None) -> None:
+        """``count_triangles(..., slow_reads="in_place")`` with L slow in
+        every role (HostPin), the one-chunk plan of tc_rmat18_fused: the
+        count equal to scipy's, one masked launch and one in place, no ring
+        op, the card's live peak within the launch's workspace (its work
+        list, global tables and flags) plus 1% and, less it, below L's
+        bytes. Prints the kernel ms, the modelled bytes read in place and
+        the ring twin's times."""
+        torch, tri, cs = self.torch, self.m["triangle"], self.m["chunk_stream"]
+        csr, placement = self.m["csr"], self.m["placement"]
+        L, _, want, _ = self.triangle_graph()
+        plan, caps, wall_fast = self.tc_runs[False]
+        where = placement.TABLE3["HostPin"]
+        Lp = csr.csr_pin(L)
+        (Ast, Bst, C0, Mst, r0s, r1s), _, _ = cs.stage_hash_masked(Lp, Lp, Lp, plan,
+                                                                   caps.c_pad, caps)
+        order = "chunk2" if plan.algorithm == "chunk2" else "chunk1"
+        reads = self.m["link_reads"].csr_reads(Ast, Bst, C0, r0s, r1s, order=order, Mst=Mst)
+        _, launches_plan = self.kernels["hash_masked_accum_spgemm"].masked_plan(
+            Ast, Bst, Mst, r0s, r1s, torch.device("cuda"))
+        n_parts, n_grows = launches_plan.parts.shape[0], launches_plan.grows.numel()
+        gslots = int(launches_plan.goff[-1]) if n_grows else 1
+        placeholders = sum(16 for n in (n_parts, n_parts, n_grows) if n == 0)
+        workspace = (20 * n_parts + 4 * n_grows + 8 * (n_grows + 1) + 8 * gslots + 4
+                     + 8 * plan.n_b + placeholders)
+        model = {"A": 0, "B": 0, "C": 0, "M": 0, "workspace": workspace, "count": 8}
+        model["total"] = sum(model.values())
+        del Ast, Bst, C0, Mst, launches_plan
+        with self.m["copy_ring"].RingLog() as log, self.m["build"].LaunchTimer() as timer:
+            got, wall, peak, live = self.memory_traced(lambda: tri.count_triangles(
+                Lp, plan=plan, caps=caps, placement=where, slow_reads="in_place"))
+        kernel_ms = timer.ms()
+        launches = self.read_counters()
+        label = "tc_rmat18_fused_inplace_HostPin"
+        check(got.dtype == torch.float64 and got.device.type == "cuda" and float(got) == want,
+              f"{label}: {float(got)} triangles on {got.device}, scipy counts {want}")
+        kernel = "hash_masked_accum_spgemm"
+        check(launches[kernel] == 1 and launches[f"{kernel}/in_place"] == 1,
+              f"{label}: {launches[kernel]} masked launches, "
+              f"{launches[f'{kernel}/in_place']} in place; one each expected")
+        check(not log.rings and not log.transfers,
+              f"{label}: {len(log.rings)} rings, {len(log.transfers)} transfers in place")
+        check(live <= model["total"] * LIVE_MARGIN,
+              f"{label}: live tensors' peak {live} passes the in-place model "
+              f"{model['total']} + 1%")
+        check(live - workspace < L.nbytes(),
+              f"{label}: live peak {live} less the workspace {workspace} is not below "
+              f"L's {L.nbytes()} bytes")
+        slow_bytes = self.m["link_reads"].slow_total(reads, where)
+        with self.m["build"].LaunchTimer() as fast_timer:   # the all-fast call, again
+            tri.count_triangles(L, plan=plan, caps=caps)
+        out = {"run": label, "placement": dict(zip("ABC", (where.A, where.B, where.C))),
+               "backend": "hash (masked)", "plan": [plan.algorithm, plan.n_ac, plan.n_b],
+               "launches": {k: v for k, v in launches.items() if v}, "triangles": float(got),
+               "equal_to_scipy": True, "wall_s": wall, "all_fast_wall_s": wall_fast,
+               "kernel_ms": kernel_ms, "all_fast_kernel_ms": fast_timer.ms(),
+               "link_read_bytes_model": reads,
+               "slow_read_bytes_model": slow_bytes,
+               "slow_read_gb_s": slow_bytes / kernel_ms / 1e6 if kernel_ms > 0 else None,
+               "peak_alloc_bytes": peak, "peak_live_bytes": live, "model_bytes": model,
+               "card": self.smi}
+        if twin is not None:
+            times = twin.get("times", {})
+            out["ring_twin"] = {"run": twin["run"], "wall_s": twin["wall_s"],
+                                "copy_ms": times.get("copy_ms"),
+                                "compute_ms": times.get("compute_ms")}
+        emit({"in_place_run": out})
+        self.in_place.setdefault(kernel, {}).update(
+            {"run": label, "launches": launches[f"{kernel}/in_place"], "ms": kernel_ms,
+             "all_fast_ms": out["all_fast_kernel_ms"], "slow_read_bytes_model": slow_bytes,
+             "slow_read_gb_s": out["slow_read_gb_s"]})
+        del Lp
+        torch.cuda.empty_cache()
 
     def capacity_run(self) -> None:
         """brick3d n=80 all slow through the hash ring at budget/12 under an
@@ -2672,9 +3082,11 @@ class Smoke:
         check((plan.algorithm, plan.n_ac, plan.n_b) == CAPACITY_PLAN,
               f"brick3d{CAPACITY_N} at budget/{CAPACITY_DIV} plans "
               f"{(plan.algorithm, plan.n_ac, plan.n_b)}")
+        # the symbolic phase once, for both calls
+        caps = self.m["symbolic"].strip_output_caps(A, P, plan.p_ac)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        C_fast, stats_fast = chunking.chunked_spgemm(A, P, plan, backend="hash")
+        C_fast, stats_fast = chunking.chunked_spgemm(A, P, plan, backend="hash", caps=caps)
         torch.cuda.synchronize()
         wall_fast = time.perf_counter() - t0
         err = self.scipy_check(A, P, C_fast)
@@ -2703,7 +3115,8 @@ class Smoke:
                 oom = str(exc).splitlines()[0]
             check(oom is not None, "capacity run: A fits on the card under the cap")
             out = self.placed_call(label, pinned["A"], pinned["B"], plan, "hash",
-                                   placement.ALL_SLOW, (pinned["C"], stats_fast, wall_fast))
+                                   placement.ALL_SLOW, (pinned["C"], stats_fast, wall_fast),
+                                   caps=caps)
             peak_reserved = torch.cuda.max_memory_reserved()
             self.capacity_galerkin(pinned, galerkin, reserved + headroom, oom)
         finally:
@@ -2721,7 +3134,7 @@ class Smoke:
         """The capacity Galerkin run's plan, caps and per-hop ring models,
         made on the card operands before the cap: ``plan_pipeline`` at
         ``limit`` (budget / ``CAPACITY_GALERKIN_DIV``), which must spill T and
-        chunk both hops, and each hop's :func:`placed_fast_bytes` with
+        chunk both hops, and each hop's ``placement.card_bytes`` with
         every operand slow (hash: the strips' rows times the hop's table of
         8-byte slots plus a row pointer), from its planned events."""
         planner, symbolic, cs = self.m["planner"], self.m["symbolic"], self.m["chunk_stream"]
@@ -2744,7 +3157,7 @@ class Smoke:
             c_stage = cs._c_strip_nbytes(env.strip_rows, hcaps.c_pad, A.dtype)
             rows = max(e - s for s, e in zip(hplan.p_ac[:-1], hplan.p_ac[1:]))
             table = planner.hash_table_slots(hcaps.c_max_row_nnz)
-            models[hop] = placed_fast_bytes(
+            models[hop] = self.m["placement"].card_bytes(
                 hplan, self.m["placement"].ALL_SLOW, a_stage=strip, slab=slab,
                 c_stage=c_stage, workspace=rows * (table * 8 + 4), c_bytes=0)
         # T's pattern (on A's device) leaves the card before the cap
@@ -2762,7 +3175,7 @@ class Smoke:
         slow operands' events, and the peak allocation stays under the cap.
         Prints the plan, the bytes each way, copy and compute ms, the share
         of copy time under compute, the peak against each hop's
-        ``placed_fast_bytes`` and the wall."""
+        ``placement.card_bytes`` and the wall."""
         torch, pipe, placement = self.torch, self.m["pipeline"], self.m["placement"]
         label = f"brick3d{CAPACITY_N}_capacity_galerkin_hash_HostPin"
         plan, caps = galerkin["plan"], galerkin["caps"]
@@ -4347,8 +4760,10 @@ class Smoke:
                     "source": "src/repro_torch/kernels/csrc/"
                               f"{SOURCE_FILE.get(kernel, kernel)}.cu",
                     "replaces": REPLACES[kernel]}
+            # the in-place route: its first call on the main path's placements
+            in_place = {"in_place": self.in_place[kernel]} if kernel in self.in_place else {}
             if kernel not in ROUTED:
-                extra = {}
+                extra = dict(in_place)
                 if kernel in self.batched:
                     check(self.batched_launches.get(kernel, 0) > 0,
                           f"{kernel}: launched no time in its batched run")
@@ -4367,7 +4782,7 @@ class Smoke:
                     key = "/".join([kernel, route] + ([tiling] if tiling else []))
                     check(key in self.route_runs, f"{key}: launched no time on the main path")
                     run, launches = self.route_runs[key]
-                    extra = {}
+                    extra = dict(in_place)
                     if tiling:   # bf16 operands through the same tiling: a field of its own
                         extra["bf16_operands_max_abs_err"] = self.max_err.get(
                             err_key(kernel, route, "bfloat16", tiling))
@@ -4538,11 +4953,10 @@ def main() -> int:
         for backend in BATCHED_BACKENDS:
             if backend != "pallas" or label == "brick3d16":
                 smoke.batched_run(label, As, Bs, plan, backend)
-                # the same batch with its operands in slow memory (auto on
-                # the RMAT batch resolves to hash, whose placed runs it
-                # would repeat)
-                if backend != "auto" or label == "brick3d16":
-                    for name in PIPE_PLACEMENTS:
+                # the same batch with its operands in slow memory
+                if (label, backend) not in BATCHED_PLACED_SKIP:
+                    dp = ("DP",) if (label, backend) in BATCHED_PLACED_DP else ()
+                    for name in BATCHED_PLACEMENTS + dp:
                         smoke.batched_placed(label, As, Bs, plan, backend, name)
     del batches
     smoke._batched_fast.clear()

@@ -134,6 +134,10 @@ class BackendSpec:
     # run_batched's signature plus placement= and device=: the batched
     # entry with operands in slow memory (one ring for the batch)
     run_batched_placed: Callable | None = None
+    # run_placed's signature: slow operands read in place by the kernel
+    # from pinned host memory, one launch a call
+    run_in_place: Callable | None = None
+    run_masked_in_place: Callable | None = None   # run_masked_placed's, in place
 
     @property
     def supports_batched(self) -> bool:
@@ -154,6 +158,10 @@ class BackendSpec:
     @property
     def supports_placement(self) -> bool:
         return self.run_placed is not None
+
+    @property
+    def supports_in_place(self) -> bool:
+        return self.run_in_place is not None
 
 
 _REGISTRY: dict[str, BackendSpec] = {}
@@ -230,6 +238,11 @@ def batched_backends() -> tuple:
 def accumulator_specs() -> tuple:
     """Specs participating in the planner's ``auto`` resolve, priority order."""
     return tuple(s for s in specs() if s.is_accumulator)
+
+
+def in_place_backends() -> tuple:
+    """Names of backends whose kernel reads slow operands in place."""
+    return tuple(s.name for s in specs() if s.supports_in_place)
 
 
 def masked_backends() -> tuple:

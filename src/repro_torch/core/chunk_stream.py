@@ -39,7 +39,12 @@ Every backend also registers ``run_placed``: its executor with operands in
 slow memory (pinned host memory on the card), each slow piece crossing onto
 the card through the copy ring (``repro_torch.core.copy_ring``) before a
 launch reads it, one launch a (strip, chunk) step, C equal bit for bit to
-the all-fast call's.
+the all-fast call's. The streaming kernels' backends (``pallas``,
+``sparse``, ``hash``, and the masked hash executor) also register
+``run_in_place``: each slow operand's stacks built in pinned memory and
+read in place by one launch of the backend's kernel, as the reference's
+``memory_space=ANY`` operands are (``chunked_spgemm(...,
+slow_reads="in_place")``).
 
 Every backend but ``loop`` runs its kernel calls through *cores*
 (:class:`_Core`), and its compile accounting is observable through
@@ -425,20 +430,23 @@ def _make_pallas_run(order: str, *, batched: bool, strips: bool):
     stacked A (a plain CSR for knl, a strip stack, or a per-instance stack of
     either) and B chunks, and run ``ranged_spgemm_stream`` once with the
     batch as its leading axis (width 1 unbatched). Returns dense f32 C:
-    ``[(batch,) (n_ac,) rows, n]``."""
+    ``[(batch,) (n_ac,) rows, n]``. With ``device`` (the in-place call)
+    ``pin`` says which of A, B and C are built in pinned host memory, where
+    the kernel on ``device`` reads (and writes) them in place."""
     a_levels = int(strips) + int(batched)
 
-    def run(Ast: CSR, Bst: CSR, r0s) -> torch.Tensor:
+    def run(Ast: CSR, Bst: CSR, r0s, *, pin=(False, False, False),
+            device=None) -> torch.Tensor:
         span = Bst.n_rows
-        a = _dense_stack(Ast, levels=a_levels, pad_cols=span)
-        slabs = _dense_stack(Bst, levels=2 if batched else 1)
+        a = _dense_stack(Ast, levels=a_levels, pad_cols=span, pin_memory=pin[0])
+        slabs = _dense_stack(Bst, levels=2 if batched else 1, pin_memory=pin[1])
         if not strips:               # knl: the whole A is the single strip
             a = a[:, None] if batched else a[None]
         if not batched:              # width-1 batch axis
             a, slabs = a[None], slabs[None]
         c0 = torch.zeros(a.shape[:3] + (Bst.n_cols,), dtype=torch.float32,
-                         device=a.device)
-        out = ranged_spgemm_stream(a, slabs, c0, r0s, order=order)
+                         device="cpu" if pin[2] else device or a.device, pin_memory=pin[2])
+        out = ranged_spgemm_stream(a, slabs, c0, r0s, order=order, device=device)
         if not batched:
             out = out[0]
         if not strips:
@@ -459,11 +467,11 @@ _PALLAS_CORES = _core_set("{alg}_pallas", _pallas_runs(False))
 _PALLAS_CORES_BATCHED = _core_set("{alg}_pallas_batched", _PALLAS_RUNS_BATCHED)
 
 
-def _pallas_run(A: CSR, B: CSR, plan: ChunkPlan, strips: bool):
+def _pallas_run(A: CSR, B: CSR, plan: ChunkPlan, strips: bool, **in_place):
     Bs = csr_stack(b_chunks(B, plan.p_b))
     r0s, _ = plan.b_ranges()
     As = csr_stack(a_strips(A, plan.p_ac)) if strips else A
-    out = _PALLAS_CORES[plan.algorithm](As, Bs, r0s)
+    out = _PALLAS_CORES[plan.algorithm](As, Bs, r0s, **in_place)
     stats = planned_stats_pallas(
         plan, *_pallas_stage_nbytes(As.n_rows, A.n_cols, Bs.n_rows, B.n_cols))
     return out, stats
@@ -513,13 +521,13 @@ def _make_csr_accum_run(kind: str, order: str):
     ``table_size``, both static. All staging happens before the call, so
     batched cores share the body: the batch rides the stacks' leading axis."""
     if kind == "hash":
-        def run(Ast, Bst, C0st, r0s, r1s, *, table_size: int):
+        def run(Ast, Bst, C0st, r0s, r1s, *, table_size: int, device=None):
             return hash_accum_spgemm_stream(Ast, Bst, C0st, r0s, r1s, order=order,
-                                            table_size=table_size)
+                                            table_size=table_size, device=device)
     else:
-        def run(Ast, Bst, C0st, r0s, r1s, *, row_cap: int):
+        def run(Ast, Bst, C0st, r0s, r1s, *, row_cap: int, device=None):
             return sparse_accum_spgemm_stream(Ast, Bst, C0st, r0s, r1s, order=order,
-                                              row_cap=row_cap)
+                                              row_cap=row_cap, device=device)
     return run
 
 
@@ -543,48 +551,78 @@ def _checked_table(A: CSR, B: CSR, c_pad: int, backend: str, caps):
     return table
 
 
-def _sparse_run(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, backend: str,
-                caps=None):
+def _pinned_for(placement, device) -> tuple:
+    """Which of A, B and C an in-place call on ``device`` builds in pinned
+    host memory: the slow ones on the card (nothing on the CPU, where both
+    spaces are host memory)."""
+    card = device.type == "cuda"
+    return tuple(card and getattr(placement, k) == "slow" for k in "ABC")
+
+
+def _stack_one(pieces: list, pin: bool = False) -> CSR:
+    """``pieces`` as a one-instance stack (leading ``[1, n]`` axes), in
+    pinned host memory with ``pin``."""
+    st = _one_stack(csr_stack(pieces))
+    return csr_pin(st) if pin else st
+
+
+def _sparse_run(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps=None, placement=None,
+                device=None, *, backend: str):
     """Shared body of the CSR-output executors (ESC and hash): stage CSR
     strips and chunks (knl is the 1-strip special case of the chunk1 order),
     validate the realized output structure against the capacities, launch,
     and assemble the accumulated strip CSRs.
 
     ``caps`` is the symbolic phase's :class:`StripOutputCaps` when the caller
-    already ran the expansion; recomputed here only for direct calls."""
+    already ran the expansion; recomputed here only for direct calls. With
+    ``placement`` and ``device`` it is the backend's ``run_in_place``: each
+    slow operand's stack (C's: its empty C_prev) is built in pinned host
+    memory (``copy_ring``'s sources are built the same way), and the one
+    launch of the ESC or hash kernel on ``device`` reads it where it lies,
+    as the reference's ``ANY`` operand is read; the merge's slabs, tables
+    and flags stay on the card, and a slow C comes back pinned. C equals
+    the all-fast call's bit for bit (the same launch on the same values);
+    ``ChunkStats`` stay the plan's modelled events."""
     if caps is None:
         caps = strip_output_caps(A, B, plan.p_ac)
     table = _checked_table(A, B, c_pad, backend, caps)
+    pin = (False,) * 3 if device is None else _pinned_for(placement, device)
     strips = a_strips(A, plan.p_ac)
+    strip_rows, a_stage = strips[0].n_rows, strips[0].nbytes()
+    Ast = _stack_one(strips, pin[0])
+    del strips
     chunks = b_chunks(B, plan.p_b)
-    Ast = csr_stack([csr_stack(strips)])
-    Bst = csr_stack([csr_stack(chunks)])
+    slab = chunks[0].nbytes()
+    Bst = _stack_one(chunks, pin[1])
+    del chunks
     r0s, r1s = plan.b_ranges()
-    strip_rows = strips[0].n_rows
     C0 = _sparse_c0_stack(1, plan.n_ac, strip_rows, B.n_cols, c_pad, A.dtype,
-                          A.device)
+                          "cpu" if pin[2] else device or A.device)
+    in_place = {} if device is None else {"device": device}
+    if pin[2]:
+        C0 = csr_pin(C0)
     if backend == "hash":
         ip, ix, d = _HASH_CORES[plan.algorithm](Ast, Bst, C0, r0s, r1s,
-                                                table_size=table)
+                                                table_size=table, **in_place)
     else:
         ip, ix, d = _SPARSE_CORES[plan.algorithm](Ast, Bst, C0, r0s, r1s,
-                                                  row_cap=caps.c_max_row_nnz)
-    stats = planned_stats_pallas(
-        plan, chunks[0].nbytes(), strips[0].nbytes(),
-        _c_strip_nbytes(strip_rows, c_pad, A.dtype))
+                                                  row_cap=caps.c_max_row_nnz, **in_place)
+    stats = planned_stats_pallas(plan, slab, a_stage,
+                                 _c_strip_nbytes(strip_rows, c_pad, A.dtype))
     out = [CSR(ip[0, i], ix[0, i], d[0, i], (strip_rows, B.n_cols), c_pad)
            for i in range(plan.n_ac)]
-    return _assemble(out, plan.p_ac, B.n_cols), stats
+    C = _assemble(out, plan.p_ac, B.n_cols)
+    return (csr_pin(C) if pin[2] else C), stats
 
 
 def chunk_sparse(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps=None):
     """ESC CSR-output executor for any plan algorithm."""
-    return _sparse_run(A, B, plan, c_pad, "sparse", caps=caps)
+    return _sparse_run(A, B, plan, c_pad, caps, backend="sparse")
 
 
 def chunk_hash(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps=None):
     """Hash-probe executor for any plan algorithm."""
-    return _sparse_run(A, B, plan, c_pad, "hash", caps=caps)
+    return _sparse_run(A, B, plan, c_pad, caps, backend="hash")
 
 
 # ---------------------------------------------------------------------------
@@ -727,19 +765,44 @@ def _pallas_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
 
 
 # ---------------------------------------------------------------------------
+# slow operands read in place: one launch a call, no ring
+# ---------------------------------------------------------------------------
+
+
+def _pallas_run_in_place(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
+                         placement, device: torch.device):
+    """The dense slab's ``run_in_place``: the all-fast executor's dense
+    strips (with their ``span`` zero columns), slabs and C block, each slow
+    one built in pinned host memory, and one ``ranged_spgemm_stream`` launch
+    on ``device`` that reads them (and writes a slow C) in place. C equals
+    the all-fast call's bit for bit; a slow C is sparsified in pinned memory
+    and stays there."""
+    del c_pad, caps   # capacity is implicit in the dense accumulator
+    pin = _pinned_for(placement, device)
+    strips = plan.algorithm != "knl"
+    out, stats = _pallas_run(A, B, plan, strips, pin=pin, device=device)
+    C = _pallas_assemble(out, plan.p_ac) if strips else csr_from_dense(out, device=out.device)
+    return (csr_pin(C) if pin[2] else C), stats
+
+
+# ---------------------------------------------------------------------------
 # masked hash executor: fused output mask (triangle counting's fast path)
 # ---------------------------------------------------------------------------
 
 
 def stage_hash_masked(A: CSR, B: CSR, mask: CSR, plan: ChunkPlan, c_pad: int,
-                      caps=None, c_prev: CSR | None = None):
+                      caps=None, c_prev: CSR | None = None, *, pin=(False, False, False),
+                      device=None):
     """Stage the masked kernel's operands for ``plan``, as
     :func:`chunk_hash_masked` launches them: returns ``(operands,
     table_size, stats)`` with ``operands = (Ast, Bst, C0st, Mst, r0s, r1s)``
     of ``hash_masked_accum_spgemm_stream`` and the plan's ChunkStats.
 
     C_prev is empty at capacity ``c_pad``, or ``c_prev``'s strips at the
-    larger of ``c_pad`` and their own capacity."""
+    larger of ``c_pad`` and their own capacity. ``pin`` builds A's, B's and
+    C's stacks (C's: C_prev and the mask) in pinned host memory, for a
+    launch on ``device`` that reads them in place; an empty C_prev is made
+    on ``device`` (A's by default) otherwise."""
     if mask.shape != (A.n_rows, B.n_cols):
         raise ValueError(
             f"mask shape {mask.shape} != output shape {(A.n_rows, B.n_cols)}")
@@ -751,18 +814,19 @@ def stage_hash_masked(A: CSR, B: CSR, mask: CSR, plan: ChunkPlan, c_pad: int,
     strips = a_strips(A, plan.p_ac)
     chunks = b_chunks(B, plan.p_b)
     mstrips = a_strips(mask, plan.p_ac)
-    Ast = csr_stack([csr_stack(strips)])
-    Bst = csr_stack([csr_stack(chunks)])
-    Mst = csr_stack([csr_stack(mstrips)])
+    Ast, Bst, Mst = (_stack_one(pieces, p) for pieces, p in
+                     ((strips, pin[0]), (chunks, pin[1]), (mstrips, pin[2])))
     r0s, r1s = plan.b_ranges()
     strip_rows = strips[0].n_rows
     if c_prev is None:
         C0 = _sparse_c0_stack(1, plan.n_ac, strip_rows, B.n_cols, c_pad,
-                              A.dtype, A.device)
+                              A.dtype, "cpu" if pin[2] else device or A.device)
     else:
         c0s = a_strips(c_prev, plan.p_ac)
         c_pad = max(c_pad, c0s[0].nnz_pad)
         C0 = csr_stack([csr_stack([csr_pad_to(s, c_pad) for s in c0s])])
+    if pin[2]:
+        C0 = csr_pin(C0)
     stats = planned_stats_pallas(
         plan, chunks[0].nbytes(), strips[0].nbytes(),
         _c_strip_nbytes(strip_rows, c_pad, A.dtype))
@@ -789,12 +853,35 @@ def chunk_hash_masked(A: CSR, B: CSR, mask: CSR, plan: ChunkPlan,
     amortizes the (mask-only) host pass.
     """
     operands, table, stats = stage_hash_masked(A, B, mask, plan, c_pad, caps)
+    return _masked_launch(operands, table, plan, B.n_cols, c_pad), stats
+
+
+def _masked_launch(operands, table: int, plan: ChunkPlan, n_cols: int, c_pad: int,
+                   device=None) -> CSR:
+    """One masked launch over the staged ``operands``, its strips assembled
+    into C (in C_prev's space)."""
     ip, ix, d = hash_masked_accum_spgemm_stream(
-        *operands, order=_CSR_ACCUM_ORDERS[plan.algorithm], table_size=table)
+        *operands, order=_CSR_ACCUM_ORDERS[plan.algorithm], table_size=table,
+        device=device)
     strip_rows = operands[0].n_rows
-    out = [CSR(ip[0, i], ix[0, i], d[0, i], (strip_rows, B.n_cols), c_pad)
+    out = [CSR(ip[0, i], ix[0, i], d[0, i], (strip_rows, n_cols), c_pad)
            for i in range(plan.n_ac)]
-    return _assemble(out, plan.p_ac, B.n_cols), stats
+    return _assemble(out, plan.p_ac, n_cols)
+
+
+def _masked_run_in_place(A: CSR, B: CSR, mask: CSR, plan: ChunkPlan, c_pad: int,
+                         caps, placement, device: torch.device):
+    """:func:`chunk_hash_masked` with slow operands read in place: the hash
+    backend's ``run_masked_in_place``. Each slow role's stack (``placement.C``
+    puts C_prev and the mask) is built in pinned host memory, and one launch
+    of the masked kernel on ``device`` reads them where they lie and writes a
+    slow C there; the work list is cut on the host when an operand is there.
+    ChunkStats are :func:`stage_hash_masked`'s."""
+    pin = _pinned_for(placement, device)
+    operands, table, stats = stage_hash_masked(A, B, mask, plan, c_pad, caps, pin=pin,
+                                               device=device)
+    C = _masked_launch(operands, table, plan, B.n_cols, c_pad, device)
+    return (csr_pin(C) if pin[2] else C), stats
 
 
 def _masked_run_placed(A: CSR, B: CSR, mask: CSR, plan: ChunkPlan, c_pad: int,
@@ -1953,6 +2040,7 @@ def _register_all() -> None:
                                                  _PALLAS_RUNS_BATCHED),
         run_placed=_pallas_run_placed,
         run_batched_placed=_pallas_run_batched_placed,
+        run_in_place=_pallas_run_in_place,
     ))
     register(Spec(
         name="sparse",
@@ -1968,6 +2056,7 @@ def _register_all() -> None:
         make_batched_cores=_batched_core_factory("{alg}_sparse_batched", _SPARSE_RUNS),
         run_placed=partial(_sparse_run_placed, backend="sparse"),
         run_batched_placed=partial(_csr_accum_run_batched_placed, kind="sparse"),
+        run_in_place=partial(_sparse_run, backend="sparse"),
     ))
     register(Spec(
         name="hash",
@@ -1980,11 +2069,13 @@ def _register_all() -> None:
         is_accumulator=True,
         run_masked=chunk_hash_masked,
         run_masked_placed=_masked_run_placed,
+        run_masked_in_place=_masked_run_in_place,
         audit_trace=_make_audit_csr_accum("hash"),
         traffic_model=_traffic_csr_accum,
         make_batched_cores=_batched_core_factory("{alg}_hash_batched", _HASH_RUNS),
         run_placed=partial(_sparse_run_placed, backend="hash"),
         run_batched_placed=partial(_csr_accum_run_batched_placed, kind="hash"),
+        run_in_place=partial(_sparse_run, backend="hash"),
     ))
     register(Spec(
         name="bsr",

@@ -452,9 +452,23 @@ def whole_fast(A: CSR, B: CSR, c_pad: int, placement, device,
     return C, stats.freeze()
 
 
+SLOW_READS = ("ring", "in_place")
+
+
+def in_place_refusal(what: str) -> ValueError:
+    """The error of a call that cannot read its slow operands in place."""
+    from repro_torch.core import backend_registry
+
+    names = ", ".join(backend_registry.in_place_backends())
+    return ValueError(
+        f"slow_reads='in_place': {what}; only the streaming kernels read a slow "
+        f"operand in place ({names}, and auto where it resolves to one of them): "
+        "use slow_reads='ring', whose copy ring stages slow operands onto the card")
+
+
 def chunked_spgemm(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int | None = None,
                    backend: str = "scan", block_size: int | None = None, *,
-                   placement=None, device=None):
+                   placement=None, device=None, slow_reads: str = "ring", caps=None):
     """Execute a ChunkPlan. ``c_pad`` defaults to the exact symbolic capacity of the
     largest row strip (whole C for 1-strip plans).
 
@@ -466,6 +480,11 @@ def chunked_spgemm(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int | None = None,
     ``needs_output_caps`` backends receive the symbolic phase's
     ``StripOutputCaps`` (one expansion amortized across the default
     ``c_pad``, the auto resolve, and the executor's overflow check).
+
+    ``caps`` is the symbolic phase's ``StripOutputCaps`` of (A, B) at the
+    plan's strips when the caller already holds it (a timing path hoists
+    the host expansion out of the call, as ``count_triangles``'s ``caps``);
+    it is computed here otherwise.
 
     ``block_size`` opts the block symbolic phase into the envelope: under
     ``backend="auto"`` the planner can then price (and select) ``bsr``;
@@ -483,15 +502,33 @@ def chunked_spgemm(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int | None = None,
     the slow operands whole. Nothing substitutes another backend or runs a
     slow operand's step on the host; a spec registered without
     ``run_placed`` raises.
+
+    ``slow_reads="in_place"`` reads slow operands where they lie instead, as
+    the reference's ``memory_space=ANY`` operands are read: the backend's
+    streaming kernel launches once a call (its spec's ``run_in_place``) on
+    every slow operand's stacks in pinned host memory, fast operands and the
+    kernel's workspaces on the card, a slow C written in place; nothing
+    crosses the copy ring. Only ``pallas``, ``sparse`` and ``hash`` (and
+    ``auto`` resolving to one of them) take it; another backend, or a
+    ``whole_fast`` plan, raises a ``ValueError``.
     """
     from repro_torch.core import backend_registry
     from repro_torch.core.placement import ALL_FAST, resolve_placement
 
+    if slow_reads not in SLOW_READS:
+        raise ValueError(f"slow_reads must be one of {SLOW_READS}, not {slow_reads!r}")
+    in_place = slow_reads == "in_place"
+    if in_place and plan.algorithm == "whole_fast":
+        raise in_place_refusal("a whole_fast plan copies its operands whole")
     placement, run_device = resolve_placement({"A": A, "B": B}, placement, device)
     spec = None if backend == "auto" else backend_registry.get(backend)
-    caps = None
-    if c_pad is None or backend == "auto" or (spec is not None
-                                              and spec.needs_output_caps):
+    if in_place and spec is not None and not spec.supports_in_place:
+        raise in_place_refusal(f"backend {backend!r} has no such kernel")
+    if caps is not None and len(caps.strip_nnz) != len(plan.p_ac) - 1:
+        raise ValueError(f"caps hold {len(caps.strip_nnz)} strips, the plan "
+                         f"{len(plan.p_ac) - 1}")
+    if caps is None and (c_pad is None or backend == "auto"
+                         or (spec is not None and spec.needs_output_caps)):
         caps = strip_output_caps(A, B, plan.p_ac)
     if c_pad is None:
         c_pad = caps.c_pad
@@ -503,6 +540,13 @@ def chunked_spgemm(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int | None = None,
         env = instance_envelope(A, B, plan, c_pad=c_pad, caps=caps,
                                 block_size=block_size)
         spec = backend_registry.get(select_accumulator_backend(plan, env))
+    if in_place:
+        if not spec.supports_in_place:
+            raise in_place_refusal(f"backend 'auto' resolves to {spec.name!r}, which "
+                                   "has no such kernel")
+        if plan.algorithm not in spec.executors:
+            raise ValueError(f"unknown algorithm {plan.algorithm!r}")
+        return spec.run_in_place(A, B, plan, c_pad, caps, placement, run_device)
     if placement != ALL_FAST:
         if not spec.supports_placement:
             raise ValueError(

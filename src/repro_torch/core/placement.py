@@ -9,14 +9,20 @@ into HBM").
 On the card, :func:`place` realizes a placement: a ``"fast"`` operand lives
 on the card, a ``"slow"`` one in pinned host memory. Every entry point
 (``chunked_spgemm``, ``count_triangles``, ``pipeline_spgemm``,
-``chunked_spgemm_batched``, ``SpGEMMService``) with a slow operand stages
-every piece its ``ChunkStats`` counts across the link through the two-slot
-copy ring (``repro_torch.core.copy_ring``); the kernels never read host
-memory in place. :func:`resolve_placement` decides a call's placement and
-run device, :func:`resolve_batch_placement` a batch's (one for all its
-instances) and :func:`resolve_pipeline_placement` a two-hop pipeline's
-(:class:`PipelinePlacement`). The cost model below prices a placement
-without running it.
+``chunked_spgemm_batched``, ``SpGEMMService``) with a slow operand by
+default stages every piece its ``ChunkStats`` counts across the link
+through the two-slot copy ring (``repro_torch.core.copy_ring``: the paper's
+chunking, ``copy2Fast``). ``chunked_spgemm`` and ``count_triangles`` also
+take ``slow_reads="in_place"``: the streaming kernels (``pallas``,
+``sparse``, ``hash`` and the masked hash kernel) then read a slow operand
+where it lies, through the address the card maps pinned memory at, as the
+reference's ``memory_space=ANY`` operands in ``pinned_host`` memory are read
+(the paper's data placement, Table 3). :func:`resolve_placement` decides a
+call's placement and run device, :func:`resolve_batch_placement` a batch's
+(one for all its instances) and :func:`resolve_pipeline_placement` a
+two-hop pipeline's (:class:`PipelinePlacement`). :func:`card_bytes` models
+the card memory a call holds under either route; the cost model below
+prices a placement without running it.
 """
 
 from __future__ import annotations
@@ -73,6 +79,46 @@ TABLE3 = {
     "HostPin": ALL_SLOW,
     "DP": DP,
 }
+
+
+def card_bytes(plan, placement: Placement, *, a_stage: int, slab: int, c_stage: int,
+               workspace: int, c_bytes: int, fast_parts: dict | None = None,
+               slow_reads: str = "ring") -> dict:
+    """The card's bytes a placed chunked call holds at its peak, by part.
+
+    ``a_stage``, ``slab`` and ``c_stage`` are the staged piece bytes of
+    ``chunk_stream.planned_events`` (an A strip, a B chunk, a strip's C),
+    ``c_bytes`` those of the assembled C, ``workspace`` one launch's (the
+    kernel's slabs, tables and outputs on the card). A fast operand's parts
+    are upper bounds: its stack counted twice, as it is built from its
+    pieces (or the live peak of building it, where ``fast_parts`` gives one:
+    operand -> bytes).
+
+    Through the copy ring (``slow_reads="ring"``) a slow operand holds its
+    two ring slots; C its slots and carried steps in the chunk1 orders
+    (chunk2 keeps the whole block and its next version), and its kept strips
+    and the assembled C when C is fast. Read in place (``"in_place"``) a slow
+    operand, C included, holds no byte of the card; a fast C holds its empty
+    C_prev block, the launch's output block and the assembled C."""
+    n_ac, n_b = plan.n_ac, plan.n_b
+    fast = {k: getattr(placement, k) == "fast" for k in "ABC"}
+    if slow_reads == "in_place":
+        parts = {"A": 2 * a_stage * n_ac if fast["A"] else 0,
+                 "B": 2 * slab * n_b if fast["B"] else 0, **(fast_parts or {})}
+        parts.setdefault("C", 2 * n_ac * c_stage + c_bytes if fast["C"] else 0)
+    else:
+        parts = {"A": 2 * a_stage * (n_ac if fast["A"] else 1),
+                 "B": 2 * slab * (n_b if fast["B"] else 1), **(fast_parts or {})}
+        if plan.algorithm == "chunk2":
+            c = 2 * n_ac * c_stage + (c_bytes if fast["C"] else 0)
+        elif not fast["C"]:
+            c = 4 * c_stage               # two slots, the carried step and its next
+        else:
+            c = (n_ac + 2) * c_stage + c_bytes
+        parts.setdefault("C", c)
+    parts["workspace"] = workspace
+    parts["total"] = sum(parts.values())
+    return parts
 
 
 def dp_recommendation(system: MemorySystem, bytes_A: float, bytes_B: float,

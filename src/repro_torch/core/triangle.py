@@ -11,7 +11,8 @@ Two paths:
   hash accumulator by default), with the L-mask applied **inside** the
   kernel's merge, so no unmasked C is materialized. L may be slow (pinned
   host memory on the card): its roles then stream through the copy ring
-  (``run_masked_placed``).
+  (``run_masked_placed``), or with ``slow_reads="in_place"`` the one launch
+  reads them where they lie (``run_masked_in_place``).
 * :func:`count_triangles_kkmem` — the unfused baseline: the full C = L x L
   materialized at its symbolic capacity, then masked by matching C's and
   L's (row, col) keys.
@@ -60,7 +61,7 @@ def _resolve(L: CSR, placement, device):
 
 def count_triangles(L: CSR, plan: ChunkPlan | None = None,
                     backend: str | None = None, caps=None, *, placement=None,
-                    device=None) -> torch.Tensor:
+                    device=None, slow_reads: str = "ring") -> torch.Tensor:
     """Triangles = sum((L @ L) o L) with L strictly lower triangular, 0/1
     values, the mask fused into the chunked kernel. Returns a float64 scalar
     on the run device, summed there.
@@ -78,10 +79,21 @@ def count_triangles(L: CSR, plan: ChunkPlan | None = None,
     ``device="cpu"`` runs the plain versions. A slow role streams L's pieces
     through the copy ring; the fast roles share one whole copy of L on the
     run device, logged as one transfer apart from the events (the paper's
-    DP: L as B in fast memory)."""
+    DP: L as B in fast memory).
+
+    ``slow_reads="in_place"`` (``chunked_spgemm``'s) instead launches the
+    masked kernel once, reading every slow role from pinned host memory where
+    it lies (``run_masked_in_place``), a slow C written there and summed on
+    the host; the fast roles share one copy of L on the run device, made
+    with ``place(L, "fast")`` and not through the ring. A backend without an
+    in-place masked kernel raises."""
     from repro_torch.core import backend_registry, copy_ring
+    from repro_torch.core.chunking import SLOW_READS, in_place_refusal
+    from repro_torch.core.placement import place
     from repro_torch.core.symbolic import masked_output_caps
 
+    if slow_reads not in SLOW_READS:
+        raise ValueError(f"slow_reads must be one of {SLOW_READS}, not {slow_reads!r}")
     placement, run = _resolve(L, placement, device)
     if backend is None:
         names = backend_registry.masked_backends()
@@ -98,6 +110,15 @@ def count_triangles(L: CSR, plan: ChunkPlan | None = None,
     if caps is None:
         caps = masked_output_caps(L, plan.p_ac)
     roles = ("A", "B", "C")
+    if slow_reads == "in_place":
+        if spec.run_masked_in_place is None:
+            raise in_place_refusal(f"backend {backend!r} has no masked kernel that does")
+        fast = L
+        if len(placement.slow) < 3 and csr_residence(L) == "pinned":
+            fast = place(L, "fast", run)
+        A, B, M = (L if getattr(placement, r) == "slow" else fast for r in roles)
+        C, _ = spec.run_masked_in_place(A, B, M, plan, caps.c_pad, caps, placement, run)
+        return C.data.double().sum().to(run)
     fast = L
     if len(placement.slow) < 3 and (placement.slow or csr_residence(L) == "pinned"):
         link = copy_ring.Link(run)

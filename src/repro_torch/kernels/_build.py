@@ -7,8 +7,9 @@ root of the checkout, on first use in a process. :func:`build` starts one
 raises; nothing falls back to the plain PyTorch versions.
 
 Also here: the launch counter each kernel wrapper bumps when it launches,
-the launch timer a caller can hold around wrapper calls, and the operand
-checks the wrappers share.
+the launch timer a caller can hold around wrapper calls, the operand checks
+the wrappers share, and the device address of an operand a kernel reads in
+place from pinned host memory (:class:`InPlace`, ``csrc/host_map.cu``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("ranged_spgemm", "sparse_accum_spgemm", "hash_accum_spgemm",
            "hash_masked_accum_spgemm", "bsr_spgemm", "bsr_spmm", "flash_prefill",
-           "chunked_attention", "grouped_matmul")
+           "chunked_attention", "grouped_matmul", "host_map")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -166,17 +167,77 @@ def bind(name: str, fn: str, n_ptr: int, n_int: int):
     return f, err
 
 
+class InPlace:
+    """A kernel operand in pinned host memory that the kernel reads (or
+    writes) where it lies, through the address the card maps it at
+    (:func:`device_address`): the reference's ``memory_space=ANY`` operand
+    in ``pinned_host`` memory."""
+
+    __slots__ = ("tensor",)
+
+    def __init__(self, tensor: torch.Tensor):
+        self.tensor = tensor
+
+
+def device_address(t: torch.Tensor) -> int:
+    """The address a kernel reads the pinned host tensor ``t`` at (from
+    ``cudaHostGetDevicePointer``, checked by ``cudaPointerGetAttributes``).
+    Memory the card has not mapped raises; nothing copies it."""
+    f = _BOUND.get(("host_map", "host_device_pointer"))
+    if f is None:
+        f = library("host_map").host_device_pointer
+        f.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                      ctypes.POINTER(ctypes.c_int)]
+        f.restype = ctypes.c_int
+        _BOUND["host_map", "host_device_pointer"] = f
+    address, kind = ctypes.c_void_p(), ctypes.c_int()
+    code = f(t.data_ptr(), ctypes.byref(address), ctypes.byref(kind))
+    if code != 0 or not address.value:
+        err = library("host_map").host_device_pointer_error_string
+        err.restype = ctypes.c_char_p
+        raise ValueError(
+            f"host memory at {t.data_ptr():#x} is not mapped for the card (CUDA "
+            f"error {code}: {err(code).decode()}; memory type {kind.value}): a kernel "
+            "reads in place only pinned memory (place(x, 'slow'))")
+    return address.value
+
+
+def pointer(t: torch.Tensor):
+    """A launch operand: a card tensor as it is, a host one (pinned, checked
+    by :func:`require`) read in place (:class:`InPlace`)."""
+    return InPlace(t) if t.device.type == "cpu" else t
+
+
+def alloc_like(t: torch.Tensor, *, zero: bool = False) -> torch.Tensor:
+    """An output shaped like ``t`` in ``t``'s space: on its card, or in
+    pinned host memory where ``t`` is a host operand read in place."""
+    if t.device.type == "cpu":
+        make = torch.zeros if zero else torch.empty
+        return make(t.shape, dtype=t.dtype, pin_memory=True)
+    return torch.zeros_like(t) if zero else torch.empty_like(t)
+
+
+def _address(p):
+    if p is None:
+        return None
+    if isinstance(p, InPlace):
+        return device_address(p.tensor)
+    return p.data_ptr()
+
+
 def launch(name: str, fn: str, pointers, ints) -> None:
     """Call ``fn`` on the current stream; raise on a non-zero CUDA error. A
-    pointer given as None is passed as NULL."""
+    pointer given as None is passed as NULL, an :class:`InPlace` operand as
+    its mapped device address, any other tensor as its ``data_ptr``
+    (which a C entry reads on the host where it takes a host array)."""
     f, err = bind(name, fn, len(pointers), len(ints))
     stream = torch.cuda.current_stream().cuda_stream
+    addresses = [_address(p) for p in pointers]
     timer = _TIMER
     if timer is not None:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-    code = f(*[None if t is None else t.data_ptr() for t in pointers],
-             *[int(v) for v in ints], stream)
+    code = f(*addresses, *[int(v) for v in ints], stream)
     if timer is not None:
         end.record()
         timer.events.append((start, end))
@@ -186,9 +247,16 @@ def launch(name: str, fn: str, pointers, ints) -> None:
 
 
 def require(t: torch.Tensor, what: str, dtype: torch.dtype,
-            device: torch.device) -> None:
-    """Device, dtype and contiguity of one kernel operand."""
-    if t.device != device:
+            device: torch.device, in_place: bool = False) -> None:
+    """Device, dtype and contiguity of one kernel operand. With
+    ``in_place`` an operand in pinned host memory is accepted too: the
+    kernel reads it there (:func:`pointer`); pageable host memory raises."""
+    if in_place and t.device.type == "cpu":
+        if not t.is_pinned():
+            raise ValueError(
+                f"{what} is in pageable host memory: a kernel reads host memory in "
+                "place only where it is pinned (place(x, 'slow'))")
+    elif t.device != device:
         raise ValueError(f"{what} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{what} has dtype {t.dtype}, expected {dtype}")

@@ -23,6 +23,11 @@ triangle counting. On the card it is ``csrc/hash_masked_accum_spgemm.cu``:
 the rows are cut into parts by products (:func:`masked_work`), grouped into
 launches by team and by table, sized per row (:func:`masked_launches`); on
 the CPU :func:`hash_masked_plain`.
+
+Given the card as ``device``, both wrappers also take operands in pinned
+host memory, which the kernels read (and, for C, write) in place through
+their mapped addresses; tables, slabs and flags stay on the card, and the
+masked work list is cut on the host when an operand is there.
 """
 
 from __future__ import annotations
@@ -33,14 +38,19 @@ import torch
 
 from repro_torch.core.planner import hash_table_slots
 from repro_torch.kernels import copy_events
-from repro_torch.kernels._build import LaunchCounter, launch, require
+from repro_torch.kernels._build import (
+    LaunchCounter, alloc_like, launch, pointer, require,
+)
 from repro_torch.kernels.sparse_accum_spgemm import (
     SMEM_PER_BLOCK, launch_csr_accum, sort_class, stack_geometry,
 )
-from repro_torch.sparse.csr import CSR, refuse_pinned
+from repro_torch.sparse.csr import CSR, csr_on_one_device, kernel_device, reads_host
 
 LAUNCHES = LaunchCounter()
 MASKED_LAUNCHES = LaunchCounter()
+# calls that read an operand in pinned host memory, of each wrapper
+IN_PLACE = LaunchCounter()
+MASKED_IN_PLACE = LaunchCounter()
 _EMPTY = -1           # table key sentinel (column ids are >= 0)
 _KNUTH = 2654435769   # Knuth's multiplicative hash constant (2^32 / phi)
 
@@ -176,23 +186,27 @@ def extract_class(n: int) -> str:
 
 
 def hash_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *,
-                             order: str, table_size: int):
+                             order: str, table_size: int, device=None):
     """Streamed hash-accumulated multiply over stacked CSR strips and chunks.
 
-    Operand layout, streaming orders and the returned stacked CSR triple are
-    those of ``sparse_accum_spgemm_stream``; ``table_size`` is the per-row
-    hash-table slot count, ``planner.hash_table_slots`` of the symbolic
-    ``c_max_row_nnz``. CPU tensors take the plain version (pinned ones
-    raise); CUDA tensors launch the kernel.
+    Operand layout, streaming orders, ``device`` and the returned stacked CSR
+    triple (in ``C0st``'s space) are those of
+    ``sparse_accum_spgemm_stream``; ``table_size`` is the per-row hash-table
+    slot count, ``planner.hash_table_slots`` of the symbolic
+    ``c_max_row_nnz``. The plain version runs on the host, the kernel on the
+    card, reading an operand in pinned host memory in place.
     """
     T = _check_table(table_size)
-    if Ast.indptr.device.type == "cpu":
-        refuse_pinned("hash_accum_spgemm_stream", Ast, Bst, C0st)
+    dev = kernel_device("hash_accum_spgemm_stream", device, Ast, Bst, C0st)
+    if dev is None:
         return hash_accum_plain(Ast, Bst, C0st, r0s, r1s, order=order,
                                 table_size=T)
-    return launch_csr_accum("hash_accum_spgemm", "hash_accum_launch", LAUNCHES,
-                            Ast, Bst, C0st, r0s, r1s, order=order, row_cap=T,
-                            work_cap=0, smem_per_warp=table_smem(T))
+    out = launch_csr_accum("hash_accum_spgemm", "hash_accum_launch", LAUNCHES,
+                           Ast, Bst, C0st, r0s, r1s, order=order, row_cap=T,
+                           work_cap=0, smem_per_warp=table_smem(T), device=dev)
+    if reads_host(Ast, Bst, C0st):
+        IN_PLACE.bump()
+    return out
 
 
 def table_smem(table_size: int) -> int:
@@ -541,10 +555,12 @@ def masked_launches(work: MaskedWork, Mst: CSR) -> MaskedLaunches:
                           grows.to(torch.int32), goff, groups)
 
 
-def masked_plan(Ast: CSR, Bst: CSR, Mst: CSR, r0s, r1s) -> tuple:
-    """``(work, launches)`` of a masked call on the card, cut for its SM
-    count."""
-    dev = Ast.indptr.device
+def masked_plan(Ast: CSR, Bst: CSR, Mst: CSR, r0s, r1s, device=None) -> tuple:
+    """``(work, launches)`` of a masked call on the card ``device`` (A's by
+    default), cut for its SM count, on the operands' device (all on the
+    host where they span the host and the card: ``csr_on_one_device``)."""
+    dev = Ast.indptr.device if device is None else device
+    Ast, Bst, Mst = csr_on_one_device(Ast, Bst, Mst)
     work = masked_work(Ast, Bst, Mst, r0s, r1s,
                        torch.cuda.get_device_properties(dev).multi_processor_count)
     return work, masked_launches(work, Mst)
@@ -560,7 +576,8 @@ def masked_kernels_per_call(Ast: CSR, Bst: CSR, Mst: CSR, r0s, r1s, order: str) 
 
 
 def hash_masked_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, Mst: CSR,
-                                    r0s, r1s, *, order: str, table_size: int):
+                                    r0s, r1s, *, order: str, table_size: int,
+                                    device=None):
     """Streamed mask-fused hash multiply over stacked CSR strips and chunks:
     ``C = ((A[:, r0:r1] x B) + C_prev) ∘ M`` per strip, the output structure
     exactly the mask's (explicit zeros where no product lands).
@@ -570,8 +587,11 @@ def hash_masked_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, Mst: CSR,
     ``C0st``); ``table_size`` is ``hash_table_slots`` of the densest mask
     row, as in the reference. On the card the rows are cut into parts by
     products (:func:`masked_work`) and each row's table is sized from its own
-    mask nnz instead (:func:`masked_launches`). CPU tensors take the plain
-    version (pinned ones raise); CUDA tensors launch the kernel.
+    mask nnz instead (:func:`masked_launches`). ``device`` is as in
+    :func:`hash_accum_spgemm_stream`: the plain version on the host, the
+    kernel on the card, reading an operand in pinned host memory in place
+    (the work list cut on the host then, and shipped to the card). The
+    output is in ``C0st``'s space.
     """
     g = stack_geometry(Ast, Bst, C0st, order)
     T = _check_table(table_size)
@@ -579,47 +599,51 @@ def hash_masked_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, Mst: CSR,
         raise ValueError(f"mask stack {tuple(Mst.indptr.shape)} {Mst.shape} does "
                          f"not match the output strips {tuple(C0st.indptr.shape)} "
                          f"{C0st.shape}")
-    if Ast.indptr.device.type == "cpu":
-        refuse_pinned("hash_masked_accum_spgemm_stream", Ast, Bst, C0st, Mst)
+    dev = kernel_device("hash_masked_accum_spgemm_stream", device, Ast, Bst, C0st, Mst)
+    if dev is None:
         return hash_masked_plain(Ast, Bst, C0st, Mst, r0s, r1s, order=order,
                                  table_size=T)
     check_mask(Mst, g["c_cap"], T)
-    dev = Ast.indptr.device
-    _, plan = masked_plan(Ast, Bst, Mst, r0s, r1s)
+    _, plan = masked_plan(Ast, Bst, Mst, r0s, r1s, dev)
+    plan = plan._replace(**{f: getattr(plan, f).to(dev)
+                            for f in ("parts", "pglob", "grows", "goff")})
     r0s = torch.as_tensor(r0s, dtype=torch.int32).to(dev)
     r1s = torch.as_tensor(r1s, dtype=torch.int32).to(dev)
     for st, what in ((Ast, "A"), (Bst, "B"), (C0st, "C0"), (Mst, "M")):
-        require(st.indptr, f"{what}.indptr", torch.int32, dev)
-        require(st.indices, f"{what}.indices", torch.int32, dev)
+        require(st.indptr, f"{what}.indptr", torch.int32, dev, in_place=True)
+        require(st.indices, f"{what}.indices", torch.int32, dev, in_place=True)
         if what != "M":
-            require(st.data, f"{what}.data", torch.float32, dev)
+            require(st.data, f"{what}.data", torch.float32, dev, in_place=True)
     n_grows = plan.grows.numel()
     if n_grows > 65535:
         raise ValueError(f"{n_grows} rows need a global table; the seed and gather "
                          "grids take at most 65,535")
     gslots, grow_max_nnz = 1, 0
     if n_grows:
-        gslots, grow_max_nnz = torch.stack(
-            [plan.goff[-1], _mask_row_counts(Mst)[plan.grows.long()].max()]).tolist()
+        counts = _mask_row_counts(Mst)
+        gslots, grow_max_nnz = (int(plan.goff[-1]),
+                                int(counts[plan.grows.to(counts.device).long()].max()))
     gkeys = torch.full((gslots,), _EMPTY, dtype=torch.int32, device=dev)
     gvals = torch.zeros(gslots, dtype=torch.float32, device=dev)
-    out_ip = Mst.indptr.clone()
-    out_ix = torch.zeros_like(C0st.indices)
-    out_d = torch.zeros_like(C0st.data)
+    out_ip = alloc_like(C0st.indptr).copy_(Mst.indptr)
+    out_ix = alloc_like(C0st.indices, zero=True)
+    out_d = alloc_like(C0st.data, zero=True)
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
     groups = torch.tensor(plan.groups, dtype=torch.int32).reshape(-1, 4)
     def nonempty(t):   # a pointer the launch may pass but never reads
         return t if t.numel() else torch.zeros(4, dtype=t.dtype, device=t.device)
+    operands = [pointer(t) for st in (Ast, Bst, C0st) for t in (st.indptr, st.indices, st.data)]
     launch("hash_masked_accum_spgemm", "hash_masked_accum_launch",
-           [Ast.indptr, Ast.indices, Ast.data, Bst.indptr, Bst.indices, Bst.data,
-            C0st.indptr, C0st.indices, C0st.data, r0s, r1s, Mst.indptr, Mst.indices,
+           [*operands, r0s, r1s, pointer(Mst.indptr), pointer(Mst.indices),
             nonempty(plan.parts), nonempty(plan.pglob), nonempty(plan.grows), plan.goff,
-            gkeys, gvals, out_ix, out_d, overflow, nonempty(groups)],
+            gkeys, gvals, pointer(out_ix), pointer(out_d), overflow, nonempty(groups)],
            [g["batch"], g["n_ac"], g["n_b"], g["strip_rows"], g["chunk_rows"],
             g["a_cap"], g["chunk_cap"], g["c_cap"], Ast.max_row_nnz,
             Bst.max_row_nnz, Mst.indices.shape[-1], ("chunk1", "chunk2").index(order) + 1,
             len(plan.groups), n_grows, grow_max_nnz])
     MASKED_LAUNCHES.bump()
+    if reads_host(Ast, Bst, C0st, Mst):
+        MASKED_IN_PLACE.bump()
     if int(overflow.item()):
         raise RuntimeError("hash_masked_accum_launch: a mask key found no slot "
                            "or an output position left its capacity")

@@ -21,12 +21,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import copy_events
-from repro_torch.kernels._build import LaunchCounter, launch, require
-from repro_torch.sparse.csr import refuse_pinned
+from repro_torch.kernels._build import (
+    LaunchCounter, alloc_like, launch, pointer, require,
+)
+from repro_torch.sparse.csr import kernel_device, reads_host
 
 LAUNCHES = LaunchCounter()
 ORDERS = ("chunk1", "chunk2")
 PATH_LAUNCHES = {"vec": LaunchCounter(), "scalar": LaunchCounter()}   # by load path
+IN_PLACE = LaunchCounter()   # launches that read an operand in pinned host memory
 
 
 def _geometry(a_dense, b_slabs, c0, order: str) -> tuple:
@@ -80,7 +83,7 @@ def choose_path(a_dense: torch.Tensor, b_slabs: torch.Tensor, c0: torch.Tensor,
 
 
 def ranged_spgemm_stream(a_dense: torch.Tensor, b_slabs: torch.Tensor,
-                         c0: torch.Tensor, r0s, *, order: str) -> torch.Tensor:
+                         c0: torch.Tensor, r0s, *, order: str, device=None) -> torch.Tensor:
     """Fused streaming multiply ``C[b, i] = sum_j A[b, i][:, r0_j:r0_j+span] @
     B_slab[b, j] + C_prev[b, i]``.
 
@@ -92,25 +95,34 @@ def ranged_spgemm_stream(a_dense: torch.Tensor, b_slabs: torch.Tensor,
       r0s:     i32[n_b] — global start row of each B chunk.
       order:   "chunk1" (strips outer, B slabs streamed) or "chunk2"
                (chunks outer, A strips streamed).
+      device:  where it runs (:func:`kernel_device`): ``None`` takes
+               ``a_dense``'s device (pinned host operands raise), "cpu" the
+               plain version, the card launches the kernel, which reads an
+               operand in pinned host memory in place.
 
-    Returns f32[batch, n_ac, strip_rows, n]. CPU tensors take the plain
-    version (pinned ones raise); CUDA tensors launch the kernel.
+    Returns f32[batch, n_ac, strip_rows, n], in ``c0``'s space: on the card,
+    or in pinned host memory (written by the kernel in place, complete on
+    return) when ``c0`` is there.
     """
-    if a_dense.device.type == "cpu":
-        refuse_pinned("ranged_spgemm_stream", a_dense, b_slabs, c0)
+    dev = kernel_device("ranged_spgemm_stream", device, a_dense, b_slabs, c0)
+    if dev is None:
         return ranged_spgemm_plain(a_dense, b_slabs, c0, r0s, order=order)
     batch, n_ac, strip_rows, k_pad, n_b, span, n = _geometry(a_dense, b_slabs, c0, order)
-    dev = a_dense.device
     starts = _chunk_starts(r0s, n_b, span, k_pad)
     for t, what in ((a_dense, "a_dense"), (b_slabs, "b_slabs"), (c0, "c0")):
-        require(t, what, torch.float32, dev)
+        require(t, what, torch.float32, dev, in_place=True)
     path = choose_path(a_dense, b_slabs, c0, starts)
     r0s = torch.tensor(starts, dtype=torch.int32, device=dev)
-    out = torch.empty_like(c0)
+    out = alloc_like(c0)
     launch("ranged_spgemm", "ranged_spgemm_launch",
-           [a_dense, b_slabs, c0, r0s, out],
+           [pointer(a_dense), pointer(b_slabs), pointer(c0), r0s, pointer(out)],
            [batch, n_ac, strip_rows, k_pad, n_b, span, n, ORDERS.index(order) + 1,
             int(path == "vec")])
     LAUNCHES.bump()
     PATH_LAUNCHES[path].bump()
+    if reads_host(a_dense, b_slabs, c0):
+        IN_PLACE.bump()
+        # the host may read a pinned output, or free a pinned input, as soon
+        # as the call returns
+        torch.cuda.current_stream(dev).synchronize()
     return out

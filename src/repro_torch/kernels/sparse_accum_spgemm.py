@@ -20,6 +20,11 @@ call is classed: chunk by chunk, each step class (:data:`STEP_CLASSES`, then
 ``global``) launches once over its own rows, its shared memory sized by its
 own keys; an empty step launches nothing. :data:`ROUTES` names the shared
 route and the classes.
+
+Given the card as ``device``, the wrapper also takes operands in pinned host
+memory, which the kernels read in place (and, for C, write in place) through
+their mapped addresses; the merge's workspaces stay on the card, and the
+launch plan is counted on the host when an operand is there.
 """
 
 from __future__ import annotations
@@ -31,10 +36,15 @@ import torch
 
 from repro_torch.core.kkmem import spgemm_ranged_impl
 from repro_torch.kernels import copy_events
-from repro_torch.kernels._build import LaunchCounter, launch, require
-from repro_torch.sparse.csr import CSR, csr_row_of_entry, refuse_pinned
+from repro_torch.kernels._build import (
+    LaunchCounter, alloc_like, launch, pointer, require,
+)
+from repro_torch.sparse.csr import (
+    CSR, csr_on_one_device, csr_row_of_entry, kernel_device, reads_host,
+)
 
 LAUNCHES = LaunchCounter()
+IN_PLACE = LaunchCounter()   # calls that read an operand in pinned host memory
 ORDERS = ("chunk1", "chunk2")
 SMEM_PER_BLOCK = 232_448        # bytes of shared memory one block may use (H100)
 SMEM_TARGET = 96 * 1024         # per-block target when choosing warps per block
@@ -143,16 +153,19 @@ def _pow2(v: int) -> int:
 def launch_csr_accum(lib: str, fn: str, counter: LaunchCounter, Ast: CSR,
                      Bst: CSR, C0st: CSR, r0s, r1s, *, order: str,
                      row_cap: int, work_cap: int, smem_per_warp: int,
-                     extra=()):
+                     extra=(), device: torch.device | None = None):
     """Launch one of the CSR-output accumulator kernels (``csr_accum.cuh``)
-    and return the stacked ``(indptr, indices, data)``. ``row_cap`` is the
+    on ``device`` (A's by default) and return the stacked ``(indptr, indices, data)``, in
+    ``C0st``'s space (on the card, or pinned host memory the kernel writes
+    in place). An operand in pinned host memory is read in place; the
+    per-row slabs and the overflow flag stay on the card. ``row_cap`` is the
     per-row accumulator width, ``smem_per_warp`` the merge's shared memory
     for one row; ``extra`` are pointer operands the entry point takes after
     the common ones (the ESC merge's classed launch). Raises when a row's workspace
     exceeds the shared memory of a block, and when the kernel reports a
-    capacity overflow."""
+    capacity overflow (which reads the flag, so the launch has finished)."""
     g = stack_geometry(Ast, Bst, C0st, order)
-    dev = Ast.indptr.device
+    dev = Ast.indptr.device if device is None else device
     if smem_per_warp > SMEM_PER_BLOCK:
         raise ValueError(
             f"{fn}: one row needs {smem_per_warp} bytes of shared memory, more "
@@ -161,9 +174,9 @@ def launch_csr_accum(lib: str, fn: str, counter: LaunchCounter, Ast: CSR,
     r0s = torch.as_tensor(r0s, dtype=torch.int32).to(dev)
     r1s = torch.as_tensor(r1s, dtype=torch.int32).to(dev)
     for st, what in ((Ast, "A"), (Bst, "B"), (C0st, "C0")):
-        require(st.indptr, f"{what}.indptr", torch.int32, dev)
-        require(st.indices, f"{what}.indices", torch.int32, dev)
-        require(st.data, f"{what}.data", torch.float32, dev)
+        require(st.indptr, f"{what}.indptr", torch.int32, dev, in_place=True)
+        require(st.indices, f"{what}.indices", torch.int32, dev, in_place=True)
+        require(st.data, f"{what}.data", torch.float32, dev, in_place=True)
     for t, what in ((r0s, "r0s"), (r1s, "r1s")):
         require(t, what, torch.int32, dev)
         if t.shape != (g["n_b"],):
@@ -172,14 +185,12 @@ def launch_csr_accum(lib: str, fn: str, counter: LaunchCounter, Ast: CSR,
     slab_cols = torch.empty(rows * row_cap, dtype=torch.int32, device=dev)
     slab_vals = torch.empty(rows * row_cap, dtype=torch.float32, device=dev)
     slab_cnt = torch.empty(rows, dtype=torch.int32, device=dev)
-    out_ip = torch.empty_like(C0st.indptr)
-    out_ix = torch.empty_like(C0st.indices)
-    out_d = torch.empty_like(C0st.data)
+    out_ip, out_ix, out_d = (alloc_like(t) for t in (C0st.indptr, C0st.indices, C0st.data))
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    operands = [pointer(t) for st in (Ast, Bst, C0st) for t in (st.indptr, st.indices, st.data)]
     launch(lib, fn,
-           [Ast.indptr, Ast.indices, Ast.data, Bst.indptr, Bst.indices, Bst.data,
-            C0st.indptr, C0st.indices, C0st.data, r0s, r1s,
-            slab_cols, slab_vals, slab_cnt, out_ip, out_ix, out_d, overflow, *extra],
+           [*operands, r0s, r1s, slab_cols, slab_vals, slab_cnt,
+            *(pointer(t) for t in (out_ip, out_ix, out_d)), overflow, *extra],
            [g["batch"], g["n_ac"], g["n_b"], g["strip_rows"], g["chunk_rows"],
             g["a_cap"], g["chunk_cap"], g["c_cap"], Ast.max_row_nnz,
             Bst.max_row_nnz, row_cap, work_cap, smem_per_warp, warps,
@@ -569,7 +580,7 @@ def esc_launch_plan(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *, row_cap: int) ->
 
 
 def sparse_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *,
-                               order: str, row_cap: int):
+                               order: str, row_cap: int, device=None):
     """Streamed sparse-output multiply over stacked CSR strips and chunks.
 
     Args:
@@ -584,20 +595,22 @@ def sparse_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *,
       order: "chunk1" (strips outer, B streamed) or "chunk2" (chunks outer).
       row_cap: bound on the nnz of any output row (the symbolic
         ``c_max_row_nnz``); sizes the kernel's per-row accumulator.
+      device: where it runs (``csr.kernel_device``): ``None`` takes A's
+        device (pinned host operands raise: a slow operand reaches the card
+        through an entry point), "cpu" the plain version, the card the
+        kernels, which read an operand in pinned host memory in place.
 
-    Returns ``(indptr, indices, data)`` with leading ``[batch, n_ac]`` axes.
-    CPU tensors take the plain version (pinned ones raise: a slow operand
-    reaches the card through the copy ring); CUDA tensors launch the kernel
-    as :func:`esc_launch_plan` says. Raises a ``ValueError`` only where the
-    global class's workspace would pass the card's free memory or a step
-    passes ``GLOBAL_MAX_KEYS``.
+    Returns ``(indptr, indices, data)`` with leading ``[batch, n_ac]`` axes,
+    in ``C0st``'s space. The kernels launch as :func:`esc_launch_plan` says
+    (counted on the host where an operand is there). Raises a
+    ``ValueError`` only where the global class's workspace would pass the
+    card's free memory or a step passes ``GLOBAL_MAX_KEYS``.
     """
-    if Ast.indptr.device.type == "cpu":
-        refuse_pinned("sparse_accum_spgemm_stream", Ast, Bst, C0st)
+    dev = kernel_device("sparse_accum_spgemm_stream", device, Ast, Bst, C0st)
+    if dev is None:
         return sparse_accum_plain(Ast, Bst, C0st, r0s, r1s, order=order)
     row_cap = max(int(row_cap), 1)
-    plan = esc_launch_plan(Ast, Bst, C0st, r0s, r1s, row_cap=row_cap)
-    dev = Ast.indptr.device
+    plan = esc_launch_plan(*csr_on_one_device(Ast, Bst, C0st), r0s, r1s, row_cap=row_cap)
     extra = [None] * 5
     if plan.split:
         free, _ = torch.cuda.mem_get_info(dev)
@@ -612,7 +625,9 @@ def sparse_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *,
     out = launch_csr_accum("sparse_accum_spgemm", "sparse_accum_launch",
                            LAUNCHES, Ast, Bst, C0st, r0s, r1s, order=order,
                            row_cap=row_cap, work_cap=plan.work_cap,
-                           smem_per_warp=plan.smem_per_warp, extra=extra)
+                           smem_per_warp=plan.smem_per_warp, extra=extra, device=dev)
     for route in plan.launch_order if plan.split else ("shared",):
         ROUTE_LAUNCHES[route].bump()
+    if reads_host(Ast, Bst, C0st):
+        IN_PLACE.bump()
     return out

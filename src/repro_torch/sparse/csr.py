@@ -470,22 +470,66 @@ def csr_residence(m: CSR) -> str:
 
 
 def refuse_pinned(entry: str, *operands) -> None:
-    """Raise on an operand in pinned host memory: a slow operand of a run on
-    the card. The entry points (``chunked_spgemm``, ``count_triangles``,
-    ``pipeline_spgemm``, ``chunked_spgemm_batched``, ``SpGEMMService``) take
-    one, through the copy ring; every kernel wrapper (whose host branch
-    serves pageable tensors with its plain version) refuses it rather than
-    run it on the host. ``operands`` are tensors or CSRs (one matrix or a
-    stack)."""
-    tensors = [t for op in operands
-               for t in ((op.indptr, op.indices, op.data) if isinstance(op, CSR) else (op,))]
-    if any(t.is_pinned() for t in tensors):
+    """Raise on an operand in pinned host memory handed to a kernel wrapper
+    with no run device (``device=None``): a slow operand of a run on the
+    card, which a wrapper reads in place only when the caller names the
+    card it runs on (:func:`kernel_device`). The entry points
+    (``chunked_spgemm``, ``count_triangles``, ``pipeline_spgemm``,
+    ``chunked_spgemm_batched``, ``SpGEMMService``) take one, through the
+    copy ring or (``slow_reads="in_place"``) read in place. ``operands`` are
+    tensors or CSRs (one matrix or a stack)."""
+    if any(t.is_pinned() for t in _tensors(operands)):
         raise ValueError(
             f"{entry}: an operand is in pinned host memory (a slow operand), and "
-            "a kernel wrapper reads only the card: put it on the card with "
-            "place(x, 'fast'), or call an entry point (chunked_spgemm, "
-            "chunked_spgemm_batched, pipeline_spgemm, count_triangles, "
-            "SpGEMMService), whose copy ring streams slow operands to the card")
+            "without device= a kernel wrapper reads only the card: put it on the "
+            "card with place(x, 'fast'), pass the run device to read it in place, "
+            "or call an entry point (chunked_spgemm, chunked_spgemm_batched, "
+            "pipeline_spgemm, count_triangles, SpGEMMService), whose copy ring "
+            "streams slow operands to the card")
+
+
+def _tensors(operands) -> list:
+    return [t for op in operands
+            for t in ((op.indptr, op.indices, op.data) if isinstance(op, CSR) else (op,))]
+
+
+def kernel_device(entry: str, device, *operands) -> torch.device | None:
+    """Where a kernel wrapper runs: ``None`` for its plain version on the
+    host, else the card it launches on. With ``device=None`` the first
+    operand's device decides, and a pinned host operand raises wherever the
+    others lie (:func:`refuse_pinned`). ``device="cpu"`` runs the plain version on host
+    operands, pinned or not. A card ``device`` launches there; an operand in
+    pinned host memory is then read in place by the kernel (the wrapper's
+    ``require(..., in_place=True)`` refuses pageable host memory)."""
+    tensors = _tensors(operands)
+    if device is None:
+        refuse_pinned(entry, *operands)
+        return None if tensors[0].device.type == "cpu" else tensors[0].device
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        if any(t.device.type != "cpu" for t in tensors):
+            raise ValueError(f"{entry}: an operand is on the card in a CPU run")
+        return None
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    return dev
+
+
+def reads_host(*operands) -> bool:
+    """Whether a launch on the card reads any of ``operands`` (tensors or
+    CSRs) in place from host memory."""
+    return any(t.device.type == "cpu" for t in _tensors(operands))
+
+
+def csr_on_one_device(*stacks: CSR) -> tuple:
+    """``stacks`` on one device for a wrapper's plan (tensor ops over all of
+    them): as they are where they share one, else all on the host, a card
+    stack copied there, so that an operand read in place from pinned host
+    memory never crosses onto the card to be planned."""
+    if len({t.device for t in _tensors(stacks)}) == 1:
+        return stacks
+    return tuple(CSR(st.indptr.cpu(), st.indices.cpu(), st.data.cpu(), st.shape,
+                     st.max_row_nnz) for st in stacks)
 
 
 def tensor_pin(t: torch.Tensor) -> torch.Tensor:
