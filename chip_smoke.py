@@ -69,15 +69,18 @@ plan under hash in HostPin, the ESC kernel's counted classes on L x L of
 RMAT scale 12, the dense slab on brick3d n=16 (HostPin, DP) and the fused
 triangle count on the scale-18 graph with L slow, each beside its ring
 twin where one runs: C (or the count) equal bit for bit to the all-fast
-call's, one wrapper launch and one in place (the ESC classes as the
-all-fast call's), no ring op, and the card's live peak within the in-place
-model (no byte of a slow operand) plus 1%; printed: the launch's kernel
-ms, the modelled bytes read in place (``kernels/link_reads.py``) and their
-rate, the wall and the twin's copy and compute ms. Its capacity run comes first in the
+call's, one wrapper launch a strip of the plan, each in place (the ESC
+classes as the all-fast call's), no ring op, and the card's live peak
+within the in-place model (no byte of a slow operand, one strip's
+workspace) plus 1%; printed: the launches' kernel ms, the modelled bytes
+read in place (``kernels/link_reads.py``) and their rate, the wall and the
+twin's copy and compute ms. Its capacity run comes first in the
 script, right after the build, while the allocator holds nothing else:
 brick3d n=80, all slow, under an allocator cap whose headroom is below half
 of A's bytes, where placing A on the card must raise ``OutOfMemoryError``
-and the all-slow call must equal the uncapped all-fast call. The spilled
+and the all-slow call must equal the uncapped all-fast call, through the
+ring and read in place (one launch a strip, the live peak one strip's
+workspace, the reserved bytes under the cap). The spilled
 Galerkin runs (hash and ESC with the main path's, then ``scan``, ``loop``
 and ``bsr`` at n=48 and ``pallas`` at n=32 in the placement phase) stream
 T from pinned memory through the same ring and hold the same gates; each
@@ -85,7 +88,10 @@ is run again with A, P and R in pinned host memory (hash and ESC at both
 plans, HostPin and DP; the others HostPin), its C equal bit for bit to the
 all-fast pipeline call's and each hop's ring bytes equal to its slow
 operands' events, and under the capacity run's cap brick3d n=80's R (A P)
-runs with A, P, R, C and the spilled T all in pinned memory.
+runs with A, P, R, C and the spilled T all in pinned memory, through the
+ring and read in place (C bit for bit the ring's); the spilled hash
+product at n=48 is read in place too (``pipeline_spgemm(...,
+slow_reads="in_place")``, a spilled T written and read in place).
 Then the batched entry point and the SpGEMM service: the ESC, hash,
 dense-slab and BSR x BSR kernels on width-8 stacks (brick3d n=16 A x P, one
 structure with per-instance values; L x L of eight RMAT scale-12 graphs,
@@ -95,16 +101,20 @@ width-1 call's; ``chunked_spgemm_batched`` through every batched backend
 and ``auto`` on both batches, each C held to scipy and to the unbatched
 ``chunked_spgemm``, then again with the operands in pinned host memory
 (HostPin, and DP under hash on brick3d n=16: each C equal bit for bit to
-the all-fast batched call's, one launch a step for the whole batch); and ``SpGEMMService`` serving 96 requests of three
+the all-fast batched call's, one launch a step for the whole batch; the
+hash HostPin call on brick3d n=16 again read in place, one launch a strip);
+and ``SpGEMMService`` serving 96 requests of three
 families in a cold and a warm wave (every response held to scipy, the warm
 wave compiling nothing, the buckets within the retrace budget), beside a
 naive ``chunked_spgemm`` loop over the first 32 of them, then the same with every operand in pinned
 host memory (each response equal bit for bit to the all-fast service's),
-then 48 requests over 8 distinct RMAT graphs.
+through the ring and read in place (``slow_reads="in_place"``, no ring op),
+then 24 requests over 8 distinct RMAT graphs.
 Then the port's examples (``examples/torch_*.py``) at their default sizes,
 their correctness lines checked, and the static auditor
 (``repro_torch.analysis.audit_all`` on the fast corpus, on the card, with
-the static shared memory of the build log, and ``audit_pipeline`` of
+the static shared memory of the build log and the probe-bound pass over
+every hash launch, and ``audit_pipeline`` of
 brick3d n=16's Galerkin product under every audited backend, both hops
 staged, hop 2 Chunk2 and chunk1 with several chunks), which must be clean.
 Then
@@ -324,6 +334,15 @@ IN_PLACE_RUNS = {("quickstart", "hash"): ("A_Pin", "B_Pin", "C_Pin", "HostPin", 
                  ("quickstart", "sparse"): ("HostPin",),
                  ("chunk1", "hash"): ("HostPin",)}
 IN_PLACE_DENSE_N, IN_PLACE_DENSE = 16, ("HostPin", "DP")
+# the other entry points read in place, each beside its ring twin: the
+# spilled Galerkin product (backend, placement, plan) and the batched call
+# (batch, backend), both all slow; the placed service runs again with
+# slow_reads="in_place"
+GALERKIN_IN_PLACE = ("hash", "HostPin", "spill")
+BATCHED_IN_PLACE = ("brick3d16", "hash")
+# the in-place service serves the first 33 of the placed service's requests
+# (11 a family): the 96 took 14.8 s of the script
+IN_PLACE_SERVICE_PER_FAMILY = 11
 # the dense slab's load path read in place: its 16-byte cp.async of B from a
 # mapped host address (the staging at n=16 is 16-byte aligned)
 IN_PLACE_DENSE_PATH = "vec"
@@ -361,13 +380,14 @@ BATCHED_BACKENDS = ("scan", "pallas", "sparse", "hash", "bsr", "auto")
 # the SpGEMM service: three families of 32 requests (values from numpy seeds
 # SERVICE_SEED + request), F = the largest L's row bytes / SERVICE_CHUNK_DIV;
 # the gated run serves L x L of four RMAT graphs in turn, the churn run the
-# 8 graphs of seeds 200-207, two requests each, 16 a family (cut from 32
-# graphs and 32 a family to pay for the placed runs and the pipeline audit:
-# with the two other families still more than the retrace budget's 8 buckets)
+# 8 graphs of seeds 200-207, one request each, 8 a family (cut from 32
+# graphs and 32 a family to pay for the placed runs, the pipeline audit and
+# the in-place service: with the two other families still more than the
+# retrace budget's 8 buckets)
 SERVICE = {"backend": "auto", "max_batch": 8, "quantum": 32, "retrace_budget": 8,
            "eviction_hysteresis": 4, "slo_s": 0.002}
 SERVICE_PER_FAMILY, SERVICE_SEED, SERVICE_CHUNK_DIV = 32, 400, 5
-CHURN_PER_FAMILY = 16
+CHURN_PER_FAMILY = 8
 HASH_PLAIN_MAX = 1 << 28   # product entries the hash plain version may table at once
 SERVICE_RMAT_SEEDS, CHURN_RMAT_SEEDS = range(200, 204), range(200, 208)
 
@@ -1651,7 +1671,9 @@ class Smoke:
     def audit_phase(self) -> None:
         """The static auditor on the card: ``audit_all(cases="fast",
         device="cuda")``, the corpus on the card, the shared-memory requests
-        with the static bytes of the build log, then ``audit_pipeline`` of
+        with the static bytes of the build log, the probe-bound pass over
+        every hash record's launches (staged, ring, in place, batched in
+        place: every table the planner's), then ``audit_pipeline`` of
         the Galerkin product at the resident and spill plans
         (:meth:`pipeline_audit`). Must be clean."""
         from repro_torch.analysis import audit_all
@@ -1666,9 +1688,14 @@ class Smoke:
                 key = f"{q['source']}/{q['kernel']}"
                 requests[key] = max(requests.get(key, 0), q["total"])
                 check(q["static"] is not None, f"audit: {key} has no build-log entry")
+        probes = [r["while"] for r in rep["records"] if r["while"]["checked"]]
+        check(len(probes) == sum(r["backend"] == "hash" for r in rep["records"]) > 0,
+              f"audit: the probe-bound pass checked {len(probes)} hash records")
         emit({"audit_phase": "fast", "seconds": seconds, "ok": rep["ok"],
               "records": len(rep["records"]), "skipped": rep["skipped"],
-              "violations": rep["violations"], "largest_smem_requests": requests})
+              "violations": rep["violations"], "largest_smem_requests": requests,
+              "probe_bound_pass": {"records": len(probes),
+                                   "hash_launches": sum(p["launches"] for p in probes)}})
         check(rep["ok"], f"audit: {len(rep['violations'])} violations: {rep['violations'][:3]}")
 
     def pipeline_audit(self) -> None:
@@ -2078,7 +2105,6 @@ class Smoke:
         hop's ring moving its slow operands' events (:meth:`placed_hops`),
         and C within SCIPY_RTOL of scipy's R (A P)."""
         torch, pipe, placement = self.torch, self.m["pipeline"], self.m["placement"]
-        csr = self.m["csr"]
         A, P = self.problem("brick3d", n)
         R = self.restrictions[("brick3d", n)]
         plan, caps = self._pipe_plans[n][frac]
@@ -2093,14 +2119,7 @@ class Smoke:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = self.read_counters()
-        check(csr.csr_residence(C) == ("pinned" if where.C == "slow" else "card"),
-              f"{label}: C is in {csr.csr_residence(C)} memory, placed {where.C}")
-        for f in ("indptr", "indices", "data"):
-            check(torch.equal(getattr(C, f).cpu(), getattr(C_fast, f).cpu()),
-                  f"{label}: C.{f} differs from the all-fast pipeline call's")
-        check((stats.hop1, stats.hop2, stats.spilled, stats.spill_bytes)
-              == (stats_fast.hop1, stats_fast.hop2, stats_fast.spilled,
-                  stats_fast.spill_bytes), f"{label}: PipelineStats differ from the all-fast call's")
+        self.hold_pipeline(label, C, stats, C_fast, stats_fast, where)
         hops = self.placed_hops(label, log, plan, caps, stats, where, backend)
         kernel = self.backend_kernel.get(backend)   # scan and loop launch no kernel
         if kernel is not None:
@@ -2119,6 +2138,64 @@ class Smoke:
             "wall_s": wall, "all_fast_wall_s": wall_fast, "bit_equal": True,
             "scipy_rel_err": scipy_err, "card": self.smi}})
         del C, ops
+
+    def galerkin_in_place(self, label: str, backend: str, frac: float, name: str,
+                          n: int = 48) -> None:
+        """:meth:`galerkin_placed`'s call read in place
+        (``pipeline_spgemm(..., slow_reads="in_place")``): C equal bit for
+        bit to the all-fast pipeline call's (to which the ring twin is held
+        bit for bit) and in R's space, the PipelineStats equal, each hop
+        with a slow operand (a spilled T among them) launching once a strip,
+        each in place, a hop without one once, and no ring op or transfer.
+        Prints the launches' kernel ms, the live tensors' peak on the card
+        and the wall."""
+        torch, pipe, placement = self.torch, self.m["pipeline"], self.m["placement"]
+        A, P = self.problem("brick3d", n)
+        R = self.restrictions[("brick3d", n)]
+        plan, caps = self._pipe_plans[n][frac]
+        C_fast, stats_fast, wall_fast = self._pipe_fast[n, frac, backend]
+        where = placement.PIPELINE_TABLE3[name]
+        ops = [placement.place(m, getattr(where, k)) for k, m in (("A", A), ("P", P), ("R", R))]
+        with self.m["copy_ring"].RingLog() as log, self.m["build"].LaunchTimer() as timer:
+            (C, stats), wall, peak, live = self.memory_traced(lambda: pipe.pipeline_spgemm(
+                *ops, plan, backend=backend, caps=caps, slow_reads="in_place"))
+        kernel_ms = timer.ms()
+        launches = self.read_counters()
+        self.hold_pipeline(label, C, stats, C_fast, stats_fast, where)
+        t = "fast" if plan.t_resident else "slow"
+        hops = ((plan.plan1, where.hop1(t) if where.hop1("fast").slow else placement.ALL_FAST),
+                (plan.plan2, where.hop2(t)))
+        want = sum(h.n_ac if w.slow else 1 for h, w in hops)
+        slow = sum(h.n_ac for h, w in hops if w.slow)
+        kernel = self.backend_kernel[backend]
+        check(launches[kernel] == want and launches[f"{kernel}/in_place"] == slow,
+              f"{label}: {launches[kernel]} {kernel} launches, "
+              f"{launches[f'{kernel}/in_place']} in place; {want} and {slow} expected")
+        check(not log.rings and not log.transfers,
+              f"{label}: {len(log.rings)} rings, {len(log.transfers)} transfers in place")
+        emit({"in_place_run": {
+            "run": label, "problem": "brick3d", "n": n, "backend": backend,
+            "placement": dataclasses.asdict(where),
+            "plan": {"hop1": [plan.plan1.algorithm, plan.plan1.n_ac, plan.plan1.n_b],
+                     "hop2": [plan.plan2.algorithm, plan.plan2.n_ac, plan.plan2.n_b],
+                     "t_resident": plan.t_resident},
+            "launches": {k: v for k, v in launches.items() if v}, "bit_equal": True,
+            "kernel_ms": kernel_ms, "peak_alloc_bytes": peak, "peak_live_bytes": live,
+            "wall_s": wall, "all_fast_wall_s": wall_fast, "card": self.smi}})
+        del C, ops
+
+    def hold_pipeline(self, label: str, C, stats, C_fast, stats_fast, where) -> None:
+        """A placed pipeline call's C in R's space and equal bit for bit to
+        the all-fast call's ``C_fast``, its PipelineStats equal."""
+        torch, csr = self.torch, self.m["csr"]
+        check(csr.csr_residence(C) == ("pinned" if where.C == "slow" else "card"),
+              f"{label}: C is in {csr.csr_residence(C)} memory, placed {where.C}")
+        for f in ("indptr", "indices", "data"):
+            check(torch.equal(getattr(C, f).cpu(), getattr(C_fast, f).cpu()),
+                  f"{label}: C.{f} differs from the all-fast pipeline call's")
+        check((stats.hop1, stats.hop2, stats.spilled, stats.spill_bytes)
+              == (stats_fast.hop1, stats_fast.hop2, stats_fast.spilled,
+                  stats_fast.spill_bytes), f"{label}: PipelineStats differ from the all-fast call's")
 
     # -- placement: operands in slow (pinned host) memory ---------------------
 
@@ -2801,11 +2878,13 @@ class Smoke:
     def in_place_models(self, plan, stats, where, backend: str, C, host) -> tuple:
         """(card bytes, link reads) of one in-place call: the card's bytes
         at its peak (``placement.card_bytes`` under ``slow_reads="in_place"``,
-        the one launch's workspace: the merge's slabs a row and, for a
-        counted ESC call, its work list and global workspace; the chunk
-        starts), and the bytes its kernel touches of each operand
+        one strip launch's workspace, ``placement.strip_workspace``: the
+        merge's slabs a row of the strip and, for a counted ESC launch, its
+        work list and global workspace, the most of any strip's; the chunk
+        starts), and the bytes its kernels touch of each operand
         (``link_reads``, on ``host``'s pinned operands staged as the
-        executor stages them)."""
+        executor stages them: the sum of the strip launches' reads, which
+        is the whole stack's)."""
         key = (plan, backend, id(host["A"]), id(host["B"]))
         if key in self._in_place_models:   # the placements of one plan share them
             workspace, reads = self._in_place_models[key]
@@ -2817,10 +2896,11 @@ class Smoke:
         strips = ch.a_strips(host["A"], plan.p_ac)
         chunks = ch.b_chunks(host["B"], plan.p_b)
         strip_rows, span = strips[0].n_rows, chunks[0].n_rows
+        strip_workspace = self.m["placement"].strip_workspace
         if backend == "pallas":
             reads = reads_mod.dense_reads((1, n_ac, strip_rows, host["A"].n_cols + span),
                                           (1, n_b, span, host["B"].n_cols))
-            workspace = 4 * n_b
+            workspace = strip_workspace("pallas", strip_rows=strip_rows, n_b=n_b)
         else:
             one = lambda pieces: (lambda st: csr.CSR(  # noqa: E731
                 st.indptr[None], st.indices[None], st.data[None], st.shape,
@@ -2834,13 +2914,20 @@ class Smoke:
             reads = reads_mod.csr_reads(Ast, Bst, C0, r0s, r1s, order=order)
             row_cap = (planner.hash_table_slots(C.max_row_nnz) if backend == "hash"
                        else max(C.max_row_nnz, 1))
-            workspace = n_ac * strip_rows * (row_cap * 8 + 4) + 4 + 8 * n_b
-            if backend == "sparse":
-                launch = self.kernels["sparse_accum_spgemm"].esc_launch_plan(
-                    Ast, Bst, C0, r0s, r1s, row_cap=row_cap)
-                if launch.split:
-                    workspace += (4 * launch.items.numel() + 8 * launch.offsets.numel()
-                                  + launch.workspace_bytes)
+            workspace = strip_workspace(backend, strip_rows=strip_rows, n_b=n_b,
+                                        row_cap=row_cap)
+            if backend == "sparse":   # each strip launch's own classes
+                strip = lambda st, i: csr.CSR(  # noqa: E731
+                    st.indptr[:, i:i + 1], st.indices[:, i:i + 1], st.data[:, i:i + 1],
+                    st.shape, st.max_row_nnz)
+                extra = 0
+                for i in range(n_ac):
+                    launch = self.kernels["sparse_accum_spgemm"].esc_launch_plan(
+                        strip(Ast, i), Bst, strip(C0, i), r0s, r1s, row_cap=row_cap)
+                    if launch.split:
+                        extra = max(extra, 4 * launch.items.numel()
+                                    + 8 * launch.offsets.numel() + launch.workspace_bytes)
+                workspace += extra
         self._in_place_models[key] = (workspace, reads)
         return self.in_place_card(plan, stats, where, C, workspace), reads
 
@@ -2852,22 +2939,27 @@ class Smoke:
             c_bytes=C.nbytes(), slow_reads="in_place")
 
     def in_place_call(self, label: str, A, B, plan, backend: str, where, fast, *, host,
-                      card_ops, twin=None, want_routes=None, caps=None) -> dict:
+                      card_ops=None, twin=None, want_routes=None, caps=None,
+                      record: bool = True) -> dict:
         """One ``chunked_spgemm(..., slow_reads="in_place")`` with operands
         placed as ``where`` says (pinned host memory for a slow one), gated
         against the same plan's all-fast call ``fast = (C, stats, wall_s)``:
         C equal bit for bit (so within the tolerance of the plain version
         the all-fast call was held to) and where ``where`` puts it, the
-        ChunkStats equal, one wrapper launch and one in-place launch (the
-        ESC kernel's launches by route ``want_routes``, the all-fast call's,
-        or one on the shared route), no ring op and no transfer, and the
-        live tensors' peak on the card within the in-place card model plus
-        1% (for HostPin: less the workspace, below A's bytes); the dense
-        slab on its ``IN_PLACE_DENSE_PATH``. ``caps`` is the plan's symbolic
-        phase, hoisted out of the call. Prints the launch's kernel ms (CUDA
-        events) beside the same kernel's on the card operands ``card_ops``
-        (the all-fast call, again), the modelled bytes read in place and
-        their rate, the wall, and the ring twin's copy and compute ms."""
+        ChunkStats equal, one wrapper launch a strip of the plan, each read
+        in place (the ESC kernel's launches by route ``want_routes``, the
+        all-fast call's for a one-strip plan, or one a strip on the shared
+        route), no ring op and no transfer, and the live tensors' peak on
+        the card within the in-place card model plus 1% (for HostPin: less
+        the workspace, below A's bytes); the dense slab on its
+        ``IN_PLACE_DENSE_PATH``. ``caps`` is the plan's symbolic phase,
+        hoisted out of the call. Prints the launches' kernel ms (CUDA
+        events, summed over the strips) beside the same kernel's on the card
+        operands ``card_ops`` (the all-fast call, again; none given under
+        the capacity cap), the modelled bytes read in place and their rate,
+        the wall, and the ring twin's copy and compute ms. The first HostPin
+        call of a kernel with ``record`` is its in-place row of the kernels
+        line. Returns the printed record."""
         torch = self.torch
         chunking, csr, copy_ring = self.m["chunking"], self.m["csr"], self.m["copy_ring"]
         C_fast, stats_fast, wall_fast = fast[:3]
@@ -2888,13 +2980,15 @@ class Smoke:
             check(torch.equal(getattr(C, f).cpu(), getattr(C_fast, f).cpu()),
                   f"{label}: C.{f} differs from the all-fast call's")
         check(stats == stats_fast, f"{label}: ChunkStats differ from the all-fast call's")
-        check(launches[kernel] == 1 and launches[f"{kernel}/in_place"] == int(bool(where.slow)),
+        n_ac = plan.n_ac   # one launch a strip, each reading in place
+        check(launches[kernel] == n_ac
+              and launches[f"{kernel}/in_place"] == n_ac * int(bool(where.slow)),
               f"{label}: {launches[kernel]} {kernel} launches, "
-              f"{launches[f'{kernel}/in_place']} in place; one each expected")
+              f"{launches[f'{kernel}/in_place']} in place; {n_ac} each (one a strip) expected")
         if kernel == "sparse_accum_spgemm":
             esc = self.kernels[kernel]
             routes = {r: launches[f"{kernel}/{r}"] for r in esc.ROUTES}
-            want = want_routes or {r: int(r == "shared") for r in esc.ROUTES}
+            want = want_routes or {r: n_ac * int(r == "shared") for r in esc.ROUTES}
             check(routes == want, f"{label}: ESC launches by route {routes}, the all-fast "
                   f"call's {want}")
         check(not log.rings and not log.transfers,
@@ -2911,13 +3005,17 @@ class Smoke:
             path = [p for p, c in paths.items() if c.count > path_before[p]]
             check(path == [IN_PLACE_DENSE_PATH],
                   f"{label}: the dense slab took {path}, not {IN_PLACE_DENSE_PATH}")
-        with self.m["build"].LaunchTimer() as fast_timer:
-            chunking.chunked_spgemm(*card_ops, plan, backend=backend, caps=caps)
+        fast_ms = None
+        if card_ops is not None:   # none under the capacity run's cap
+            with self.m["build"].LaunchTimer() as fast_timer:
+                chunking.chunked_spgemm(*card_ops, plan, backend=backend, caps=caps)
+            fast_ms = fast_timer.ms()
         out = {"run": label, "placement": dict(zip("ABC", (where.A, where.B, where.C))),
                "backend": backend, "plan": [plan.algorithm, plan.n_ac, plan.n_b],
-               "launches": {k: v for k, v in launches.items() if v}, "bit_equal": True,
+               "launches": {k: v for k, v in launches.items() if v},
+               "launches_per_call": n_ac, "bit_equal": True,
                "wall_s": wall, "all_fast_wall_s": wall_fast, "kernel_ms": kernel_ms,
-               "all_fast_kernel_ms": fast_timer.ms(), "dense_path": path,
+               "all_fast_kernel_ms": fast_ms, "dense_path": path,
                "link_read_bytes_model": reads, "slow_read_bytes_model": slow_bytes,
                "slow_read_gb_s": slow_bytes / kernel_ms / 1e6 if kernel_ms > 0 else None,
                "peak_alloc_bytes": peak, "peak_live_bytes": live, "model_bytes": model,
@@ -2929,7 +3027,7 @@ class Smoke:
                                 "compute_ms": times.get("compute_ms")}
         emit({"in_place_run": out})
         row = self.in_place.setdefault(kernel, {})
-        if "run" not in row and len(where.slow) == 3:
+        if record and "run" not in row and len(where.slow) == 3:
             row.update({"run": label, "launches": launches[f"{kernel}/in_place"],
                         "ms": kernel_ms, "all_fast_ms": out["all_fast_kernel_ms"],
                         "slow_read_bytes_model": slow_bytes,
@@ -2991,8 +3089,8 @@ class Smoke:
     def in_place_triangle(self, twin=None) -> None:
         """``count_triangles(..., slow_reads="in_place")`` with L slow in
         every role (HostPin), the one-chunk plan of tc_rmat18_fused: the
-        count equal to scipy's, one masked launch and one in place, no ring
-        op, the card's live peak within the launch's workspace (its work
+        count equal to scipy's, one masked launch a strip (one here), each
+        in place, no ring op, the card's live peak within the launch's workspace (its work
         list, global tables and flags) plus 1% and, less it, below L's
         bytes. Prints the kernel ms, the modelled bytes read in place and
         the ring twin's times."""
@@ -3025,9 +3123,10 @@ class Smoke:
         check(got.dtype == torch.float64 and got.device.type == "cuda" and float(got) == want,
               f"{label}: {float(got)} triangles on {got.device}, scipy counts {want}")
         kernel = "hash_masked_accum_spgemm"
-        check(launches[kernel] == 1 and launches[f"{kernel}/in_place"] == 1,
+        check(launches[kernel] == plan.n_ac and launches[f"{kernel}/in_place"] == plan.n_ac,
               f"{label}: {launches[kernel]} masked launches, "
-              f"{launches[f'{kernel}/in_place']} in place; one each expected")
+              f"{launches[f'{kernel}/in_place']} in place; {plan.n_ac} each (one a strip) "
+              "expected")
         check(not log.rings and not log.transfers,
               f"{label}: {len(log.rings)} rings, {len(log.transfers)} transfers in place")
         check(live <= model["total"] * LIVE_MARGIN,
@@ -3067,7 +3166,12 @@ class Smoke:
         allocator cap whose headroom over what is reserved is the ring's
         byte model plus 25% plus one 20 MiB segment, below half of A's
         bytes: placing A on the card must raise OutOfMemoryError, and the
-        all-slow call must complete and equal the uncapped all-fast call.
+        all-slow call must complete and equal the uncapped all-fast call;
+        then the same call read in place (:meth:`in_place_call`: one launch
+        a strip, the live peak within one strip's workspace plus 1%, the
+        reserved bytes under the cap), and the Galerkin product through the
+        ring and in place (:meth:`capacity_galerkin`,
+        :meth:`capacity_galerkin_in_place`).
         It runs before every other phase: what the allocator reserves is
         then what it holds, so the cap leaves no cached segment that A could
         fit into. The all-fast C waits in pinned memory."""
@@ -3118,13 +3222,30 @@ class Smoke:
                                    placement.ALL_SLOW, (pinned["C"], stats_fast, wall_fast),
                                    caps=caps)
             peak_reserved = torch.cuda.max_memory_reserved()
-            self.capacity_galerkin(pinned, galerkin, reserved + headroom, oom)
+            # the same call read in place: one launch a strip, one strip's
+            # workspace on the card; C held to the all-fast C, which the
+            # ring's was held to bit for bit
+            torch.cuda.reset_peak_memory_stats()
+            in_place = self.in_place_call(f"{label}_inplace", pinned["A"], pinned["B"], plan,
+                                          "hash", placement.ALL_SLOW,
+                                          (pinned["C"], stats_fast, wall_fast), host=pinned,
+                                          twin=out, caps=caps, record=False)
+            in_place_reserved = torch.cuda.max_memory_reserved()
+            check(in_place_reserved <= reserved + headroom,
+                  f"{label}_inplace: reserved {in_place_reserved} passes the cap "
+                  f"{reserved + headroom}")
+            C_ring = self.capacity_galerkin(pinned, galerkin, reserved + headroom, oom)
+            self.capacity_galerkin_in_place(pinned, galerkin, reserved + headroom, C_ring)
+            del C_ring
         finally:
             torch.cuda.set_per_process_memory_fraction(1.0)
         emit({"capacity_run": label, "A_bytes": a_bytes, "reserved_before": reserved,
               "headroom_bytes": headroom, "cap_bytes": reserved + headroom,
               "peak_reserved_bytes": peak_reserved, "oom_on_place_A_fast": oom,
               "peak_alloc_bytes": out["peak_alloc_bytes"], "problem_s": problem_s,
+              "in_place_peak_live_bytes": in_place["peak_live_bytes"],
+              "in_place_model_bytes": in_place["model_bytes"]["total"],
+              "in_place_peak_reserved_bytes": in_place_reserved,
               "scipy_rel_err": err, "capacity_run_s": time.perf_counter() - t_run,
               "card": self.smi})
         del pinned
@@ -3136,7 +3257,8 @@ class Smoke:
         ``limit`` (budget / ``CAPACITY_GALERKIN_DIV``), which must spill T and
         chunk both hops, and each hop's ``placement.card_bytes`` with
         every operand slow (hash: the strips' rows times the hop's table of
-        8-byte slots plus a row pointer), from its planned events."""
+        8-byte slots plus a row pointer), from its planned events, through
+        the ring and read in place (one strip launch's workspace)."""
         planner, symbolic, cs = self.m["planner"], self.m["symbolic"], self.m["chunk_stream"]
         t0 = time.perf_counter()
         tp = symbolic.spgemm_pattern_host(A, P)
@@ -3148,7 +3270,7 @@ class Smoke:
         check(not plan.t_resident, "capacity Galerkin: the plan keeps T resident")
         check("whole_fast" not in (plan.plan1.algorithm, plan.plan2.algorithm),
               "capacity Galerkin: a whole_fast hop would need its operands whole")
-        models = {}
+        models, in_place = {}, {}
         for hop, hplan, hcaps, (X, Y) in (("hop1", plan.plan1, caps.hop1, (A, P)),
                                           ("hop2", plan.plan2, caps.hop2, (R, tp))):
             env = self.m["chunking"].instance_envelope(X, Y, hplan, caps=hcaps)
@@ -3160,11 +3282,16 @@ class Smoke:
             models[hop] = self.m["placement"].card_bytes(
                 hplan, self.m["placement"].ALL_SLOW, a_stage=strip, slab=slab,
                 c_stage=c_stage, workspace=rows * (table * 8 + 4), c_bytes=0)
+            in_place[hop] = self.m["placement"].card_bytes(
+                hplan, self.m["placement"].ALL_SLOW, a_stage=strip, slab=slab,
+                c_stage=c_stage, c_bytes=0, slow_reads="in_place",
+                workspace=self.m["placement"].strip_workspace(
+                    "hash", strip_rows=env.strip_rows, n_b=hplan.n_b, row_cap=table))
         # T's pattern (on A's device) leaves the card before the cap
         caps = dataclasses.replace(caps, t_pattern=self.m["csr"].csr_pin(caps.t_pattern))
         del tp
         return {"plan": plan, "caps": caps, "plan_s": plan_s, "models": models,
-                "t_nnz": caps.t_nnz}
+                "in_place_models": in_place, "t_nnz": caps.t_nnz}
 
     def capacity_galerkin(self, pinned: dict, galerkin: dict, cap_bytes: int, oom) -> None:
         """``brick3d80_capacity_galerkin_hash_HostPin``: R (A P) of brick3d
@@ -3219,6 +3346,53 @@ class Smoke:
             "launches": {k: v for k, v in launches.items() if v}, "hops": hops,
             "spill_bytes": stats.spill_bytes, "wall_s": wall, "plan_s": galerkin["plan_s"],
             "scipy_s": scipy_s, "scipy_rel_err": err, "card": self.smi}})
+        return C
+
+    def capacity_galerkin_in_place(self, pinned: dict, galerkin: dict, cap_bytes: int,
+                                   C_ring) -> None:
+        """``brick3d80_capacity_galerkin_hash_HostPin_inplace``: the capacity
+        Galerkin call read in place (``slow_reads="in_place"``), under the
+        same cap: C equal bit for bit to the ring run's ``C_ring`` and
+        pinned, one hash launch a strip of each hop, each in place, no ring
+        op, the live tensors' peak within the larger hop's in-place model
+        (one strip's workspace) plus 1%, and the reserved bytes under the
+        cap. Prints the launches' kernel ms beside the ring run's wall."""
+        torch, pipe = self.torch, self.m["pipeline"]
+        label = f"brick3d{CAPACITY_N}_capacity_galerkin_hash_HostPin_inplace"
+        plan, caps = galerkin["plan"], galerkin["caps"]
+        torch.cuda.reset_peak_memory_stats()
+        with self.m["copy_ring"].RingLog() as log, self.m["build"].LaunchTimer() as timer:
+            (C, stats), wall, peak, live = self.memory_traced(lambda: pipe.pipeline_spgemm(
+                pinned["A"], pinned["B"], pinned["R"], plan, backend="hash", caps=caps,
+                slow_reads="in_place"))
+        kernel_ms = timer.ms()
+        peak_reserved = torch.cuda.max_memory_reserved()
+        launches = self.read_counters()
+        check(self.m["csr"].csr_residence(C) == "pinned", f"{label}: C is not pinned")
+        for f in ("indptr", "indices", "data"):
+            check(torch.equal(getattr(C, f), getattr(C_ring, f)),
+                  f"{label}: C.{f} differs from the ring run's")
+        want = plan.plan1.n_ac + plan.plan2.n_ac
+        check(launches["hash_accum_spgemm"] == want
+              and launches["hash_accum_spgemm/in_place"] == want,
+              f"{label}: {launches['hash_accum_spgemm']} hash launches, "
+              f"{launches['hash_accum_spgemm/in_place']} in place; {want} (the strips) expected")
+        check(not log.rings and not log.transfers,
+              f"{label}: {len(log.rings)} rings, {len(log.transfers)} transfers in place")
+        model = max(m["total"] for m in galerkin["in_place_models"].values())
+        check(live <= model * LIVE_MARGIN,
+              f"{label}: live tensors' peak {live} passes the in-place model {model} + 1%")
+        check(peak_reserved <= cap_bytes,
+              f"{label}: reserved {peak_reserved} passes the cap {cap_bytes}")
+        emit({"in_place_run": {
+            "run": label, "problem": "brick3d", "n": CAPACITY_N, "backend": "hash",
+            "plan": {"hop1": [plan.plan1.algorithm, plan.plan1.n_ac, plan.plan1.n_b],
+                     "hop2": [plan.plan2.algorithm, plan.plan2.n_ac, plan.plan2.n_b]},
+            "launches": {k: v for k, v in launches.items() if v}, "bit_equal_to_ring": True,
+            "cap_bytes": cap_bytes, "peak_alloc_bytes": peak, "peak_live_bytes": live,
+            "peak_reserved_bytes": peak_reserved,
+            "model_bytes": {h: m["total"] for h, m in galerkin["in_place_models"].items()},
+            "kernel_ms": kernel_ms, "wall_s": wall, "card": self.smi}})
         del C
 
     def bsr_pairs(self, A, P, plan, block: int = BSR_BLOCK, first: bool = False):
@@ -3825,7 +3999,8 @@ class Smoke:
                         "unbatched_max_abs_err": max(errs)}})
         del Cs, singles
 
-    def batched_placed(self, label: str, As, Bs, plan, backend: str, name: str) -> None:
+    def batched_placed(self, label: str, As, Bs, plan, backend: str, name: str,
+                       slow_reads: str = "ring") -> None:
         """``chunked_spgemm_batched`` of one width-8 batch with its operands
         where ``TABLE3[name]`` puts them (a slow one in pinned host memory),
         through ``backend``: every C equal bit for bit to the all-fast
@@ -3834,7 +4009,9 @@ class Smoke:
         (not one an instance), and every ring's stack pinned and its log its
         schedule's program. The call takes the batch's union envelope, as
         the all-fast call built it, so its wall holds no symbolic phase
-        (the all-fast wall does)."""
+        (the all-fast wall does). With ``slow_reads="in_place"`` the kernel
+        reads the slow stacks where they lie instead: one launch a strip
+        for the whole batch, each in place, and no ring op or transfer."""
         torch, cs, placement = self.torch, self.m["chunk_stream"], self.m["placement"]
         csr, dma = self.m["csr"], self.m["dma"]
         where = placement.TABLE3[name]
@@ -3858,15 +4035,18 @@ class Smoke:
                 self.batch_envs[label, BSR_BLOCK] = self.m["chunking"].batch_envelope(
                     As, Bs, plan, block_size=BSR_BLOCK)
             env = self.batch_envs[label, BSR_BLOCK]
-        run = f"batched_placed_{label}_{backend}_{name}"
+        in_place = slow_reads == "in_place"
+        run = f"batched_placed_{label}_{backend}_{name}" + ("_inplace" if in_place else "")
         self.reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with self.m["copy_ring"].RingLog(timed=True) as log:
+        with self.m["copy_ring"].RingLog(timed=True) as log, \
+                self.m["build"].LaunchTimer() as timer:
             # the all-fast call's union envelope, given as a service bucket
             # gives its own, and validated there: no symbolic phase runs
             Cs, stats = cs.chunked_spgemm_batched(ops_a, ops_b, plan, envelope=env,
-                                                  backend=backend, validate_caps=False)
+                                                  backend=backend, validate_caps=False,
+                                                  slow_reads=slow_reads)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = self.read_counters()
@@ -3879,9 +4059,15 @@ class Smoke:
                       f"{run}/{i}: C.{f} differs from the all-fast batched call's")
         steps = plan.n_ac * plan.n_b
         kernel = self.backend_kernel.get(chosen)
+        want = plan.n_ac if in_place else steps
         if kernel is not None:
-            check(launches[kernel] == steps, f"{run}: {launches[kernel]} {kernel} launches "
-                  f"for {len(As)} instances, {steps} steps expected")
+            check(launches[kernel] == want, f"{run}: {launches[kernel]} {kernel} launches "
+                  f"for {len(As)} instances, {want} expected")
+        if in_place:
+            check(launches[f"{kernel}/in_place"] == want,
+                  f"{run}: {launches[f'{kernel}/in_place']} launches in place, {want} expected")
+            check(not log.rings and not log.transfers,
+                  f"{run}: {len(log.rings)} rings, {len(log.transfers)} transfers in place")
         for ring in log.rings:
             bad = (dma.check_ring_structure(ring.ops, ring.total, ring.n_fields)
                    + dma.simulate_schedule(ring.total))
@@ -3898,8 +4084,8 @@ class Smoke:
             "moved_out": sum(t.nbytes for t in log.transfers if t.direction == "out"),
             "rings": [{"operand": r.operand, "role": r.role, "total": r.total,
                        "fields": r.n_fields} for r in log.rings],
-            "times": log.times(), "wall_s": wall, "all_fast_wall_s": wall_fast,
-            "card": self.smi}})
+            "times": log.times(), "kernel_ms": timer.ms(), "wall_s": wall,
+            "all_fast_wall_s": wall_fast, "card": self.smi}})
         del Cs, ops_a, ops_b, pinned
 
     def service_requests(self, rmat_seeds, per_family: int = SERVICE_PER_FAMILY) -> tuple:
@@ -3932,7 +4118,7 @@ class Smoke:
         return reqs, limit, {k: sorted(v) for k, v in chunks.items()}
 
     def service_run(self, label: str, rmat_seeds, gate: bool, placed: bool = False,
-                    per_family: int = SERVICE_PER_FAMILY) -> None:
+                    per_family: int = SERVICE_PER_FAMILY, slow_reads: str = "ring") -> None:
         """``SpGEMMService`` on the card: the requests of
         ``service_requests`` (96 at the default ``per_family``) submitted in a cold wave, then resubmitted (the
         same CSR objects) in a warm wave, ``poll()`` after every 8 submits
@@ -3945,7 +4131,9 @@ class Smoke:
         submitted from pinned host memory (one pinned copy a matrix, made
         before the waves), and every response must equal the gated
         all-fast run's response to the same request bit for bit and lie in
-        pinned memory (C takes A's space)."""
+        pinned memory (C takes A's space). ``slow_reads`` is the service's:
+        under ``"in_place"`` the waves must log no ring op and no transfer,
+        and every bucket's kernel must have read in place."""
         torch, svc_mod = self.torch, self.m["service"]
         cs, place = self.m["chunk_stream"], self.m["placement"].place
         t0 = time.perf_counter()
@@ -3959,21 +4147,23 @@ class Smoke:
             reqs = [(fam, pinned[id(A)], pinned[id(B)]) for fam, A, B in reqs]
             del pinned
         setup_s = time.perf_counter() - t0
-        svc = svc_mod.SpGEMMService(fast_limit_bytes=limit, **SERVICE)
+        svc = svc_mod.SpGEMMService(fast_limit_bytes=limit, **SERVICE, slow_reads=slow_reads)
         traces0 = sum(v for k, v in cs.TRACE_COUNTS.items() if k.endswith("_batched"))
         self.reset_counters()
         waves, backend_of, worst = {}, {}, 0.0
+        ring_log = self.m["copy_ring"].RingLog()
         for wave in ("cold", "warm"):
             before = dataclasses.asdict(svc.stats)
             out = []
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for i, (_, A, B) in enumerate(reqs):
-                svc.submit(A, B)
-                if (i + 1) % 8 == 0:
-                    time.sleep(SERVICE["slo_s"])
-                    out += svc.poll()
-            out += svc.drain()
+            with ring_log:
+                for i, (_, A, B) in enumerate(reqs):
+                    svc.submit(A, B)
+                    if (i + 1) % 8 == 0:
+                        time.sleep(SERVICE["slo_s"])
+                        out += svc.poll()
+                out += svc.drain()
             wall = time.perf_counter() - t0
             after = dataclasses.asdict(svc.stats)
             delta = {k: after[k] - before[k] for k in after}
@@ -4026,6 +4216,13 @@ class Smoke:
             if b["backend"] in self.backend_kernel:
                 kernel = self.backend_kernel[b["backend"]]
                 check(launches[kernel] > 0, f"{label}: {kernel} was not launched")
+                if slow_reads == "in_place":
+                    check(launches[f"{kernel}/in_place"] > 0,
+                          f"{label}: {kernel} read nothing in place")
+        if slow_reads == "in_place":
+            check(not ring_log.rings and not ring_log.transfers,
+                  f"{label}: {len(ring_log.rings)} rings, {len(ring_log.transfers)} "
+                  "transfers in place")
         if gate:
             check(waves["warm"]["compiles"] == 0,
                   f"{label}: the warm wave compiled {waves['warm']['compiles']} times")
@@ -4033,7 +4230,8 @@ class Smoke:
                 check(b["compiles"] <= len(b["widths_used"]),
                       f"{label}: a bucket compiled {b['compiles']} times over widths "
                       f"{b['widths_used']}")
-        result = {"run": label, "service": {**SERVICE, "fast_limit_bytes": limit},
+        result = {"run": label, "service": {**SERVICE, "fast_limit_bytes": limit,
+                                            "slow_reads": slow_reads},
                   "rmat_seeds": [min(rmat_seeds), max(rmat_seeds)],
                   "plan_chunks": chunks, "requests": len(reqs), "setup_s": setup_s,
                   "waves": waves, "stats": dataclasses.asdict(svc.stats),
@@ -4933,6 +5131,9 @@ def main() -> int:
             for name in PIPE_PLACEMENTS:
                 smoke.galerkin_placed(f"galerkin_brick3d48_{backend}_{name}_{kind}",
                                       backend, frac, name)
+                if (backend, name, kind) == GALERKIN_IN_PLACE:   # and read in place
+                    smoke.galerkin_in_place(f"galerkin_brick3d48_{backend}_{name}_{kind}"
+                                            "_inplace", backend, frac, name)
     smoke.bsr_run("brick3d48_bsr")
     smoke.spmm_run("bsr_spmm_brick3d48")
     lap("second_path")
@@ -4958,11 +5159,17 @@ def main() -> int:
                     dp = ("DP",) if (label, backend) in BATCHED_PLACED_DP else ()
                     for name in BATCHED_PLACEMENTS + dp:
                         smoke.batched_placed(label, As, Bs, plan, backend, name)
+                    if (label, backend) == BATCHED_IN_PLACE:   # and read in place
+                        smoke.batched_placed(label, As, Bs, plan, backend, "HostPin",
+                                             slow_reads="in_place")
     del batches
     smoke._batched_fast.clear()
     lap("batched")
     smoke.service_run("spgemm_service_run", SERVICE_RMAT_SEEDS, gate=True)
     smoke.service_run("spgemm_service_placed", SERVICE_RMAT_SEEDS, gate=True, placed=True)
+    smoke.service_run("spgemm_service_placed_inplace", SERVICE_RMAT_SEEDS, gate=True,
+                      placed=True, per_family=IN_PLACE_SERVICE_PER_FAMILY,
+                      slow_reads="in_place")
     smoke._service_fast.clear()
     smoke.service_run("spgemm_service_churn", CHURN_RMAT_SEEDS, gate=False,
                       per_family=CHURN_PER_FAMILY)

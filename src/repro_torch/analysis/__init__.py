@@ -1,16 +1,19 @@
 """Static backend auditor of the port: stages every registered backend core
 at corpus geometries (``audit_trace``), runs it once on the CPU under the
-copy-event recorder, and checks six things — the byte models against one
+copy-event recorder, and checks seven things — the byte models against one
 staged step and the launches' shared memory against a block (``smem``),
 copy-event flow equality against the declared traffic models and the
 executors' ChunkStats (``traffic``), one static geometry per envelope
 (``retrace``), dtypes, index widths and choosers of the staged launch
 (``preflight``), and, for the backends with a copy ring, each ring's op log
 against its schedule (``dma``) and every completion order of its copies and
-reads (``interleave``). ``python -m repro_torch.analysis`` is the command
+reads (``interleave``), and the hash launches' probe bounds against the
+planner's (``while``). ``python -m repro_torch.analysis`` is the command
 line."""
 
-from repro_torch.analysis.dma import check_ring_structure, simulate_schedule
+from repro_torch.analysis.dma import (
+    check_ring_structure, check_while_bounds, simulate_schedule,
+)
 from repro_torch.analysis.interleave import (
     Counterexample, Op, build_program, check_interleave, explore,
 )
@@ -37,6 +40,7 @@ __all__ = [
     "check_preflight",
     "check_retrace",
     "check_ring_structure",
+    "check_while_bounds",
     "check_smem",
     "check_traffic",
     "diff_summary",

@@ -2,7 +2,7 @@
 
     python -m repro_torch.analysis [--cases fast|all|NAME,...]
         [--backends NAME,...]
-        [--analyses smem,traffic,retrace,preflight,dma,interleave]
+        [--analyses smem,traffic,retrace,preflight,dma,while,interleave]
         [--json PATH] [--device cpu|cuda]
 
 Prints one line per violation and a summary; exits 0 only if every

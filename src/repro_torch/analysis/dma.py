@@ -21,14 +21,21 @@ the same schedule with asynchronous reads (prime and prefetch starts, the
 wait, the read and the release of every element, once per field), with
 every element copied once and read once.
 
-The JAX package's ``check_while_bounds`` (the hash kernel's probe loops
-carry the planner's bound) has no counterpart here: the CUDA kernels'
-loops are compiled by ``nvcc``, and no pass reads their bounds yet.
+**Probe bounds** (:func:`check_while_bounds`) is the JAX package's pass of
+the same name, which holds every hash probe loop in the traced core to the
+planner's bound. The CUDA hash kernel takes its table size as a launch
+argument and a probe visits at most that many slots
+(``csrc/hash_accum_spgemm.cu``), so the bound of a launch is
+``probe_step_bound`` of the table it was given: the pass reads those sizes
+from the launches themselves (``hash_accum_spgemm.TableLog``) and holds
+each to ``probe_step_bound(hash_table_slots(...))`` of the audited
+envelope.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels.dma_schedule import TWO_SLOT
+from repro_torch.kernels.hash_accum_spgemm import probe_step_bound
 
 
 def simulate_schedule(total: int, schedule=TWO_SLOT) -> list:
@@ -131,4 +138,31 @@ def check_ring_structure(log, total: int, n_fields: int,
             violations.append(f"(element, field) {twice[:4]} {verb} more than once")
         if missing:
             violations.append(f"(element, field) {missing[:4]} never {verb}")
+    return violations
+
+
+def check_while_bounds(tables, *, expected_bound: int | None = None) -> list:
+    """The probe loops of every recorded hash launch (``tables``: the table
+    size each was given, ``hash_accum_spgemm.TableLog``) must carry a
+    derivable step bound, a table of at least one slot; with
+    ``expected_bound`` (the hash backend:
+    ``probe_step_bound(hash_table_slots(...))`` of the audited envelope)
+    that bound must be every launch's. Returns violation strings."""
+    violations = []
+    for ix, table in enumerate(tables):
+        if int(table) < 1:
+            violations.append(
+                f"hash launch #{ix}: a table of {table} slots gives no step bound — "
+                "bound not derivable, loop may not terminate")
+            continue
+        bound = probe_step_bound(table)
+        if expected_bound is not None and bound != expected_bound:
+            violations.append(
+                f"hash launch #{ix}: probe bound {bound} (a table of {table} slots) is "
+                f"not the planner-derived bound {expected_bound} "
+                "(probe_step_bound of hash_table_slots)")
+    if expected_bound is not None and not tables:
+        violations.append(
+            "no hash launch found, but the backend's probe loops were expected "
+            "(hash kernel)")
     return violations

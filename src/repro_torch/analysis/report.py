@@ -21,13 +21,18 @@ analyses read it:
   case with every operand in slow memory, and each ring's recorded op log
   must be the schedule's program, op for op, with the schedule's host
   replay clean (:mod:`repro_torch.analysis.dma`);
+* ``while`` — the hash backend's probe loops carry the planner's bound:
+  the table size each of its launches is given (the staged core's, the
+  ring's, the in-place call's one a strip and a batched in-place call's)
+  bounds the probe at ``probe_step_bound`` of the envelope's
+  ``hash_table_slots`` (:func:`~repro_torch.analysis.dma.check_while_bounds`);
 * ``interleave`` — every completion order of each such ring's copies and
   reads is hazard-free (:mod:`repro_torch.analysis.interleave`).
 
 When ``dma`` or ``interleave`` is selected the schedule's host replay also
-runs once over the JAX package's sweep of stream lengths. The JAX package's
-``while`` pass has no counterpart, and the rings inside the CUDA kernels
-(their N-stage ``cp.async`` pipelines) have no slot model yet.
+runs once over the JAX package's sweep of stream lengths. The rings inside
+the CUDA kernels (their N-stage ``cp.async`` pipelines) have no slot model
+yet.
 
 The output is a JSON-able report dict; ``python -m repro_torch.analysis``
 is the command line.
@@ -38,7 +43,9 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.analysis import corpus
-from repro_torch.analysis.dma import check_ring_structure, simulate_schedule
+from repro_torch.analysis.dma import (
+    check_ring_structure, check_while_bounds, simulate_schedule,
+)
 from repro_torch.analysis.interleave import check_interleave
 from repro_torch.analysis.preflight import check_preflight
 from repro_torch.analysis.retrace import check_retrace
@@ -47,7 +54,7 @@ from repro_torch.analysis.traffic import check_traffic, traced_flows
 from repro_torch.core import backend_registry
 
 # every per-case analysis audit_backend_case can run, in run order
-ANALYSES = ("smem", "traffic", "retrace", "preflight", "dma", "interleave")
+ANALYSES = ("smem", "traffic", "retrace", "preflight", "dma", "while", "interleave")
 # stream lengths the schedule's host replay sweeps (the JAX package's)
 SCHEDULE_SWEEP = tuple(range(1, 13))
 
@@ -115,6 +122,41 @@ def _ring_records(spec, A, B, plan):
     with RingLog() as log:
         chunked_spgemm(A, B, plan, backend=spec.name, placement=ALL_SLOW, device=device)
     return log.rings
+
+
+def _expected_while_bound(spec, env) -> int | None:
+    """The hash backend's probe loops must be bounded by the planner-derived
+    table of the audited envelope (the row width its staging takes); other
+    backends carry no expectation."""
+    if spec.name != "hash":
+        return None
+    from repro_torch.core.planner import hash_table_slots
+    from repro_torch.kernels.hash_accum_spgemm import probe_step_bound
+
+    row_cap = env.c_max_row_nnz if env.c_nnz_cap else env.b_shape[1]
+    return probe_step_bound(hash_table_slots(row_cap))
+
+
+def _hash_tables(spec, target, A, B, plan) -> list:
+    """The table sizes of every hash launch of the case: the staged core,
+    then an all-slow call through the ring, the same read in place and a
+    width-2 batch read in place, on the operands' device (pinned host
+    memory for the slow operands on the card)."""
+    from repro_torch.core.chunk_stream import chunked_spgemm_batched
+    from repro_torch.core.chunking import chunked_spgemm
+    from repro_torch.core.placement import ALL_SLOW, place
+    from repro_torch.kernels.hash_accum_spgemm import TableLog
+
+    device = A.device
+    slow = place((A, B), "slow") if device.type == "cuda" else (A, B)
+    with TableLog() as log:
+        target.fn(*target.args)
+        for slow_reads in ("ring", "in_place"):
+            chunked_spgemm(*slow, plan, backend=spec.name, placement=ALL_SLOW, device=device,
+                           slow_reads=slow_reads)
+        chunked_spgemm_batched([slow[0]] * 2, [slow[1]] * 2, plan, backend=spec.name,
+                               placement=ALL_SLOW, device=device, slow_reads="in_place")
+    return log.tables
 
 
 def audit_backend_case(spec, algorithm: str, case_name: str, A, B,
@@ -188,6 +230,17 @@ def audit_backend_case(spec, algorithm: str, case_name: str, A, B,
                 infos.append({"operand": ring.operand, "role": ring.role,
                               "total": ring.total, **info})
             record[analysis] = {"checked": True, "rings": infos}
+
+    if "while" in analyses:
+        expected = _expected_while_bound(spec, env)
+        if expected is None:
+            record["while"] = {"checked": False,
+                               "reason": "no probe loop: only the hash kernel probes"}
+        else:
+            tables = _hash_tables(spec, target, A, B, plan)
+            flag("while", check_while_bounds(tables, expected_bound=expected))
+            record["while"] = {"checked": True, "expected_bound": expected,
+                               "launches": len(tables)}
 
     if retrace and "retrace" in analyses:
         A2, B2 = corpus.retrace_pair(A, B)

@@ -135,9 +135,10 @@ class BackendSpec:
     # entry with operands in slow memory (one ring for the batch)
     run_batched_placed: Callable | None = None
     # run_placed's signature: slow operands read in place by the kernel
-    # from pinned host memory, one launch a call
+    # from pinned host memory, one launch a strip
     run_in_place: Callable | None = None
     run_masked_in_place: Callable | None = None   # run_masked_placed's, in place
+    run_batched_in_place: Callable | None = None  # run_batched_placed's, in place
 
     @property
     def supports_batched(self) -> bool:

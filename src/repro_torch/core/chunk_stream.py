@@ -41,8 +41,9 @@ the card through the copy ring (``repro_torch.core.copy_ring``) before a
 launch reads it, one launch a (strip, chunk) step, C equal bit for bit to
 the all-fast call's. The streaming kernels' backends (``pallas``,
 ``sparse``, ``hash``, and the masked hash executor) also register
-``run_in_place``: each slow operand's stacks built in pinned memory and
-read in place by one launch of the backend's kernel, as the reference's
+``run_in_place`` (and, but for the masked one, ``run_batched_in_place``):
+each slow operand's stacks built in pinned memory and read in place by the
+backend's kernel, one launch a strip of the plan, as the reference's
 ``memory_space=ANY`` operands are (``chunked_spgemm(...,
 slow_reads="in_place")``).
 
@@ -87,9 +88,9 @@ import torch
 
 from repro_torch.core import backend_registry, copy_ring
 from repro_torch.core.chunking import (
-    _assemble, _c_strip_nbytes, _empty_like_c, _stats_of, _step_elements,
-    a_strips, b_chunks, batch_envelope, chunk_loop, instance_envelope, planned_stats,
-    run_ranged,
+    SLOW_READS, _assemble, _c_strip_nbytes, _empty_like_c, _stats_of, _step_elements,
+    a_strips, b_chunks, batch_envelope, chunk_loop, in_place_refusal, instance_envelope,
+    planned_stats, run_ranged,
 )
 from repro_torch.core.kkmem import spgemm_ranged_impl
 from repro_torch.core.planner import (
@@ -430,23 +431,19 @@ def _make_pallas_run(order: str, *, batched: bool, strips: bool):
     stacked A (a plain CSR for knl, a strip stack, or a per-instance stack of
     either) and B chunks, and run ``ranged_spgemm_stream`` once with the
     batch as its leading axis (width 1 unbatched). Returns dense f32 C:
-    ``[(batch,) (n_ac,) rows, n]``. With ``device`` (the in-place call)
-    ``pin`` says which of A, B and C are built in pinned host memory, where
-    the kernel on ``device`` reads (and writes) them in place."""
+    ``[(batch,) (n_ac,) rows, n]``."""
     a_levels = int(strips) + int(batched)
 
-    def run(Ast: CSR, Bst: CSR, r0s, *, pin=(False, False, False),
-            device=None) -> torch.Tensor:
+    def run(Ast: CSR, Bst: CSR, r0s) -> torch.Tensor:
         span = Bst.n_rows
-        a = _dense_stack(Ast, levels=a_levels, pad_cols=span, pin_memory=pin[0])
-        slabs = _dense_stack(Bst, levels=2 if batched else 1, pin_memory=pin[1])
+        a = _dense_stack(Ast, levels=a_levels, pad_cols=span)
+        slabs = _dense_stack(Bst, levels=2 if batched else 1)
         if not strips:               # knl: the whole A is the single strip
             a = a[:, None] if batched else a[None]
         if not batched:              # width-1 batch axis
             a, slabs = a[None], slabs[None]
-        c0 = torch.zeros(a.shape[:3] + (Bst.n_cols,), dtype=torch.float32,
-                         device="cpu" if pin[2] else device or a.device, pin_memory=pin[2])
-        out = ranged_spgemm_stream(a, slabs, c0, r0s, order=order, device=device)
+        c0 = torch.zeros(a.shape[:3] + (Bst.n_cols,), dtype=torch.float32, device=a.device)
+        out = ranged_spgemm_stream(a, slabs, c0, r0s, order=order)
         if not batched:
             out = out[0]
         if not strips:
@@ -467,11 +464,11 @@ _PALLAS_CORES = _core_set("{alg}_pallas", _pallas_runs(False))
 _PALLAS_CORES_BATCHED = _core_set("{alg}_pallas_batched", _PALLAS_RUNS_BATCHED)
 
 
-def _pallas_run(A: CSR, B: CSR, plan: ChunkPlan, strips: bool, **in_place):
+def _pallas_run(A: CSR, B: CSR, plan: ChunkPlan, strips: bool):
     Bs = csr_stack(b_chunks(B, plan.p_b))
     r0s, _ = plan.b_ranges()
     As = csr_stack(a_strips(A, plan.p_ac)) if strips else A
-    out = _PALLAS_CORES[plan.algorithm](As, Bs, r0s, **in_place)
+    out = _PALLAS_CORES[plan.algorithm](As, Bs, r0s)
     stats = planned_stats_pallas(
         plan, *_pallas_stage_nbytes(As.n_rows, A.n_cols, Bs.n_rows, B.n_cols))
     return out, stats
@@ -566,53 +563,37 @@ def _stack_one(pieces: list, pin: bool = False) -> CSR:
     return csr_pin(st) if pin else st
 
 
-def _sparse_run(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps=None, placement=None,
-                device=None, *, backend: str):
+def _sparse_run(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps=None, *, backend: str):
     """Shared body of the CSR-output executors (ESC and hash): stage CSR
     strips and chunks (knl is the 1-strip special case of the chunk1 order),
     validate the realized output structure against the capacities, launch,
     and assemble the accumulated strip CSRs.
 
     ``caps`` is the symbolic phase's :class:`StripOutputCaps` when the caller
-    already ran the expansion; recomputed here only for direct calls. With
-    ``placement`` and ``device`` it is the backend's ``run_in_place``: each
-    slow operand's stack (C's: its empty C_prev) is built in pinned host
-    memory (``copy_ring``'s sources are built the same way), and the one
-    launch of the ESC or hash kernel on ``device`` reads it where it lies,
-    as the reference's ``ANY`` operand is read; the merge's slabs, tables
-    and flags stay on the card, and a slow C comes back pinned. C equals
-    the all-fast call's bit for bit (the same launch on the same values);
-    ``ChunkStats`` stay the plan's modelled events."""
+    already ran the expansion; recomputed here only for direct calls."""
     if caps is None:
         caps = strip_output_caps(A, B, plan.p_ac)
     table = _checked_table(A, B, c_pad, backend, caps)
-    pin = (False,) * 3 if device is None else _pinned_for(placement, device)
     strips = a_strips(A, plan.p_ac)
     strip_rows, a_stage = strips[0].n_rows, strips[0].nbytes()
-    Ast = _stack_one(strips, pin[0])
+    Ast = _one_stack(csr_stack(strips))
     del strips
     chunks = b_chunks(B, plan.p_b)
     slab = chunks[0].nbytes()
-    Bst = _stack_one(chunks, pin[1])
+    Bst = _one_stack(csr_stack(chunks))
     del chunks
     r0s, r1s = plan.b_ranges()
-    C0 = _sparse_c0_stack(1, plan.n_ac, strip_rows, B.n_cols, c_pad, A.dtype,
-                          "cpu" if pin[2] else device or A.device)
-    in_place = {} if device is None else {"device": device}
-    if pin[2]:
-        C0 = csr_pin(C0)
+    C0 = _sparse_c0_stack(1, plan.n_ac, strip_rows, B.n_cols, c_pad, A.dtype, A.device)
     if backend == "hash":
-        ip, ix, d = _HASH_CORES[plan.algorithm](Ast, Bst, C0, r0s, r1s,
-                                                table_size=table, **in_place)
+        ip, ix, d = _HASH_CORES[plan.algorithm](Ast, Bst, C0, r0s, r1s, table_size=table)
     else:
         ip, ix, d = _SPARSE_CORES[plan.algorithm](Ast, Bst, C0, r0s, r1s,
-                                                  row_cap=caps.c_max_row_nnz, **in_place)
+                                                  row_cap=caps.c_max_row_nnz)
     stats = planned_stats_pallas(plan, slab, a_stage,
                                  _c_strip_nbytes(strip_rows, c_pad, A.dtype))
     out = [CSR(ip[0, i], ix[0, i], d[0, i], (strip_rows, B.n_cols), c_pad)
            for i in range(plan.n_ac)]
-    C = _assemble(out, plan.p_ac, B.n_cols)
-    return (csr_pin(C) if pin[2] else C), stats
+    return _assemble(out, plan.p_ac, B.n_cols), stats
 
 
 def chunk_sparse(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps=None):
@@ -765,24 +746,131 @@ def _pallas_run_placed(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
 
 
 # ---------------------------------------------------------------------------
-# slow operands read in place: one launch a call, no ring
+# slow operands read in place: one launch a strip, no ring
 # ---------------------------------------------------------------------------
+#
+# The in-place executors build each slow operand's stacks in pinned host
+# memory, where the kernel on the card reads them through their mapped
+# addresses (the reference's ``memory_space=ANY`` operands), and launch the
+# backend's streaming kernel once per strip of the plan: a launch takes the
+# strip's A (of every instance, side by side), every B chunk and one strip's
+# empty C_prev, so its workspace on the card (the merge's per-row slabs,
+# tables and flags, the output block when C is fast) is one strip's, as the
+# reference's grid step holds one step's scratch. Each row meets its chunks
+# in the plan's order in one launch, so C equals the all-fast call's bit for
+# bit. A slow C's strips are written in place into pinned memory, launch by
+# launch, and assembled there.
+
+
+def _grid_stack(rows: list, pin: bool) -> CSR:
+    """Pieces of one geometry, ``rows`` of equal length, as one stack
+    ``[len(rows), len(rows[0]), ...]`` made by one copy of the pieces (a
+    stack of stacks would hold a third); in pinned host memory with
+    ``pin``."""
+    st = csr_stack([p for row in rows for p in row])
+    lead = (len(rows), len(rows[0]))
+    st = CSR(*(t.reshape(*lead, -1) for t in (st.indptr, st.indices, st.data)), st.shape,
+             st.max_row_nnz)
+    return csr_pin(st) if pin else st
+
+
+def _csr_accum_run_in_place(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope,
+                            kind: str, *, caps_list=None, validate_caps: bool = True,
+                            cores: dict | None = None, placement, device):
+    """The CSR accumulators (ESC and hash) with slow operands read in place,
+    one launch a strip for the whole batch (the batched entry's
+    ``run_batched_in_place``; the unbatched ``run_in_place`` is its width-1
+    call at the instance's own envelope). The envelope-padded A strips are
+    stacked strip-major and the B chunks as the kernel takes them, each slow
+    one in pinned memory; C_prev is one strip's empty block in C's space.
+    Every C equals the all-fast call's bit for bit, in pinned host memory
+    when C is slow; the ChunkStats are the same plan's."""
+    statics = _csr_accum_statics(As, Bs, plan, envelope, kind, caps_list, validate_caps)
+    pin = _pinned_for(placement, device)
+    c_pad, n_cols, dtype = envelope.c_pad, Bs[0].n_cols, As[0].dtype
+    strip_rows = envelope.strip_rows
+    strips = [a_strips(A, plan.p_ac, envelope=envelope) for A in As]
+    a_stage = strips[0][0].nbytes()
+    Ast = _grid_stack(list(zip(*strips)), pin[0])    # strip-major: [n_ac, width]
+    del strips
+    chunks = [b_chunks(B, plan.p_b, envelope=envelope) for B in Bs]
+    slab = chunks[0][0].nbytes()
+    Bst = _grid_stack(chunks, pin[1])                 # as the kernel takes them
+    del chunks
+    C0 = _sparse_c0_stack(len(As), 1, strip_rows, n_cols, c_pad, dtype,
+                          "cpu" if pin[2] else device)
+    if pin[2]:
+        C0 = csr_pin(C0)
+    if cores is None:
+        cores = _HASH_CORES_BATCHED if kind == "hash" else _SPARSE_CORES_BATCHED
+    core = cores[plan.algorithm]
+    r0s, r1s = plan.b_ranges()
+    out = []
+    for i in range(plan.n_ac):
+        ip, ix, d = core(_col(copy_ring.piece(Ast, i)), Bst, C0, r0s, r1s, device=device,
+                         **statics)
+        out.append(CSR(ip[:, 0], ix[:, 0], d[:, 0], (strip_rows, n_cols), c_pad))
+    stats = planned_stats_pallas(plan, slab, a_stage,
+                                 _c_strip_nbytes(strip_rows, c_pad, dtype))
+    return _unbatch(out, plan.p_ac, n_cols, pin[2]), stats
+
+
+def _sparse_run_in_place(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps, placement,
+                         device: torch.device, *, backend: str):
+    """The ESC and hash backends' ``run_in_place``: :func:`_csr_accum_run_in_place`
+    on the one instance at its own envelope, through the module's
+    unbatched cores."""
+    if caps is None:
+        caps = strip_output_caps(A, B, plan.p_ac)
+    env = instance_envelope(A, B, plan, c_pad=c_pad, caps=caps)
+    cores = _HASH_CORES if backend == "hash" else _SPARSE_CORES
+    Cs, stats = _csr_accum_run_in_place([A], [B], plan, env, backend, caps_list=[caps],
+                                        cores=cores, placement=placement, device=device)
+    return Cs[0], stats
+
+
+def _pallas_run_batched_in_place(As, Bs, plan: ChunkPlan, envelope: GeometryEnvelope, *,
+                                 caps_list=None, validate_caps: bool = True,
+                                 cores: dict | None = None, placement, device):
+    """The dense slab with slow operands read in place, one
+    ``ranged_spgemm_stream`` launch a strip for the whole batch: the dense
+    A strips (with their ``span`` zero columns) strip-major, the B slabs as
+    the kernel takes them and one strip's C block, each slow one in pinned
+    memory. The kernel writes C as base plus partial, chunk by chunk, so
+    every C equals the all-fast call's bit for bit; a slow C is written in
+    place and sparsified in pinned memory, where it stays."""
+    del caps_list, validate_caps, cores   # dense accumulators cannot overflow
+    pin = _pinned_for(placement, device)
+    width, n_cols = len(As), Bs[0].n_cols
+    order = "chunk2" if plan.algorithm == "chunk2" else "chunk1"
+    strip_rows = envelope.strip_rows
+    strips = zip(*(a_strips(A, plan.p_ac, envelope=envelope) for A in As))
+    a = _dense_stack(_grid_stack(list(strips), False), levels=2,
+                     pad_cols=envelope.chunk_rows, pin_memory=pin[0])
+    slabs = _dense_stack(_grid_stack([b_chunks(B, plan.p_b, envelope=envelope) for B in Bs],
+                                     False), levels=2, pin_memory=pin[1])
+    c0 = torch.zeros(width, 1, strip_rows, n_cols, dtype=torch.float32,
+                     device="cpu" if pin[2] else device, pin_memory=pin[2])
+    r0s, _ = plan.b_ranges()
+    out = [ranged_spgemm_stream(a[i][:, None], slabs, c0, r0s, order=order,
+                                device=device)[:, 0] for i in range(plan.n_ac)]
+    del a, slabs
+    Cs = []
+    for w in range(width):
+        C = _pallas_assemble([o[w] for o in out], plan.p_ac)
+        Cs.append(csr_pin(C) if pin[2] else C)
+    return Cs, planned_stats_pallas(plan, *_pallas_stage_nbytes(
+        strip_rows, envelope.a_shape[1], envelope.chunk_rows, n_cols))
 
 
 def _pallas_run_in_place(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int, caps,
                          placement, device: torch.device):
-    """The dense slab's ``run_in_place``: the all-fast executor's dense
-    strips (with their ``span`` zero columns), slabs and C block, each slow
-    one built in pinned host memory, and one ``ranged_spgemm_stream`` launch
-    on ``device`` that reads them (and writes a slow C) in place. C equals
-    the all-fast call's bit for bit; a slow C is sparsified in pinned memory
-    and stays there."""
-    del c_pad, caps   # capacity is implicit in the dense accumulator
-    pin = _pinned_for(placement, device)
-    strips = plan.algorithm != "knl"
-    out, stats = _pallas_run(A, B, plan, strips, pin=pin, device=device)
-    C = _pallas_assemble(out, plan.p_ac) if strips else csr_from_dense(out, device=out.device)
-    return (csr_pin(C) if pin[2] else C), stats
+    """The dense slab's ``run_in_place``: :func:`_pallas_run_batched_in_place`
+    on the one instance at its own envelope."""
+    env = instance_envelope(A, B, plan, c_pad=c_pad, caps=caps)
+    Cs, stats = _pallas_run_batched_in_place([A], [B], plan, env, placement=placement,
+                                             device=device)
+    return Cs[0], stats
 
 
 # ---------------------------------------------------------------------------
@@ -856,13 +944,11 @@ def chunk_hash_masked(A: CSR, B: CSR, mask: CSR, plan: ChunkPlan,
     return _masked_launch(operands, table, plan, B.n_cols, c_pad), stats
 
 
-def _masked_launch(operands, table: int, plan: ChunkPlan, n_cols: int, c_pad: int,
-                   device=None) -> CSR:
+def _masked_launch(operands, table: int, plan: ChunkPlan, n_cols: int, c_pad: int) -> CSR:
     """One masked launch over the staged ``operands``, its strips assembled
-    into C (in C_prev's space)."""
+    into C."""
     ip, ix, d = hash_masked_accum_spgemm_stream(
-        *operands, order=_CSR_ACCUM_ORDERS[plan.algorithm], table_size=table,
-        device=device)
+        *operands, order=_CSR_ACCUM_ORDERS[plan.algorithm], table_size=table)
     strip_rows = operands[0].n_rows
     out = [CSR(ip[0, i], ix[0, i], d[0, i], (strip_rows, n_cols), c_pad)
            for i in range(plan.n_ac)]
@@ -873,14 +959,28 @@ def _masked_run_in_place(A: CSR, B: CSR, mask: CSR, plan: ChunkPlan, c_pad: int,
                          caps, placement, device: torch.device):
     """:func:`chunk_hash_masked` with slow operands read in place: the hash
     backend's ``run_masked_in_place``. Each slow role's stack (``placement.C``
-    puts C_prev and the mask) is built in pinned host memory, and one launch
-    of the masked kernel on ``device`` reads them where they lie and writes a
-    slow C there; the work list is cut on the host when an operand is there.
-    ChunkStats are :func:`stage_hash_masked`'s."""
+    puts C_prev and the mask) is built in pinned host memory, and the masked
+    kernel on ``device`` launches once a strip, reading the strip's A, mask
+    and C_prev and every B chunk where they lie and writing a slow C's strip
+    there; each launch's work list is cut from its strip (on the host when
+    an operand is there). ChunkStats are :func:`stage_hash_masked`'s."""
     pin = _pinned_for(placement, device)
-    operands, table, stats = stage_hash_masked(A, B, mask, plan, c_pad, caps, pin=pin,
-                                               device=device)
-    C = _masked_launch(operands, table, plan, B.n_cols, c_pad, device)
+    (Ast, Bst, C0, Mst, r0s, r1s), table, stats = stage_hash_masked(
+        A, B, mask, plan, c_pad, caps, pin=pin, device=device)
+    order = _CSR_ACCUM_ORDERS[plan.algorithm]
+    strip_rows, n_cols, c_cap = Ast.n_rows, B.n_cols, C0.indices.shape[-1]
+
+    def strip(st, i):   # strip i of a one-instance stack (contiguous views)
+        return CSR(st.indptr[:, i:i + 1], st.indices[:, i:i + 1], st.data[:, i:i + 1],
+                   st.shape, st.max_row_nnz)
+
+    out = []
+    for i in range(plan.n_ac):
+        ip, ix, d = hash_masked_accum_spgemm_stream(
+            strip(Ast, i), Bst, strip(C0, i), strip(Mst, i), r0s, r1s, order=order,
+            table_size=table, device=device)
+        out.append(CSR(ip[0, 0], ix[0, 0], d[0, 0], (strip_rows, n_cols), c_cap))
+    C = _assemble(out, plan.p_ac, n_cols)
     return (csr_pin(C) if pin[2] else C), stats
 
 
@@ -1708,7 +1808,8 @@ def _bsr_run_batched_placed(As, Bs, plan, envelope, *, caps_list=None, validate_
 def chunked_spgemm_batched(As, Bs, plan: ChunkPlan, c_pad: int | None = None,
                            envelope: GeometryEnvelope | None = None,
                            backend: str = "scan", validate_caps: bool = True,
-                           cores: dict | None = None, *, placement=None, device=None):
+                           cores: dict | None = None, *, placement=None, device=None,
+                           slow_reads: str = "ring"):
     """Run a backend's batched entry over problem instances sharing one plan.
 
     Instances must share shapes and dtype but may differ in sparsity
@@ -1737,6 +1838,11 @@ def chunked_spgemm_batched(As, Bs, plan: ChunkPlan, c_pad: int | None = None,
     envelope-padded stacks in slow memory and the copy ring moves one
     (strip, chunk) step's pieces of the whole batch at a time, one launch a
     step for every instance; a slow C comes back in pinned host memory.
+    ``slow_reads="in_place"`` (``chunked_spgemm``'s) reads the slow stacks
+    where they lie instead: the spec's ``run_batched_in_place`` launches its
+    streaming kernel once a strip of the plan for the whole batch (``pallas``,
+    ``sparse``, ``hash``, and ``auto`` resolving to one of them; another
+    backend raises).
 
     Returns ``(list_of_C, stats)``; ``stats`` is one instance's modeled copy
     accounting at the envelope-padded staged sizes (the same for every
@@ -1744,6 +1850,9 @@ def chunked_spgemm_batched(As, Bs, plan: ChunkPlan, c_pad: int | None = None,
     """
     from repro_torch.core.placement import ALL_FAST, resolve_batch_placement
 
+    if slow_reads not in SLOW_READS:
+        raise ValueError(f"slow_reads must be one of {SLOW_READS}, not {slow_reads!r}")
+    in_place = slow_reads == "in_place"
     As, Bs = list(As), list(Bs)
     if len(As) != len(Bs) or not As:
         raise ValueError("need equal, nonzero numbers of A and B instances")
@@ -1752,6 +1861,8 @@ def chunked_spgemm_batched(As, Bs, plan: ChunkPlan, c_pad: int | None = None,
     spec = None if backend == "auto" else backend_registry.get(backend)
     if spec is not None and not spec.supports_batched:
         raise ValueError(f"backend {backend!r} does not support batched execution")
+    if in_place and spec is not None and spec.run_batched_in_place is None:
+        raise in_place_refusal(f"backend {backend!r} has no such kernel")
     for A, B in zip(As, Bs):
         if A.shape != As[0].shape or B.shape != Bs[0].shape:
             raise ValueError(
@@ -1778,10 +1889,17 @@ def chunked_spgemm_batched(As, Bs, plan: ChunkPlan, c_pad: int | None = None,
             f"match instances {As[0].shape}x{Bs[0].shape}")
     if spec is None:
         spec = backend_registry.get(select_accumulator_backend(plan, envelope))
+        if in_place and spec.run_batched_in_place is None:
+            raise in_place_refusal(f"backend 'auto' resolves to {spec.name!r}, which "
+                                   "has no such kernel")
     if spec.needs_block_caps and not envelope.bsr_caps:
         raise ValueError(
             f"backend {spec.name!r} needs a block-capped envelope; rebuild it "
             "with batch_envelope(..., block_size=...)")
+    if in_place:
+        return spec.run_batched_in_place(As, Bs, plan, envelope, caps_list=caps_list,
+                                         validate_caps=validate_caps, cores=cores,
+                                         placement=placement, device=run_device)
     if placement == ALL_FAST:
         return spec.run_batched(As, Bs, plan, envelope, caps_list=caps_list,
                                 validate_caps=validate_caps, cores=cores)
@@ -2041,6 +2159,7 @@ def _register_all() -> None:
         run_placed=_pallas_run_placed,
         run_batched_placed=_pallas_run_batched_placed,
         run_in_place=_pallas_run_in_place,
+        run_batched_in_place=_pallas_run_batched_in_place,
     ))
     register(Spec(
         name="sparse",
@@ -2056,7 +2175,8 @@ def _register_all() -> None:
         make_batched_cores=_batched_core_factory("{alg}_sparse_batched", _SPARSE_RUNS),
         run_placed=partial(_sparse_run_placed, backend="sparse"),
         run_batched_placed=partial(_csr_accum_run_batched_placed, kind="sparse"),
-        run_in_place=partial(_sparse_run, backend="sparse"),
+        run_in_place=partial(_sparse_run_in_place, backend="sparse"),
+        run_batched_in_place=partial(_csr_accum_run_in_place, kind="sparse"),
     ))
     register(Spec(
         name="hash",
@@ -2075,7 +2195,8 @@ def _register_all() -> None:
         make_batched_cores=_batched_core_factory("{alg}_hash_batched", _HASH_RUNS),
         run_placed=partial(_sparse_run_placed, backend="hash"),
         run_batched_placed=partial(_csr_accum_run_batched_placed, kind="hash"),
-        run_in_place=partial(_sparse_run, backend="hash"),
+        run_in_place=partial(_sparse_run_in_place, backend="hash"),
+        run_batched_in_place=partial(_csr_accum_run_in_place, kind="hash"),
     ))
     register(Spec(
         name="bsr",

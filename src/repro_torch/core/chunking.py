@@ -505,10 +505,10 @@ def chunked_spgemm(A: CSR, B: CSR, plan: ChunkPlan, c_pad: int | None = None,
 
     ``slow_reads="in_place"`` reads slow operands where they lie instead, as
     the reference's ``memory_space=ANY`` operands are read: the backend's
-    streaming kernel launches once a call (its spec's ``run_in_place``) on
-    every slow operand's stacks in pinned host memory, fast operands and the
-    kernel's workspaces on the card, a slow C written in place; nothing
-    crosses the copy ring. Only ``pallas``, ``sparse`` and ``hash`` (and
+    streaming kernel launches once a strip of the plan (its spec's
+    ``run_in_place``) on every slow operand's stacks in pinned host memory,
+    fast operands and one strip's kernel workspace on the card, a slow C
+    written in place; nothing crosses the copy ring. Only ``pallas``, ``sparse`` and ``hash`` (and
     ``auto`` resolving to one of them) take it; another backend, or a
     ``whole_fast`` plan, raises a ``ValueError``.
     """

@@ -18,10 +18,11 @@ two-hop planner+executor:
   re-expands the symbolic structure. It runs on the card by default and
   takes A, P and R where they lie (a :class:`PipelinePlacement`): a slow
   operand, in pinned host memory, streams through its hop's copy ring
-  (``repro_torch.core.copy_ring``), and C goes to R's space. On the spill
-  path T is slow (pinned host memory on the card, a host copy on the CPU)
-  and stays there: hop 2 streams it as its B operand through the ring,
-  under every registered backend;
+  (``repro_torch.core.copy_ring``), or with ``slow_reads="in_place"`` is
+  read where it lies by its hop's streaming kernel, and C goes to R's
+  space. On the spill path T is slow (pinned host memory on the card, a
+  host copy on the CPU) and stays there: hop 2 streams it as its B operand
+  through the ring, under every registered backend, or reads it in place;
 * the composed byte model (:func:`pipeline_fast_model`) counts the resident
   intermediate exactly once (:func:`check_pipeline_model`);
 * the static-audit hooks (:func:`pipeline_audit_traces`,
@@ -36,7 +37,9 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core import backend_registry
-from repro_torch.core.chunking import ChunkStats, instance_envelope, whole_fast
+from repro_torch.core.chunking import (
+    SLOW_READS, ChunkStats, in_place_refusal, instance_envelope, whole_fast,
+)
 from repro_torch.core.placement import (
     ALL_FAST, PipelinePlacement, resolve_pipeline_placement,
 )
@@ -87,24 +90,37 @@ class PipelineStats:
         return self.hop1.copy_bytes + self.hop2.copy_bytes + self.spill_bytes
 
 
-def _run_hop(X: CSR, Y: CSR, plan, caps, backend: str, placement, device):
+def _run_hop(X: CSR, Y: CSR, plan, caps, backend: str, placement, device,
+             slow_reads: str = "ring"):
     """One hop through a registered backend (or ``auto``, resolved on the
     hop's envelope) at pre-sized caps, on ``device``. A whole_fast hop's
     output carries the exact densest-row bound (the reference's carries
     ``c_pad``), which hop 2 reads as its streamed ``b_max_row_nnz``.
     Operands that ``placement`` puts in slow memory cross whole in a
     whole_fast hop and through the backend's copy ring (``run_placed``) in
-    a chunked one, where a slow output goes to slow memory."""
+    a chunked one, where a slow output goes to slow memory; with
+    ``slow_reads="in_place"`` the backend's kernel reads them where they lie
+    (``run_in_place``) and writes a slow output there, and a whole_fast hop
+    or a backend without such a kernel raises."""
+    in_place = slow_reads == "in_place"
     if plan.algorithm == "whole_fast":
+        if in_place:
+            raise in_place_refusal("a whole_fast hop copies its operands whole")
         return whole_fast(X, Y, caps.c_pad, placement, device, caps.c_max_row_nnz)
+    resolved = backend
     if backend == "auto":
-        backend = select_accumulator_backend(plan, instance_envelope(X, Y, plan, caps=caps))
-    spec = backend_registry.get(backend)
+        resolved = select_accumulator_backend(plan, instance_envelope(X, Y, plan, caps=caps))
+    spec = backend_registry.get(resolved)
+    if in_place and not spec.supports_in_place:
+        what = (f"backend 'auto' resolves to {resolved!r}, which has" if backend == "auto"
+                else f"backend {backend!r} has")
+        raise in_place_refusal(f"{what} no such kernel")
     fn = spec.executors.get(plan.algorithm)
     if fn is None:
         raise ValueError(f"unknown algorithm {plan.algorithm!r}")
     if placement != ALL_FAST:
-        return spec.run_placed(X, Y, plan, caps.c_pad, caps, placement, device)
+        run = spec.run_in_place if in_place else spec.run_placed
+        return run(X, Y, plan, caps.c_pad, caps, placement, device)
     kwargs = {"caps": caps} if spec.needs_output_caps else {}
     return fn(X, Y, plan, caps.c_pad, **kwargs)
 
@@ -121,7 +137,8 @@ def _spill_to_slow(T: CSR) -> CSR:
 def pipeline_spgemm(A: CSR, P: CSR, R: CSR, plan: PipelinePlan | None = None,
                     *, system=None, fast_limit_bytes: float | None = None,
                     backend: str = "sparse", caps: PipelineCaps | None = None,
-                    placement: PipelinePlacement | None = None, device=None):
+                    placement: PipelinePlacement | None = None, device=None,
+                    slow_reads: str = "ring"):
     """Execute ``C = R x (A x P)`` as a fused two-hop pipeline.
 
     Returns ``(C, PipelineStats)``. ``plan`` defaults to
@@ -144,7 +161,20 @@ def pipeline_spgemm(A: CSR, P: CSR, R: CSR, plan: PipelinePlan | None = None,
     and P fast, hop 1 writes T on the run device and a spilled T is copied
     to slow memory after it (the all-fast pipeline's path). The stats
     carry each hop's events; ``spill_bytes`` counts T's extra round trip.
+
+    ``slow_reads="in_place"`` (``chunked_spgemm``'s) reads a hop's slow
+    operands where they lie instead of through the ring: the hop's
+    streaming kernel (``run_in_place``) launches once a strip, a spilled T
+    is written in place into pinned memory by hop 1 and read there by hop
+    2. A backend without an in-place kernel, ``auto`` resolving to one on a
+    hop, and a whole_fast hop raise. The stats stay the plan's modelled
+    events.
     """
+    if slow_reads not in SLOW_READS:
+        raise ValueError(f"slow_reads must be one of {SLOW_READS}, not {slow_reads!r}")
+    if slow_reads == "in_place" and backend != "auto" and not backend_registry.get(
+            backend).supports_in_place:
+        raise in_place_refusal(f"backend {backend!r} has no such kernel")
     where, run = resolve_pipeline_placement({"A": A, "P": P, "R": R}, placement, device)
     if plan is None:
         if system is None:
@@ -157,16 +187,18 @@ def pipeline_spgemm(A: CSR, P: CSR, R: CSR, plan: PipelinePlan | None = None,
     spilled = not plan.t_resident
     t_space = "slow" if spilled else "fast"
     if where.hop1("fast") == ALL_FAST:
-        T, stats1 = _run_hop(A, P, plan.plan1, caps.hop1, backend, ALL_FAST, run)
+        T, stats1 = _run_hop(A, P, plan.plan1, caps.hop1, backend, ALL_FAST, run, slow_reads)
         if spilled:
             T = _spill_to_slow(T)
     else:
-        T, stats1 = _run_hop(A, P, plan.plan1, caps.hop1, backend, where.hop1(t_space), run)
+        T, stats1 = _run_hop(A, P, plan.plan1, caps.hop1, backend, where.hop1(t_space), run,
+                             slow_reads)
     spill_bytes = 0.0
     if spilled:
         t_reads = plan.plan2.n_ac if plan.plan2.algorithm == "chunk1" else 1
         spill_bytes = float(T.nbytes()) * (1 + t_reads)
-    C, stats2 = _run_hop(R, T, plan.plan2, caps.hop2, backend, where.hop2(t_space), run)
+    C, stats2 = _run_hop(R, T, plan.plan2, caps.hop2, backend, where.hop2(t_space), run,
+                         slow_reads)
     return C, PipelineStats(plan=plan, hop1=stats1, hop2=stats2,
                             spilled=spilled, spill_bytes=spill_bytes)
 

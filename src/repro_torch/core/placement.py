@@ -12,17 +12,19 @@ on the card, a ``"slow"`` one in pinned host memory. Every entry point
 ``chunked_spgemm_batched``, ``SpGEMMService``) with a slow operand by
 default stages every piece its ``ChunkStats`` counts across the link
 through the two-slot copy ring (``repro_torch.core.copy_ring``: the paper's
-chunking, ``copy2Fast``). ``chunked_spgemm`` and ``count_triangles`` also
-take ``slow_reads="in_place"``: the streaming kernels (``pallas``,
-``sparse``, ``hash`` and the masked hash kernel) then read a slow operand
-where it lies, through the address the card maps pinned memory at, as the
-reference's ``memory_space=ANY`` operands in ``pinned_host`` memory are read
-(the paper's data placement, Table 3). :func:`resolve_placement` decides a
-call's placement and run device, :func:`resolve_batch_placement` a batch's
-(one for all its instances) and :func:`resolve_pipeline_placement` a
-two-hop pipeline's (:class:`PipelinePlacement`). :func:`card_bytes` models
-the card memory a call holds under either route; the cost model below
-prices a placement without running it.
+chunking, ``copy2Fast``). Every entry point also takes
+``slow_reads="in_place"``: the streaming kernels (``pallas``, ``sparse``,
+``hash`` and the masked hash kernel) then read a slow operand where it
+lies, through the address the card maps pinned memory at, one launch a
+strip of the plan, as the reference's ``memory_space=ANY`` operands in
+``pinned_host`` memory are read (the paper's data placement, Table 3).
+:func:`resolve_placement` decides a call's placement and run device,
+:func:`resolve_batch_placement` a batch's (one for all its instances) and
+:func:`resolve_pipeline_placement` a two-hop pipeline's
+(:class:`PipelinePlacement`). :func:`card_bytes` models the card memory a
+call holds under either route (:func:`strip_workspace` one in-place
+launch's workspace); the cost model below prices a placement without
+running it.
 """
 
 from __future__ import annotations
@@ -89,7 +91,8 @@ def card_bytes(plan, placement: Placement, *, a_stage: int, slab: int, c_stage: 
     ``a_stage``, ``slab`` and ``c_stage`` are the staged piece bytes of
     ``chunk_stream.planned_events`` (an A strip, a B chunk, a strip's C),
     ``c_bytes`` those of the assembled C, ``workspace`` one launch's (the
-    kernel's slabs, tables and outputs on the card). A fast operand's parts
+    kernel's slabs, tables and outputs on the card): in place, where the
+    kernel launches once a strip, one strip's (:func:`strip_workspace`). A fast operand's parts
     are upper bounds: its stack counted twice, as it is built from its
     pieces (or the live peak of building it, where ``fast_parts`` gives one:
     operand -> bytes).
@@ -119,6 +122,21 @@ def card_bytes(plan, placement: Placement, *, a_stage: int, slab: int, c_stage: 
     parts["workspace"] = workspace
     parts["total"] = sum(parts.values())
     return parts
+
+
+def strip_workspace(backend: str, *, strip_rows: int, n_b: int, row_cap: int = 0,
+                    width: int = 1) -> int:
+    """The card bytes one in-place launch allocates beside its operands and
+    output: one strip of the plan, of ``width`` instances. A CSR
+    accumulator (``sparse``, ``hash``) holds a row's slab of ``row_cap``
+    columns and values and its count (``8 * row_cap + 4`` bytes a row; the
+    hash kernel's ``row_cap`` is its table), the overflow flag and the
+    chunk ranges; the ESC merge's counted classes add their work list and
+    global workspace (its ``EscLaunch``), which the caller adds. The dense
+    slab holds its chunk starts."""
+    if backend == "pallas":
+        return 4 * n_b
+    return width * strip_rows * (8 * row_cap + 4) + 4 + 8 * n_b
 
 
 def dp_recommendation(system: MemorySystem, bytes_A: float, bytes_B: float,

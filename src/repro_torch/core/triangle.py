@@ -11,8 +11,8 @@ Two paths:
   hash accumulator by default), with the L-mask applied **inside** the
   kernel's merge, so no unmasked C is materialized. L may be slow (pinned
   host memory on the card): its roles then stream through the copy ring
-  (``run_masked_placed``), or with ``slow_reads="in_place"`` the one launch
-  reads them where they lie (``run_masked_in_place``).
+  (``run_masked_placed``), or with ``slow_reads="in_place"`` the kernel
+  reads them where they lie, one launch a strip (``run_masked_in_place``).
 * :func:`count_triangles_kkmem` — the unfused baseline: the full C = L x L
   materialized at its symbolic capacity, then masked by matching C's and
   L's (row, col) keys.
@@ -82,8 +82,8 @@ def count_triangles(L: CSR, plan: ChunkPlan | None = None,
     DP: L as B in fast memory).
 
     ``slow_reads="in_place"`` (``chunked_spgemm``'s) instead launches the
-    masked kernel once, reading every slow role from pinned host memory where
-    it lies (``run_masked_in_place``), a slow C written there and summed on
+    masked kernel once a strip, reading every slow role from pinned host
+    memory where it lies (``run_masked_in_place``), a slow C written there and summed on
     the host; the fast roles share one copy of L on the run device, made
     with ``place(L, "fast")`` and not through the ring. A backend without an
     in-place masked kernel raises."""

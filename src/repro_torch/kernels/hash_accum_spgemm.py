@@ -53,6 +53,29 @@ IN_PLACE = LaunchCounter()
 MASKED_IN_PLACE = LaunchCounter()
 _EMPTY = -1           # table key sentinel (column ids are >= 0)
 _KNUTH = 2654435769   # Knuth's multiplicative hash constant (2^32 / phi)
+_TABLES = None        # the active TableLog, if any
+
+
+class TableLog:
+    """Context manager that records the table size every call of
+    :func:`hash_accum_spgemm_stream` is given while it is active
+    (``tables``, in call order; the plain version's calls and the kernel's
+    alike): what bounds each launch's probe loops, read by the auditor's
+    probe-bound pass (``analysis.dma.check_while_bounds``)."""
+
+    def __init__(self):
+        self.tables: list = []
+
+    def __enter__(self):
+        global _TABLES
+        if _TABLES is not None:
+            raise RuntimeError("table sizes are already being recorded")
+        _TABLES = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _TABLES
+        _TABLES = None
 
 
 def probe_step_bound(table_size: int) -> int:
@@ -197,6 +220,8 @@ def hash_accum_spgemm_stream(Ast: CSR, Bst: CSR, C0st: CSR, r0s, r1s, *,
     card, reading an operand in pinned host memory in place.
     """
     T = _check_table(table_size)
+    if _TABLES is not None:
+        _TABLES.tables.append(T)
     dev = kernel_device("hash_accum_spgemm_stream", device, Ast, Bst, C0st)
     if dev is None:
         return hash_accum_plain(Ast, Bst, C0st, r0s, r1s, order=order,

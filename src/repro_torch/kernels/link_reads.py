@@ -25,6 +25,13 @@ kernels' own loops, reckoned on the host from the operands (no kernel runs):
   for each 128-row tile of a strip, and C read (C_prev, then the last
   chunk's output) and written once a chunk.
 
+The in-place executors launch once a strip of the plan, so a call's reads
+are the sum of its strip launches'. Every term above is a sum over rows,
+entries or strips (A's indptr pairs a row, read once a strip launch or
+once a chunk of it in Chunk2; B's rows an in-range A entry; C a strip), so
+the strip launches read what one launch over the whole stack would: no
+term changes, and the functions below may be given either.
+
 Each is a model: the card may cache a read it repeats, and a read moves at
 least a 32-byte sector. It is printed beside a measured time, never held as
 a measurement.

@@ -48,7 +48,10 @@ package's service; it runs on the card unless it is built with
     card service): the bucket key carries the request's placement, so a
     flush never mixes spaces, and a bucket with slow operands flushes
     through ``chunked_spgemm_batched``'s copy ring, its sentinel instances
-    in the same spaces.
+    in the same spaces, or, on a service built with
+    ``slow_reads="in_place"``, through its streaming kernel reading the slow
+    stacks where they lie (one launch a strip for the whole microbatch;
+    the argument is service-wide, so the bucket key does not change).
 
 Every timed span ends in a synchronisation of the service's device, so
 ``exec_s``, ``compile_s`` and ``latency_s`` end when the card has finished,
@@ -68,7 +71,9 @@ import torch
 
 from repro_torch.core import backend_registry
 from repro_torch.core.chunk_stream import TRACE_COUNTS, chunked_spgemm_batched
-from repro_torch.core.chunking import ChunkStats, instance_envelope
+from repro_torch.core.chunking import (
+    SLOW_READS, ChunkStats, in_place_refusal, instance_envelope,
+)
 from repro_torch.core.placement import ALL_FAST, Placement, place, resolve_placement
 from repro_torch.core.planner import (
     ChunkPlan, plan_knl, replan_for_latency, select_accumulator_backend,
@@ -208,6 +213,11 @@ class SpGEMMService:
     explicitly under ``"auto"`` to let buckets resolve to a block backend).
     ``device`` is where every flush runs: ``None`` is the card, and a CPU
     service (the kernels' plain versions) is asked for with ``"cpu"``.
+    ``slow_reads`` is ``chunked_spgemm_batched``'s, for every flush:
+    ``"ring"`` streams a bucket's slow operands through the copy ring,
+    ``"in_place"`` has the streaming kernel read them where they lie (a
+    backend without one raises here, ``auto`` at the flush that resolves to
+    one).
 
     Serving knobs (all optional; defaults preserve the synchronous
     queue+flush behavior):
@@ -250,7 +260,7 @@ class SpGEMMService:
                  donate_buffers: bool = True,
                  learn_tail_widths: bool = False,
                  tail_learn_threshold: int = 3,
-                 adapt_quantum: bool = False, device=None):
+                 adapt_quantum: bool = False, device=None, slow_reads: str = "ring"):
         if plan is None and fast_limit_bytes is None:
             raise ValueError("need a fixed plan or fast_limit_bytes to plan by")
         if max_batch < 1 or quantum < 1 or retrace_budget < 1:
@@ -265,6 +275,10 @@ class SpGEMMService:
         if spec is not None and not spec.supports_batched:
             raise ValueError(
                 f"backend {backend!r} does not support batched execution")
+        if slow_reads not in SLOW_READS:
+            raise ValueError(f"slow_reads must be one of {SLOW_READS}, not {slow_reads!r}")
+        if slow_reads == "in_place" and spec is not None and spec.run_batched_in_place is None:
+            raise in_place_refusal(f"backend {backend!r} has no such kernel")
         if block_size is None and spec is not None and spec.needs_block_caps:
             block_size = spec.block_size
         self.device = resolve_device(device)
@@ -276,6 +290,7 @@ class SpGEMMService:
         self.max_batch = max_batch
         self.retrace_budget = retrace_budget
         self.backend = backend
+        self.slow_reads = slow_reads
         self.block_size = block_size
         self.slo_s = slo_s
         self.max_pending = max_pending
@@ -568,7 +583,7 @@ class SpGEMMService:
         Cs, stats = chunked_spgemm_batched(
             As, Bs, bucket.plan, envelope=bucket.envelope,
             backend=bucket.backend, validate_caps=False, cores=bucket.cores,
-            placement=bucket.placement, device=self.device,
+            placement=bucket.placement, device=self.device, slow_reads=self.slow_reads,
         )
         # the card has finished when the timed span ends, not only issued
         if self.device.type == "cuda":

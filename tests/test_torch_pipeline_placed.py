@@ -91,9 +91,9 @@ def _hop_logs(monkeypatch):
     RingLog), ...]`` in hop order."""
     hops, real = [], pipeline_spgemm._run_hop
 
-    def spy(X, Y, plan, caps, backend, placement, device):
+    def spy(X, Y, plan, caps, backend, placement, device, *slow_reads):
         with copy_ring.RingLog() as log:
-            out = real(X, Y, plan, caps, backend, placement, device)
+            out = real(X, Y, plan, caps, backend, placement, device, *slow_reads)
         hops.append((X, Y, plan, caps, placement, log))
         return out
 

@@ -97,7 +97,8 @@ def test_audit_clean_on_fast_corpus():
     assert rep["ok"], rep["violations"]
     assert set(rep) >= {"ok", "violations", "analyses", "skipped", "records"}
     assert rep["cases"] == list(corpus.FAST_CASES)
-    assert rep["analyses"] == ["smem", "traffic", "retrace", "preflight", "dma", "interleave"]
+    assert rep["analyses"] == ["smem", "traffic", "retrace", "preflight", "dma", "while",
+                               "interleave"]
     checked = {r["backend"] for r in rep["records"] if r["dominated"] is True}
     assert set(TRAFFIC_BACKENDS) <= checked
     assert [s["backend"] for s in rep["skipped"]] == ["loop"]
