@@ -106,7 +106,7 @@ hash HostPin call on brick3d n=16 again read in place, one launch a strip);
 and ``SpGEMMService`` serving 96 requests of three
 families in a cold and a warm wave (every response held to scipy, the warm
 wave compiling nothing, the buckets within the retrace budget), beside a
-naive ``chunked_spgemm`` loop over the first 32 of them, then the same with every operand in pinned
+naive ``chunked_spgemm`` loop over the first 16 of them, then the same with every operand in pinned
 host memory (each response equal bit for bit to the all-fast service's),
 through the ring and read in place (``slow_reads="in_place"``, no ring op),
 then 24 requests over 8 distinct RMAT graphs.
@@ -150,6 +150,21 @@ kernel's trace is complete when each of its kernels holds its own count
 of launches, a library call's when it holds the call's full count of
 device activities (the most any of its traces held); only complete traces
 are timed, and the library's kept traces are recorded beside its time.
+Then the fifth path, training, which runs no hand-written kernel (the
+reference's training forward reaches no Pallas kernel): each of the four LM
+kernel wrappers must refuse an input that requires grad under grad mode;
+one ``make_train_step`` step of the llama and OLMoE SMOKE configs (f32,
+two microbatches; llama again with int8 compression) on the card against
+the CPU from the same weights and batch, gradients before the update and
+the step's moments and parameters held at stated tolerances; resume of
+the training example's config bit for bit (4 steps straight against 2, a
+checkpoint, a fresh model and optimizer state, 2 more, under deterministic
+algorithms); then ``train_loop`` of Llama-3.2-1B at full width and depth
+(f32 masters, bf16 compute, full remat, 8 x 1,024 synthetic tokens, 8
+steps) and of OLMoE-1B-7B at full width cut to 2 layers (3 steps), each
+step's loss, grad norm, lr and ms printed with tokens/s, the model-FLOP
+share and the peak allocation, every loss finite, the last below the
+first by a stated margin, and no kernel launched.
 Every line of output is one JSON object; the last one is
 ``{"ok": true, "device": ...}``. Any failed check raises, so the exit code
 is not 0. Without a CUDA card, or without the package beside this file, it
@@ -183,6 +198,13 @@ PEAK = {"part": "H100 SXM", "smi_name": "H100 80GB HBM3",
 # in atomic order) than the plain version's
 KERNEL_ATOL, KERNEL_RTOL = 1e-4, 1e-5
 SCIPY_RTOL = 1e-4
+# timed calls of the SpGEMM kernels' plain versions (65-740 ms a call) after
+# a warm-up call: one (three to five before the training phases' cuts)
+PLAIN_REPS = 1
+# timed calls (CUDA events, launch timers, profiler traces) whose median a
+# kernel's ms is, after a warm-up call: three (five before the training
+# phases' cuts)
+TIMED_REPS = 3
 
 ORDERS = ("chunk1", "chunk2")
 EDGE_SEED = 108
@@ -340,8 +362,9 @@ IN_PLACE_DENSE_N, IN_PLACE_DENSE = 16, ("HostPin", "DP")
 # slow_reads="in_place"
 GALERKIN_IN_PLACE = ("hash", "HostPin", "spill")
 BATCHED_IN_PLACE = ("brick3d16", "hash")
-# the in-place service serves the first 33 of the placed service's requests
-# (11 a family): the 96 took 14.8 s of the script
+# the placed services (through the ring and in place) serve the first 33 of
+# the all-fast service's 96 requests (11 a family): the 96 took 14.8 s in
+# place and 17.8 s through the ring
 IN_PLACE_SERVICE_PER_FAMILY = 11
 # the dense slab's load path read in place: its 16-byte cp.async of B from a
 # mapped host address (the staging at n=16 is 16-byte aligned)
@@ -391,6 +414,47 @@ CHURN_PER_FAMILY = 8
 HASH_PLAIN_MAX = 1 << 28   # product entries the hash plain version may table at once
 SERVICE_RMAT_SEEDS, CHURN_RMAT_SEEDS = range(200, 204), range(200, 208)
 
+# the fifth path, training: the reference's training forward reaches no
+# pl.pallas_call, so the port's runs no hand-written kernel (its wrappers
+# refuse autograd). Llama-3.2-1B at full width and depth, f32 masters, bf16
+# compute, remat "full"; SyntheticLM batches of 8 x 1,024 from seed 0,
+# weights from LM_WEIGHT_SEED, TrainConfig(3e-4, warmup 1, total = steps);
+# OLMoE-1B-7B at full width, cut to 2 of its 16 layers so that it fits the
+# time. (label, arch, layers or None for all, steps)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_DATA_SEED, TRAIN_LR = 8, 1024, 0, 3e-4
+TRAIN_RUNS = (("train_llama3_2_1b", LM_ARCH, None, 8),
+              ("train_olmoe_1b_7b_l2", MOE_ARCH, 2, 3))
+# the gate, stated before the first run: the last step's loss below the
+# first step's by this much (nats)
+TRAIN_LOSS_DROP = {"train_llama3_2_1b": 0.5, "train_olmoe_1b_7b_l2": 0.1}
+TRAIN_TIMED_FROM = 2   # steps timed for the median: the first two carry warm-up
+TRAIN_TRACED = "train_llama3_2_1b"   # its last step runs under the profiler (not timed)
+# card against CPU: one make_train_step step of the llama and OLMoE SMOKE
+# configs in f32 (microbatches 2; llama once more with int8) from the same
+# weights and batch. Every gradient before the update within
+# TRAIN_GRAD_ATOL (the CPU tests' tolerance of each parameter's gradient
+# against the reference: f32 sums in another order), the loss within
+# TRAIN_LOSS_ATOL, grad_norm within rtol TRAIN_NORM_RTOL, mu and nu within
+# TRAIN_MU_ATOL and TRAIN_NU_ATOL. Parameters: at step 1 AdamW moves one by
+# lr * g / (|g| + eps), eps 1e-8, so a gradient within ~1e-6 of zero can
+# swing it by up to 2 lr on a difference of summation order: every
+# parameter within 2 lr + TRAIN_PARAM_ATOL of the CPU's, and every one
+# further than TRAIN_PARAM_ATOL has a CPU gradient within TRAIN_HAZARD_GRAD
+# of zero. Under int8 a gradient can cross a rounding boundary of its code
+# (one quantum), wherever it lies: there the parameters, mu, nu and the
+# residual are held at TRAIN_SHARE of all their entries.
+TRAIN_CMP_BATCH, TRAIN_CMP_SEQ, TRAIN_CMP_LR = 4, 64, 1e-3
+TRAIN_CMP_RUNS = (("llama3_2_1b", "none"), ("olmoe_1b_7b", "none"), ("llama3_2_1b", "int8"))
+TRAIN_GRAD_ATOL, TRAIN_LOSS_ATOL, TRAIN_NORM_RTOL = 1e-5, 1e-5, 1e-5
+TRAIN_MU_ATOL, TRAIN_NU_ATOL, TRAIN_PARAM_ATOL, TRAIN_SHARE = 1e-6, 1e-8, 1e-6, 0.99
+TRAIN_HAZARD_GRAD = 1e-5
+# resume: the example's config (examples/torch_train_lm.py: d 512, 8
+# layers, vocab 32,768), seq 256, batch 8, microbatches 2; 4 steps straight
+# against 2, a checkpoint, a fresh model and state, 2 more, under
+# torch.use_deterministic_algorithms(True): losses and the step-4
+# checkpoints equal bit for bit
+TRAIN_RESUME_STEPS, TRAIN_RESUME_SPLIT = 4, 2
+
 
 _STARTED = time.perf_counter()
 
@@ -409,7 +473,7 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
+def cuda_ms(torch, fn, reps: int = TIMED_REPS, warmup: int = 1) -> float:
     """Median milliseconds of ``fn`` by CUDA events, after ``warmup`` calls:
     the whole call, host work between its launches included."""
     for _ in range(warmup):
@@ -470,6 +534,27 @@ def device_by_name(prof) -> dict:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     return by_name
+
+
+def train_trace(by_name: dict, wall_ms: float, top: int = 12) -> dict:
+    """A traced training step's device time: busy ms and share of the
+    step's wall, ms by kernel class (cuBLAS and CUTLASS products, named
+    ``nvjet``, ``gemm``, ``xmma`` or ``cutlass``; PyTorch's elementwise,
+    reduction, softmax and indexing kernels; copies and fills; the rest),
+    the ``top`` kernels."""
+    kinds = (("gemm", ("nvjet", "gemm", "xmma", "cutlass")), ("elementwise", ("elementwise",)),
+             ("reduce", ("reduce",)), ("softmax", ("softmax",)),
+             ("index", ("index", "scatter", "gather")), ("copy_fill", ("memcpy", "memset")))
+    classes = collections.Counter()
+    for name, (ms, _) in by_name.items():
+        low = name.lower()
+        classes[next((k for k, keys in kinds if any(w in low for w in keys)), "other")] += ms
+    busy = sum(classes.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"step_wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms if wall_ms else None,
+            "by_class_ms": dict(classes),
+            "top": [{"name": n[:120], "ms": ms, "count": c} for n, (ms, c) in ranked]}
 
 
 def traced_call(torch, fn, want: dict | None = None, top: int = 8) -> dict:
@@ -550,7 +635,7 @@ def library_fields(library, bound_ms: float) -> dict:
             "library_lost": lost or None, "library_error": error}
 
 
-def device_ms(torch, fn, reps: int = 5) -> tuple:
+def device_ms(torch, fn, reps: int = TIMED_REPS) -> tuple:
     """Median device milliseconds of one call of a PyTorch function, one
     profiler trace per call, after a warm-up call, over the complete traces
     only. The profiler loses whole calls and parts of calls, and a part
@@ -583,7 +668,7 @@ def trace_summary(by_name: dict, names) -> dict:
             "top": {name: [ms, n] for name, (ms, n) in top}}
 
 
-def kernel_device_split(torch, fn, names, launches, reps: int = 5,
+def kernel_device_split(torch, fn, names, launches, reps: int = TIMED_REPS,
                         tries: int = 20) -> tuple:
     """Median device milliseconds of the port kernels (activities whose
     name holds one of ``names``) that one call of ``fn`` launches, over
@@ -632,7 +717,7 @@ def device_launch_list(torch, fn, names, launches: int, tries: int = 10) -> list
     return None
 
 
-def launch_ms(torch, timer_cls, fn, reps: int = 5) -> float:
+def launch_ms(torch, timer_cls, fn, reps: int = TIMED_REPS) -> float:
     """Median milliseconds of the kernels one wrapper call launches, from
     events recorded on the stream around each launch, after a warm-up call."""
     fn()
@@ -751,8 +836,12 @@ class Smoke:
             _build, bsr_spgemm, bsr_spmm, chunked_attention, flash_prefill, grouped_matmul,
             hash_accum_spgemm, link_reads, ops, ranged_spgemm, sparse_accum_spgemm,
         )
+        from repro_torch.data import pipeline as data_pipeline
         from repro_torch.launch import serve
+        from repro_torch.launch import train as train_launch
         from repro_torch.models import moe, transformer
+        from repro_torch.train import optim as train_optim
+        from repro_torch.train import step as train_step
         from repro_torch.serve import spgemm_service
         from repro_torch.sparse import bsr, csr, graphs, multigrid
 
@@ -762,7 +851,8 @@ class Smoke:
                       bsr=bsr, triangle=triangle, pipeline=pipeline_spgemm, ops=ops,
                       serve=serve, transformer=transformer, moe=moe,
                       service=spgemm_service, placement=placement, copy_ring=copy_ring,
-                      dma=dma, link_reads=link_reads)
+                      dma=dma, link_reads=link_reads, data=data_pipeline,
+                      train=train_launch, optim=train_optim, train_step=train_step)
         self.kernels = {"ranged_spgemm": ranged_spgemm,
                         "sparse_accum_spgemm": sparse_accum_spgemm,
                         "hash_accum_spgemm": hash_accum_spgemm,
@@ -1009,13 +1099,15 @@ class Smoke:
             orders[order] = self.hold_csr(f"{kernel}/{label}/{order}", run(order), plain(order))
             orders[order]["ms"] = self.launch_ms(lambda: run(order))
             orders[order]["wrapper_ms"] = cuda_ms(torch, lambda: run(order))
-            # the profiler's device time of the call's kernels, and by kernel
-            (orders[order]["device_ms"], orders[order]["device_incomplete_traces"],
-             orders[order]["device_split_ms"], _) = kernel_device_split(
-                torch, lambda: run(order), TRACE_NAMES["csr_accum"],
-                esc.kernels_per_call(order, plan.n_b))
             if record:
-                orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order), reps=3)
+                # the profiler's device time of the call's kernels, and by
+                # kernel (the recorded phase only: the others' traces were
+                # cut to pay for the training phases)
+                (orders[order]["device_ms"], orders[order]["device_incomplete_traces"],
+                 orders[order]["device_split_ms"], _) = kernel_device_split(
+                    torch, lambda: run(order), TRACE_NAMES["csr_accum"],
+                    esc.kernels_per_call(order, plan.n_b))
+                orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order), reps=PLAIN_REPS)
         steps = (esc.sort_steps(Ast, Bst, C0, r0s, r1s, row_cap=caps.c_max_row_nnz)
                  if kernel == "sparse_accum_spgemm" else None)
         out = run(main_order)
@@ -1080,7 +1172,7 @@ class Smoke:
             orders[order]["ms"] = self.launch_ms(lambda: run(order))
             orders[order]["wrapper_ms"] = cuda_ms(torch, lambda: run(order))
             if record:
-                orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order))
+                orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order), reps=PLAIN_REPS)
         bitwise = bool(torch.equal(outs["chunk1"], outs["chunk2"]))
         check(bitwise, f"ranged_spgemm/{label}: chunk1 and chunk2 differ bit for bit")
         del outs
@@ -1252,15 +1344,18 @@ class Smoke:
             Ast, Bst, _, C0 = self.stage_edge(A, B, C0m, plan, 32 * n)
             r0s, r1s = plan.b_ranges()
             table = planner.hash_table_slots(row_cap) * scale
+            outs = {order: mod.hash_accum_spgemm_stream(Ast, Bst, C0, r0s, r1s, order=order,
+                                                        table_size=table)
+                    for order in ORDERS}
             orders = {order: self.hold_csr(
-                f"hash_accum_spgemm/{label}/{order}",
-                mod.hash_accum_spgemm_stream(Ast, Bst, C0, r0s, r1s, order=order,
-                                             table_size=table),
+                f"hash_accum_spgemm/{label}/{order}", outs[order],
                 mod.hash_accum_plain(Ast, Bst, C0, r0s, r1s, order=order, table_size=table))
                 for order in ORDERS}
             self.note_err("hash_accum_spgemm", max(o["max_abs_err"] for o in orders.values()))
-            extract = self.extract_rows(mod.hash_accum_plain(
-                Ast, Bst, C0, r0s, r1s, order="chunk1", table_size=table)[0])
+            # the rows by extraction class, from the kernel's output, whose
+            # structure was just held equal to the plain version's
+            extract = self.extract_rows(outs["chunk1"][0])
+            del outs
             check(extract.get(want, 0) > 0, f"hash_accum_spgemm/{label}: no row extracts "
                   f"as {want} ({extract})")
             emit({"hash_case": label, "shape": [A.n_rows, A.n_cols, n], "c_max_row_nnz": row_cap,
@@ -1486,7 +1581,7 @@ class Smoke:
                 torch, lambda: run(order), TRACE_NAMES["csr_accum"],
                 esc.kernels_per_call(order, plan.n_b, launch))
             orders[order]["device_class_ms"] = self.esc_class_ms(lambda: run(order), launch)
-            orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order), reps=3)
+            orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order), reps=PLAIN_REPS)
         self.note_err("sparse_accum_spgemm", max(o["max_abs_err"] for o in orders.values()))
         out = run("chunk1")
         moved = (live_bytes(Ast) + live_bytes(Bst) + live_bytes(C0) + nbytes(*out)
@@ -1877,7 +1972,7 @@ class Smoke:
                 orders[order]["device_launches_ms"] = device_launch_list(
                     torch, lambda: run(order), names, kernels)
                 orders[order]["kernels_per_call"] = kernels
-                orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order), reps=3)
+                orders[order]["plain_ms"] = cuda_ms(torch, lambda: plain(order), reps=PLAIN_REPS)
             counter = self.counters["hash_masked_accum_spgemm"]
             before = counter.count
             out = run(main_order)
@@ -4244,7 +4339,9 @@ class Smoke:
             # a yardstick: the first third of the requests (the three
             # families interleaved), cut from all 96 to pay for the placed
             # runs, so its rate is not the service's over the same requests
-            result["naive_loop"] = self.naive_loop(reqs[:len(reqs) // 3], limit, backend_of)
+            # the yardstick loop over the first sixth of the requests (a third
+            # before the training phases' cuts)
+            result["naive_loop"] = self.naive_loop(reqs[:len(reqs) // 6], limit, backend_of)
             result["naive_loop"]["of_requests"] = len(reqs)
         emit(result)
         del svc, reqs
@@ -4555,8 +4652,7 @@ class Smoke:
         versions), logits compared step by step (``gate``: held to
         LOGIT_MAX_TOL / LOGIT_MEAN_TOL, and the first token of every request
         to the plain path's; else printed only, with the share of MoE routes
-        that agree); a free-running plain serve gives the share of equal
-        greedy tokens (printed). Returns the served tokens."""
+        that agree). Returns the served tokens."""
         torch = self.torch
         serve = self.m["serve"]
         moe = cfg.family == "moe"
@@ -4612,14 +4708,10 @@ class Smoke:
             with self.routes(model) as plain_routes:
                 plain, cache = self.teacher_forced(model, cfg, batch, out_t)
             del cache
-            plain_outs, plain_stats = serve.serve_batch(cfg, prompts, max_new_tokens=LM_NEW,
-                                                        **kwargs)
         result = self.compare_logits(label, cfg, kern, plain, out_t)
         first = [o[0] for o in outs]
         result.update({"tolerances": [LOGIT_MAX_TOL, LOGIT_MEAN_TOL] if gate else None,
                        "first_tokens_served": first,
-                       "free_running_greedy_equal_share":
-                           float(np.mean(np.asarray(outs) == np.asarray(plain_outs))),
                        "kernel_path_repeats_serve_tokens": kernel_repeats})
         if gate:
             check(result["logit_max_over_std"] <= LOGIT_MAX_TOL
@@ -4656,8 +4748,6 @@ class Smoke:
               "decode_ms_per_step": stats.decode_s / decode_steps * 1e3,
               "decode_tokens_per_s": LM_BATCH * decode_steps / stats.decode_s,
               "serve_tokens_per_s": stats.tokens_per_s,
-              "plain_prefill_ms": plain_stats.prefill_s * 1e3,
-              "plain_decode_ms_per_step": plain_stats.decode_s / decode_steps * 1e3,
               "peak_memory_bytes": peak,
               "decode_step_trace": step_trace, "prefill_trace": prefill_trace,
               "moe": moe_numbers or None, "gated": gate, "check": result})
@@ -5006,9 +5096,270 @@ class Smoke:
         check({r["name"] for r in rows} == set(self.kernels), "a kernel phase is missing")
         emit({"kernels": rows})
 
+    # -- the fifth path: training ----------------------------------------
+
+    def train_guard(self) -> None:
+        """Each of the four LM kernel wrappers, given an input on the card
+        that requires grad under grad mode, raises (naming the training
+        forward) before it launches."""
+        torch = self.torch
+        ops = self.m["ops"]
+        g = torch.Generator(device="cuda").manual_seed(EDGE_SEED)
+
+        def r(*shape, grad=False):
+            return torch.randn(*shape, generator=g, device="cuda").requires_grad_(grad)
+
+        calls = {
+            "flash_prefill": lambda: ops.flash_prefill(r(1, 64, 4, 64, grad=True),
+                                                       r(1, 64, 2, 64), r(1, 64, 2, 64)),
+            "decode_attention": lambda: ops.decode_attention(
+                r(2, 2, 2, 64), r(2, 64, 2, 64, grad=True), r(2, 64, 2, 64),
+                torch.tensor([3, 64], dtype=torch.int32, device="cuda")),
+            "grouped_matmul": lambda: ops.grouped_matmul(r(16, 64), r(2, 64, 64, grad=True),
+                                                         [7, 9]),
+            "grouped_matmul_ragged": lambda: ops.grouped_matmul_ragged(
+                r(16, 64, grad=True), r(2, 64, 64),
+                torch.tensor([0, 7, 16], device="cuda")),
+        }
+        self.reset_counters()
+        refused = {}
+        for name, call in calls.items():
+            try:
+                call()
+                refused[name] = False
+            except RuntimeError as err:
+                refused[name] = "transformer.forward" in str(err)
+        launched = {k: v for k, v in self.read_counters().items() if v}
+        emit({"train_guard": refused, "launches": launched})
+        check(all(refused.values()) and not launched,
+              f"train_guard: refused {refused}, launched {launched}")
+
+    def train_card_vs_cpu(self) -> None:
+        """One ``make_train_step`` step of the SMOKE configs on the card and
+        on the CPU from the same weights and batch (TRAIN_CMP_RUNS): the
+        gradients before the update, then the step's loss, grad_norm, moments
+        and parameters, at the tolerances stated with TRAIN_CMP_RUNS."""
+        torch = self.torch
+        tf, step_mod, optim = self.m["transformer"], self.m["train_step"], self.m["optim"]
+        from repro_torch.configs import get_config
+
+        def worst(a: dict, b: dict) -> float:
+            return max(float((a[n].detach().cpu() - b[n].detach()).abs().max()) for n in b)
+
+        def share(a: dict, b: dict, atol: float) -> float:
+            """The share of all entries within ``atol``."""
+            close = sum(int(((a[n].detach().cpu() - b[n].detach()).abs() <= atol).sum())
+                        for n in b)
+            return close / sum(b[n].numel() for n in b)
+
+        for arch, comp in TRAIN_CMP_RUNS:
+            label = f"train_card_vs_cpu_{arch}_{comp}"
+            cfg = get_config(arch, smoke=True)
+            tcfg = optim.TrainConfig(learning_rate=TRAIN_CMP_LR, warmup_steps=1, total_steps=4,
+                                     microbatches=2, grad_compression=comp)
+            models = {"cpu": tf.init_params(cfg, torch.Generator().manual_seed(LM_WEIGHT_SEED),
+                                            "cpu", dtype=torch.float32)}
+            models["cuda"] = tf.Transformer(cfg, "cuda", torch.float32)
+            models["cuda"].load_state_dict(models["cpu"].state_dict())
+            host = self.m["data"].SyntheticLM(cfg, TRAIN_CMP_BATCH, TRAIN_CMP_SEQ,
+                                              seed=TRAIN_DATA_SEED).batch(0)
+            batches = {dev: {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+                       for dev in models}
+            grads, losses = {}, {}
+            for dev, model in models.items():
+                loss, _ = tf.loss_fn(model, batches[dev], cfg, aux_weight=tcfg.aux_weight)
+                names, tensors = zip(*model.named_parameters())
+                grads[dev] = dict(zip(names, torch.autograd.grad(loss, tensors)))
+                losses[dev] = float(loss.detach())
+            grad_err = worst(grads["cuda"], grads["cpu"])
+            outs = {}
+            for dev, model in models.items():
+                opt = step_mod.init_opt_state(cfg, tcfg, model)
+                outs[dev] = step_mod.make_train_step(cfg, tcfg)(model, opt, batches[dev])
+            (pc, oc, mc), (ph, oh, mh) = outs["cuda"], outs["cpu"]
+            params_c, params_h = dict(pc.named_parameters()), dict(ph.named_parameters())
+            # the parameters that moved apart, and the CPU gradient's size there
+            apart = {n: (params_c[n].detach().cpu() - params_h[n].detach()).abs()
+                     > TRAIN_PARAM_ATOL for n in params_h}
+            hazard = {n: float(grads["cpu"][n][m].abs().max()) for n, m in apart.items()
+                      if bool(m.any())}
+            row = {"train_card_vs_cpu": label, "grad_max_abs_err": grad_err,
+                   "loss_err": abs(losses["cuda"] - losses["cpu"]),
+                   "step_loss_err": abs(float(mc["loss"]) - float(mh["loss"])),
+                   "grad_norm_rel_err": abs(float(mc["grad_norm"]) / float(mh["grad_norm"]) - 1),
+                   "mu_max_abs_err": worst(oc["mu"], oh["mu"]),
+                   "nu_max_abs_err": worst(oc["nu"], oh["nu"]),
+                   "param_max_abs_err": worst(params_c, params_h),
+                   "param_share_within_atol": share(params_c, params_h, TRAIN_PARAM_ATOL),
+                   "params_apart": {n: int(m.sum()) for n, m in apart.items() if bool(m.any())},
+                   "cpu_grad_max_where_apart": hazard}
+            int8 = comp == "int8"
+            if int8:
+                row.update({f"{k}_share_within_atol": share(oc[k], oh[k], atol) for k, atol in
+                            (("mu", TRAIN_MU_ATOL), ("nu", TRAIN_NU_ATOL), ("ef", TRAIN_MU_ATOL))})
+            emit(row)
+            check(grad_err <= TRAIN_GRAD_ATOL and row["loss_err"] <= TRAIN_LOSS_ATOL
+                  and row["step_loss_err"] <= TRAIN_LOSS_ATOL,
+                  f"{label}: gradients or loss off the CPU's: {row}")
+            check(row["param_max_abs_err"] <= 2 * TRAIN_CMP_LR + TRAIN_PARAM_ATOL,
+                  f"{label}: parameters off the CPU's by more than a step: {row}")
+            if int8:
+                check(min(row[f"{k}_share_within_atol"] for k in ("param", "mu", "nu", "ef"))
+                      >= TRAIN_SHARE, f"{label}: int8 state off the CPU's: {row}")
+            else:
+                check(row["grad_norm_rel_err"] <= TRAIN_NORM_RTOL
+                      and row["mu_max_abs_err"] <= TRAIN_MU_ATOL
+                      and row["nu_max_abs_err"] <= TRAIN_NU_ATOL,
+                      f"{label}: optimizer state off the CPU's: {row}")
+                check(all(g <= TRAIN_HAZARD_GRAD for g in hazard.values()),
+                      f"{label}: parameters apart where the gradient is not near zero: {row}")
+            del models, outs, grads
+
+    def _train_loop(self, *args, **kwargs):
+        """``train_loop`` with its prints captured (every output line stays
+        JSON) and the process's SIGTERM handler restored after (a checkpoint
+        manager installs its own)."""
+        import io
+        import signal
+
+        previous = signal.getsignal(signal.SIGTERM)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                stats = self.m["train"].train_loop(*args, **kwargs)
+        finally:
+            signal.signal(signal.SIGTERM, previous)
+        return stats, buf.getvalue().splitlines()
+
+    def train_resume(self) -> None:
+        """The example's config, 4 steps straight against 2 + a checkpoint +
+        a fresh model and optimizer state restored + 2 more, under
+        deterministic algorithms: the losses and the step-4 checkpoints
+        (parameters, moments, step) equal bit for bit."""
+        import importlib
+        import tempfile
+
+        torch = self.torch
+        sys.path.insert(0, str(ROOT))
+        cfg = importlib.import_module("examples.torch_train_lm").lm_config()
+        tcfg = self.m["optim"].TrainConfig(learning_rate=6e-4, warmup_steps=1,
+                                           total_steps=TRAIN_RESUME_STEPS, microbatches=2)
+        kw = dict(device="cuda", batch_size=8, seq_len=256, log_every=10 ** 9,
+                  seed=TRAIN_DATA_SEED)
+        t0 = time.perf_counter()
+        torch.use_deterministic_algorithms(True)
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                a, b = Path(tmp) / "straight", Path(tmp) / "resumed"
+                straight, _ = self._train_loop(cfg, tcfg, steps=TRAIN_RESUME_STEPS,
+                                               ckpt_dir=str(a),
+                                               ckpt_every=TRAIN_RESUME_STEPS, **kw)
+                first, _ = self._train_loop(cfg, tcfg, steps=TRAIN_RESUME_SPLIT,
+                                            ckpt_dir=str(b), ckpt_every=TRAIN_RESUME_SPLIT, **kw)
+                resumed, log = self._train_loop(cfg, tcfg, steps=TRAIN_RESUME_STEPS,
+                                                ckpt_dir=str(b),
+                                                ckpt_every=TRAIN_RESUME_SPLIT, **kw)
+                step = f"step_{TRAIN_RESUME_STEPS:08d}"
+                files = sorted(p.name for p in (a / step).glob("arr_*.npy"))
+                differ = [f for f in files
+                          if not np.array_equal(np.load(a / step / f), np.load(b / step / f))]
+                equal_files = files == sorted(p.name for p in (b / step).glob("arr_*.npy"))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        losses = [h["loss"] for h in straight.history]
+        split = [h["loss"] for h in first.history + resumed.history]
+        emit({"train_resume": "examples/torch_train_lm.py config", "params":
+              sum(p.numel() for p in self.m["transformer"].Transformer(
+                  cfg, "meta", torch.float32).parameters()),
+              "resumed_from": resumed.resumed_from, "losses_straight": losses,
+              "losses_resumed": split, "checkpoint_leaves": len(files),
+              "leaves_differing": differ, "log": log, "seconds": time.perf_counter() - t0})
+        check(resumed.resumed_from == TRAIN_RESUME_SPLIT and losses == split
+              and equal_files and files and not differ,
+              f"train_resume: resume is not bit for bit ({len(differ)} leaves differ)")
+        torch.cuda.empty_cache()
+
+    def train_run(self, label: str, arch: str, layers, steps: int, trace: bool) -> None:
+        """``train_loop`` on the card at full width (``layers`` cuts the
+        depth): each step's loss, grad_norm, lr, moe_aux and ms, the median
+        step ms from step TRAIN_TIMED_FROM on, tokens/s, the model-FLOP
+        share (6 N T over the bf16 peak, N the parameters that enter a
+        product for a token: not the embedding table, top-k of the
+        experts), the peak allocation; with ``trace`` the last step runs
+        under the profiler (left out of the median): its device busy ms by
+        kernel class and its top kernels. Gates: finite losses and gradient
+        norms, the last loss TRAIN_LOSS_DROP below the first, and no kernel
+        wrapper launched."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        tcfg = self.m["optim"].TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                                           total_steps=steps)
+        meta = self.m["transformer"].Transformer(cfg, "meta", torch.float32)
+        n_params = sum(p.numel() for p in meta.parameters())
+        n_active = n_params - meta.embed.embedding.numel()
+        if cfg.is_moe:
+            n_active -= cfg.n_layers * (cfg.n_experts - cfg.top_k) * 3 * cfg.d_model * cfg.d_ff
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        self.reset_counters()
+        traced = []
+
+        def hook(step):   # the last step under the profiler, stopped after the loop
+            if trace and step == steps - 1:
+                traced.append(torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]))
+                traced[0].__enter__()
+
+        t0 = time.perf_counter()
+        stats, log = self._train_loop(cfg, tcfg, device="cuda", batch_size=TRAIN_BATCH,
+                                      seq_len=TRAIN_SEQ, steps=steps, log_every=1,
+                                      seed=TRAIN_DATA_SEED, weight_seed=LM_WEIGHT_SEED,
+                                      _step_hook=hook)
+        wall = time.perf_counter() - t0
+        step_trace = None
+        if traced:
+            torch.cuda.synchronize()
+            traced[0].__exit__(None, None, None)
+            step_trace = train_trace(device_by_name(traced[0]), stats.history[-1]["ms"])
+        launched = {k: v for k, v in self.read_counters().items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        hist = stats.history
+        timed = [h["ms"] for h in hist[TRAIN_TIMED_FROM:len(hist) - len(traced)]]
+        median_ms = statistics.median(timed)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        losses = [h["loss"] for h in hist]
+        emit({"run": label, "arch": arch, "layers": cfg.n_layers, "params": n_params,
+              "params_in_products": n_active, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+              "remat": cfg.remat_policy if cfg.remat else "off", "compute": cfg.compute_dtype,
+              "steps": hist, "median_step_ms": median_ms,
+              "timed_steps": f"{TRAIN_TIMED_FROM}-{len(hist) - 1 - len(traced)}",
+              "traced_step": step_trace,
+              "tokens_per_s": tokens / (median_ms / 1e3),
+              "model_flop_share": 6 * n_active * tokens / (median_ms / 1e3) / PEAK["bf16_flops"],
+              "peak_allocated_bytes": peak, "wall_s": wall, "kernel_launches": launched,
+              "loss_drop": losses[0] - losses[-1], "gate_drop": TRAIN_LOSS_DROP[label],
+              "card": self.smi})
+        check(len(hist) == steps and all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                                         and np.isfinite(h["moe_aux"]) for h in hist),
+              f"{label}: a loss, grad norm or moe_aux is not finite: {hist}")
+        check(losses[-1] < losses[0] - TRAIN_LOSS_DROP[label],
+              f"{label}: the loss fell {losses[0] - losses[-1]:.4f}, not "
+              f"{TRAIN_LOSS_DROP[label]}")
+        check(not launched, f"{label}: the training path launched kernels {launched}")
+        torch.cuda.empty_cache()
+
 
 def main() -> int:
     started = time.perf_counter()
+    # cuBLAS reads its workspace setting once: the training resume phase runs
+    # under torch.use_deterministic_algorithms(True), which needs this one
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -5166,7 +5517,8 @@ def main() -> int:
     smoke._batched_fast.clear()
     lap("batched")
     smoke.service_run("spgemm_service_run", SERVICE_RMAT_SEEDS, gate=True)
-    smoke.service_run("spgemm_service_placed", SERVICE_RMAT_SEEDS, gate=True, placed=True)
+    smoke.service_run("spgemm_service_placed", SERVICE_RMAT_SEEDS, gate=True, placed=True,
+                      per_family=IN_PLACE_SERVICE_PER_FAMILY)
     smoke.service_run("spgemm_service_placed_inplace", SERVICE_RMAT_SEEDS, gate=True,
                       placed=True, per_family=IN_PLACE_SERVICE_PER_FAMILY,
                       slow_reads="in_place")
@@ -5249,8 +5601,18 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     smoke.f32_check("olmoe_1b_7b_f32_teacher_forced", cfg, prompts, outs)
+    del outs
     torch.cuda.empty_cache()
     lap("serving_moe")
+
+    # the fifth path, training: no hand-written kernel (the wrappers refuse
+    # autograd), the card against the CPU, resume, then the two runs
+    smoke.train_guard()
+    smoke.train_card_vs_cpu()
+    smoke.train_resume()
+    for label, arch, layers, steps in TRAIN_RUNS:
+        smoke.train_run(label, arch, layers, steps, trace=label == TRAIN_TRACED)
+    lap("training")
     emit({"phase_seconds": laps, "card": smoke.smi})
     emit({"script_seconds": time.perf_counter() - started})
     smoke.kernels_line()

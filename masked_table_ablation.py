@@ -9,9 +9,9 @@ seed=7), degree-sorted lower triangle (the graph of ``chip_smoke.py``'s
 at least twice the row's mask nnz (load factor at most 1/2, the shipped
 ``masked_table_slots``) and the row's mask nnz rounded up to a power of two
 (load factor up to 1). The two sizes alternate (shipped, full, full,
-shipped), each timed as the median launch milliseconds of five calls, and
-the full-table output must equal the shipped one in structure and agree in
-value. Every line of output is one JSON object; the last one is
+shipped), each timed as the median launch milliseconds of
+``chip_smoke.TIMED_REPS`` calls, and the full-table output must equal the
+shipped one in structure and agree in value. Every line of output is one JSON object; the last one is
 ``{"ok": true, ...}``.
 """
 

@@ -1,0 +1,5 @@
+from repro_torch.ckpt.checkpoint import (
+    CheckpointManager, latest_step, restore_checkpoint, save_checkpoint,
+)
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "CheckpointManager"]

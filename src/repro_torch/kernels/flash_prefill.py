@@ -21,12 +21,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.kernels._build import LaunchCounter, launch, require
 
 LAUNCHES = LaunchCounter()                    # every launch of the kernel
 ROUTES = ("tc", "fma")
 ROUTE_LAUNCHES = {r: LaunchCounter() for r in ROUTES}   # the launches of each route
-NEG_INF = -1e30
+NEG_INF = ref.NEG_INF
 HEAD_DIMS = (64, 128)       # the kernel's instantiations: the ported configs' widths
 MAX_GROUP = 64              # query heads per KV head the kernel folds into a tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,55 +44,12 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         window: int = 0, bq: int = 256, bk: int = 512,
                         causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Plain version: a loop over ``bq``-row query chunks, each streaming the
-    ``bk``-key chunks it can see under an f32 online softmax. ``q_offset`` is
-    the global position of q[0] relative to k[0] (prefill: 0); ``causal`` off
-    attends to every key (within the window)."""
-    b, sq, h, d = q.shape
-    _, sk, hkv, _ = k.shape
-    g = h // hkv
-    scale = 1.0 / (d ** 0.5)
-    bq = min(bq, sq) or sq
-    bk = min(bk, sk) or sk
-    nq, nk = -(-sq // bq), -(-sk // bk)
-    dev = q.device
-    # pad ragged tails to chunk multiples: padded keys are masked below,
-    # padded query rows are sliced off the output
-    qg = torch.nn.functional.pad(q.float(), (0, 0, 0, 0, 0, nq * bq - sq))
-    qg = qg.reshape(b, nq * bq, hkv, g, d)
-    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, nk * bk - sk))
-    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, nk * bk - sk))
-    outs = []
-    for qi in range(nq):
-        q_blk = qg[:, qi * bq:(qi + 1) * bq]
-        q0 = q_offset + qi * bq
-        qpos = q0 + torch.arange(bq, device=dev)
-        m = torch.full((b, hkv, g, bq), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((b, hkv, g, bq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, hkv, g, bq, d), dtype=torch.float32, device=dev)
-        # causal: no key chunk beyond this chunk's last row; window: none
-        # entirely before its first row's window
-        hi = min((q0 + bq + bk - 1) // bk, nk) if causal else nk
-        lo = max((q0 - window + 1) // bk, 0) if window else 0
-        for ki in range(lo, max(hi, lo + 1)):
-            k_blk = kf[:, ki * bk:(ki + 1) * bk]
-            v_blk = vf[:, ki * bk:(ki + 1) * bk]
-            kpos = ki * bk + torch.arange(bk, device=dev)
-            s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk) * scale
-            mask = (kpos[None, :] < sk).expand(bq, bk)
-            if causal:
-                mask = mask & (qpos[:, None] >= kpos[None, :])
-            if window:
-                mask = mask & (qpos[:, None] - kpos[None, :] < window)
-            s = torch.where(mask, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, v_blk)
-            m = m_new
-        o = acc / torch.clamp_min(l[..., None], 1e-30)
-        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, bq, h, d))
-    return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
+    ``bk``-key chunks it can see under an f32 online softmax
+    (``ref.chunked_attention``, the JAX package's pure ``flash_attention``).
+    ``q_offset`` is the global position of q[0] relative to k[0] (prefill:
+    0); ``causal`` off attends to every key (within the window)."""
+    return ref.chunked_attention(q, k, v, causal=causal, window=window, q_chunk=bq,
+                                 kv_chunk=bk, q_offset=q_offset)
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -7,6 +7,12 @@ The port of the JAX package's ``kernels/ops.py``: ``bsr_spgemm``,
 API), and the wrappers the model's serving path calls: the attention
 wrappers ``flash_prefill`` and ``decode_attention``, and
 ``grouped_matmul_ragged``, the MoE layer's sync-free grouped GEMM.
+
+The four LM wrappers refuse autograd: their kernels launch through ctypes
+and return tensors without autograd history, so a weight behind them would
+silently get no gradient on the card (while the CPU's plain versions would
+differentiate). Under grad mode they raise on any input that requires
+grad, on every device; training runs ``models.transformer.forward``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,14 @@ from repro_torch.kernels import chunked_attention as _attn
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import grouped_matmul as _gmm
 from repro_torch.sparse.bsr import BSR
+
+
+def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and an input requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"ops.{name} takes no part in autograd (its kernel records no history); "
+            "train through models.transformer.forward, or call it under torch.no_grad()")
 
 
 def _with_zero_block(blocks: torch.Tensor) -> torch.Tensor:
@@ -72,6 +86,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes,
     Returns (y [T_pad, N], padded_offsets) where rows [padded_offsets[g],
     padded_offsets[g] + group_sizes[g]) of y hold group g's outputs; the pad
     rows of y are zeros. The plan is made on the host (NumPy)."""
+    _refuse_autograd("grouped_matmul", x, w)
     sizes = np.asarray(torch.as_tensor(group_sizes).cpu(), np.int64)
     offsets, tile_group, t_pad = _gmm.plan_groups(sizes, bt)
     if not tile_group.size:   # every group empty (the reference's kernel fails here)
@@ -89,6 +104,7 @@ def grouped_matmul_ragged(x: torch.Tensor, w: torch.Tensor, seg_rows: torch.Tens
     """Group g's rows ``[seg_rows[g], seg_rows[g + 1])`` of x times ``w[g]``,
     planned on the device (no host sync); rows from ``seg_rows[-1]`` on are
     not computed. ``[T, N]`` in ``out_dtype`` (default x's)."""
+    _refuse_autograd("grouped_matmul_ragged", x, w)
     return _gmm.grouped_matmul_ragged(x, w, seg_rows, out_dtype)
 
 
@@ -96,6 +112,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """q ``[B, Hkv, G, D]`` over the cache k, v ``[B, S, Hkv, D]``, positions
     ``< lengths[b]`` visible; ``[B, Hkv, G, D]`` in q's dtype."""
+    _refuse_autograd("decode_attention", q, k, v)
     return _attn.decode_attention(q, k, v, lengths)
 
 
@@ -103,4 +120,5 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int = 2
                   bk: int = 512, window: int = 0) -> torch.Tensor:
     """Causal (plus ``window``) GQA attention, q ``[B, S, H, D]``, k, v
     ``[B, S, Hkv, D]``; ``bq``/``bk`` are the plain version's block sizes."""
+    _refuse_autograd("flash_prefill", q, k, v)
     return _fp.flash_prefill(q, k, v, bq=bq, bk=bk, window=window)

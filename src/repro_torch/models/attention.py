@@ -1,18 +1,23 @@
-"""GQA attention for serving: RoPE, causal masking, sliding windows, KV caches.
+"""GQA attention: RoPE, causal masking, sliding windows, KV caches.
 
-The port of the serving parts of the JAX package's ``models/attention.py``
-(``attn_forward``, the training path, waits for the training slice). The
-weights keep the reference's layouts, ``wq [d, h, hd]``, ``wk``/``wv
-[d, hkv, hd]``, ``wo [h, hd, d]``, so carrying them across needs no
-transposes.
+The port of the JAX package's ``models/attention.py``. The weights keep the
+reference's layouts, ``wq [d, h, hd]``, ``wk``/``wv [d, hkv, hd]``, ``wo
+[h, hd, d]``, so carrying them across needs no transposes; ``qkv`` and
+``out_proj`` cast them to the compute dtype at use (a no-op for the serving
+weights, which are held in it).
 
-Prefill attention goes through ``ops.flash_prefill`` and decode attention
-(without a sliding window) through ``ops.decode_attention``: on the card
-the hand-written CUDA kernels, on the CPU their plain versions. Decode with
-a sliding window runs the reference's ring-buffer mask in plain PyTorch on
-the CPU and is not ported to the card (its mask is not a length).
-``flash_attention`` and ``attention_ref`` are the plain counterparts of the
-reference's functions of those names.
+Training (``attn_forward``) runs ``flash_attention``, the reference's
+doubly chunked online softmax in f32, in plain PyTorch, which autograd
+differentiates: the reference's training path reaches no Pallas kernel,
+and the hand-written kernels below neither record autograd history nor
+take part in it (their wrappers refuse a tensor that requires grad).
+
+Serving: prefill attention goes through ``ops.flash_prefill`` and decode
+attention (without a sliding window) through ``ops.decode_attention``: on
+the card the hand-written CUDA kernels, on the CPU their plain versions.
+Decode with a sliding window runs the reference's ring-buffer mask in plain
+PyTorch on the CPU and is not ported to the card (its mask is not a
+length). ``attention_ref`` is the reference's naive oracle.
 
 The KV cache is updated in place: ``attn_prefill`` and ``attn_decode`` write
 into the cache slabs they are given.
@@ -23,10 +28,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.kernels import flash_prefill as _fp
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, cdtype, draw_normal, weight
+from repro_torch.models.layers import apply_rope, cdtype, draw_normal, weight, weight_dtypes
 
 NEG_INF = -1e30
 
@@ -34,13 +38,14 @@ NEG_INF = -1e30
 class Attention(nn.Module):
     """The attention weights of one layer, in the reference's shapes."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
-        d, h, hkv, hd, dt = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cdtype(cfg)
-        self.wq = weight((d, h, hd), dt, device)
-        self.wk = weight((d, hkv, hd), dt, device)
-        self.wv = weight((d, hkv, hd), dt, device)
-        self.wo = weight((h, hd, d), dt, device)
+        d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        dt, grad = weight_dtypes(cfg, dtype)[0], dtype is not None
+        self.wq = weight((d, h, hd), dt, device, grad)
+        self.wk = weight((d, hkv, hd), dt, device, grad)
+        self.wv = weight((d, hkv, hd), dt, device, grad)
+        self.wo = weight((h, hd, d), dt, device, grad)
 
     def init_weights(self, generator: torch.Generator) -> None:
         d, h, hd = self.wq.shape
@@ -49,39 +54,46 @@ class Attention(nn.Module):
         draw_normal(self.wo, (h * hd) ** -0.5, generator)
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product."""
+def _heads(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w.astype(dt))`` as one matrix product."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    return (x @ w.to(dt).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    q, k, v = _heads(x, p.wq), _heads(x, p.wk), _heads(x, p.wv)
+    dt = cdtype(cfg)
+    q, k, v = _heads(x, p.wq, dt), _heads(x, p.wk, dt), _heads(x, p.wv, dt)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def out_proj(p: Attention, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    del cfg   # the reference's signature; the weights carry the dtype
     h, hd, d = p.wo.shape
-    return o.flatten(-2) @ p.wo.reshape(h * hd, d)
+    return o.flatten(-2) @ p.wo.to(cdtype(cfg)).reshape(h * hd, d)
 
 
 # ---------------------------------------------------------------------------
-# plain attention (the reference's pure functions)
+# flash attention (plain PyTorch, chunk-streamed) and the naive oracle
 # ---------------------------------------------------------------------------
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_chunk: int = 1024, kv_chunk: int = 1024,
-                    q_offset: int = 0) -> torch.Tensor:
-    """q: [B, Sq, H, D]; k, v: [B, Sk, Hkv, D]. Returns [B, Sq, H, D]: the
-    chunked online softmax of the prefill kernel's plain version.
+                    q_offset: int = 0, cast_free: bool = False) -> torch.Tensor:
+    """q: [B, Sq, H, D]; k, v: [B, Sk, Hkv, D]. Returns [B, Sq, H, D].
+
+    The reference's doubly chunked online softmax in f32
+    (``ref.chunked_attention``, whose body the prefill kernel's plain version
+    shares), differentiable by autograd.
 
     ``q_offset``: global position of q[0] relative to k[0] (prefill: 0)."""
-    return _fp.flash_prefill_plain(q, k, v, window=window, bq=q_chunk, bk=kv_chunk,
-                                   causal=causal, q_offset=q_offset)
+    if cast_free:
+        raise NotImplementedError(
+            "cast_free attention (a lever of the reference) is not ported; "
+            "see ROADMAP.md Queue 1 item 9")
+    return ref.chunked_attention(q, k, v, causal=causal, window=window, q_chunk=q_chunk,
+                                 kv_chunk=kv_chunk, q_offset=q_offset)
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -106,6 +118,18 @@ def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
 # ---------------------------------------------------------------------------
 # block-level entry points
 # ---------------------------------------------------------------------------
+
+
+def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """Training self-attention over the full sequence, differentiable (no
+    hand-written kernel)."""
+    q, k, v = qkv(p, x, cfg, positions)
+    o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                        q_chunk=cfg.q_chunk or q.shape[1],
+                        kv_chunk=cfg.attn_chunk or k.shape[1],
+                        cast_free=cfg.cast_free_attention)
+    return out_proj(p, o, cfg)
 
 
 def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,

@@ -7,7 +7,8 @@ leading L axis (the reference's vmapped layer init; ``layers/mlp`` for the
 dense family, ``layers/moe/{router, w1, w3, w2}`` for the MoE family),
 ``final_norm/scale``.
 Every array is checked against the port's shape and cast to the port's
-dtype. (``kernels/convert.py`` carries the sparse objects.)
+dtype: ``dtype=None`` builds the serving model, ``dtype=pdtype(cfg)`` the
+trainable one, which carries the reference's f32 tree across unchanged. (``kernels/convert.py`` carries the sparse objects.)
 """
 
 from __future__ import annotations
@@ -33,9 +34,10 @@ def _load(param: torch.nn.Parameter, array, what: str) -> None:
         param.copy_(torch.from_numpy(np.array(array, dtype=np.float32)))
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Transformer:
-    """The port's :class:`Transformer` holding the reference's weights."""
-    model = Transformer(cfg, resolve_device(device))
+def params_from_jax(tree: dict, cfg: ModelConfig, device=None, dtype=None) -> Transformer:
+    """The port's :class:`Transformer` holding the reference's weights
+    (``dtype`` as ``transformer.init_params``'s)."""
+    model = Transformer(cfg, resolve_device(device), dtype)
     _load(model.embed.embedding, tree["embed"]["embedding"], "embed/embedding")
     _load(model.embed.head, tree["embed"]["head"], "embed/head")
     _load(model.final_norm.scale, tree["final_norm"]["scale"], "final_norm/scale")

@@ -1,11 +1,18 @@
 """Shared layer primitives: RMSNorm, RoPE, the SwiGLU MLP, embeddings.
 
 The port of the JAX package's ``models/layers.py`` (its frontend stubs wait
-for the frontend slice). Weights keep the reference's layouts. Serving
-never updates weights, so the modules hold them in ``cfg.compute_dtype``,
-cast once at load, which gives the values of the reference's per-use
-``.astype``; the RMSNorm scales stay in ``cfg.param_dtype``, as the
-reference reads them in f32. Normalization statistics and RoPE run in f32.
+for the frontend slice). Weights keep the reference's layouts. Each module
+takes ``dtype``: with ``None`` (serving, which never updates weights) it
+holds its weights in ``cfg.compute_dtype``, cast once at load, which gives
+the values of the reference's per-use ``.astype``, and the RMSNorm scales
+(and the MoE router) in ``cfg.param_dtype``, as the reference reads them in
+f32; none of them takes a gradient. With a dtype (training: ``pdtype(cfg)``)
+every weight is a trainable master in that dtype. The modules cast their
+weights to the compute dtype at each use, as the reference does (a no-op
+for the serving weights). Both draw the same f32
+normals from the same generator, so the masters cast to the compute dtype
+equal the serving weights bit for bit. Normalization statistics and RoPE
+run in f32.
 """
 
 from __future__ import annotations
@@ -24,9 +31,16 @@ def pdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
-def weight(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised serving weight (no gradient)."""
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+def weight(shape, dtype, device, trainable: bool = False) -> nn.Parameter:
+    """An uninitialised weight: a serving weight takes no gradient."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=trainable)
+
+
+def weight_dtypes(cfg: ModelConfig, dtype) -> tuple:
+    """(the dtype of the product weights, of the f32-read weights: norm
+    scales and the router) for a module built with ``dtype``."""
+    return (cdtype(cfg), pdtype(cfg)) if dtype is None else (dtype, dtype)
 
 
 def draw_normal(param: nn.Parameter, scale: float, generator: torch.Generator) -> None:
@@ -50,9 +64,10 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Te
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
-        self.scale = weight((cfg.d_model,), pdtype(cfg), device)
+        self.scale = weight((cfg.d_model,), weight_dtypes(cfg, dtype)[1], device,
+                            dtype is not None)
 
     def init_weights(self, generator: torch.Generator) -> None:
         del generator   # ones, as the reference
@@ -91,12 +106,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
-        d, ff, dt = cfg.d_model, cfg.d_ff, cdtype(cfg)
-        self.w1 = weight((d, ff), dt, device)   # gate
-        self.w3 = weight((d, ff), dt, device)   # up
-        self.w2 = weight((ff, d), dt, device)   # down
+        d, ff, dt, grad = cfg.d_model, cfg.d_ff, weight_dtypes(cfg, dtype)[0], dtype is not None
+        self.w1 = weight((d, ff), dt, device, grad)   # gate
+        self.w3 = weight((d, ff), dt, device, grad)   # up
+        self.w2 = weight((ff, d), dt, device, grad)   # down
 
     def init_weights(self, generator: torch.Generator) -> None:
         d, ff = self.w1.shape
@@ -105,7 +120,10 @@ class MLP(nn.Module):
         draw_normal(self.w2, ff ** -0.5, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (torch.nn.functional.silu(x @ self.w1) * (x @ self.w3)) @ self.w2
+        """x in the compute dtype, the weights cast to it."""
+        dt = x.dtype
+        h = torch.nn.functional.silu(x @ self.w1.to(dt)) * (x @ self.w3.to(dt))
+        return h @ self.w2.to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -114,12 +132,13 @@ class MLP(nn.Module):
 
 
 class Embed(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
         self.logit_softcap = cfg.logit_softcap
-        dt = cdtype(cfg)
-        self.embedding = weight((cfg.vocab_size, cfg.d_model), dt, device)
-        self.head = weight((cfg.d_model, cfg.vocab_size), dt, device)
+        self.compute_dtype = cdtype(cfg)
+        dt, grad = weight_dtypes(cfg, dtype)[0], dtype is not None
+        self.embedding = weight((cfg.vocab_size, cfg.d_model), dt, device, grad)
+        self.head = weight((cfg.d_model, cfg.vocab_size), dt, device, grad)
 
     def init_weights(self, generator: torch.Generator) -> None:
         d = self.head.shape[0]
@@ -127,11 +146,15 @@ class Embed(nn.Module):
         draw_normal(self.head, d ** -0.5, generator)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embedding[tokens]
+        """The rows gathered, then cast to the compute dtype (the reference
+        casts the table, then gathers: the same values)."""
+        return self.embedding[tokens].to(self.compute_dtype)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        """f32 logits, soft-capped when the config asks."""
-        logits = (x @ self.head).float()
+        """f32 logits of the compute-dtype product, soft-capped when the
+        config asks."""
+        logits = (x @ self.head.to(x.dtype)).float()
         if self.logit_softcap:
             logits = self.logit_softcap * torch.tanh(logits / self.logit_softcap)
         return logits
+

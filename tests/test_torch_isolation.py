@@ -55,7 +55,7 @@ def test_every_module_imports_without_jax_or_repro():
 
 def test_no_source_names_jax_or_repro():
     assert [p.stem for p in EXAMPLES] == ["torch_multigrid_spgemm", "torch_quickstart",
-                                          "torch_triangle_count"]
+                                          "torch_train_lm", "torch_triangle_count"]
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
     assert len(files) > 10
     for path in files:
