@@ -165,6 +165,22 @@ steps) and of OLMoE-1B-7B at full width cut to 2 layers (3 steps), each
 step's loss, grad norm, lr and ms printed with tokens/s, the model-FLOP
 share and the peak allocation, every loss finite, the last below the
 first by a stated margin, and no kernel launched.
+Then the sixth path, the SSM and hybrid families at full width and depth:
+the prefill and decode kernels at Zamba2-1.2B's serve shapes, in f32 (the
+reference's Mamba-2 block returns f32, so the hybrid's stream and its
+shared attention are f32 after its first layer), held to their plain
+versions and timed beside SDPA; ``serve_batch`` of Zamba2-1.2B (6 prefill
+and 186 decode launches, one a site of its shared block), teacher-forced
+against the plain path at the f32 gate, and of RWKV6-3B (no kernel
+launched, so no plain path); each model's decode path against its
+training forward on 2 prompts of 1,024 tokens (RWKV6-3B's bf16 drift at
+full depth reported; its bf16 model gated at 8 of 32 layers, its f32
+model at full depth). Inside the
+training phase: ``train_card_vs_cpu`` of the rwkv6 and zamba2 SMOKE
+configs, ``train_loop`` of Zamba2-1.2B and RWKV6-3B at full width and
+depth (3 steps each), and the Llama run again with ``precast_params``,
+``cast_free_attention`` and both (4 steps each, the last traced), beside
+the lever-off run.
 Every line of output is one JSON object; the last one is
 ``{"ok": true, "device": ...}``. Any failed check raises, so the exit code
 is not 0. Without a CUDA card, or without the package beside this file, it
@@ -454,6 +470,72 @@ TRAIN_HAZARD_GRAD = 1e-5
 # torch.use_deterministic_algorithms(True): losses and the step-4
 # checkpoints equal bit for bit
 TRAIN_RESUME_STEPS, TRAIN_RESUME_SPLIT = 4, 2
+
+# the sixth path, the SSM and hybrid families at full width and depth,
+# random weights from LM_WEIGHT_SEED, the Llama run's prompts (ids below
+# each vocabulary): Zamba2-1.2B (38 Mamba-2 layers; its shared attention
+# block after layers 5, 11, ..., 35, one KV slab a site) and RWKV6-3B (no
+# attention). The reference's Mamba-2 block returns f32, so Zamba2's
+# residual stream, its products and its shared attention run in f32 after
+# its first layer: its attention kernels take f32 (the prefill's fma
+# route), and those launches' phases are rows 8d and 9c
+ZAMBA_ARCH, RWKV_ARCH = "zamba2_1p2b", "rwkv6_3b"
+ZAMBA_PREFILL_LABEL, ZAMBA_DECODE_LABEL = "serve_prefill_zamba2", "serve_decode_mid_zamba2"
+# decode matches forward, on the card at full width: DMF_BATCH prompts of
+# DMF_LEN ids from LM_PROMPT_SEED; the prefill of the first DMF_LEN -
+# DMF_STEPS tokens, then DMF_STEPS decode steps fed the prompt's own
+# tokens, each step's logits against the training forward's (plain, no
+# kernel) at its position, and the prefill of all DMF_LEN tokens (the
+# chunked SSM forms) against the last decode step and the forward's last.
+# Relative to the forward's logit std: Zamba2's bf16 model at the bf16
+# serve gate's tolerances (its first layer and its decode-time Mamba-2
+# scans round in bf16). RWKV6-3B in bf16 drifts from the forward by up to
+# 1.27-1.45 of the logit std over 4 steps at its 32 layers (reported, not
+# gated): random weights at full width amplify bf16 rounding flips with
+# depth, and the reference's own decode path drifts as far on the CPU. So
+# its bf16 gate runs the first RWKV_DMF_LAYERS layers at full width, where
+# the CPU read up to 0.27 (worst) in both packages: within RWKV_DMF_TOL,
+# stated before its first card run (the worst at 1.85 times the CPU's, the
+# mean at the full depth's mean-to-worst share, 0.16, of that); and its
+# f32 model at full depth (the same seed) at the f32 serve gate's, where
+# both packages agree within 9e-5 at 8 layers
+DMF_BATCH, DMF_LEN, DMF_STEPS = 2, 1024, 4
+RWKV_DMF_LAYERS, RWKV_DMF_TOL = 8, (0.5, 0.08)
+# training runs of both families at full width: f32 masters, bf16 compute,
+# remat "full", the Llama run's batches, 3 steps, (label, arch, layers, steps,
+# lr); RWKV6-3B at its full depth (32 layers: masters, gradients and moments
+# 49.5 GB, peak 62.1 GB). Zamba2's gate: the last loss below the first by
+# TRAIN_LOSS_DROP, at lr 1e-4 (at 3e-4 its first Adam step spikes the loss,
+# 10.68 -> 14.71, and three steps end at 11.08).
+# RWKV6-3B's loss is reported, not gated: at the reference's random init its
+# gradient norm is 8e8 (it grows about 6x every 4 layers, in both packages),
+# and three clipped Adam steps leave the loss flat (11.575 -> 11.577)
+TRAIN_SSM_RUNS = (("train_zamba2_1p2b", ZAMBA_ARCH, None, 3, 1e-4),
+                  ("train_rwkv6_3b", RWKV_ARCH, None, 3, TRAIN_LR))
+TRAIN_LOSS_DROP.update({"train_zamba2_1p2b": 0.1})
+TRAIN_CMP_RUNS += (("rwkv6_3b", "none"), ("zamba2_1p2b", "none"))
+# nu of the ssm row (RWKV-6): its gradients differ by up to 6.2e-6 between
+# card and CPU (f32 sums in another order through the chunked time mix),
+# and nu = (1 - beta2) g^2 differs by up to (1 - beta2)(2 max|g| a + a^2)
+# where the gradients differ by a = TRAIN_GRAD_ATOL: its nu bound is that
+# (it read 1.07e-8 and 8.3e-9 on the card); every other row keeps
+# TRAIN_NU_ATOL
+TRAIN_NU_FROM_GRAD = {"ssm"}
+# the single-card levers on the Llama run: precast_params, cast_free_attention
+# and both, TRAIN_LEVER_STEPS steps each (the last traced), beside the
+# lever-off run of the same call. Gate: finite losses and grad norms, step
+# 0's loss within TRAIN_LEVER_LOSS_ATOL of the lever-off run's (bf16: the
+# levers round the norm scales, which are 1 at init, and P to bf16), no
+# kernel launched
+TRAIN_LEVER_RUNS = (("train_llama3_2_1b_precast", {"precast_params": True}),
+                    ("train_llama3_2_1b_cast_free", {"cast_free_attention": True}),
+                    ("train_llama3_2_1b_both", {"precast_params": True,
+                                                "cast_free_attention": True}))
+TRAIN_LEVER_STEPS, TRAIN_LEVER_LOSS_ATOL = 4, 0.05
+# weights that enter no product (gathered, or elementwise), left out of the
+# model-FLOP count by their last name
+NOT_IN_PRODUCTS = ("scale", "mix_mu", "w0", "u", "ln_x", "cm_mu_k", "cm_mu_r", "conv_w",
+                   "conv_b", "A_log", "dt_bias", "D", "norm_scale")
 
 
 _STARTED = time.perf_counter()
@@ -892,8 +974,10 @@ class Smoke:
         self.max_err = {}     # kernel -> largest error against its plain version
         self.launches = {}    # kernel -> launches in its main-path run
         # "kernel/route" -> (the run that launches the route on the main
-        # path, its launches there); (kernel, route, shape) -> the numbers of
-        # that route's kernels-line row at that shape
+        # path, its launches there; "kernel@shape": at that shape only);
+        # (kernel, route, shape) -> the numbers of that route's kernels-line
+        # row at that shape (route None: a non-routed kernel's row at a
+        # further served shape, row 9c)
         self.route_runs = {}
         self.route_rows = {}
         # the batched phases: kernel -> its width-8 numbers (the kernels
@@ -4460,13 +4544,16 @@ class Smoke:
 
     def decode_kernel_phase(self, label: str, b: int, hkv: int, g: int, d: int, s: int,
                             lengths: list, *, timed: bool = False,
-                            record: bool = False) -> int:
+                            record: bool = False, main: str = "bf16",
+                            shape_row: bool = False) -> int:
         """The decode kernel against its plain version in f32 and bf16 over
         a seeded normal cache. ``timed`` (a serve shape) adds each dtype's
         profiler device time of the wrapper call (both kernels it launches),
-        and in bf16 the plain version and SDPA (GQA, a length mask); with
-        ``record`` the bf16 numbers go into the kernels line. Returns the
-        wrapper's split count at this shape."""
+        and in the ``main`` dtype (the served model's) the plain version and
+        SDPA (GQA, a length mask); with ``record`` the main dtype's numbers
+        are the kernel's kernels-line row, with ``shape_row`` a row of their
+        own at this shape (``label``). Returns the wrapper's split count at
+        this shape."""
         torch, mod = self.torch, self.kernels["decode_attention"]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         base = self.attn_inputs(s + g, (b, hkv, g, d), (b, s, hkv, d), (b, s, hkv, d))
@@ -4486,7 +4573,7 @@ class Smoke:
                  numbers["device_split_ms"], _) = kernel_device_split(
                     torch, run, TRACE_NAMES["decode_attention"],
                     dict.fromkeys(TRACE_NAMES["decode_attention"], 1))
-            if timed and name == "bf16":
+            if timed and name == main:
                 numbers["plain_ms"] = cuda_ms(torch, plain)
                 mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None]
                 qt, kt, vt = q.reshape(b, hkv * g, 1, d), k.transpose(1, 2), v.transpose(1, 2)
@@ -4494,12 +4581,21 @@ class Smoke:
                 library = (cuda_ms(torch, fn), *device_ms(torch, fn), None)
             orders[name] = numbers
         live = int(np.minimum(np.asarray(lengths), s).clip(0).sum())
-        moved = 2 * (2 * b * hkv * g * d + 2 * live * hkv * d) + 4 * b   # bf16, lengths
+        size, rate = (2, "bf16_flops") if main == "bf16" else (4, "f32_flops")
+        moved = size * (2 * b * hkv * g * d + 2 * live * hkv * d) + 4 * b   # q, o, cache, lengths
         flops = 4 * d * g * hkv * live
-        self.finish_phase("decode_attention", label, orders, "bf16", moved, flops, library,
+        self.finish_phase("decode_attention", label, orders, main, moved, flops, library,
                           {"b": b, "hkv": hkv, "g": g, "d": d, "s": s,
                            "lengths": list(lengths), "n_split": n_split}, record,
-                          mod.KERNELS_PER_CALL, "bf16_flops")
+                          mod.KERNELS_PER_CALL, rate)
+        if shape_row:
+            numbers = orders[main]
+            bound = bound_of(moved, flops, rate)
+            self.route_rows["decode_attention", None, label] = {
+                "dtype": main, "max_abs_err": numbers["max_abs_err"],
+                **{k: numbers[k] for k in ("ms", "wrapper_ms", "device_ms", "device_split_ms",
+                                           "plain_ms") if k in numbers}, **bound,
+                **library_fields(library, bound["bound_ms"])}
         return n_split
 
     def lm_batch(self, prompts) -> dict:
@@ -4544,8 +4640,9 @@ class Smoke:
         ops = self.m["ops"]
         fp, gm = self.kernels["flash_prefill"], self.kernels["grouped_matmul"]
 
-        def plain_prefill(q, k, v, bq=256, bk=512, window=0):
-            return fp.flash_prefill_plain(q, k, v, window=window, bq=bq, bk=bk)
+        def plain_prefill(q, k, v, bq=256, bk=512, window=0, cast_free=False):
+            return fp.flash_prefill_plain(q, k, v, window=window, bq=bq, bk=bk,
+                                          cast_free=cast_free)
 
         def plain_gmm(x, w, seg_rows, out_dtype=None):
             return gm.grouped_matmul_plain(x, w, seg_rows, out_dtype=out_dtype)
@@ -4566,7 +4663,7 @@ class Smoke:
             idx = torch.topk(x.float() @ module.router.float(), module.cfg.top_k, dim=-1).indices
             record.append(torch.sort(idx, dim=-1).values)
         handles = [layer.moe.register_forward_hook(hook)
-                   for layer in model.layers if layer.is_moe]
+                   for layer in model.layers if getattr(layer, "is_moe", False)]
         try:
             yield record
         finally:
@@ -4611,20 +4708,34 @@ class Smoke:
                 "first_tokens_equal": first == first_plain,
                 "teacher_forced_greedy_equal_share": float(np.mean(tf_equal))}
 
+    def attention_sites(self, cfg) -> int:
+        """The attention calls of one pass: a layer's (dense, MoE), one a
+        site of the shared block (hybrid), none (ssm)."""
+        if cfg.family == "hybrid":
+            return len(self.m["transformer"]._hybrid_sites(cfg))
+        return 0 if cfg.family == "ssm" else cfg.n_layers
+
+    @staticmethod
+    def attention_f32(cfg) -> bool:
+        """Whether the served attention runs in f32: an f32 model's, and the
+        hybrid's (its residual stream is f32 after the first Mamba-2
+        block)."""
+        return cfg.compute_dtype == "float32" or cfg.family == "hybrid"
+
     def route_want(self, cfg, passes: int = LM_NEW) -> dict:
         """The launches of every route of the routed kernels in one prefill
         and ``passes - 1`` decode steps of ``cfg``: in bf16 the prefill on the
         tensor cores, the grouped GEMM on the tile route at prefill (B x S x
         k rows) and the small route at decode (B x k rows); in f32 all on the
         fma routes, the grouped GEMM's by its tile tiling at prefill and
-        its rows-few tiling at decode."""
-        layers = cfg.n_layers
-        n_gmm = 3 * layers if cfg.family == "moe" else 0
-        if cfg.compute_dtype == "bfloat16":
-            counts = {"flash_prefill/tc": layers, "grouped_matmul/tile": n_gmm,
+        its rows-few tiling at decode (``attention_f32``)."""
+        sites = self.attention_sites(cfg)
+        n_gmm = 3 * cfg.n_layers if cfg.family == "moe" else 0
+        if not self.attention_f32(cfg):
+            counts = {"flash_prefill/tc": sites, "grouped_matmul/tile": n_gmm,
                       "grouped_matmul/small": n_gmm * (passes - 1)}
         else:
-            counts = {"flash_prefill/fma": layers, "grouped_matmul/fma": n_gmm * passes,
+            counts = {"flash_prefill/fma": sites, "grouped_matmul/fma": n_gmm * passes,
                       "grouped_matmul/fma/tile": n_gmm,
                       "grouped_matmul/fma/rows_few": n_gmm * (passes - 1)}
         keys = [f"{kernel}/{route}" for kernel in ROUTED
@@ -4649,10 +4760,13 @@ class Smoke:
         """``serve_batch`` at full width (after a two-token warm-up), its
         launches counted; then the same tokens teacher-forced through the
         kernel path and through the plain path (``ops`` patched to the plain
-        versions), logits compared step by step (``gate``: held to
-        LOGIT_MAX_TOL / LOGIT_MEAN_TOL, and the first token of every request
-        to the plain path's; else printed only, with the share of MoE routes
-        that agree). Returns the served tokens."""
+        versions), logits compared step by step (``gate``: held to the
+        tolerances of the attention's dtype, F32_LOGIT_MAX_TOL /
+        F32_LOGIT_MEAN_TOL where it runs in f32, else LOGIT_MAX_TOL /
+        LOGIT_MEAN_TOL, and the first token of every request to the plain
+        path's; else printed only, with the share of MoE routes that agree).
+        A model that launches no kernel (ssm) has no plain path to hold it
+        to: its check is null. Returns the served tokens."""
         torch = self.torch
         serve = self.m["serve"]
         moe = cfg.family == "moe"
@@ -4663,7 +4777,8 @@ class Smoke:
         outs, stats = serve.serve_batch(cfg, prompts, max_new_tokens=LM_NEW, **kwargs)
         launches = self.read_counters()
         peak = torch.cuda.max_memory_allocated()
-        want = {"flash_prefill": cfg.n_layers, "decode_attention": cfg.n_layers * (LM_NEW - 1),
+        sites = self.attention_sites(cfg)
+        want = {"flash_prefill": sites, "decode_attention": sites * (LM_NEW - 1),
                 "grouped_matmul": 3 * cfg.n_layers * LM_NEW if moe else 0}
         for kernel, n in want.items():
             check(launches[kernel] == n, f"{label}: {kernel} launched {launches[kernel]} "
@@ -4673,6 +4788,11 @@ class Smoke:
         # shapes of its recorded phase: attention in the first (dense) run
         for kernel in ("flash_prefill", "decode_attention"):
             self.launches.setdefault(kernel, launches[kernel])
+        if cfg.family == "hybrid":   # rows 8d and 9c: the shared block's launches
+            self.route_runs[f"flash_prefill/fma@{ZAMBA_PREFILL_LABEL}"] = (
+                label, launches["flash_prefill/fma"])
+            self.route_runs[f"decode_attention@{ZAMBA_DECODE_LABEL}"] = (
+                label, launches["decode_attention"])
         if moe:
             self.launches["grouped_matmul"] = launches["grouped_matmul"]
         check(len(outs) == LM_BATCH and all(len(o) == LM_NEW for o in outs)
@@ -4681,41 +4801,54 @@ class Smoke:
 
         batch = self.lm_batch(prompts)
         out_t = torch.tensor(outs, dtype=torch.int32, device="cuda")
-        with self.routes(model) as kern_routes:
-            kern, cache = self.teacher_forced(model, cfg, batch, out_t)
-        kernel_repeats = bool(torch.equal(torch.stack([x.argmax(-1) for x in kern], 1),
-                                          out_t.long()))
+        tf = self.m["transformer"]
+        kernels_run = bool(sites or moe)
+        kernel_repeats = None
+        if kernels_run:
+            with self.routes(model) as kern_routes:
+                kern, cache = self.teacher_forced(model, cfg, batch, out_t)
+            kernel_repeats = bool(torch.equal(torch.stack([x.argmax(-1) for x in kern], 1),
+                                              out_t.long()))
+        else:   # no kernel on the path, so no plain path: the traced step's cache
+            with torch.inference_mode():
+                _, cache = tf.prefill(model, batch, cfg, LM_CACHE)
+        cache_bytes = {k: v.numel() * v.element_size() for k, v in cache.items() if k != "pos"}
         # one more decode step and one prefill, traced: the device's busy
         # share of each and the port kernels' device time in it
-        tf = self.m["transformer"]
         n_gmm = 3 * cfg.n_layers if moe else 0
 
         def step():
             with torch.inference_mode():
                 tf.decode_step(model, cache, out_t[:, -1:], cfg)
         per_call = self.kernels["decode_attention"].KERNELS_PER_CALL
-        step_trace = traced_call(torch, step, {"decode_attention": per_call * cfg.n_layers,
+        step_trace = traced_call(torch, step, {"decode_attention": per_call * sites,
                                                "grouped_matmul": n_gmm})
         del cache
 
         def prefill():
             with torch.inference_mode():
                 tf.prefill(model, batch, cfg, LM_CACHE)
-        prefill_trace = traced_call(torch, prefill, {"flash_prefill": cfg.n_layers,
+        prefill_trace = traced_call(torch, prefill, {"flash_prefill": sites,
                                                      "grouped_matmul": n_gmm})
 
-        with self.plain_path():
-            with self.routes(model) as plain_routes:
-                plain, cache = self.teacher_forced(model, cfg, batch, out_t)
-            del cache
-        result = self.compare_logits(label, cfg, kern, plain, out_t)
-        first = [o[0] for o in outs]
-        result.update({"tolerances": [LOGIT_MAX_TOL, LOGIT_MEAN_TOL] if gate else None,
-                       "first_tokens_served": first,
-                       "kernel_path_repeats_serve_tokens": kernel_repeats})
-        if gate:
-            check(result["logit_max_over_std"] <= LOGIT_MAX_TOL
-                  and result["logit_mean_over_std"] <= LOGIT_MEAN_TOL,
+        result, tols = None, None
+        if kernels_run:
+            with self.plain_path():
+                with self.routes(model) as plain_routes:
+                    plain, cache = self.teacher_forced(model, cfg, batch, out_t)
+                del cache
+            result = self.compare_logits(label, cfg, kern, plain, out_t)
+            if gate:
+                tols = ((F32_LOGIT_MAX_TOL, F32_LOGIT_MEAN_TOL) if self.attention_f32(cfg)
+                        else (LOGIT_MAX_TOL, LOGIT_MEAN_TOL))
+            result.update({"tolerances": tols, "first_tokens_served": [o[0] for o in outs],
+                           "kernel_path_repeats_serve_tokens": kernel_repeats})
+        else:
+            check(not gate, f"{label}: launches no kernel, so no plain path to gate it on")
+        if tols:
+            first = result["first_tokens_served"]
+            check(result["logit_max_over_std"] <= tols[0]
+                  and result["logit_mean_over_std"] <= tols[1],
                   f"{label}: teacher-forced logits differ from the plain path by up to "
                   f"{result['logit_max_over_std']} (max) / {result['logit_mean_over_std']} "
                   "(mean) of their std")
@@ -4737,7 +4870,7 @@ class Smoke:
         decode_steps = LM_NEW - 1
         lens = [len(p) for p in prompts]
         emit({"run": label, "arch": cfg.name, "family": cfg.family,
-              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model, "attention_sites": sites,
               "heads": [cfg.n_heads, cfg.n_kv_heads], "d_ff": cfg.d_ff,
               "experts": [cfg.n_experts, cfg.top_k], "vocab": cfg.vocab_size,
               "compute_dtype": cfg.compute_dtype,
@@ -4749,8 +4882,10 @@ class Smoke:
               "decode_tokens_per_s": LM_BATCH * decode_steps / stats.decode_s,
               "serve_tokens_per_s": stats.tokens_per_s,
               "peak_memory_bytes": peak,
+              "cache_bytes": cache_bytes,
               "decode_step_trace": step_trace, "prefill_trace": prefill_trace,
-              "moe": moe_numbers or None, "gated": gate, "check": result})
+              "moe": moe_numbers or None, "gated": gate, "check": result,
+              "check_note": None if kernels_run else "no kernel launched: no plain path"})
         return outs
 
     # -- fourth path: MoE serving ----------------------------------------------
@@ -5033,6 +5168,106 @@ class Smoke:
         check(result["first_tokens_equal"], f"{label}: first tokens {result['first_tokens']} "
               f"!= plain {result['first_tokens_plain']}")
 
+    # -- the sixth path: the SSM and hybrid families ----------------------
+
+    def ssm_model(self, arch: str, **changes):
+        """The serving model of ``arch`` (with ``changes`` to its config,
+        else at full width and depth), random weights from LM_WEIGHT_SEED, on the
+        card."""
+        from repro_torch.configs import get_config
+
+        cfg = dataclasses.replace(get_config(arch), **changes)
+        model = self.m["transformer"].init_params(
+            cfg, self.torch.Generator(device="cuda").manual_seed(LM_WEIGHT_SEED), "cuda")
+        return cfg, model
+
+    def decode_matches_forward(self, label: str, cfg, model, tolerances) -> None:
+        """The decode path against the training forward at full width: the
+        prefill of DMF_LEN - DMF_STEPS prompt tokens and DMF_STEPS decode
+        steps fed the prompt's own tokens, each step's logits against the
+        forward's at that position; the prefill of all DMF_LEN tokens against
+        the last decode step and the forward's last position. Gated at
+        ``tolerances`` (worst, mean) of the forward logits' std, or reported
+        only where None."""
+        torch, tf = self.torch, self.m["transformer"]
+        rng = np.random.default_rng(LM_PROMPT_SEED)
+        toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (DMF_BATCH, DMF_LEN))
+                                .astype(np.int32)).cuda()
+        n_pre = DMF_LEN - DMF_STEPS
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            full, _ = tf.prefill(model, {"tokens": toks}, cfg, DMF_LEN)
+            lg, cache = tf.prefill(model, {"tokens": toks[:, :n_pre]}, cfg, DMF_LEN)
+            steps = [lg]
+            for t in range(n_pre, DMF_LEN):
+                lg, cache = tf.decode_step(model, cache, toks[:, t:t + 1], cfg)
+                steps.append(lg)
+            del cache
+            fwd = tf.forward(model, {"tokens": toks}, dataclasses.replace(cfg, remat=False))[0]
+            fwd = fwd[:, n_pre - 1:]
+        torch.cuda.synchronize()
+
+        def ratios(a, w):
+            check(bool(torch.isfinite(a).all()), f"{label}: non-finite logits")
+            diff, std = (a - w).abs(), float(w.std())
+            return float(diff.max()) / std, float(diff.mean()) / std
+
+        # the prefill's last logits (position n_pre - 1), then one a decode step
+        by_step = [ratios(a, fwd[:, j]) for j, a in enumerate(steps)]
+        full_vs_decode = ratios(full, steps[-1])
+        full_vs_forward = ratios(full, fwd[:, -1])
+        worst = max([r[0] for r in by_step] + [full_vs_decode[0], full_vs_forward[0]])
+        worst_mean = max([r[1] for r in by_step] + [full_vs_decode[1], full_vs_forward[1]])
+        emit({"decode_matches_forward": label, "arch": cfg.name, "batch": DMF_BATCH,
+              "prompt_len": DMF_LEN, "decode_steps": DMF_STEPS,
+              "decode_vs_forward_over_std": by_step,
+              "prefill_vs_last_decode_over_std": full_vs_decode,
+              "prefill_vs_forward_over_std": full_vs_forward,
+              "compute_dtype": cfg.compute_dtype, "tolerances": tolerances,
+              "seconds": time.perf_counter() - t0})
+        check(tolerances is None or (worst <= tolerances[0] and worst_mean <= tolerances[1]),
+              f"{label}: decode and prefill differ from the forward by up to {worst} (max) / "
+              f"{worst_mean} (mean) of the logit std")
+        del full, steps, fwd
+        torch.cuda.empty_cache()
+
+    def ssm_serving(self) -> None:
+        """The sixth path's serving: the attention kernels at Zamba2's serve
+        shapes in f32 (rows 8d and 9c: the kernels line's numbers), Zamba2's
+        serve run and its decode-matches-forward gate, then RWKV6-3B's."""
+        torch = self.torch
+        cfg, model = self.ssm_model(ZAMBA_ARCH)
+        prompts = self.lm_prompts(cfg.vocab_size)
+        s_pad = max(len(p) for p in prompts)
+        h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.prefill_kernel_phase(ZAMBA_PREFILL_LABEL, LM_BATCH, s_pad, h, hkv, d,
+                                  record=True, dtypes=("f32",))
+        self.decode_kernel_phase(ZAMBA_DECODE_LABEL, LM_BATCH, hkv, h // hkv, d, LM_CACHE,
+                                 [s_pad + LM_NEW // 2] * LM_BATCH, timed=True, main="f32",
+                                 shape_row=True)
+        self.serve_run("serve_zamba2_1p2b", cfg, model, prompts, gate=True)   # f32 attention
+        self.decode_matches_forward("decode_matches_forward_zamba2_1p2b", cfg, model,
+                                    (LOGIT_MAX_TOL, LOGIT_MEAN_TOL))
+        del model
+        torch.cuda.empty_cache()
+        cfg, model = self.ssm_model(RWKV_ARCH)
+        self.serve_run("serve_rwkv6_3b", cfg, model, self.lm_prompts(cfg.vocab_size),
+                       gate=False)   # no kernel, so no plain path
+        self.decode_matches_forward("decode_matches_forward_rwkv6_3b", cfg, model, None)
+        del model
+        torch.cuda.empty_cache()
+        # RWKV6-3B's gates: bf16 at RWKV_DMF_LAYERS, f32 at full depth (see DMF_LEN)
+        cfg8, model = self.ssm_model(RWKV_ARCH, n_layers=RWKV_DMF_LAYERS)
+        self.decode_matches_forward(f"decode_matches_forward_rwkv6_3b_l{RWKV_DMF_LAYERS}",
+                                    cfg8, model, RWKV_DMF_TOL)
+        del model
+        torch.cuda.empty_cache()
+        cfg32, model = self.ssm_model(RWKV_ARCH, compute_dtype="float32")
+        self.decode_matches_forward("decode_matches_forward_rwkv6_3b_f32", cfg32, model,
+                                    (F32_LOGIT_MAX_TOL, F32_LOGIT_MEAN_TOL))
+        del model
+        torch.cuda.empty_cache()
+
     def kernels_line(self) -> None:
         """One row per kernel; a routed kernel has one row per route and
         served shape instead (``kernel_route``, ``shape``), whose
@@ -5059,6 +5294,13 @@ class Smoke:
                                         "launches": self.batched_launches[kernel]}
                 rows.append({**base, "launches": self.launches[kernel],
                              "max_abs_err": self.max_err[kernel], **numbers, **extra})
+                for (k, route, shape), row in self.route_rows.items():
+                    if (k, route) == (kernel, None):   # a further served shape
+                        run, launches = self.route_runs.get(f"{kernel}@{shape}", (None, 0))
+                        check(launches > 0, f"{kernel}/{shape}: launched no time on its "
+                              "main-path run")
+                        rows.append({**base, "shape": shape, "launches": launches,
+                                     "launches_run": run, **row})
                 continue
             for route in ROW_ROUTES.get(kernel, self.kernels[kernel].ROUTE_LAUNCHES):
                 shapes = [sh for (k, r, sh) in self.route_rows if (k, r) == (kernel, route)]
@@ -5069,7 +5311,8 @@ class Smoke:
                     tiling = row.get("fma_tiling")
                     key = "/".join([kernel, route] + ([tiling] if tiling else []))
                     check(key in self.route_runs, f"{key}: launched no time on the main path")
-                    run, launches = self.route_runs[key]
+                    # a shape's own run where one launches the route there (row 8d)
+                    run, launches = self.route_runs.get(f"{key}@{shape}", self.route_runs[key])
                     extra = dict(in_place)
                     if tiling:   # bf16 operands through the same tiling: a field of its own
                         extra["bf16_operands_max_abs_err"] = self.max_err.get(
@@ -5192,7 +5435,12 @@ class Smoke:
                    "param_max_abs_err": worst(params_c, params_h),
                    "param_share_within_atol": share(params_c, params_h, TRAIN_PARAM_ATOL),
                    "params_apart": {n: int(m.sum()) for n, m in apart.items() if bool(m.any())},
-                   "cpu_grad_max_where_apart": hazard}
+                   "cpu_grad_max_where_apart": hazard,
+                   "nu_atol": TRAIN_NU_ATOL}
+            if cfg.family in TRAIN_NU_FROM_GRAD:
+                g_max = max(float(g.abs().max()) for g in grads["cpu"].values())
+                row["nu_atol"] = (1 - tcfg.beta2) * (2 * g_max * TRAIN_GRAD_ATOL
+                                                     + TRAIN_GRAD_ATOL ** 2)
             int8 = comp == "int8"
             if int8:
                 row.update({f"{k}_share_within_atol": share(oc[k], oh[k], atol) for k, atol in
@@ -5209,7 +5457,7 @@ class Smoke:
             else:
                 check(row["grad_norm_rel_err"] <= TRAIN_NORM_RTOL
                       and row["mu_max_abs_err"] <= TRAIN_MU_ATOL
-                      and row["nu_max_abs_err"] <= TRAIN_NU_ATOL,
+                      and row["nu_max_abs_err"] <= row["nu_atol"],
                       f"{label}: optimizer state off the CPU's: {row}")
                 check(all(g <= TRAIN_HAZARD_GRAD for g in hazard.values()),
                       f"{label}: parameters apart where the gradient is not near zero: {row}")
@@ -5279,30 +5527,45 @@ class Smoke:
               f"train_resume: resume is not bit for bit ({len(differ)} leaves differ)")
         torch.cuda.empty_cache()
 
-    def train_run(self, label: str, arch: str, layers, steps: int, trace: bool) -> None:
+    def product_weights(self, model, cfg) -> tuple:
+        """(the parameters that enter a product, the weights one token's
+        products use): not the embedding table or the elementwise weights
+        (``NOT_IN_PRODUCTS``); the hybrid's shared block once a site; of the
+        MoE's experts the top-k."""
+        unique = per_token = 0
+        for name, p in model.named_parameters():
+            if name == "embed.embedding" or name.rsplit(".", 1)[-1] in NOT_IN_PRODUCTS:
+                continue
+            unique += p.numel()
+            per_token += p.numel() * (self.attention_sites(cfg)
+                                      if name.startswith("shared_attn.") else 1)
+        if cfg.is_moe:
+            per_token -= cfg.n_layers * (cfg.n_experts - cfg.top_k) * 3 * cfg.d_model * cfg.d_ff
+        return unique, per_token
+
+    def train_run(self, label: str, arch: str, layers, steps: int, trace: bool,
+                  levers: dict | None = None, lr: float = TRAIN_LR) -> list:
         """``train_loop`` on the card at full width (``layers`` cuts the
-        depth): each step's loss, grad_norm, lr, moe_aux and ms, the median
-        step ms from step TRAIN_TIMED_FROM on, tokens/s, the model-FLOP
-        share (6 N T over the bf16 peak, N the parameters that enter a
-        product for a token: not the embedding table, top-k of the
-        experts), the peak allocation; with ``trace`` the last step runs
-        under the profiler (left out of the median): its device busy ms by
-        kernel class and its top kernels. Gates: finite losses and gradient
-        norms, the last loss TRAIN_LOSS_DROP below the first, and no kernel
-        wrapper launched."""
+        depth; ``levers`` sets config levers): each step's loss, grad_norm,
+        lr, moe_aux and ms, the median step ms from step TRAIN_TIMED_FROM
+        on, tokens/s, the model-FLOP share (6 N T over the bf16 peak, N the
+        weights one token's products use: ``product_weights``), the peak
+        allocation; with ``trace`` the last step runs under the profiler
+        (left out of the median): its device busy ms by kernel class and its
+        top kernels. Gates: finite losses and gradient norms, the last loss
+        TRAIN_LOSS_DROP below the first (a lever run: step 0's loss within
+        TRAIN_LEVER_LOSS_ATOL of the lever-off run's), and no kernel wrapper
+        launched. Returns the step records."""
         torch = self.torch
         from repro_torch.configs import get_config
 
-        cfg = get_config(arch)
+        cfg = dataclasses.replace(get_config(arch), **(levers or {}))
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
-        tcfg = self.m["optim"].TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
-                                           total_steps=steps)
+        tcfg = self.m["optim"].TrainConfig(learning_rate=lr, warmup_steps=1, total_steps=steps)
         meta = self.m["transformer"].Transformer(cfg, "meta", torch.float32)
         n_params = sum(p.numel() for p in meta.parameters())
-        n_active = n_params - meta.embed.embedding.numel()
-        if cfg.is_moe:
-            n_active -= cfg.n_layers * (cfg.n_experts - cfg.top_k) * 3 * cfg.d_model * cfg.d_ff
+        n_unique, n_active = self.product_weights(meta, cfg)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         self.reset_counters()
@@ -5332,8 +5595,9 @@ class Smoke:
         median_ms = statistics.median(timed)
         tokens = TRAIN_BATCH * TRAIN_SEQ
         losses = [h["loss"] for h in hist]
-        emit({"run": label, "arch": arch, "layers": cfg.n_layers, "params": n_params,
-              "params_in_products": n_active, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+        emit({"run": label, "arch": arch, "layers": cfg.n_layers, "levers": levers, "lr": lr,
+              "params": n_params, "params_in_products": n_unique,
+              "product_weights_per_token": n_active, "batch": [TRAIN_BATCH, TRAIN_SEQ],
               "remat": cfg.remat_policy if cfg.remat else "off", "compute": cfg.compute_dtype,
               "steps": hist, "median_step_ms": median_ms,
               "timed_steps": f"{TRAIN_TIMED_FROM}-{len(hist) - 1 - len(traced)}",
@@ -5341,16 +5605,36 @@ class Smoke:
               "tokens_per_s": tokens / (median_ms / 1e3),
               "model_flop_share": 6 * n_active * tokens / (median_ms / 1e3) / PEAK["bf16_flops"],
               "peak_allocated_bytes": peak, "wall_s": wall, "kernel_launches": launched,
-              "loss_drop": losses[0] - losses[-1], "gate_drop": TRAIN_LOSS_DROP[label],
+              "loss_drop": losses[0] - losses[-1], "gate_drop": TRAIN_LOSS_DROP.get(label),
               "card": self.smi})
         check(len(hist) == steps and all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
                                          and np.isfinite(h["moe_aux"]) for h in hist),
               f"{label}: a loss, grad norm or moe_aux is not finite: {hist}")
-        check(losses[-1] < losses[0] - TRAIN_LOSS_DROP[label],
-              f"{label}: the loss fell {losses[0] - losses[-1]:.4f}, not "
-              f"{TRAIN_LOSS_DROP[label]}")
+        if label in TRAIN_LOSS_DROP:
+            check(losses[-1] < losses[0] - TRAIN_LOSS_DROP[label],
+                  f"{label}: the loss fell {losses[0] - losses[-1]:.4f}, not "
+                  f"{TRAIN_LOSS_DROP[label]}")
         check(not launched, f"{label}: the training path launched kernels {launched}")
         torch.cuda.empty_cache()
+        return hist
+
+    def train_levers(self, off: list) -> None:
+        """The Llama run with each of TRAIN_LEVER_RUNS (``off``: the
+        lever-off run's step records, from the same call), the last step
+        traced: step 0's loss within TRAIN_LEVER_LOSS_ATOL of the lever-off
+        run's; the step ms beside the lever-off run's median."""
+        off_ms = statistics.median(h["ms"] for h in off[TRAIN_TIMED_FROM:-1])
+        for label, levers in TRAIN_LEVER_RUNS:
+            hist = self.train_run(label, LM_ARCH, None, TRAIN_LEVER_STEPS, trace=True,
+                                  levers=levers)
+            err = abs(hist[0]["loss"] - off[0]["loss"])
+            emit({"lever_run": label, "levers": levers, "step0_loss": hist[0]["loss"],
+                  "step0_loss_off": off[0]["loss"], "step0_loss_err": err,
+                  "tolerance": TRAIN_LEVER_LOSS_ATOL,
+                  "step_ms": [h["ms"] for h in hist], "off_median_step_ms": off_ms})
+            check(err <= TRAIN_LEVER_LOSS_ATOL,
+                  f"{label}: step 0's loss {hist[0]['loss']} is {err} off the lever-off "
+                  f"run's {off[0]['loss']}")
 
 
 def main() -> int:
@@ -5605,13 +5889,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("serving_moe")
 
+    # the sixth path, the SSM and hybrid families: Zamba2's attention
+    # kernels at its serve shapes (rows 8d and 9c), then both serve runs and
+    # their decode-matches-forward gates
+    smoke.ssm_serving()
+    lap("serving_ssm")
+
     # the fifth path, training: no hand-written kernel (the wrappers refuse
-    # autograd), the card against the CPU, resume, then the two runs
+    # autograd), the card against the CPU, resume, the runs of every family,
+    # then the levers on the Llama run
     smoke.train_guard()
     smoke.train_card_vs_cpu()
     smoke.train_resume()
+    history = {}
     for label, arch, layers, steps in TRAIN_RUNS:
-        smoke.train_run(label, arch, layers, steps, trace=label == TRAIN_TRACED)
+        history[label] = smoke.train_run(label, arch, layers, steps,
+                                         trace=label == TRAIN_TRACED)
+    for label, arch, layers, steps, lr in TRAIN_SSM_RUNS:
+        smoke.train_run(label, arch, layers, steps, trace=False, lr=lr)
+    smoke.train_levers(history[TRAIN_TRACED])
     lap("training")
     emit({"phase_seconds": laps, "card": smoke.smi})
     emit({"script_seconds": time.perf_counter() - started})

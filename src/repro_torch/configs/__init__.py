@@ -2,9 +2,10 @@
 
 The port of the JAX package's ``configs/__init__.py``. Each config module
 defines CONFIG (the published configuration) and SMOKE (a reduced
-same-family configuration for CPU tests). Only the dense and MoE families
-without a frontend are ported so far (``PORTED``); ``get_config`` on another
-architecture raises and names ROADMAP.md, where the rest is queued.
+same-family configuration for CPU tests). The dense, MoE, SSM (RWKV-6) and
+hybrid (Mamba-2 with a shared attention block) families without a frontend
+are ported (``PORTED``); ``get_config`` on another architecture raises and
+names ROADMAP.md, where the rest is queued.
 """
 
 from __future__ import annotations
@@ -38,7 +39,10 @@ ALIASES = {
     "zamba2-1.2b": "zamba2_1p2b",
 }
 
-PORTED = ("deepseek_67b", "llama3_2_1b", "minitron_4b", "olmoe_1b_7b", "starcoder2_7b")
+PORTED = ("deepseek_67b", "llama3_2_1b", "minitron_4b", "olmoe_1b_7b", "rwkv6_3b",
+          "starcoder2_7b", "zamba2_1p2b")
+# the ROADMAP.md Queue 1 item that ports each unported arch
+_QUEUED = {"mixtral_8x22b": "8"}
 
 
 def canonical(name: str) -> str:
@@ -52,6 +56,7 @@ def get_config(name: str, smoke: bool = False):
     arch = canonical(name)
     if arch not in PORTED:
         raise ValueError(f"arch {arch!r} is not ported to repro_torch yet "
-                         f"(ported: {PORTED}); see ROADMAP.md Queue 1 item 9")
+                         f"(ported: {PORTED}); see ROADMAP.md Queue 1 item "
+                         f"{_QUEUED.get(arch, '9')}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.SMOKE if smoke else mod.CONFIG

@@ -34,7 +34,7 @@ class SyntheticLM:
         if self.cfg.frontend != "none":
             raise NotImplementedError(
                 f"{self.cfg.name}: frontend {self.cfg.frontend!r} batches (embeddings) are "
-                "not ported to repro_torch; see ROADMAP.md Queue 1 item 9")
+                "not ported to repro_torch; see ROADMAP.md Queue 1 item 9c")
 
     def batch(self, index: int) -> dict:
         """Batch ``index`` as NumPy arrays (stateless: any index at any time)."""

@@ -67,24 +67,33 @@ def device_split(b: int, hkv: int, s: int, device: torch.device) -> int:
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
-    """Plain version: the masked softmax over the whole cache in f32."""
+                           lengths: torch.Tensor, cast_free: bool = False) -> torch.Tensor:
+    """Plain version: the masked softmax over the whole cache in f32;
+    ``cast_free`` rounds the probabilities to V's dtype before the PV
+    product (the reference's lever; its bf16 operands with f32 results are
+    the upcast operands' f32 products)."""
     d = q.shape[-1]
     scores = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) / (d ** 0.5)
     lengths = lengths.to(device=q.device, dtype=torch.int64)
     visible = torch.arange(k.shape[1], device=q.device)[None, :] < lengths[:, None]
     scores = torch.where(visible[:, None, None, :], scores, NEG_INF)
-    out = torch.einsum("bhgs,bshd->bhgd", torch.softmax(scores, dim=-1), v.float())
+    p = torch.softmax(scores, dim=-1)
+    if cast_free:
+        p = p.to(v.dtype).float()
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     out = torch.where((lengths > 0)[:, None, None, None], out, 0.0)
     return out.to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, cast_free: bool = False) -> torch.Tensor:
     """Decode attention over the first ``lengths[b]`` cache positions. CPU
-    tensors take the plain version; CUDA tensors launch the kernel, which
-    takes f32 or bf16, D in ``HEAD_DIMS``, G * D at most ``MAX_OUTPUTS``,
-    contiguous operands and int32 lengths on the card."""
+    tensors take the plain version (with ``cast_free``); CUDA tensors
+    launch the kernel, which takes f32 or bf16, D in ``HEAD_DIMS``, G * D
+    at most ``MAX_OUTPUTS``, contiguous operands and int32 lengths on the
+    card. The kernel computes the same with ``cast_free`` on or off: it
+    widens each bf16 cache row to f32 and takes every product and sum in
+    f32 on FMAs, P unrounded."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
                          "expected [B, Hkv, G, D] and [B, S, Hkv, D]")
@@ -94,7 +103,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(lengths.shape) != (b,):
         raise ValueError(f"lengths {tuple(lengths.shape)} != ({b},)")
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lengths)
+        return decode_attention_plain(q, k, v, lengths, cast_free=cast_free)
     if q.dtype not in _DTYPES or d not in HEAD_DIMS or g * d > MAX_OUTPUTS:
         raise ValueError(f"the kernel takes f32/bf16, D in {HEAD_DIMS} and G * D <= "
                          f"{MAX_OUTPUTS}; got {q.dtype}, D={d}, G={g}")

@@ -42,22 +42,33 @@ def choose_route(dtype: torch.dtype) -> str:
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         window: int = 0, bq: int = 256, bk: int = 512,
-                        causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                        causal: bool = True, q_offset: int = 0,
+                        cast_free: bool = False) -> torch.Tensor:
     """Plain version: a loop over ``bq``-row query chunks, each streaming the
     ``bk``-key chunks it can see under an f32 online softmax
     (``ref.chunked_attention``, the JAX package's pure ``flash_attention``).
     ``q_offset`` is the global position of q[0] relative to k[0] (prefill:
-    0); ``causal`` off attends to every key (within the window)."""
+    0); ``causal`` off attends to every key (within the window);
+    ``cast_free`` rounds P to V's dtype before the PV product (the
+    reference's lever, ``ref.chunked_attention``)."""
     return ref.chunked_attention(q, k, v, causal=causal, window=window, q_chunk=bq,
-                                 kv_chunk=bk, q_offset=q_offset)
+                                 kv_chunk=bk, q_offset=q_offset, cast_free=cast_free)
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  bq: int = 256, bk: int = 512, window: int = 0) -> torch.Tensor:
+                  bq: int = 256, bk: int = 512, window: int = 0,
+                  cast_free: bool = False) -> torch.Tensor:
     """Causal (plus ``window``) GQA attention of a prompt batch. CPU tensors
-    take the plain version (with ``bq``/``bk``); CUDA tensors launch the
-    kernel, which takes f32 or bf16, D in ``HEAD_DIMS``, H / Hkv at most
-    ``MAX_GROUP`` and contiguous operands, on :func:`choose_route`'s route."""
+    take the plain version (with ``bq``/``bk`` and ``cast_free``); CUDA
+    tensors launch the kernel, which takes f32 or bf16, D in
+    ``HEAD_DIMS``, H / Hkv at most ``MAX_GROUP`` and contiguous operands,
+    on :func:`choose_route`'s route.
+
+    The kernel computes the same with ``cast_free`` on or off: the ``tc``
+    route multiplies the bf16 q, k and v on the tensor cores with f32 sums
+    and carries P as two bf16 parts (P_hi + P_lo), so its P is nearer the
+    f32 P than the lever's one rounding; the ``fma`` route is f32
+    throughout."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
                          "expected [B, S, H, D] and [B, S, Hkv, D]")
@@ -68,7 +79,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window < 0:
         raise ValueError(f"window {window} < 0")
     if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, window=window, bq=bq, bk=bk)
+        return flash_prefill_plain(q, k, v, window=window, bq=bq, bk=bk, cast_free=cast_free)
     if q.dtype not in _DTYPES or d not in HEAD_DIMS or h // hkv > MAX_GROUP:
         raise ValueError(f"the kernel takes f32/bf16, D in {HEAD_DIMS} and at most "
                          f"{MAX_GROUP} query heads per KV head; got {q.dtype}, D={d}, "

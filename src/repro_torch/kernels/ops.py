@@ -109,16 +109,18 @@ def grouped_matmul_ragged(x: torch.Tensor, w: torch.Tensor, seg_rows: torch.Tens
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, cast_free: bool = False) -> torch.Tensor:
     """q ``[B, Hkv, G, D]`` over the cache k, v ``[B, S, Hkv, D]``, positions
-    ``< lengths[b]`` visible; ``[B, Hkv, G, D]`` in q's dtype."""
+    ``< lengths[b]`` visible; ``[B, Hkv, G, D]`` in q's dtype. ``cast_free``
+    (the reference's lever) shapes the plain version only."""
     _refuse_autograd("decode_attention", q, k, v)
-    return _attn.decode_attention(q, k, v, lengths)
+    return _attn.decode_attention(q, k, v, lengths, cast_free=cast_free)
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int = 256,
-                  bk: int = 512, window: int = 0) -> torch.Tensor:
+                  bk: int = 512, window: int = 0, cast_free: bool = False) -> torch.Tensor:
     """Causal (plus ``window``) GQA attention, q ``[B, S, H, D]``, k, v
-    ``[B, S, Hkv, D]``; ``bq``/``bk`` are the plain version's block sizes."""
+    ``[B, S, Hkv, D]``; ``bq``/``bk`` are the plain version's block sizes
+    and ``cast_free`` (the reference's lever) shapes the plain version only."""
     _refuse_autograd("flash_prefill", q, k, v)
-    return _fp.flash_prefill(q, k, v, bq=bq, bk=bk, window=window)
+    return _fp.flash_prefill(q, k, v, bq=bq, bk=bk, window=window, cast_free=cast_free)

@@ -45,7 +45,8 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0, q_chunk: int = 1024,
-                      kv_chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
+                      kv_chunk: int = 1024, q_offset: int = 0,
+                      cast_free: bool = False) -> torch.Tensor:
     """Causal (plus an optional sliding ``window``) GQA attention as the
     reference's doubly chunked online softmax in f32. q: [B, Sq, H, D]; k, v:
     [B, Sk, Hkv, D]; returns [B, Sq, H, D] in q's dtype.
@@ -57,6 +58,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     folded: query head ``h`` reads KV head ``h // (H / Hkv)``. ``q_offset``
     is the global position of q[0] relative to k[0] (prefill: 0); ``causal``
     off attends to every key (within the window). Differentiable by autograd.
+
+    ``cast_free`` is the reference's lever: its products take the storage
+    dtype's operands with f32 results, and P is rounded to V's dtype before
+    the PV product. A product of two bf16 numbers is exact in f32, so the
+    operands upcast to f32 (with TF32 off) give the lever's values up to
+    summation order; only the rounding of P changes a value. (A bf16
+    product with f32 results, ``torch.bmm(..., out_dtype=torch.float32)``,
+    has no backward and no CPU kernel in the torch builds the port runs.)
     """
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -102,6 +111,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1)
+            if cast_free:
+                p = p.to(v.dtype).float()
             acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, v_blk)
             m = m_new
         o = acc / torch.clamp(l[..., None], min=1e-30)

@@ -8,11 +8,16 @@ batch drains (static shapes). One card holds the model whole, so there is
 no mesh and no sharding. On the card, prefill and decode attention run the
 hand-written CUDA kernels (``kernels/csrc/flash_prefill.cu``,
 ``kernels/csrc/chunked_attention.cu``), and the experts of an MoE model
-run the grouped-GEMM kernel (``kernels/csrc/grouped_matmul.cu``).
+run the grouped-GEMM kernel (``kernels/csrc/grouped_matmul.cu``). The SSM
+(RWKV6-3B) and hybrid (Zamba2-1.2B) families carry O(1) recurrent states;
+the hybrid's shared attention block runs the attention kernels at each of
+its sites, RWKV-6 runs none.
 
     python -m repro_torch.launch.serve --arch llama3.2-1b
     python -m repro_torch.launch.serve --arch olmoe-1b-7b
     python -m repro_torch.launch.serve --arch olmoe-1b-7b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch zamba2-1.2b
+    python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
 """
 
 from __future__ import annotations
@@ -61,9 +66,10 @@ def serve_batch(cfg, prompts: list, *, max_new_tokens: int = 16,
     and the generated tokens must fit ``cache_len`` (the reference drops the
     cache writes past its end instead).
 
-    Known limitation (the reference's): the prefill cache still holds K/V for
-    the pad positions of shorter prompts, and decode appends after the padded
-    length, so tokens after the first can still attend to pads."""
+    Known limitation (the reference's): the prefill cache still holds K/V
+    (and the recurrent states carry the pads) for the pad positions of
+    shorter prompts, and decode appends after the padded length, so tokens
+    after the first can still attend to pads."""
     device = resolve_device(device)
     b = len(prompts)
     max_len = max(len(p) for p in prompts)

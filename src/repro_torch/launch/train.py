@@ -2,7 +2,8 @@
 
 The port of the JAX package's ``launch/train.py``. One card holds the model
 and its optimizer state whole, so there is no mesh: ``--model-parallel``
-above 1 raises (``parallel/`` is queued in ROADMAP.md Queue 1 item 9).
+above 1 raises (``parallel/`` is queued in ROADMAP.md Queue 1 item 9e).
+Every family trains: dense, MoE, SSM (RWKV-6) and hybrid (Zamba2).
 
 Fault-tolerance wiring:
   * CheckpointManager: periodic + SIGTERM-triggered saves, keep-k.
@@ -14,6 +15,7 @@ Fault-tolerance wiring:
 
     python -m repro_torch.launch.train --arch llama3_2_1b --steps 8
     python -m repro_torch.launch.train --arch llama3_2_1b --smoke --device cpu
+    python -m repro_torch.launch.train --arch zamba2_1p2b --smoke --device cpu
 """
 
 from __future__ import annotations
@@ -131,7 +133,7 @@ def main(argv=None):
     if args.model_parallel > 1:
         raise NotImplementedError(
             "--model-parallel above 1 needs parallel/ (a mesh and sharding rules), "
-            "which is not ported to repro_torch; see ROADMAP.md Queue 1 item 9")
+            "which is not ported to repro_torch; see ROADMAP.md Queue 1 item 9e")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     tcfg = TrainConfig(learning_rate=args.lr, microbatches=args.microbatches,

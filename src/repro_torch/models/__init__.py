@@ -1,8 +1,7 @@
 """repro_torch.models — the decoder LM stack of the JAX package, in PyTorch.
 
-Ported so far: the dense and MoE families without a frontend, for serving
-(``config``, ``layers``, ``attention``, ``moe``, ``transformer``, and
-``convert``, which carries the JAX package's weights across). The SSM and
-hybrid families, the frontends and the training path are queued in
-ROADMAP.md.
+Ported: all four families without a frontend, for serving and training
+(``config``, ``layers``, ``attention``, ``moe``, ``rwkv6``, ``mamba2``,
+``transformer``, and ``convert``, which carries the JAX package's weights
+across). The frontends are queued in ROADMAP.md.
 """

@@ -21,6 +21,13 @@ length). ``attention_ref`` is the reference's naive oracle.
 
 The KV cache is updated in place: ``attn_prefill`` and ``attn_decode`` write
 into the cache slabs they are given.
+
+The reference's lever ``cast_free_attention`` (bf16 operands with f32
+results, P rounded to V's dtype before the PV product) reaches
+``flash_attention`` and the serving wrappers' plain versions, which follow
+the reference's lever exactly; on the card the serving kernels run with it
+as without it (each wrapper states what its kernel computes). It changes
+nothing where q, k and v are f32.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from torch import nn
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, cdtype, draw_normal, weight, weight_dtypes
+from repro_torch.models.layers import (apply_rope, cdtype, draw_normal, matmul, weight,
+                                      weight_dtypes)
 
 NEG_INF = -1e30
 
@@ -57,7 +65,7 @@ class Attention(nn.Module):
 def _heads(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk", x, w.astype(dt))`` as one matrix product."""
     d, h, k = w.shape
-    return (x @ w.to(dt).reshape(d, h * k)).unflatten(-1, (h, k))
+    return matmul(x, w.reshape(d, h * k), dt).unflatten(-1, (h, k))
 
 
 def qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
@@ -70,7 +78,7 @@ def qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
 
 def out_proj(p: Attention, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h, hd, d = p.wo.shape
-    return o.flatten(-2) @ p.wo.to(cdtype(cfg)).reshape(h * hd, d)
+    return matmul(o.flatten(-2), p.wo.reshape(h * hd, d), cdtype(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -85,15 +93,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     The reference's doubly chunked online softmax in f32
     (``ref.chunked_attention``, whose body the prefill kernel's plain version
-    shares), differentiable by autograd.
+    shares), differentiable by autograd. ``cast_free`` is the reference's
+    lever (P rounded to V's dtype before the PV product; see
+    ``ref.chunked_attention``).
 
     ``q_offset``: global position of q[0] relative to k[0] (prefill: 0)."""
-    if cast_free:
-        raise NotImplementedError(
-            "cast_free attention (a lever of the reference) is not ported; "
-            "see ROADMAP.md Queue 1 item 9")
     return ref.chunked_attention(q, k, v, causal=causal, window=window, q_chunk=q_chunk,
-                                 kv_chunk=kv_chunk, q_offset=q_offset)
+                                 kv_chunk=kv_chunk, q_offset=q_offset, cast_free=cast_free)
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -140,7 +146,8 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions: tor
     slots, slot = position % eff."""
     q, k, v = qkv(p, x, cfg, positions)
     o = ops.flash_prefill(q, k, v, bq=cfg.q_chunk or q.shape[1],
-                          bk=cfg.attn_chunk or k.shape[1], window=cfg.sliding_window)
+                          bk=cfg.attn_chunk or k.shape[1], window=cfg.sliding_window,
+                          cast_free=cfg.cast_free_attention)
     y = out_proj(p, o, cfg)
     b, s = k.shape[:2]
     eff = cache_k.shape[1]
@@ -159,16 +166,21 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions: tor
     return y
 
 
-def _window_decode_plain(qg, cache_k, cache_v, pos, window: int) -> torch.Tensor:
+def _window_decode_plain(qg, cache_k, cache_v, pos, window: int,
+                         cast_free: bool = False) -> torch.Tensor:
     """The reference's ring-buffer decode attention: slot i holds position p
-    iff p % s_cache == i, p <= pos and p > pos - window."""
+    iff p % s_cache == i, p <= pos and p > pos - window; ``cast_free``
+    rounds the probabilities to V's dtype before the PV product."""
     s_cache, hd = cache_k.shape[1], cache_k.shape[-1]
     scores = torch.einsum("bhgd,bshd->bhgs", qg.float(), cache_k.float()) / (hd ** 0.5)
     slot_ids = torch.arange(s_cache, device=qg.device)[None, :]
     newest = pos[:, None] - ((pos[:, None] - slot_ids) % s_cache)
     valid = (newest >= 0) & (newest > pos[:, None] - window)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
-    return torch.einsum("bhgs,bshd->bhgd", torch.softmax(scores, dim=-1), cache_v.float())
+    p = torch.softmax(scores, dim=-1)
+    if cast_free:
+        p = p.to(cache_v.dtype).float()
+    return torch.einsum("bhgs,bshd->bhgd", p, cache_v.float())
 
 
 def attn_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
@@ -182,8 +194,8 @@ def attn_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.
     s_cache = cache_k.shape[1]
     slot = pos % s_cache if cfg.sliding_window else pos
     rows = torch.arange(b, device=x.device)
-    cache_k[rows, slot] = k[:, 0]
-    cache_v[rows, slot] = v[:, 0]
+    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     qg = q.reshape(b, hkv, h // hkv, hd)
     if cfg.sliding_window:
@@ -191,7 +203,9 @@ def attn_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.
             raise NotImplementedError(
                 "sliding-window decode on the card is not ported (its ring-buffer "
                 "mask is not a length); see ROADMAP.md Queue 1 item 8")
-        o = _window_decode_plain(qg, cache_k, cache_v, pos, cfg.sliding_window)
+        o = _window_decode_plain(qg, cache_k, cache_v, pos, cfg.sliding_window,
+                                 cfg.cast_free_attention)
     else:
-        o = ops.decode_attention(qg, cache_k, cache_v, (pos + 1).to(torch.int32))
+        o = ops.decode_attention(qg, cache_k, cache_v, (pos + 1).to(torch.int32),
+                                 cast_free=cfg.cast_free_attention)
     return out_proj(p, o.reshape(b, 1, h, hd).to(x.dtype), cfg)

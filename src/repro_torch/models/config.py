@@ -2,11 +2,11 @@
 JAX package, field for field.
 
 The port of the JAX package's ``models/config.py`` (which imports nothing of
-JAX; the port keeps its own copy). The sharding and training levers
-(``shard_activations``, ``dp_axes``, ``tp_axis``, ``precast_params``,
-``cast_free_attention``, ``remat``, ``remat_policy``) are carried as data so
-that a config compares equal to the reference's; the serving path reads none
-of them.
+JAX; the port keeps its own copy). The sharding levers
+(``shard_activations``, ``dp_axes``, ``tp_axis``) are carried as data so that
+a config compares equal to the reference's, and raise when set
+(``transformer.check_levers``); ``precast_params``, ``cast_free_attention``,
+``remat`` and ``remat_policy`` act as in the reference.
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@
 (nested dicts of NumPy arrays, e.g. ``jax.tree.map(np.asarray, params)``):
 ``embed/{embedding [V, d], head [d, V]}``, ``layers/...`` stacked on a
 leading L axis (the reference's vmapped layer init; ``layers/mlp`` for the
-dense family, ``layers/moe/{router, w1, w3, w2}`` for the MoE family),
-``final_norm/scale``.
+dense family, ``layers/moe/{router, w1, w3, w2}`` for the MoE family,
+``layers/rwkv/*`` for the SSM family, ``layers/mamba/*`` for the hybrid),
+``final_norm/scale``, and the hybrid's ``shared_attn/{norm1, attn, norm2,
+mlp}``, one block, not stacked.
 Every array is checked against the port's shape and cast to the port's
 dtype: ``dtype=None`` builds the serving model, ``dtype=pdtype(cfg)`` the
 trainable one, which carries the reference's f32 tree across unchanged. (``kernels/convert.py`` carries the sparse objects.)
@@ -16,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models import mamba2, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
 from repro_torch.sparse.csr import resolve_device
@@ -24,6 +27,16 @@ _LAYER_FIELDS = {"norm1": ("scale",), "attn": ("wq", "wk", "wv", "wo"),
                  "norm2": ("scale",)}
 _FFN_FIELDS = {"dense": {"mlp": ("w1", "w3", "w2")},
                "moe": {"moe": ("router", "w1", "w3", "w2")}}
+_SSM_FIELDS = {"ssm": {"norm1": ("scale",), "rwkv": rwkv6.FIELDS, "norm2": ("scale",)},
+               "hybrid": {"norm1": ("scale",), "mamba": mamba2.FIELDS}}
+SHARED_FIELDS = {**_LAYER_FIELDS, "mlp": ("w1", "w3", "w2")}
+
+
+def layer_fields(cfg: ModelConfig) -> dict:
+    """{block: weight names} of one layer of ``cfg``'s family."""
+    if cfg.family in _SSM_FIELDS:
+        return _SSM_FIELDS[cfg.family]
+    return {**_LAYER_FIELDS, **_FFN_FIELDS[cfg.family]}
 
 
 def _load(param: torch.nn.Parameter, array, what: str) -> None:
@@ -41,11 +54,15 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None, dtype=None) -> Tr
     _load(model.embed.embedding, tree["embed"]["embedding"], "embed/embedding")
     _load(model.embed.head, tree["embed"]["head"], "embed/head")
     _load(model.final_norm.scale, tree["final_norm"]["scale"], "final_norm/scale")
-    fields = {**_LAYER_FIELDS, **_FFN_FIELDS[cfg.family]}
     for i, layer in enumerate(model.layers):
-        for block, names in fields.items():
+        for block, names in layer_fields(cfg).items():
             for name in names:
                 stacked = tree["layers"][block][name]
                 _load(getattr(getattr(layer, block), name), np.asarray(stacked)[i],
                       f"layers/{block}/{name}[{i}]")
+    if model.shared_attn is not None:
+        for block, names in SHARED_FIELDS.items():
+            for name in names:
+                _load(getattr(getattr(model.shared_attn, block), name),
+                      tree["shared_attn"][block][name], f"shared_attn/{block}/{name}")
     return model

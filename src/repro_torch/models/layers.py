@@ -5,14 +5,16 @@ for the frontend slice). Weights keep the reference's layouts. Each module
 takes ``dtype``: with ``None`` (serving, which never updates weights) it
 holds its weights in ``cfg.compute_dtype``, cast once at load, which gives
 the values of the reference's per-use ``.astype``, and the RMSNorm scales
-(and the MoE router) in ``cfg.param_dtype``, as the reference reads them in
-f32; none of them takes a gradient. With a dtype (training: ``pdtype(cfg)``)
-every weight is a trainable master in that dtype. The modules cast their
+(and the MoE router and the SSM blocks' constants) in ``cfg.param_dtype``,
+as the reference reads them in f32; none of them takes a gradient. With a
+dtype (training: ``pdtype(cfg)``) every weight is a trainable master in
+that dtype. The modules cast their
 weights to the compute dtype at each use, as the reference does (a no-op
-for the serving weights). Both draw the same f32
-normals from the same generator, so the masters cast to the compute dtype
-equal the serving weights bit for bit. Normalization statistics and RoPE
-run in f32.
+for the serving weights); ``matmul`` keeps the reference's dtype
+promotion (an f32 activation times a compute-dtype weight is an f32
+product). Both draw the same f32 normals from the same generator, so the
+masters cast to the compute dtype equal the serving weights bit for bit.
+Normalization statistics and RoPE run in f32.
 """
 
 from __future__ import annotations
@@ -29,6 +31,15 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
 
 def pdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """The reference's ``x @ w.astype(dt)``: the weight rounded to the
+    compute dtype ``dt``, then the product in the wider of x's dtype and
+    ``dt``, as JAX promotes them (the hybrid family's residual stream turns
+    f32 after its first Mamba-2 block, whose output is f32)."""
+    w = w.to(dt)
+    return x @ w.to(torch.promote_types(x.dtype, dt))
 
 
 def weight(shape, dtype, device, trainable: bool = False) -> nn.Parameter:
@@ -109,6 +120,7 @@ class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
         d, ff, dt, grad = cfg.d_model, cfg.d_ff, weight_dtypes(cfg, dtype)[0], dtype is not None
+        self.compute_dtype = cdtype(cfg)
         self.w1 = weight((d, ff), dt, device, grad)   # gate
         self.w3 = weight((d, ff), dt, device, grad)   # up
         self.w2 = weight((ff, d), dt, device, grad)   # down
@@ -120,10 +132,10 @@ class MLP(nn.Module):
         draw_normal(self.w2, ff ** -0.5, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x in the compute dtype, the weights cast to it."""
-        dt = x.dtype
-        h = torch.nn.functional.silu(x @ self.w1.to(dt)) * (x @ self.w3.to(dt))
-        return h @ self.w2.to(dt)
+        """The weights cast to the compute dtype (``matmul``)."""
+        dt = self.compute_dtype
+        h = torch.nn.functional.silu(matmul(x, self.w1, dt)) * matmul(x, self.w3, dt)
+        return matmul(h, self.w2, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -151,9 +163,9 @@ class Embed(nn.Module):
         return self.embedding[tokens].to(self.compute_dtype)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        """f32 logits of the compute-dtype product, soft-capped when the
-        config asks."""
-        logits = (x @ self.head.to(x.dtype)).float()
+        """f32 logits of the product with the head cast to the compute
+        dtype (``matmul``), soft-capped when the config asks."""
+        logits = matmul(x, self.head, self.compute_dtype).float()
         if self.logit_softcap:
             logits = self.logit_softcap * torch.tanh(logits / self.logit_softcap)
         return logits

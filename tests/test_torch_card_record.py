@@ -10,7 +10,9 @@ No card runs here, so the profiler and the kernels line are fed by hand:
   of the matching the kernel's row is timed by.
 * ``Smoke.kernels_line``: the grouped GEMM's f32 rows carry the f32 error
   and the launches of their own tiling, the bf16 operands through that
-  tiling a field of their own, and every other row its route's numbers.
+  tiling a field of their own, and every other row its route's numbers; a
+  non-routed kernel's row at a further served shape follows its main row,
+  with the launches of that shape's own run.
 """
 
 import json
@@ -56,7 +58,9 @@ def test_kernel_device_split_records_incomplete_traces(monkeypatch):
          "top": {name: [2.0, 1], "x flash_prefill_kernel y": [2.0, 1]}}]
 
 
-def test_kernels_line_keys_fma_rows_by_tiling(monkeypatch):
+def recorded_smoke():
+    """A ``Smoke`` with every kernel's phase and every route's rows and runs
+    recorded, as a card run leaves them before ``kernels_line``."""
     smoke = chip_smoke.Smoke(torch)
     for kernel in smoke.kernels:   # a routed kernel's rows come from its route rows
         smoke.phase[kernel] = {"ms": 1.0}
@@ -102,10 +106,19 @@ def test_kernels_line_keys_fma_rows_by_tiling(monkeypatch):
                      key("sparse_accum_spgemm", "global", "float32"): 2.2e-5}
     smoke.batched["sparse_accum_spgemm"] = {"width": 8, "max_abs_err": 1e-6}
     smoke.batched_launches["sparse_accum_spgemm"] = 1
+    return smoke
+
+
+def kernels_line(smoke, monkeypatch) -> dict:
     lines = []
     monkeypatch.setattr(chip_smoke, "emit", lambda obj: lines.append(json.loads(json.dumps(obj))))
     smoke.kernels_line()
     (line,) = lines
+    return line
+
+
+def test_kernels_line_keys_fma_rows_by_tiling(monkeypatch):
+    line = kernels_line(recorded_smoke(), monkeypatch)
     got = {(r["name"], r.get("kernel_route"), r.get("shape")): r for r in line["kernels"]}
     fma_pre = got["grouped_matmul", "fma", "prefill"]
     fma_dec = got["grouped_matmul", "fma", "decode"]
@@ -129,3 +142,22 @@ def test_kernels_line_keys_fma_rows_by_tiling(monkeypatch):
     assert ("sparse_accum_spgemm", "warp128", "rmat12_knl") not in got
     assert got["sparse_accum_spgemm", "shared", "brick3d48_quickstart"]["max_abs_err"] == 1.1e-5
     assert esc_global["batched"]["launches"] == 1
+
+
+def test_kernels_line_adds_a_non_routed_kernels_further_shape(monkeypatch):
+    """A non-routed kernel's row at a further served shape (route None: the
+    decode kernel at the hybrid's shape) follows its main row, with the
+    launches of that shape's own run; without that run it fails."""
+    smoke = recorded_smoke()
+    smoke.route_rows["decode_attention", None, "serve_decode_mid_hybrid"] = {
+        "dtype": "f32", "max_abs_err": 3e-7, "ms": 0.1}
+    smoke.route_runs["decode_attention@serve_decode_mid_hybrid"] = ("serve_hybrid", 186)
+    line = kernels_line(smoke, monkeypatch)
+    rows = [r for r in line["kernels"] if r["name"] == "decode_attention"]
+    assert [r.get("shape") for r in rows] == [None, "serve_decode_mid_hybrid"]
+    assert (rows[1]["launches"], rows[1]["launches_run"], rows[1]["max_abs_err"],
+            rows[1]["route"], rows[1]["replaces"]) == (186, "serve_hybrid", 3e-7, "cuda",
+                                                      rows[0]["replaces"])
+    del smoke.route_runs["decode_attention@serve_decode_mid_hybrid"]
+    with pytest.raises(AssertionError, match="serve_decode_mid_hybrid: launched no time"):
+        kernels_line(smoke, monkeypatch)

@@ -12,7 +12,8 @@
 * ``init_params``: the reference's shapes and scales, reproducible from a
   seeded generator.
 * Refusals: the card entry points refuse a CPU-only host unless
-  ``device="cpu"``; unported families and frontends raise.
+  ``device="cpu"``; the unported frontends raise (every family is ported:
+  ``test_torch_families*.py``).
 """
 
 import dataclasses
@@ -78,7 +79,7 @@ def test_configs_equal_reference_field_for_field(arch):
 
 def test_get_config_refuses_unported_and_unknown_archs():
     with pytest.raises(ValueError, match="ROADMAP"):
-        configs.get_config("rwkv6-3b")
+        configs.get_config("mixtral-8x22b")
     with pytest.raises(ValueError, match="unknown arch"):
         configs.get_config("gpt-17")
     # llama3.2-1b at full width: about 1.50 B parameters with an untied head
@@ -216,10 +217,8 @@ def test_window_decode_refuses_the_card():
 
 
 @pytest.mark.parametrize("kw", [
-    {"family": "ssm", "ssm_family": "rwkv6"},
-    {"family": "hybrid", "ssm_family": "mamba2", "ssm_state": 8, "attn_every": 2},
     {"frontend": "vision_stub"},
-], ids=["ssm", "hybrid", "frontend"])
+], ids=["frontend"])
 def test_unported_families_raise(kw):
     cfg = ModelConfig(**{**dataclasses.asdict(CFG), **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -22,7 +22,8 @@
   requires grad under grad mode and runs under ``torch.no_grad()``.
 * ``init_params(..., dtype=pdtype(cfg))``: trainable f32 masters that,
   cast to bf16, equal the serving model from the same seed bit for bit;
-  the default stays the serving model. The reference's levers raise.
+  the default stays the serving model. The reference's sharding levers
+  raise (its single-card levers are ported: ``test_torch_levers*.py``).
 """
 
 import dataclasses
@@ -41,7 +42,7 @@ from repro_torch import configs
 from repro_torch.kernels import ops
 from repro_torch.models import attention as att
 from repro_torch.models import transformer as tf
-from repro_torch.models.convert import _FFN_FIELDS, _LAYER_FIELDS, params_from_jax
+from repro_torch.models.convert import SHARED_FIELDS, layer_fields, params_from_jax
 from repro_torch.models.layers import pdtype
 
 ATOL = 1e-5          # f32 attention values, summation order only
@@ -73,16 +74,21 @@ def _numpy_tree(tree):
 
 def ref_tree(model, cfg) -> dict:
     """The reference's params tree of the port's model (layers stacked on a
-    leading axis), as NumPy arrays: the inverse of ``params_from_jax``."""
+    leading axis; the hybrid's shared block once), as f32 NumPy arrays: the
+    inverse of ``params_from_jax``."""
     def a(t):
-        return t.detach().numpy().copy()
+        return t.detach().float().numpy().copy()
 
-    fields = {**_LAYER_FIELDS, **_FFN_FIELDS[cfg.family]}
-    layers = {block: {n: np.stack([a(getattr(getattr(layer, block), n))
-                                   for layer in model.layers]) for n in names}
-              for block, names in fields.items()}
-    return {"embed": {"embedding": a(model.embed.embedding), "head": a(model.embed.head)},
-            "layers": layers, "final_norm": {"scale": a(model.final_norm.scale)}}
+    tree = {"embed": {"embedding": a(model.embed.embedding), "head": a(model.embed.head)},
+            "layers": {block: {n: np.stack([a(getattr(getattr(layer, block), n))
+                                            for layer in model.layers]) for n in names}
+                       for block, names in layer_fields(cfg).items()},
+            "final_norm": {"scale": a(model.final_norm.scale)}}
+    if model.shared_attn is not None:
+        tree["shared_attn"] = {block: {n: a(getattr(getattr(model.shared_attn, block), n))
+                                       for n in names}
+                               for block, names in SHARED_FIELDS.items()}
+    return tree
 
 
 @functools.lru_cache(maxsize=None)
@@ -166,12 +172,6 @@ def test_flash_attention_values_and_grads_match_reference(sq, q_chunk, kv_chunk,
     for name, t, w in zip("qkv", (tq, tk, tv), want_g):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=GRAD_ATOL, rtol=0,
                                    err_msg=f"d{name}")
-
-
-def test_flash_attention_refuses_cast_free():
-    x = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        att.flash_attention(x, x, x, cast_free=True)
 
 
 # ---------------------------------------------------------------------------
@@ -331,9 +331,7 @@ def test_trainable_masters_cast_equal_the_serving_model(name):
     assert serve.layers[0].norm1.scale.dtype == torch.float32
 
 
-@pytest.mark.parametrize("lever,value", [("precast_params", True),
-                                         ("cast_free_attention", True),
-                                         ("shard_activations", True),
+@pytest.mark.parametrize("lever,value", [("shard_activations", True),
                                          ("dp_axes", ("data",)), ("tp_axis", "model")])
 def test_levers_raise(lever, value):
     cfg = dataclasses.replace(LLAMA, **{lever: value})
